@@ -1,43 +1,62 @@
 """Smoke run of the PyTorch + CUDA port (``spatialrgpt_tpu_torch``) on one
 NVIDIA GPU: the quickest proof that the port still starts on the card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile DIR]
 
 Phases, each printed as one JSON line:
 
 1. device  -- the card, its power limit, TF32 switched off for every
    comparison (float32 matmuls and cuDNN convolutions in full float32).
-2. build   -- nvcc builds every kernel of ``spatialrgpt_tpu_torch/csrc``.
-3. kernels -- each kernel against its plain PyTorch version at the main
+2. build   -- nvcc builds every kernel of ``spatialrgpt_tpu_torch/csrc``
+   (one nvcc per source, all at once).
+3. kernel  -- each kernel against its plain PyTorch version at its main
    path's shapes, in bf16, with the max abs error, its ratio to the
    per-element bound of ``ops/_checks.py::bf16_err_over_bound`` (4 bf16
    ulps of the element plus of its row's largest value; at most 1
-   passes), and the median time of both.
-4. main    -- region-QA ``generate`` at the full width of llama3-8b (bf16
+   passes), and the median time of both: K1-K3 at the serving shapes,
+   K4's forward, dK/dV and dQ kernels at the align step's (B4 S4096 Hq32
+   Hk8 D128, 4 packed samples per row and a padded tail).
+4. grad    -- gradients of q, k and v through the CUDA routes of K1 and K2
+   against the plain path's, with the same bound.
+5. main    -- region-QA ``generate`` at the full width of llama3-8b (bf16
    weights from a fixed seed, made on the card; int8 KV cache), 8 rows of
    RGB + depth + 2 masks and a 320-token prompt bucket, 32 greedy tokens.
    Checks the tokens, the first- and last-step logits against the plain
    path run on the same weights (the last step in the rows whose tokens
-   all equal the plain path's), and that each kernel's launch counter rose
-   by what the path implies.  Its
-   times are smoke figures of this card, not a benchmark.
+   all equal the plain path's), and the kernels' launch counts.
+6. train   -- the stage-1 align step at the full width of llama3-8b and
+   SigLIP-so400m (frozen decoder and tower, tuned projector and region
+   extractor, lr 1e-3, remat, chunked CE over 1024 positions,
+   ``attn_impl="pallas"``) on bench_train.py's batch (4 packed rows of
+   4096 tokens, 4 samples per row, RGB + depth, 2 regions): the kernel
+   path's loss and gradients against the plain path's on one row, then
+   three ``Trainer`` steps with a checkpoint.  Checks the launch counts
+   of every step, the first loss, that the frozen modules stay
+   bit-unchanged and that the tuned ones move once the lr is above 0.
 
-Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
-Any failure exits non-zero before that line; so does a machine without a
-CUDA card, and a directory without the port's package.
+The times of phases 5 and 6 are smoke figures of this card, not a
+benchmark.  Then the ``kernels`` line and, last, ``{"ok": true, "device":
+{...}}``.  Any failure exits non-zero before that line; so does a machine
+without a CUDA card, and a directory without the port's package.
+``--profile DIR`` also profiles one align step with ``torch.profiler``
+and writes its operator table to DIR.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+DEVICE = "cuda"
 N_ROWS = 8
 N_REGIONS = 2
 PROMPT_TEXT_TOKENS = 96
@@ -48,6 +67,18 @@ MAX_NEW = 32
 # through 26 ViT and 32 decoder layers, and each of the ~60 layers may round
 # differently at bf16's 2^-8
 LOGITS_REL_BOUND = 0.05
+# the align step of bench_train.py: rows x tokens, samples per row
+TRAIN_ROWS = 4
+TRAIN_SEQ = 4096
+TRAIN_SAMPLES_PER_ROW = 4
+TRAIN_STEPS = 3
+CE_CHUNK = 1024
+# kernel path against plain path at the first align step, on one row: the
+# loss (a mean over ~4000 targets) within 1% relative, and the projector's
+# and region extractor's gradients within a relative L2 of 0.1 (both paths
+# run bf16 forward and backward through 26 ViT and 32 decoder layers)
+TRAIN_LOSS_REL_BOUND = 0.01
+TRAIN_GRAD_REL_BOUND = 0.1
 
 
 class SmokeFailure(Exception):
@@ -78,6 +109,10 @@ def time_ms(torch, fn, reps: int = 5, iters: int = 10) -> float:
     return statistics.median(runs)
 
 
+def rel_l2(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
 def phase_device(torch):
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false: this script needs a CUDA card")
     smi = subprocess.run(
@@ -106,27 +141,92 @@ def phase_build():
     })
 
 
+def train_spliced(cfg, rng, rows: int):
+    """bench_train.py::build_batch's token layout: ``rows`` packed rows of
+    TRAIN_SEQ tokens, each packing 4 samples of bos + the image + 2 x
+    (<mask>, <depth>) + text (labels on the text), and a padded tail."""
+    import numpy as np
+
+    from spatialrgpt_tpu_torch import IGNORE_INDEX, IMAGE_TOKEN_INDEX, NUM_TOKENS_PER_IMAGE, expand_rows, pack_rows
+
+    text_len = TRAIN_SEQ // TRAIN_SAMPLES_PER_ROW - NUM_TOKENS_PER_IMAGE - 2 * N_REGIONS - 8
+    singles = []
+    for _ in range(rows * TRAIN_SAMPLES_PER_ROW):
+        ids = [1, IMAGE_TOKEN_INDEX] + [cfg.mask_token_id, cfg.depth_token_id] * N_REGIONS
+        ids += list(rng.integers(10, 1000, text_len))
+        labs = [IGNORE_INDEX] * (2 + 2 * N_REGIONS) + ids[2 + 2 * N_REGIONS:]
+        singles.append(expand_rows(
+            [np.asarray(ids, np.int64)], [np.asarray(labs, np.int64)], max_len=TRAIN_SEQ,
+            tokens_per_image=NUM_TOKENS_PER_IMAGE, mask_token_id=cfg.mask_token_id,
+            depth_token_id=cfg.depth_token_id, regions_per_image=N_REGIONS,
+        ))
+    sb = pack_rows(singles, max_len=TRAIN_SEQ)
+    check(sb.input_ids.shape[0] == rows, f"packing gave {sb.input_ids.shape[0]} rows, not {rows}")
+    return sb
+
+
+def train_batch(torch, cfg, rng, rows: int):
+    """The spliced rows plus random pixels, depths and region masks at the
+    tower resolution, one image per sample (bench_train.py draws them so)."""
+    import numpy as np
+
+    from spatialrgpt_tpu_torch.models.vlm import VLMInputs
+
+    sb = train_spliced(cfg, rng, rows)
+    n, size = rows * TRAIN_SAMPLES_PER_ROW, cfg.vision.image_size
+    return VLMInputs.from_spliced(
+        sb,
+        rng.standard_normal((n, size, size, 3)).astype(np.float32),
+        rng.standard_normal((n, size, size, 3)).astype(np.float32),
+        (rng.random((n, N_REGIONS, size, size)) > 0.5).astype(np.float32),
+        np.ones((n, N_REGIONS), bool),
+        device=DEVICE, dtype=torch.bfloat16,
+    )
+
+
+def llama3_8b_cfg():
+    from spatialrgpt_tpu_torch import preset
+
+    cfg = preset("llama3-8b")
+    return cfg.replace(
+        mask_token_id=cfg.llm.vocab_size, depth_token_id=cfg.llm.vocab_size + 1, num_extra_tokens=8,
+        model_max_length=max(TRAIN_SEQ, cfg.model_max_length),
+    )
+
+
+def per_row(torch, fn, *args):
+    """``fn`` over one batch row at a time, outputs concatenated: the plain
+    K4 versions hold (rows, 8, 4, S, S) f32 scores, 2.1 GB per row at S 4096."""
+    outs = [fn(*(a[b : b + 1] for a in args)) for b in range(args[0].shape[0])]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
+
+
 def phase_kernels(torch):
+    import numpy as np
+
     from spatialrgpt_tpu_torch.ops import decode_attention as K3
+    from spatialrgpt_tpu_torch.ops import flash_attention as K4
     from spatialrgpt_tpu_torch.ops import prefill_attention as K2
     from spatialrgpt_tpu_torch.ops import vit_attention as K1
-    from spatialrgpt_tpu_torch.ops._checks import bf16_err_over_bound
+    from spatialrgpt_tpu_torch.ops._checks import GRAD_FLOOR, bf16_err_over_bound
     from spatialrgpt_tpu_torch.ops.quant import quantize_kv
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(0)
 
     def rn(*shape):
         return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
 
-    cases = []
+    cases = []  # name, source, replaces, shape, kernel, plain, timing (reps, iters)
     # K1: the SigLIP tower over [images; depths] of 8 rows
     B, S, H, D = 2 * N_ROWS, 729, 16, 72
     q, k, v = rn(B, S, H, D), rn(B, S, H, D), rn(B, S, H, D)
     cases.append((
         "vit_attention", "spatialrgpt_tpu_torch/csrc/vit_attention.cu",
         "spatialrgpt_tpu/ops/vit_attention.py:196", {"B": B, "S": S, "H": H, "D": D},
-        lambda: K1.vit_attention(q, k, v), lambda: K1.vit_attention_plain(q, k, v),
+        lambda: K1.vit_attention(q, k, v), lambda: K1.vit_attention_plain(q, k, v), (5, 10),
     ))
     # K2: llama3-8b prefill over the 320 bucket, right-padded rows
     B, S, Hq, Hk, D = N_ROWS, PAD_BUCKET, 32, 8, 128
@@ -137,7 +237,7 @@ def phase_kernels(torch):
     cases.append((
         "onepass_attention", "spatialrgpt_tpu_torch/csrc/prefill_attention.cu",
         "spatialrgpt_tpu/ops/prefill_attention.py:228", {"B": B, "S": S, "Hq": Hq, "Hk": Hk, "D": D},
-        lambda: K2.onepass_attention(q2, k2, v2, seg), lambda: K2.onepass_attention_plain(q2, k2, v2, seg),
+        lambda: K2.onepass_attention(q2, k2, v2, seg), lambda: K2.onepass_attention_plain(q2, k2, v2, seg), (5, 10),
     ))
     # K3: one decode step against the int8 cache of 320 + 32 slots
     B, C, Hq, Hk, D = N_ROWS, PAD_BUCKET + MAX_NEW, 32, 8, 128
@@ -150,18 +250,47 @@ def phase_kernels(torch):
         "decode_attention_int8_flat", "spatialrgpt_tpu_torch/csrc/decode_attention.cu",
         "spatialrgpt_tpu/ops/decode_attention.py:174", {"B": B, "C": C, "Hq": Hq, "Hk": Hk, "D": D},
         lambda: K3.decode_attention_int8_flat(q3, kq, ks, vq, vs, lengths, Hk),
-        lambda: K3.decode_attention_int8_flat_plain(q3, kq, ks, vq, vs, lengths, Hk),
+        lambda: K3.decode_attention_int8_flat_plain(q3, kq, ks, vq, vs, lengths, Hk), (5, 10),
     ))
+    # K4: the align step's attention, segment ids of bench_train.py's packing
+    B, S, Hq, Hk, D = TRAIN_ROWS, TRAIN_SEQ, 32, 8, 128
+    seg4 = torch.as_tensor(train_spliced(llama3_8b_cfg(), np.random.default_rng(0), B).segment_ids, device=dev)
+    q4, k4, v4, do4 = rn(B, S, Hq, D), rn(B, S, Hk, D), rn(B, S, Hk, D), rn(B, S, Hq, D)
+    out4, lse4 = K4.flash_attention_fwd(q4, k4, v4, seg4)
+    delta4 = K4.attention_delta(out4, do4)
+    bwd = (q4, k4, v4, seg4, lse4, delta4, do4)
+    shape4 = {"B": B, "S": S, "Hq": Hq, "Hk": Hk, "D": D, "samples_per_row": TRAIN_SAMPLES_PER_ROW,
+              "padded_tail": int((seg4 == 0).sum(dim=1).min())}
+    src4, fa = "spatialrgpt_tpu_torch/csrc/flash_attention.cu", "spatialrgpt_tpu/ops/flash_attention.py"
+    cases += [
+        ("flash_attention_fwd", src4, f"{fa}:226", shape4,
+         lambda: K4.flash_attention_fwd(q4, k4, v4, seg4),
+         lambda: per_row(torch, K4.flash_attention_fwd_plain, q4, k4, v4, seg4), (3, 3)),
+        ("flash_attention_bwd_dkv", src4, f"{fa}:716", shape4,
+         lambda: K4.flash_attention_bwd_dkv(*bwd),
+         lambda: per_row(torch, K4.flash_attention_bwd_dkv_plain, *bwd), (3, 3)),
+        ("flash_attention_bwd_dq", src4, f"{fa}:776", shape4,
+         lambda: K4.flash_attention_bwd_dq(*bwd),
+         lambda: per_row(torch, K4.flash_attention_bwd_dq_plain, *bwd), (3, 3)),
+    ]
 
     rows = []
-    for name, source, replaces, shape, kernel, plain in cases:
+    for name, source, replaces, shape, kernel, plain, (reps, iters) in cases:
         out = kernel()
         torch.cuda.synchronize()
         ref = plain()
-        err = float((out.float() - ref.float()).abs().max())
-        ratio = bf16_err_over_bound(out, ref)
-        plain_ms = time_ms(torch, plain)
-        ms = time_ms(torch, kernel)
+        outs, refs = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
+        if name == "flash_attention_fwd":  # lse: f32, compared where a key is live
+            live = refs[1] > K4.NEG_INF / 2
+            lse_err = float((outs[1] - refs[1])[live].abs().max())
+            check(torch.equal(live, outs[1] > K4.NEG_INF / 2) and lse_err < 1e-3, f"{name}: lse off by {lse_err}")
+            outs, refs = outs[:1], refs[:1]
+        err = max(float((o.float() - r.float()).abs().max()) for o, r in zip(outs, refs))
+        floor = GRAD_FLOOR if "_bwd_" in name else 0.0
+        ratio = max(bf16_err_over_bound(o, r, floor) for o, r in zip(outs, refs))
+        del out, ref, outs, refs
+        plain_ms = time_ms(torch, plain, reps, iters)
+        ms = time_ms(torch, kernel, reps, iters)
         row = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "max_abs_err": err, "err_over_bound": ratio, "ms": ms, "plain_ms": plain_ms,
@@ -169,7 +298,42 @@ def phase_kernels(torch):
         emit({"phase": "kernel", "ok": ratio <= 1.0, "shape": shape, **row})
         check(ratio <= 1.0, f"{name}: error {ratio} x the per-element bound (max abs err {err})")
         rows.append(row)
+    torch.cuda.empty_cache()
     return rows
+
+
+def phase_grads(torch):
+    """K1 and K2 carry gradients on the CUDA route: dq, dk, dv through the
+    kernel wrapper against autograd through the plain version."""
+    from spatialrgpt_tpu_torch.ops import prefill_attention as K2
+    from spatialrgpt_tpu_torch.ops import vit_attention as K1
+    from spatialrgpt_tpu_torch.ops._checks import GRAD_FLOOR, bf16_err_over_bound
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    seg = torch.ones(N_ROWS, PAD_BUCKET, dtype=torch.int32, device=dev)
+    seg[:, PAD_BUCKET - 15 :] = 0
+    cases = [
+        ("vit_attention", K1.vit_attention, K1.vit_attention_plain, (2 * N_ROWS, 729, 16, 72), (2 * N_ROWS, 729, 16, 72), ()),
+        ("onepass_attention", K2.onepass_attention, K2.onepass_attention_plain,
+         (N_ROWS, PAD_BUCKET, 32, 128), (N_ROWS, PAD_BUCKET, 8, 128), (seg,)),
+    ]
+    for name, kernel, plain, qshape, kshape, extra in cases:
+        q, k, v, dout = rn(*qshape), rn(*kshape), rn(*kshape), rn(*qshape)
+        grads = []
+        for fn in (kernel, plain):
+            ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            fn(*ins, *extra).backward(dout)
+            grads.append([t.grad for t in ins])
+        present = all(t is not None for t in grads[0])
+        ratio = max(bf16_err_over_bound(a, b, GRAD_FLOOR) for a, b in zip(*grads)) if present else float("inf")
+        emit({"phase": "grad", "ok": present and ratio <= 1.0, "name": name, "grads_present": present,
+              "err_over_bound": ratio, "shape_q": list(qshape)})
+        check(present and ratio <= 1.0, f"{name}: gradients missing or off ({ratio} x the bound)")
 
 
 def build_batch(torch, cfg, rng):
@@ -202,27 +366,42 @@ def build_batch(torch, cfg, rng):
         rng.standard_normal((N_ROWS, size, size, 3)).astype(np.float32),
         (rng.random((N_ROWS, N_REGIONS, size, size)) > 0.5).astype(np.float32),
         np.ones((N_ROWS, N_REGIONS), bool),
-        device="cuda", dtype=torch.bfloat16,
+        device=DEVICE, dtype=torch.bfloat16,
     )
-    return inputs, torch.as_tensor(sb.segment_ids.sum(axis=1), device="cuda")
+    return inputs, torch.as_tensor(sb.segment_ids.sum(axis=1), device=DEVICE)
 
 
-def phase_main(torch, rows):
-    import numpy as np
-
-    from spatialrgpt_tpu_torch import preset
+def reset_counts():
     from spatialrgpt_tpu_torch.ops import decode_attention as K3
+    from spatialrgpt_tpu_torch.ops import flash_attention as K4
     from spatialrgpt_tpu_torch.ops import prefill_attention as K2
     from spatialrgpt_tpu_torch.ops import vit_attention as K1
+
+    for m in (K1, K2, K3):
+        m.launches = 0
+    for name in K4.launches:
+        K4.launches[name] = 0
+
+
+def read_counts() -> dict:
+    from spatialrgpt_tpu_torch.ops import decode_attention as K3
+    from spatialrgpt_tpu_torch.ops import flash_attention as K4
+    from spatialrgpt_tpu_torch.ops import prefill_attention as K2
+    from spatialrgpt_tpu_torch.ops import vit_attention as K1
+
+    return {"vit_attention": K1.launches, "onepass_attention": K2.launches,
+            "decode_attention_int8_flat": K3.launches, **K4.launches}
+
+
+def phase_main(torch) -> dict:
+    import numpy as np
+
     from spatialrgpt_tpu_torch.serving.generate import generate
     from spatialrgpt_tpu_torch.utils.weights import init_random
 
-    cfg = preset("llama3-8b")
-    cfg = cfg.replace(
-        mask_token_id=cfg.llm.vocab_size, depth_token_id=cfg.llm.vocab_size + 1, num_extra_tokens=8
-    )
+    cfg = llama3_8b_cfg()
     t0 = time.perf_counter()
-    model = init_random(cfg, torch.device("cuda"), torch.bfloat16, seed=0)
+    model = init_random(cfg, torch.device(DEVICE), torch.bfloat16, seed=0)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     inputs, plens = build_batch(torch, cfg, np.random.default_rng(0))
@@ -235,13 +414,11 @@ def phase_main(torch, rows):
 
     run(2)  # warm-up: cuBLAS handles, allocator, every op of the path once
 
-    mods = {"vit_attention": K1, "onepass_attention": K2, "decode_attention_int8_flat": K3}
-    for m in mods.values():
-        m.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     res = run(MAX_NEW)
     e2e_s = time.perf_counter() - t0
-    counts = {name: m.launches for name, m in mods.items()}
+    counts = read_counts()
 
     ttfts = []
     for _ in range(3):
@@ -256,12 +433,10 @@ def phase_main(torch, rows):
         "vit_attention": cfg.vision.num_hidden_layers + 1 + cfg.vision.select_layer,
         "onepass_attention": L,
         "decode_attention_int8_flat": L * (MAX_NEW - 1),
+        "flash_attention_fwd": 0, "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
     }
     vocab = cfg.llm.vocab_size + cfg.num_extra_tokens
     tokens, first = res.tokens, res.first_logits
-
-    def rel_l2(a, b):
-        return float((a - b).norm() / b.norm())
 
     rel = rel_l2(first, plain.first_logits)
     # the last step's logits hold K3 and the per-row cache scatter of the
@@ -297,11 +472,171 @@ def phase_main(torch, rows):
         "first_tokens_row0": tokens[0, :8].tolist(),
     })
     check(all(checks.values()), f"main path checks failed: {checks}")
-    for row in rows:
-        row["launches"] = counts[row["name"]]
+    return counts
+
+
+def fingerprint(torch, module) -> list:
+    """Per parameter, the int64 sum of its 16-bit patterns: any change of a
+    single element changes it."""
+    return [int(p.detach().reshape(-1).view(torch.int16).sum(dtype=torch.int64)) for p in module.parameters()]
+
+
+def tuned_grads(torch, model):
+    return torch.cat([p.grad.float().flatten() for m in (model.mm_projector, model.region_extractor)
+                      for p in m.parameters()])
+
+
+def phase_train(torch, profile_dir):
+    import numpy as np
+
+    from spatialrgpt_tpu_torch.models import vlm
+    from spatialrgpt_tpu_torch.train.optimizer import OptimizerConfig, build_optimizer
+    from spatialrgpt_tpu_torch.train.step import create_train_state, make_train_step
+    from spatialrgpt_tpu_torch.train.trainer import Trainer, TrainerConfig
+    from spatialrgpt_tpu_torch.utils.weights import init_random
+
+    cfg = llama3_8b_cfg()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_random(cfg, torch.device(DEVICE), torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    # stage-1 align (bench_train.py:178-185)
+    ocfg = OptimizerConfig(learning_rate=1e-3, tune_language_model=False, tune_vision_tower=False,
+                           tune_mm_projector=True, tune_region_extractor=True, total_steps=100)
+    optimizer = build_optimizer(model, ocfg)
+    rng = np.random.default_rng(0)
+    batch = train_batch(torch, cfg, rng, TRAIN_ROWS)
+    one_row = train_batch(torch, cfg, rng, 1)
+
+    # kernel path against the plain path (K1's and K4's plain versions) on
+    # one row: the plain attention holds (1, 8, 4, 4096, 4096) f32 scores
+    # per layer, which for 4 rows would not fit beside the model
+    compare = {}
+    for impl in ("pallas", "xla"):
+        model.zero_grad(set_to_none=True)
+        loss, _ = vlm.loss_fn(model, cfg, one_row, attn_impl=impl, remat=True, ce_chunk=CE_CHUNK)
+        loss.backward()
+        compare[impl] = (float(loss.detach()), tuned_grads(torch, model))
+    model.zero_grad(set_to_none=True)
+    loss_rel = abs(compare["pallas"][0] - compare["xla"][0]) / abs(compare["xla"][0])
+    grad_rel = rel_l2(compare["pallas"][1], compare["xla"][1])
+    del compare
+    torch.cuda.empty_cache()
+
+    frozen_before = {name: fingerprint(torch, getattr(model, name)) for name in ("llm", "vision_tower")}
+    tuned = lambda: fingerprint(torch, model.mm_projector) + fingerprint(torch, model.region_extractor)  # noqa: E731
+    tuned_before = tuned()
+    step_fn = make_train_step(cfg, optimizer, attn_impl="pallas", remat=True, frozen=("llm", "vision"),
+                              ce_chunk=CE_CHUNK)
+    record = []
+
+    def observed_step(state, b):
+        before = read_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, b)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        after = read_counts()
+        record.append({"seconds": seconds, "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+                       "num_tokens": int(metrics["num_tokens"]), "tuned_changed": tuned() != tuned_before,
+                       "launches": {n: after[n] - before[n] for n in after}})
+        return state, metrics
+
+    L, T = cfg.llm.num_hidden_layers, cfg.vision.num_hidden_layers + 1 + cfg.vision.select_layer
+    want_step = {"vit_attention": T, "onepass_attention": 0, "decode_attention_int8_flat": 0,
+                 "flash_attention_fwd": 2 * L, "flash_attention_bwd_dkv": L, "flash_attention_bwd_dq": L}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as out_dir:
+        saved = []
+
+        def save_tuned(root, state):  # the align stage's output: projector + region extractor
+            for name in ("mm_projector", "region_extractor"):
+                os.makedirs(os.path.join(root, name), exist_ok=True)
+                torch.save(getattr(state.model, name).state_dict(), os.path.join(root, name, "pytorch_model.bin"))
+                saved.append(name)
+
+        tcfg = TrainerConfig(output_dir=out_dir, max_steps=TRAIN_STEPS, save_steps=2, log_steps=1)
+        trainer = Trainer(cfg, tcfg, observed_step, create_train_state(model, optimizer),
+                          (batch for _ in range(TRAIN_STEPS)), save_final_fn=save_tuned)
+        reset_counts()
+        result = trainer.train()
+        counts = read_counts()
+        ckpt = sorted(os.listdir(out_dir))
+        ckpt_files = sorted(os.listdir(os.path.join(out_dir, "checkpoint-2"))) if "checkpoint-2" in ckpt else []
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            logged = [json.loads(line)["step"] for line in f]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    vocab = cfg.llm.vocab_size + cfg.num_extra_tokens
+    first_loss = record[0]["loss"] if record else float("nan")
+    checks = {
+        "trainer_completed": result == {"status": "completed", "step": TRAIN_STEPS} and logged == [1, 2, 3],
+        "checkpoint_saved": "checkpoint-2" in ckpt and ckpt_files == ["opt.pt", "state.pt", "trainer_state.json"]
+        and saved == ["mm_projector", "region_extractor"],
+        "launch_counts_every_step": len(record) == TRAIN_STEPS and all(r["launches"] == want_step for r in record),
+        "first_loss_near_ln_vocab": math.isfinite(first_loss) and abs(first_loss - math.log(vocab)) < 1.0,
+        "losses_finite": all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in record),
+        "frozen_bit_unchanged": all(fingerprint(torch, getattr(model, n)) == f for n, f in frozen_before.items()),
+        "tuned_unchanged_at_lr_0": bool(record) and not record[0]["tuned_changed"],
+        "tuned_moved_after": len(record) == TRAIN_STEPS and record[-1]["tuned_changed"],
+        "loss_vs_plain": loss_rel <= TRAIN_LOSS_REL_BOUND,
+        "grads_vs_plain": grad_rel <= TRAIN_GRAD_REL_BOUND,
+    }
+    step_s = statistics.median(r["seconds"] for r in record[1:]) if len(record) > 1 else float("nan")
+    emit({
+        "phase": "train", "ok": all(checks.values()), "checks": checks,
+        "model": "llama3-8b (32 layers, full width) + siglip-so400m (26 of 27 layers), bf16, random from seed 0",
+        "stage": "align: frozen llm + vision tower, tuned mm_projector + region_extractor, lr 1e-3, remat, "
+                 f"ce_chunk {CE_CHUNK}, attn_impl pallas",
+        "batch": {"rows": TRAIN_ROWS, "seq": TRAIN_SEQ, "samples_per_row": TRAIN_SAMPLES_PER_ROW,
+                  "regions": N_REGIONS, "images": TRAIN_ROWS * TRAIN_SAMPLES_PER_ROW, "rgb_and_depth": True},
+        "launches": counts, "launches_expected_per_step": want_step, "steps": record,
+        "first_loss": first_loss, "ln_vocab": math.log(vocab),
+        "vs_plain_one_row": {"loss_rel": loss_rel, "loss_bound": TRAIN_LOSS_REL_BOUND,
+                             "grad_rel_l2": grad_rel, "grad_bound": TRAIN_GRAD_REL_BOUND},
+        "smoke_figures_not_a_benchmark": {
+            "init_s": init_s, "step_s_median_after_first": step_s,
+            "tokens_per_s": TRAIN_ROWS * TRAIN_SEQ / step_s, "peak_mem_gb": peak_gb,
+        },
+    })
+    check(all(checks.values()), f"train checks failed: {checks}")
+    if profile_dir:
+        profile_step(torch, step_fn, create_train_state(model, optimizer), batch, profile_dir)
+    return counts
+
+
+def profile_step(torch, step_fn, state, batch, out_dir):
+    """One align step under torch.profiler: device-busy share and the
+    operator table by device time, written to ``out_dir``.  Device time is
+    summed over the device's own events (kernels, copies); an operator's
+    "self device time" repeats the time of the kernels it launched."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(out_dir, exist_ok=True)
+    step_fn(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    busy_us = sum(e.self_device_time_total for e in events if e.device_type == DeviceType.CUDA)
+    with open(os.path.join(out_dir, "train_step_ops.txt"), "w") as f:
+        f.write(events.table(sort_by="self_device_time_total", row_limit=60))
+    top = sorted((e for e in events if e.device_type == DeviceType.CUDA), key=lambda e: -e.self_device_time_total)[:25]
+    emit({"phase": "profile", "ok": True, "wall_s": wall, "device_busy_s": busy_us / 1e6,
+          "device_idle_share": max(0.0, 1 - busy_us / 1e6 / wall),
+          "top_kernels_ms_calls": {e.key[:120]: [e.self_device_time_total / 1e3, e.count] for e in top}})
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--profile", metavar="DIR", help="also profile one align step; write its table to DIR")
+    args = parser.parse_args()
     if not os.path.isdir(os.path.join(ROOT, "spatialrgpt_tpu_torch")):
         print("chip_smoke.py: run it from a checkout of the repository (spatialrgpt_tpu_torch/ is missing)",
               file=sys.stderr)
@@ -316,12 +651,20 @@ def main() -> int:
         phase_build()
         phase = "kernels"
         rows = phase_kernels(torch)
+        phase = "grads"
+        phase_grads(torch)
         phase = "main"
-        phase_main(torch, rows)
+        serve = phase_main(torch)
+        torch.cuda.empty_cache()
+        phase = "train"
+        train = phase_train(torch, args.profile)
     except Exception as e:  # report which phase failed, then exit non-zero
         traceback.print_exc()
         emit({"phase": phase, "ok": False, "error": f"{type(e).__name__}: {e}"})
         return 1
+    for row in rows:
+        row["launches"] = serve[row["name"]] + train[row["name"]]
+        row["launches_by_path"] = {"serve": serve[row["name"]], "train": train[row["name"]]}
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({
         "ok": True,

@@ -1,7 +1,8 @@
-"""PyTorch + CUDA port of the region-QA serving path for NVIDIA Hopper.
+"""PyTorch + CUDA port of the region-QA serving path and the stage-1 align
+training step for NVIDIA Hopper.
 
 Beside the JAX reference package ``spatialrgpt_tpu``: same module names
-(``ops/``, ``models/``, ``serving/``, ``utils/``), same public layouts
+(``ops/``, ``models/``, ``serving/``, ``train/``, ``utils/``), same public layouts
 ((B, S, H, D) attention tensors, NHWC images, (N, R, H, W) masks), and
 parameters under the HF tensor names that ``spatialrgpt_tpu/utils/export.py``
 writes.  The attention kernels are CUDA C++ for ``sm_90a`` under ``csrc/``,
@@ -13,7 +14,10 @@ the port imports nothing from the JAX package.
 """
 
 from spatialrgpt_tpu.config import SpatialRGPTConfig, preset
-from spatialrgpt_tpu.constants import IMAGE_TOKEN_INDEX, NUM_TOKENS_PER_IMAGE
-from spatialrgpt_tpu.data.splice import expand_rows
+from spatialrgpt_tpu.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX, NUM_TOKENS_PER_IMAGE
+from spatialrgpt_tpu.data.splice import expand_rows, pack_rows
 
-__all__ = ["IMAGE_TOKEN_INDEX", "NUM_TOKENS_PER_IMAGE", "SpatialRGPTConfig", "expand_rows", "preset"]
+__all__ = [
+    "IGNORE_INDEX", "IMAGE_TOKEN_INDEX", "NUM_TOKENS_PER_IMAGE", "SpatialRGPTConfig", "expand_rows", "pack_rows",
+    "preset",
+]

@@ -1,5 +1,6 @@
-// Shared tile machinery of the two prefill-shaped attention kernels
-// (vit_attention.cu: K1, prefill_attention.cu: K2).
+// Shared tile machinery of the prefill-shaped attention kernels
+// (vit_attention.cu: K1, prefill_attention.cu: K2, and the forward of
+// flash_attention.cu: K4).
 //
 // One CTA of 4 warps owns BM = 64 query rows; each warp owns 16 of them.
 // Key/value tiles of BN = 64 positions stream through shared memory; the
@@ -21,6 +22,8 @@
 #include <math.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace srgpt {
 
@@ -88,6 +91,22 @@ __device__ __forceinline__ void load_tile(bf16* dst, int rows, int D, RowSrc row
   }
 }
 
+// Optional policy hooks, detected at compile time (K1 and K2 have neither):
+//   __device__ bool tile_live(const int* rowmeta, const int* keymeta) const
+//       -- called by every warp after init_keys; false skips the key tile
+//          before its K/V are loaded (must be uniform across the CTA)
+//   __device__ float* lse_row(const int* rowmeta, int r) const
+//       -- where row r's log-sum-exp goes (nullptr: skip); -1e30 for a row
+//          with no live key
+template <typename P, typename = void>
+struct has_tile_live : std::false_type {};
+template <typename P>
+struct has_tile_live<P, std::void_t<decltype(&P::tile_live)>> : std::true_type {};
+template <typename P, typename = void>
+struct has_lse_row : std::false_type {};
+template <typename P>
+struct has_lse_row<P, std::void_t<decltype(&P::lse_row)>> : std::true_type {};
+
 // Policy interface (see vit_attention.cu / prefill_attention.cu):
 //   __device__ void init_rows(int* rowmeta) const        -- fill per-row metadata
 //   __device__ const bf16* q_row(const int* rowmeta, int r) const
@@ -132,9 +151,17 @@ attention_tile_kernel(Policy pol, int S, int D, float sm_scale) {
   for (int t = t_begin; t < t_end; ++t) {
     const int j0 = t * BN;
     __syncthreads();  // previous tile fully consumed (and sQ written)
-    load_tile<DP>(sK, BN, D, [&](int jj) { return j0 + jj < S ? pol.k_row(j0 + jj) : nullptr; });
-    load_tile<DP>(sV, BN, D, [&](int jj) { return j0 + jj < S ? pol.v_row(j0 + jj) : nullptr; });
-    pol.init_keys(keymeta, j0);
+    if constexpr (has_tile_live<Policy>::value) {
+      pol.init_keys(keymeta, j0);
+      __syncthreads();
+      if (!pol.tile_live(rowmeta, keymeta)) continue;
+      load_tile<DP>(sK, BN, D, [&](int jj) { return j0 + jj < S ? pol.k_row(j0 + jj) : nullptr; });
+      load_tile<DP>(sV, BN, D, [&](int jj) { return j0 + jj < S ? pol.v_row(j0 + jj) : nullptr; });
+    } else {
+      load_tile<DP>(sK, BN, D, [&](int jj) { return j0 + jj < S ? pol.k_row(j0 + jj) : nullptr; });
+      load_tile<DP>(sV, BN, D, [&](int jj) { return j0 + jj < S ? pol.v_row(j0 + jj) : nullptr; });
+      pol.init_keys(keymeta, j0);
+    }
     __syncthreads();
 
     // ---- S_w = Q_w K^T (16 x 64 per warp) ----
@@ -219,6 +246,12 @@ attention_tile_kernel(Policy pol, int S, int D, float sm_scale) {
 #pragma unroll
     for (int e = 0; e < 8; ++e) vals[e] = __float2bfloat16(sO[r * LDO + c + e] * inv);
     *reinterpret_cast<uint4*>(dst + c) = *reinterpret_cast<const uint4*>(vals);
+  }
+  if constexpr (has_lse_row<Policy>::value) {
+    for (int r = threadIdx.x; r < BM; r += NTHREADS) {
+      float* dst = pol.lse_row(rowmeta, r);
+      if (dst != nullptr) *dst = sL[r] > 0.f ? sM[r] + logf(sL[r]) : -1e30f;
+    }
   }
 }
 

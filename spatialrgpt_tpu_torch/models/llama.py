@@ -19,6 +19,7 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from spatialrgpt_tpu.config import LlamaConfig
 from spatialrgpt_tpu_torch.ops.attention import causal_attention
@@ -153,6 +154,25 @@ def embed_tokens(model: LlamaForCausalLM, input_ids: torch.Tensor) -> torch.Tens
     return F.embedding(input_ids, model.model.embed_tokens.weight)
 
 
+def decoder_layer(
+    x: torch.Tensor,
+    layer: LlamaDecoderLayer,
+    cfg: LlamaConfig,
+    position_ids: torch.Tensor,
+    segment_ids: Optional[torch.Tensor],
+    attn_impl: str,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """One pre-norm decoder layer; returns (x, this layer's (k, v))."""
+    h = norm(x, layer.input_layernorm)
+    attn_out, kv = attention_block(h, layer.self_attn, cfg, position_ids, segment_ids, attn_impl)
+    x = x + attn_out
+    return x + mlp_block(norm(x, layer.post_attention_layernorm), layer.mlp), kv
+
+
+def _layer_hidden(*args) -> torch.Tensor:
+    return decoder_layer(*args)[0]
+
+
 def forward(
     model: LlamaForCausalLM,
     cfg: LlamaConfig,
@@ -163,6 +183,7 @@ def forward(
     attn_impl: str = "xla",
     collect_kv: bool = False,
     kv_quant: bool = False,
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, Optional[List]]:
     """Run the decoder stack; returns (final-normed hidden states, kv).
 
@@ -170,14 +191,21 @@ def forward(
     of ``(k, v)``; with ``kv_quant`` too, each is quantized per layer as it
     is collected (``((k_q, k_s), (v_q, v_s))``), so the full-precision K/V
     of a layer die with it.
+
+    With ``remat`` (and no KV collection) each layer runs under
+    ``torch.utils.checkpoint``: only its input is kept, and the backward
+    runs the layer's forward again (the reference's per-layer
+    ``jax.checkpoint``, llama.py:362-371).  The attention kernel's forward
+    therefore launches twice per layer in a training step.
     """
     x = inputs_embeds
     kv = [] if collect_kv else None
     for layer in model.model.layers:
-        h = norm(x, layer.input_layernorm)
-        attn_out, (k, v) = attention_block(h, layer.self_attn, cfg, position_ids, segment_ids, attn_impl)
-        x = x + attn_out
-        x = x + mlp_block(norm(x, layer.post_attention_layernorm), layer.mlp)
+        args = (layer, cfg, position_ids, segment_ids, attn_impl)
+        if remat and not collect_kv:
+            x = checkpoint(_layer_hidden, x, *args, use_reentrant=False)
+            continue
+        x, (k, v) = decoder_layer(x, *args)
         if collect_kv:
             kv.append((quantize_kv(k), quantize_kv(v)) if kv_quant else (k, v))
     return norm(x, model.model.norm), kv

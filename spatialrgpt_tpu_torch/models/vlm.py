@@ -18,14 +18,17 @@ normalizes them in-graph); pass normalized floats.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from spatialrgpt_tpu.config import SpatialRGPTConfig
+from spatialrgpt_tpu.constants import IGNORE_INDEX
 from spatialrgpt_tpu_torch.models import llama, projector, region_extractor, siglip
+from spatialrgpt_tpu_torch.ops.layers import linear
 
 
 class SpatialRGPT(nn.Module):
@@ -158,3 +161,82 @@ def prepare_embeds(model: SpatialRGPT, cfg: SpatialRGPTConfig, inputs: VLMInputs
         model, cfg, inputs.images, inputs.depths, inputs.masks, attn_impl
     )
     return splice_embeds(model, cfg, inputs, image_features, mask_embeds, depth_embeds)
+
+
+# ---------------------------------------------------------------------------
+# Forward / loss
+# ---------------------------------------------------------------------------
+
+
+def _hidden(model: SpatialRGPT, cfg: SpatialRGPTConfig, inputs: VLMInputs, attn_impl: str, remat: bool) -> torch.Tensor:
+    if cfg.llm.is_moe:
+        raise NotImplementedError("MoE decoders (and their router aux loss) are not ported yet")
+    # the plain path stays plain; every kernel route runs the tower on K1,
+    # as the reference's tower takes its Pallas kernel whatever the decoder uses
+    embeds = prepare_embeds(model, cfg, inputs, "xla" if attn_impl == "xla" else "onepass")
+    h, _ = llama.forward(
+        model.llm, cfg.llm, inputs_embeds=embeds, position_ids=inputs.position_ids,
+        segment_ids=inputs.segment_ids, attn_impl=attn_impl, remat=remat,
+    )
+    return h
+
+
+def forward(
+    model: SpatialRGPT, cfg: SpatialRGPTConfig, inputs: VLMInputs, attn_impl: str = "xla", remat: bool = False
+) -> torch.Tensor:
+    """Full multimodal forward -> f32 logits (B, S, V)."""
+    return llama.logits(model.llm, _hidden(model, cfg, inputs, attn_impl, remat))
+
+
+def _shifted_targets(inputs: VLMInputs) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(targets, valid), (B, S): the target at position t is labels[t + 1];
+    the last position, padding and segment ends are not valid."""
+    labels, seg = inputs.labels, inputs.segment_ids
+    B = labels.shape[0]
+    tgt = torch.cat([labels[:, 1:], labels.new_full((B, 1), IGNORE_INDEX)], dim=1)
+    nxt = torch.cat([seg[:, 1:], seg.new_zeros((B, 1))], dim=1)
+    valid = (tgt != IGNORE_INDEX) & (nxt != 0) & (nxt == seg)
+    return tgt, valid
+
+
+def _token_logp_sum(h: torch.Tensor, tgt: torch.Tensor, valid: torch.Tensor, lm_head: torch.Tensor) -> torch.Tensor:
+    """Sum over valid positions of log p(target): LM head, logsumexp and the
+    target gather (the lse form: no (.., V) log-softmax is built)."""
+    lg = linear(h, lm_head).float()
+    tok = lg.gather(-1, torch.where(valid, tgt, 0)[..., None])[..., 0] - torch.logsumexp(lg, dim=-1)
+    return (tok * valid).sum()
+
+
+def loss_fn(
+    model: SpatialRGPT,
+    cfg: SpatialRGPTConfig,
+    inputs: VLMInputs,
+    attn_impl: str = "xla",
+    remat: bool = False,
+    ce_chunk: int = 0,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross entropy with IGNORE_INDEX and segment-boundary
+    masking, divided by the number of valid targets (at least 1): the port
+    of ``spatialrgpt_tpu/models/vlm.py::loss_fn``.
+
+    ``ce_chunk > 0`` applies the target shift first, then runs the LM head,
+    logsumexp and gather per chunk of ``ce_chunk`` positions under
+    ``torch.utils.checkpoint``: the (B, S, V) logits never exist, and the
+    backward recomputes one chunk's logits at a time.  MoE decoders raise
+    ``NotImplementedError``."""
+    h = _hidden(model, cfg, inputs, attn_impl, remat)
+    tgt, valid = _shifted_targets(inputs)
+    w = model.llm.lm_head.weight
+    if ce_chunk:
+        S = tgt.shape[1]
+        if S % ce_chunk:
+            raise ValueError(f"ce_chunk {ce_chunk} must divide S {S}")
+        total = h.new_zeros((), dtype=torch.float32)
+        for c0 in range(0, S, ce_chunk):
+            c = slice(c0, c0 + ce_chunk)
+            total = total + checkpoint(_token_logp_sum, h[:, c], tgt[:, c], valid[:, c], w, use_reentrant=False)
+    else:
+        total = _token_logp_sum(h, tgt, valid, w)
+    n_valid = valid.sum().clamp(min=1)
+    loss = -total / n_valid
+    return loss, {"loss": loss, "num_tokens": n_valid}

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``csrc/``) at first use.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
-C interface for ``sm_90a``; ``ctypes`` loads it.  No PyTorch header is
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a``, one process per
+source and all at once, and links the objects into one shared library
+with a plain C interface; ``ctypes`` loads it.  No PyTorch header is
 included, so the build takes seconds.  The library lands in
 ``<repo>/build/kernels/<hash of the sources>/`` (listed in .gitignore), so a
 changed source builds anew and an unchanged one is reused.
@@ -26,7 +27,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 LIB_NAME = "libsrgpt_kernels.so"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -40,6 +41,9 @@ _SIGNATURES = {
     "srgpt_prefill_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I] + [_LL] * 12 + [_I, _F, _P],
     "srgpt_decode_attention": [_P] * 10 + [_I] * 5 + [_F, _P],
     "srgpt_decode_num_splits": [_I],
+    "srgpt_flash_fwd": [_P] * 6 + [_I] * 5 + [_LL] * 12 + [_F, _P],
+    "srgpt_flash_bwd_dkv": [_P] * 9 + [_I] * 5 + [_LL] * 12 + [_F, _P],
+    "srgpt_flash_bwd_dq": [_P] * 8 + [_I] * 5 + [_LL] * 12 + [_F, _P],
 }
 
 _lib = None
@@ -78,20 +82,32 @@ def build() -> Path:
         build_info.setdefault("path", str(lib_path))
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
+    nvcc = _nvcc()
     t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.time() - t0
-    log = proc.stdout + proc.stderr
-    (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + log)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, lib_path)  # atomic: concurrent builders never see a partial file
-    build_info.update(seconds=seconds, path=str(lib_path), log=log)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        # one nvcc per source, all started together: the build takes as long
+        # as its slowest source
+        jobs, objs = [], []
+        for src in (p for p in _sources() if p.suffix == ".cu"):
+            objs.append(os.path.join(tmp, src.stem + ".o"))
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", objs[-1], str(src)]
+            jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log = ""
+        for cmd, proc in jobs:
+            log += " ".join(cmd) + "\n" + proc.communicate()[0]
+        failed = [cmd[-1] for cmd, proc in jobs if proc.returncode != 0]
+        if not failed:
+            so = os.path.join(tmp, LIB_NAME)
+            cmd = [nvcc, "-shared", "-o", so, *objs]
+            link = subprocess.run(cmd, capture_output=True, text=True)
+            log += " ".join(cmd) + "\n" + link.stdout + link.stderr
+            if link.returncode != 0:
+                failed = ["link"]
+        (out_dir / "build.log").write_text(log)
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n{log}")
+        os.replace(so, lib_path)  # atomic: concurrent builders never see a partial file
+    build_info.update(seconds=time.time() - t0, path=str(lib_path), log=log)
     return lib_path
 
 

@@ -8,6 +8,10 @@ from __future__ import annotations
 
 import torch
 
+# ``bf16_err_over_bound``'s floor for attention gradients: 1/256 of one
+# bf16 ulp of the tensor's largest value
+GRAD_FLOOR = 2.0**-16
+
 
 def check_dtype(name: str, dtype: torch.dtype, *tensors: torch.Tensor) -> None:
     for t in tensors:
@@ -43,7 +47,7 @@ def check_bshd(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
         raise ValueError(f"{name}: base pointers must be 16-byte aligned")
 
 
-def bf16_err_over_bound(out: torch.Tensor, ref: torch.Tensor) -> float:
+def bf16_err_over_bound(out: torch.Tensor, ref: torch.Tensor, floor: float = 0.0) -> float:
     """Largest ratio of |out - ref| to the per-element bound for a bf16
     attention output against its plain version; at most 1 passes.
 
@@ -52,9 +56,16 @@ def bf16_err_over_bound(out: torch.Tensor, ref: torch.Tensor) -> float:
     kernels round P to bf16 at other running maxima than the plain versions
     (K3 keeps it in fp32) and sum in another order, so a sound error scales
     with the row it is in; a bound at the tensor's largest value would let
-    a wrong row of small outputs through."""
+    a wrong row of small outputs through.
+
+    ``floor`` adds ``floor * max|ref|`` to every element's bound.  The
+    attention gradients need it: a query whose only live key is itself
+    (the first token of every segment) has P = 1 and dS = dP - delta, two
+    f32 dot products of the same vectors that cancel to exactly 0 in one
+    summation order and to ~1e-7 of |dP| in another, so its dQ row is all
+    rounding noise around 0 (``GRAD_FLOOR``)."""
     r = ref.float().abs()
-    bound = 4 * 2.0**-8 * (r + r.amax(dim=-1, keepdim=True))
+    bound = 4 * 2.0**-8 * (r + r.amax(dim=-1, keepdim=True)) + floor * r.max()
     diff = (out.float() - ref.float()).abs()
     if not bool(torch.isfinite(out).all()):
         return float("inf")

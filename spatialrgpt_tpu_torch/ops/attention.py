@@ -6,7 +6,10 @@ twin of the reference's XLA path (its function is exactly the plain
 version of kernel K2).  ``impl="onepass"`` runs kernel K2
 (``ops/prefill_attention.py``) on CUDA tensors and the plain path on CPU
 tensors, as the reference runs its Pallas kernel on a TPU and XLA
-elsewhere.  Any other ``impl`` raises.  The sliding window waits with
+elsewhere.  ``impl="pallas"`` (the training path, the name
+``train/args.py`` uses) runs kernel K4 (``ops/flash_attention.py``,
+differentiable) on CUDA tensors and K4's plain versions on CPU tensors.
+Any other ``impl`` raises.  The sliding window waits with
 the decoders that use it (K2 already takes one).
 """
 
@@ -16,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from spatialrgpt_tpu_torch.ops.flash_attention import flash_attention
 from spatialrgpt_tpu_torch.ops.prefill_attention import onepass_attention, onepass_attention_plain
 
 
@@ -26,6 +30,8 @@ def causal_attention(
     segment_ids: Optional[torch.Tensor] = None,  # (B, S), 0 = padding
     impl: str = "xla",
 ) -> torch.Tensor:
+    if impl == "pallas":
+        return flash_attention(q, k, v, segment_ids=segment_ids)
     if impl == "onepass":
         return onepass_attention(q, k, v, segment_ids=segment_ids)
     if impl == "xla":

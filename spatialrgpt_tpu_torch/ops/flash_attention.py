@@ -1,0 +1,248 @@
+"""K4: FlashAttention-2 forward and backward for packed-segment causal GQA
+(the training step's attention).
+
+Port of the Pallas kernels of
+``spatialrgpt_tpu/ops/flash_attention.py::flash_attention`` (``_fwd`` and
+the two backward kernels of ``_flash_bwd``); the CUDA kernels are
+``csrc/flash_attention.cu``.  Layout (B, S, H, D), causal within packed
+segments (``segment_ids`` (B, S), 0 = padding), GQA, scale D^-0.5.
+
+``flash_attention`` is differentiable through ``FlashAttention``, an
+``autograd.Function`` whose forward saves ``(q, k, v, out, lse)`` as
+``_flash_fwd`` does and whose backward runs the dK/dV and dQ kernels.  Each
+kernel wrapper (``flash_attention_fwd``, ``flash_attention_bwd_dkv``,
+``flash_attention_bwd_dq``) launches its kernel for CUDA tensors and takes
+its plain version only for CPU tensors.  ``launches`` counts kernel
+launches per kernel.  ``delta = rowsum(dO * O)`` is a plain reduction on
+both routes, as the reference computes it in XLA.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from spatialrgpt_tpu_torch.ops import _build
+from spatialrgpt_tpu_torch.ops._checks import check_bshd, check_dtype
+
+NEG_INF = -1e30
+
+# kernel launches since the last reset (plain-path calls do not count)
+launches = {"flash_attention_fwd": 0, "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0}
+
+
+# ---------------------------------------------------------------------------
+# plain versions: the FlashAttention-2 formulas of the Pallas kernels
+# ---------------------------------------------------------------------------
+
+
+def _live(segment_ids: torch.Tensor) -> torch.Tensor:
+    """(B, 1, 1, S, S) bool: key j is live for query i iff both lie in the
+    same nonzero segment and j <= i."""
+    s = segment_ids.shape[1]
+    same = (segment_ids[:, :, None] == segment_ids[:, None, :]) & (segment_ids[:, :, None] != 0)
+    i = torch.arange(s, device=segment_ids.device)
+    return (same & (i[:, None] >= i[None, :]))[:, None, None]
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """f32 scaled scores (B, Hk, G, S, S); query head h = hk * G + g."""
+    b, s, hq, d = q.shape
+    hk = k.shape[2]
+    return torch.einsum("bqhgd,bkhd->bhgqk", q.reshape(b, s, hk, hq // hk, d).float(), k.float()) * d**-0.5
+
+
+def flash_attention_fwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, segment_ids: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out (B, S, Hq, D) in q's dtype, lse (B, Hq, S) f32): softmax over the
+    live keys with P rounded to the value dtype before PV; a row with no
+    live key gives zeros and lse = NEG_INF (flash_attention.py:216-223)."""
+    b, s, hq, d = q.shape
+    live = _live(segment_ids)
+    scores = torch.where(live, _scores(q, k), NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.where(live, torch.exp(scores - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    lse = torch.where(l > 0, m + torch.log(l), NEG_INF)
+    probs = (p / torch.where(l > 0, l, 1.0)).to(v.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.float(), v.float()).reshape(b, s, hq, d)
+    return out.to(q.dtype), lse[..., 0].reshape(b, hq, s)
+
+
+def attention_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) in f32, (B, S, Hq) (flash_attention.py:675)."""
+    return (dout.float() * out.float()).sum(dim=-1)
+
+
+def _probs_and_ds(q, k, v, segment_ids, lse, delta, dout):
+    """P = exp(S - lse) on live pairs and dS = P (dP - delta) scale, both
+    f32 (B, Hk, G, S, S)."""
+    b, s, hq, d = q.shape
+    hk = k.shape[2]
+    g = hq // hk
+    live = _live(segment_ids)
+    lse_g = lse.reshape(b, hk, g, s)[..., None]
+    p = torch.exp(torch.where(live, _scores(q, k) - lse_g, -torch.inf))
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dout.reshape(b, s, hk, g, d).float(), v.float())
+    delta_g = delta.reshape(b, s, hk, g).permute(0, 2, 3, 1)[..., None]
+    return p, p * (dp - delta_g) * d**-0.5
+
+
+def _group_sum(per_head: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(B, S, Hk, G, D) f32 per query head -> (B, S, Hk, D): each head
+    rounded to ``dtype`` before the group sum, as the reference sums its
+    per-head kernel outputs (flash_attention.py:738-741)."""
+    return per_head.to(dtype).float().sum(dim=3).to(dtype)
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, segment_ids, lse, delta, dout) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dK, dV) (B, S, Hk, D): dV = P^T dO and dK = dS^T Q per query head,
+    P and dS rounded to the input dtype first, summed over the group."""
+    b, s, hq, d = q.shape
+    hk = k.shape[2]
+    p, ds = _probs_and_ds(q, k, v, segment_ids, lse, delta, dout)
+    dv = torch.einsum("bhgqk,bqhgd->bkhgd", p.to(q.dtype).float(), dout.reshape(b, s, hk, hq // hk, d).float())
+    dk = torch.einsum("bhgqk,bqhgd->bkhgd", ds.to(q.dtype).float(), q.reshape(b, s, hk, hq // hk, d).float())
+    return _group_sum(dk, k.dtype), _group_sum(dv, v.dtype)
+
+
+def flash_attention_bwd_dq_plain(q, k, v, segment_ids, lse, delta, dout) -> torch.Tensor:
+    """dQ (B, S, Hq, D) = dS K, dS rounded to the input dtype first."""
+    b, s, hq, d = q.shape
+    _, ds = _probs_and_ds(q, k, v, segment_ids, lse, delta, dout)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds.to(q.dtype).float(), k.float())
+    return dq.reshape(b, s, hq, d).to(q.dtype)
+
+
+def flash_attention_bwd_plain(q, k, v, segment_ids, out, lse, dout):
+    """(dq, dk, dv): the two backward kernels' plain versions."""
+    delta = attention_delta(out, dout)
+    dk, dv = flash_attention_bwd_dkv_plain(q, k, v, segment_ids, lse, delta, dout)
+    return flash_attention_bwd_dq_plain(q, k, v, segment_ids, lse, delta, dout), dk, dv
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check(name: str, q, k, v, segment_ids, extra=(), fold: bool = False) -> None:
+    """What the kernels take: bf16 (B, S, H, D) q/k/v read through strides,
+    Hk dividing Hq (and, for the forward's head fold, Hq/Hk dividing 64),
+    D <= 128; int32 (B, S) segment ids and the f32 side tensors contiguous;
+    all on one CUDA card (checked last)."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape[2] == 0 or q.shape[2] % k.shape[2]:
+        raise ValueError(f"{name}: q {tuple(q.shape)} / k {tuple(k.shape)}: Hk must divide Hq")
+    if fold and 64 % (q.shape[2] // k.shape[2]):
+        raise ValueError(f"{name}: Hq/Hk = {q.shape[2] // k.shape[2]} must divide 64")
+    check_dtype(name, torch.int32, segment_ids)
+    B, S, Hq, _ = q.shape
+    if segment_ids.shape != (B, S) or not segment_ids.is_contiguous():
+        raise ValueError(f"{name}: segment_ids must be a contiguous (B, S) = {(B, S)}, got {tuple(segment_ids.shape)}")
+    for t, dtype, shape in extra:
+        check_dtype(name, dtype, t)
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous {shape} {dtype}, got {tuple(t.shape)}")
+    check_bshd(name, q, k, v)
+    if any(t.device != q.device for t in (segment_ids, *(e[0] for e in extra))):
+        raise ValueError(f"{name}: all tensors must be on {q.device}")
+
+
+def flash_attention_fwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, segment_ids: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out (B, S, Hq, D), lse (B, Hq, S) f32); K4's forward kernel on the card."""
+    if q.device.type == "cpu":
+        return flash_attention_fwd_plain(q, k, v, segment_ids)
+    _check("flash_attention_fwd", q, k, v, segment_ids, fold=True)
+    B, S, Hq, D = q.shape
+    out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    err = _build.lib().srgpt_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), segment_ids.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        B, S, Hq, k.shape[2], D,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        D**-0.5, _build.stream_ptr(q),
+    )
+    _build.check(err, "flash_attention_fwd")
+    launches["flash_attention_fwd"] += 1
+    return out, lse
+
+
+def _bwd_args(name, q, k, v, segment_ids, lse, delta, dout):
+    B, S, Hq, D = q.shape
+    if dout.stride(3) != 1 or any(s % 8 for s in dout.stride()[:3]):
+        dout = dout.contiguous()
+    check_dtype(name, q.dtype, dout)
+    if dout.shape != q.shape:
+        raise ValueError(f"{name}: dout {tuple(dout.shape)} must match q {tuple(q.shape)}")
+    _check(name, q, k, v, segment_ids, extra=((lse, torch.float32, (B, Hq, S)), (delta, torch.float32, (B, S, Hq))))
+    if dout.device != q.device or dout.data_ptr() % 16:
+        raise ValueError(f"{name}: dout must lie 16-byte aligned on {q.device}")
+    ptrs = [t.data_ptr() for t in (q, k, v, dout, lse, delta, segment_ids)]
+    dims = [B, S, Hq, k.shape[2], D]
+    strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *dout.stride()[:3]]
+    return ptrs, dims, strides
+
+
+def flash_attention_bwd_dkv(q, k, v, segment_ids, lse, delta, dout) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dK, dV) (B, S, Hk, D); K4's dK/dV kernel on the card."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dkv_plain(q, k, v, segment_ids, lse, delta, dout)
+    name = "flash_attention_bwd_dkv"
+    ptrs, dims, strides = _bwd_args(name, q, k, v, segment_ids, lse, delta, dout)
+    dk, dv = torch.empty_like(k, memory_format=torch.contiguous_format), torch.empty_like(v, memory_format=torch.contiguous_format)
+    err = _build.lib().srgpt_flash_bwd_dkv(
+        *ptrs, dk.data_ptr(), dv.data_ptr(), *dims, *strides, q.shape[3] ** -0.5, _build.stream_ptr(q)
+    )
+    _build.check(err, name)
+    launches[name] += 1
+    return dk, dv
+
+
+def flash_attention_bwd_dq(q, k, v, segment_ids, lse, delta, dout) -> torch.Tensor:
+    """dQ (B, S, Hq, D); K4's dQ kernel on the card."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dq_plain(q, k, v, segment_ids, lse, delta, dout)
+    name = "flash_attention_bwd_dq"
+    ptrs, dims, strides = _bwd_args(name, q, k, v, segment_ids, lse, delta, dout)
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    err = _build.lib().srgpt_flash_bwd_dq(*ptrs, dq.data_ptr(), *dims, *strides, q.shape[3] ** -0.5, _build.stream_ptr(q))
+    _build.check(err, name)
+    launches[name] += 1
+    return dq
+
+
+class FlashAttention(torch.autograd.Function):
+    """Forward saves (q, k, v, out, lse) as the reference's ``_flash_fwd``;
+    backward runs delta, then the dK/dV and the dQ kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, segment_ids):
+        out, lse = flash_attention_fwd(q, k, v, segment_ids)
+        ctx.save_for_backward(q, k, v, segment_ids, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, segment_ids, out, lse = ctx.saved_tensors
+        delta = attention_delta(out, dout)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, segment_ids, lse, delta, dout)
+        dq = flash_attention_bwd_dq(q, k, v, segment_ids, lse, delta, dout)
+        return dq, dk, dv, None
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, S, Hq, D)
+    k: torch.Tensor,  # (B, S, Hk, D)
+    v: torch.Tensor,
+    segment_ids: Optional[torch.Tensor] = None,  # (B, S); 0 = padding
+) -> torch.Tensor:
+    """Causal flash attention within packed segments; differentiable.
+    Padding rows (segment id 0) return zeros."""
+    if segment_ids is None:
+        segment_ids = torch.ones(q.shape[:2], dtype=torch.int32, device=q.device)
+    out = FlashAttention.apply(q, k, v, segment_ids.to(torch.int32).contiguous())
+    return out * (segment_ids != 0)[:, :, None, None].to(out.dtype)

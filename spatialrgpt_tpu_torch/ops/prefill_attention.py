@@ -5,7 +5,9 @@ Port of the Pallas kernel
 kernel is ``csrc/prefill_attention.cu``.  ``onepass_attention`` launches it
 for CUDA tensors and takes the plain version ``onepass_attention_plain``
 (the twin of the reference's ``_xla_reference``) only for CPU tensors.
-``launches`` counts kernel launches.
+``launches`` counts kernel launches.  The kernel route is differentiable:
+its backward recomputes the plain version and differentiates it
+(``ops/_autograd.py``), as the reference's ``custom_vjp`` recomputes in XLA.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Optional
 import torch
 
 from spatialrgpt_tpu_torch.ops import _build
+from spatialrgpt_tpu_torch.ops._autograd import KernelForwardPlainGrad
 from spatialrgpt_tpu_torch.ops._checks import check_bshd
 
 NEG_INF = -1e30
@@ -74,6 +77,14 @@ def onepass_attention(
         raise ValueError(f"onepass_attention: window {window} < 1")
     check_bshd("onepass_attention", q, k, v)
     seg = segment_ids.to(torch.int32).contiguous()
+    return KernelForwardPlainGrad.apply(
+        lambda q, k, v: _launch(q, k, v, seg, window), lambda q, k, v: onepass_attention_plain(q, k, v, seg, window),
+        q, k, v,
+    )
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seg: torch.Tensor, window: Optional[int]) -> torch.Tensor:
+    B, S, Hq, D = q.shape
     out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device)
     err = _build.lib().srgpt_prefill_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), out.data_ptr(),

@@ -3,7 +3,10 @@
 Port of the Pallas kernel ``spatialrgpt_tpu/ops/vit_attention.py::vit_attention``;
 the CUDA kernel is ``csrc/vit_attention.cu``.  ``vit_attention`` launches it
 for CUDA tensors and takes the plain version ``vit_attention_plain`` only
-for tensors on the CPU.  ``launches`` counts kernel launches.
+for tensors on the CPU.  ``launches`` counts kernel launches.  The kernel
+route is differentiable: its backward recomputes the plain version and
+differentiates it (``ops/_autograd.py``), as the reference's ``custom_vjp``
+recomputes in XLA.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from typing import Optional
 import torch
 
 from spatialrgpt_tpu_torch.ops import _build
+from spatialrgpt_tpu_torch.ops._autograd import KernelForwardPlainGrad
 from spatialrgpt_tpu_torch.ops._checks import check_bshd
 
 NEG_INF = -1e30
@@ -54,16 +58,23 @@ def vit_attention(
     if k.shape != q.shape:
         raise ValueError(f"vit_attention: k/v shape {tuple(k.shape)} != q shape {tuple(q.shape)}")
     check_bshd("vit_attention", q, k, v)
-    B, S, H, D = q.shape
+    S = q.shape[1]
     vl = S if valid_len is None else int(valid_len)
     if not 1 <= vl <= S:
         raise ValueError(f"vit_attention: valid_len {vl} outside [1, {S}]")
+    return KernelForwardPlainGrad.apply(
+        lambda q, k, v: _launch(q, k, v, vl), lambda q, k, v: vit_attention_plain(q, k, v, vl), q, k, v
+    )
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid_len: int) -> torch.Tensor:
+    B, S, H, D = q.shape
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     err = _build.lib().srgpt_vit_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, S, H, D,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        vl, D**-0.5, _build.stream_ptr(q),
+        valid_len, D**-0.5, _build.stream_ptr(q),
     )
     _build.check(err, "vit_attention")
     global launches

@@ -6,9 +6,12 @@ through the HF-named state dicts that
 tensor names of the reference checkpoint layout.  ``init_random`` makes a
 model directly on the device from a seeded ``torch.Generator``, with the
 standard deviations of the JAX package's ``init_params``.
+``save_composite`` writes a model back in the reference's split layout.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -65,3 +68,22 @@ def init_random(cfg: SpatialRGPTConfig, device, dtype=torch.bfloat16, seed: int 
         if getattr(mod, "bias", None) is not None:
             mod.bias.zero_()
     return model
+
+
+# split checkpoint directory of each sub-module (utils/export.py::save_composite)
+SPLIT_DIRS = ("vision_tower", "mm_projector", "region_extractor", "llm")
+
+
+def save_composite(root: str, model: SpatialRGPT, cfg: SpatialRGPTConfig) -> None:
+    """The reference's split composite checkpoint: ``config.json`` at
+    ``root`` and one directory per sub-module holding its HF-named state
+    dict (the names ``utils/export.py`` writes) as ``pytorch_model.bin``."""
+    os.makedirs(root, exist_ok=True)
+    cfg.save(root)
+    for name in SPLIT_DIRS:
+        module = getattr(model, name, None)
+        if module is None:
+            continue
+        os.makedirs(os.path.join(root, name), exist_ok=True)
+        state = {k: v.detach().contiguous() for k, v in module.state_dict().items()}
+        torch.save(state, os.path.join(root, name, "pytorch_model.bin"))

@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
-version in bf16, and a tiny region-QA ``generate`` through all three.
+version in bf16, gradients through K1, K2 and K4, a tiny region-QA
+``generate`` through K1-K3 and a tiny align step through K1 and K4.
 
 Every test here is marked ``gpu`` and skips where there is no CUDA card
 (the kernels are CUDA C++ for sm_90a and have no CPU mode).  The file
@@ -24,9 +25,10 @@ from spatialrgpt_tpu.constants import IMAGE_TOKEN_INDEX
 from spatialrgpt_tpu.data.splice import expand_rows
 from spatialrgpt_tpu_torch.models.vlm import VLMInputs
 from spatialrgpt_tpu_torch.ops import decode_attention as K3
+from spatialrgpt_tpu_torch.ops import flash_attention as K4
 from spatialrgpt_tpu_torch.ops import prefill_attention as K2
 from spatialrgpt_tpu_torch.ops import vit_attention as K1
-from spatialrgpt_tpu_torch.ops._checks import bf16_err_over_bound
+from spatialrgpt_tpu_torch.ops._checks import GRAD_FLOOR, bf16_err_over_bound
 from spatialrgpt_tpu_torch.serving.generate import generate
 from spatialrgpt_tpu_torch.utils.weights import init_random
 
@@ -46,12 +48,13 @@ def _rand(rng, *shape, device):
     return torch.tensor(rng.standard_normal(shape).astype(np.float32)).to(device, torch.bfloat16)
 
 
-def _bf16_close(out, ref):
+def _bf16_close(out, ref, floor=0.0):
     # the kernel rounds P to bf16 at other running maxima (K3 keeps it in
     # fp32) and sums in another order: 4 bf16 ulps of each element plus of
     # its row's largest value (tests/test_torch_kernels.py shows that this
-    # bound rejects a kernel that skips one key tile)
-    ratio = bf16_err_over_bound(out, ref)
+    # bound rejects a kernel that skips one key tile); gradients add
+    # GRAD_FLOOR for the rows that cancel to 0
+    ratio = bf16_err_over_bound(out, ref, floor)
     assert ratio <= 1.0, ratio
 
 
@@ -107,6 +110,77 @@ def test_decode_kernel_matches_plain(cuda):
         _bf16_close(out, K3.decode_attention_int8_flat_plain(q, kq, ks, vq, vs, lengths, Hk))
 
 
+def _packed(B, S, device):
+    """Row 0: three packed segments and a padded tail; other rows: one
+    segment, right-padded."""
+    seg = torch.zeros(B, S, dtype=torch.int32, device=device)
+    seg[0, : S // 3] = 1
+    seg[0, S // 3 : 2 * S // 3] = 2
+    seg[0, 2 * S // 3 : S - 50] = 3
+    seg[1:, : S - 70] = 1
+    return seg
+
+
+@pytest.mark.parametrize("B,S,Hq,Hk", [(2, 1024, 8, 2), (3, 300, 4, 4), (2, 257, 8, 1)])
+def test_flash_kernels_match_plain(cuda, B, S, Hq, Hk):
+    """K4's forward (out and lse), dK/dV and dQ kernels against their plain
+    versions in bf16: GQA 4:1, MHA and 8:1, packed segments, padding, and
+    an S that is not a multiple of 64."""
+    rng = np.random.default_rng(5)
+    q, dout = _rand(rng, B, S, Hq, 128, device=cuda), _rand(rng, B, S, Hq, 128, device=cuda)
+    k, v = (_rand(rng, B, S, Hk, 128, device=cuda) for _ in range(2))
+    seg = _packed(B, S, cuda)
+    before = dict(K4.launches)
+    out, lse = K4.flash_attention_fwd(q, k, v, seg)
+    delta = K4.attention_delta(out, dout)
+    dk, dv = K4.flash_attention_bwd_dkv(q, k, v, seg, lse, delta, dout)
+    dq = K4.flash_attention_bwd_dq(q, k, v, seg, lse, delta, dout)
+    torch.cuda.synchronize()
+    assert {n: K4.launches[n] - before[n] for n in before} == dict.fromkeys(before, 1)
+    ref, ref_lse = K4.flash_attention_fwd_plain(q, k, v, seg)
+    _bf16_close(out, ref)
+    live = lse > K4.NEG_INF / 2
+    assert torch.equal(live, ref_lse > K4.NEG_INF / 2)
+    torch.testing.assert_close(lse[live], ref_lse[live], rtol=0, atol=1e-4)
+    rdk, rdv = K4.flash_attention_bwd_dkv_plain(q, k, v, seg, lse, delta, dout)
+    for got, want in ((dk, rdk), (dv, rdv), (dq, K4.flash_attention_bwd_dq_plain(q, k, v, seg, lse, delta, dout))):
+        _bf16_close(got, want, GRAD_FLOOR)
+    pad = seg == 0
+    assert torch.all(out[pad] == 0) and torch.all(dq[pad] == 0) and torch.all(dk[pad] == 0)
+    # autograd through flash_attention runs the same kernels on the same
+    # inputs (padding rows of dO add nothing): bit-equal gradients
+    ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    K4.flash_attention(*ins, seg).backward(dout)
+    for t, want in zip(ins, (dq, dk, dv)):
+        assert torch.equal(t.grad, want)
+
+
+def test_kernel_gradients_match_plain(cuda):
+    """The CUDA routes of K1 and K2 carry gradients to q, k and v, equal to
+    the plain path's within the per-element bound (their backward
+    recomputes the plain version)."""
+    rng = np.random.default_rng(6)
+    S = 200
+    seg = _packed(2, S, cuda)
+    cases = [
+        (K1.vit_attention, K1.vit_attention_plain, (2, 100, 4, 72), (2, 100, 4, 72), ()),
+        (K2.onepass_attention, K2.onepass_attention_plain, (2, S, 8, 128), (2, S, 2, 128), (seg,)),
+    ]
+
+    for fast, plain, qshape, kshape, extra in cases:
+        q = _rand(rng, *qshape, device=cuda)
+        k, v = (_rand(rng, *kshape, device=cuda) for _ in range(2))
+        g = _rand(rng, *qshape, device=cuda)
+        grads = []
+        for fn in (fast, plain):
+            ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            fn(*ins, *extra).backward(g)
+            grads.append([t.grad for t in ins])
+        for got, want in zip(*grads):
+            assert got is not None
+            _bf16_close(got, want, GRAD_FLOOR)
+
+
 def test_tiny_generate_runs_the_three_kernels(cuda):
     """A tiny region-QA batch on the card: the kernel path launches K1 once
     per tower layer, K2 once per decoder layer and K3 once per decoder
@@ -142,3 +216,48 @@ def test_tiny_generate_runs_the_three_kernels(cuda):
     assert fast.tokens.shape == (2, 5) and ((fast.tokens >= 0) & (fast.tokens < 64)).all()
     rel = (fast.first_logits - plain.first_logits).norm() / plain.first_logits.norm()
     assert float(rel) < 0.05
+
+
+def test_tiny_align_step_runs_k1_and_k4(cuda):
+    """A tiny align step (frozen decoder and tower, remat, chunked CE) on
+    the card: K1 once per tower layer, K4's forward twice per decoder layer
+    (forward and the remat recompute), each backward kernel once per layer;
+    loss and the projector's gradient agree with the plain path's."""
+    from spatialrgpt_tpu_torch.models import vlm
+    from spatialrgpt_tpu_torch.train.optimizer import OptimizerConfig, build_optimizer
+
+    cfg = SpatialRGPTConfig(
+        llm=LlamaConfig(vocab_size=64, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+                        num_attention_heads=4, num_key_value_heads=2),
+        vision=SiglipVisionConfig(hidden_size=32, intermediate_size=64, num_hidden_layers=3,
+                                  num_attention_heads=2, image_size=56, patch_size=14),
+        projector=ProjectorConfig(mm_hidden_size=32, hidden_size=256),
+        region=RegionExtractorConfig(mm_hidden_size=32, hidden_size=256, ada_pool_size=4),
+        mask_token_id=60, depth_token_id=61,
+    )
+    ids = [np.array([5, IMAGE_TOKEN_INDEX, 60, 61] + list(range(10, 60)), np.int64)] * 2
+    sb = expand_rows(ids, ids, max_len=128, tokens_per_image=4, mask_token_id=60, depth_token_id=61,
+                     regions_per_image=2, pad_to=128)
+    rng = np.random.default_rng(7)
+    inputs = VLMInputs.from_spliced(
+        sb, rng.standard_normal((2, 56, 56, 3)), rng.standard_normal((2, 56, 56, 3)),
+        (rng.random((2, 2, 56, 56)) > 0.5).astype(np.float32), np.ones((2, 2), bool),
+        device=cuda, dtype=torch.bfloat16,
+    )
+    model = init_random(cfg, cuda, torch.bfloat16, seed=0)
+    build_optimizer(model, OptimizerConfig(tune_language_model=False))
+    results = []
+    for impl in ("pallas", "xla"):
+        K1.launches = 0
+        K4.launches = dict.fromkeys(K4.launches, 0)
+        model.zero_grad(set_to_none=True)
+        loss, _ = vlm.loss_fn(model, cfg, inputs, attn_impl=impl, remat=True, ce_chunk=64)
+        loss.backward()
+        torch.cuda.synchronize()
+        grad = torch.cat([p.grad.flatten().float() for p in model.mm_projector.parameters()])
+        results.append((float(loss.detach()), grad, K1.launches, dict(K4.launches)))
+    (loss, grad, k1, k4), (ploss, pgrad, pk1, pk4) = results
+    assert k1 == 2 and k4 == {"flash_attention_fwd": 4, "flash_attention_bwd_dkv": 2, "flash_attention_bwd_dq": 2}
+    assert pk1 == 0 and set(pk4.values()) == {0}
+    assert abs(loss - ploss) <= 0.01 * abs(ploss)
+    assert float((grad - pgrad).norm() / pgrad.norm()) < 0.05

@@ -1,4 +1,5 @@
-"""Port parity for the three attention kernels of the serving slice.
+"""Port parity for the attention kernels: K1-K3 of the serving slice and K4
+(flash attention, forward and backward) of the training step.
 
 On the CPU: each kernel's plain PyTorch version against the Pallas kernel
 it replaces, run in interpret mode as the JAX package's own tests run it,
@@ -7,20 +8,26 @@ Then the wrappers' dispatch: a CPU tensor takes the plain version without
 counting a launch, and what the CUDA kernels do not take raises before
 any pointer reaches C (checked on ``meta`` tensors).  The kernels
 themselves are compared with their plain versions on the card by
-tests/test_torch_gpu.py.
+tests/test_torch_gpu.py.  Gradients: K4's plain backward and the
+backward of K1's and K2's ``autograd.Function`` against ``jax.grad``.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from spatialrgpt_tpu.ops import flash_attention as jflash
+from spatialrgpt_tpu.ops.attention import causal_attention as j_causal
 from spatialrgpt_tpu.ops.decode_attention import decode_attention_int8_flat as j_decode
 from spatialrgpt_tpu.ops.prefill_attention import onepass_attention as j_onepass
 from spatialrgpt_tpu.ops.vit_attention import vit_attention as j_vit
 from spatialrgpt_tpu_torch.ops import decode_attention as K3
+from spatialrgpt_tpu_torch.ops import flash_attention as K4
 from spatialrgpt_tpu_torch.ops import prefill_attention as K2
 from spatialrgpt_tpu_torch.ops import vit_attention as K1
+from spatialrgpt_tpu_torch.ops._autograd import KernelForwardPlainGrad
 
 ATOL = 2e-5  # fp32 on both sides: summation order only
 
@@ -95,20 +102,110 @@ def test_decode_plain_matches_pallas(hq, hk):
 
 
 def test_causal_attention_routes_match_jax_xla():
-    """ops/attention.py: "xla" and "onepass" (the plain path on a CPU
-    tensor) both equal the reference's XLA path; an unknown impl raises."""
-    from spatialrgpt_tpu.ops.attention import causal_attention as j_causal
+    """ops/attention.py: "xla", "onepass" and "pallas" (each the plain path
+    on a CPU tensor) all equal the reference's XLA path; an unknown impl
+    raises."""
     from spatialrgpt_tpu_torch.ops.attention import causal_attention
 
     q, k, v = _qkv(np.random.default_rng(11), 2, 40, 4, 2, 16)
     seg = np.ones((2, 40), np.int32)
     seg[1, 25:] = 0
     want = np.asarray(j_causal(*_j(q, k, v), segment_ids=jnp.asarray(seg), impl="xla"))
-    for impl in ("xla", "onepass"):
-        got = causal_attention(*_t(q, k, v), segment_ids=torch.tensor(seg), impl=impl).numpy()
+    for impl in ("xla", "onepass", "pallas"):
+        got = causal_attention(*_t(q, k, v), segment_ids=torch.tensor(seg), impl=impl).detach().numpy()
         np.testing.assert_allclose(got, want, atol=ATOL, rtol=1e-4)
     with pytest.raises(ValueError, match="unknown attention impl"):
-        causal_attention(*_t(q, k, v), impl="pallas")
+        causal_attention(*_t(q, k, v), impl="ring")
+
+
+# ---------------------------------------------------------------------------
+# K4: plain forward / backward against the reference
+# ---------------------------------------------------------------------------
+
+
+def _packed_seg(B, S):
+    """Row 0: two packed segments and a padded tail; row 1: one segment and
+    a longer tail (blocks of 64 see mixed, uniform and all-padding ids)."""
+    seg = np.zeros((B, S), np.int32)
+    seg[0, :50] = 1
+    seg[0, 50:110] = 2
+    seg[1:, : S - 40] = 1
+    return seg
+
+
+def test_flash_plain_forward_matches_pallas():
+    """out and lse of the plain forward against the Pallas ``_fwd`` in
+    interpret mode, B2 S128 Hq8 Hk2 D32 with 64-blocks (atol 2e-5 / rtol
+    2e-4, the JAX suite's own); padding rows have zero output and lse
+    NEG_INF."""
+    B, S, Hq, Hk, D = 2, 128, 8, 2, 32
+    q, k, v = _qkv(np.random.default_rng(21), B, S, Hq, Hk, D)
+    seg = _packed_seg(B, S)
+    tr = lambda a: jnp.transpose(jnp.asarray(a), (0, 2, 1, 3))  # noqa: E731
+    jseg = jnp.asarray(seg)
+    jout, jlse = jflash._fwd(tr(q), tr(k), tr(v), jseg, jseg, causal=True, sm_scale=D**-0.5,
+                             block_q=64, block_k=64, interpret=True)
+    out, lse = K4.flash_attention_fwd_plain(*_t(q, k, v), torch.tensor(seg))
+    np.testing.assert_allclose(out.numpy(), np.transpose(np.asarray(jout), (0, 2, 1, 3)), atol=2e-5, rtol=2e-4)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), atol=2e-5, rtol=2e-4)
+    assert np.all(out.numpy()[seg == 0] == 0) and np.all(lse.numpy()[:, :, seg[0] == 0][0] == K4.NEG_INF)
+    want = np.asarray(jflash.flash_attention(*_j(q, k, v), segment_ids=jseg, block_q=64, block_k=64, interpret=True))
+    np.testing.assert_allclose(K4.flash_attention(*_t(q, k, v), torch.tensor(seg)).numpy(), want, atol=2e-5, rtol=2e-4)
+
+
+def test_flash_plain_backward_matches_jax_grad():
+    """dq, dk, dv through ``flash_attention`` (its Function runs the plain
+    forward and backward on the CPU) against ``jax.grad`` of the reference's
+    XLA causal attention, whose equality with the Pallas backward
+    ``test_grads_match_xla`` holds; GQA 4:1, packed segments, padding.
+    Padding rows get dq = 0 and add nothing to dk / dv."""
+    B, S, Hq, Hk, D = 2, 128, 8, 2, 32
+    q, k, v = _qkv(np.random.default_rng(22), B, S, Hq, Hk, D)
+    seg = _packed_seg(B, S)
+
+    def loss_xla(q, k, v):
+        o = j_causal(q, k, v, segment_ids=jnp.asarray(seg), impl="xla")
+        return jnp.sum(o * jnp.cos(o))
+
+    want = jax.grad(loss_xla, argnums=(0, 1, 2))(*_j(q, k, v))
+    tq, tk, tv = (t.requires_grad_() for t in _t(q, k, v))
+    o = K4.flash_attention(tq, tk, tv, torch.tensor(seg))
+    (o * torch.cos(o)).sum().backward()
+    for got, w, name in zip((tq.grad, tk.grad, tv.grad), want, "qkv"):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), atol=5e-5, rtol=5e-4, err_msg=f"d{name}")
+    assert np.all(tq.grad.numpy()[seg == 0] == 0)
+    # the plain backward called directly (dO of padding rows masked as the
+    # wrapper's final multiply masks it) gives the same gradients
+    seg_t = torch.tensor(seg)
+    out, lse = K4.flash_attention_fwd_plain(*_t(q, k, v), seg_t)
+    dout = (torch.cos(o) - o * torch.sin(o)).detach() * (seg_t != 0)[:, :, None, None]
+    for got, want in zip(K4.flash_attention_bwd_plain(*_t(q, k, v), seg_t, out, lse, dout), (tq.grad, tk.grad, tv.grad)):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    assert K4.launches == {"flash_attention_fwd": 0, "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0}
+
+
+@pytest.mark.parametrize("kernel", ["vit_attention", "onepass_attention"])
+def test_kernel_function_backward_matches_jax_grad(kernel):
+    """K1 and K2 on the card run through ``KernelForwardPlainGrad``; here its
+    forward is handed the plain version in the kernel's place, and its
+    backward (recompute the plain version, differentiate it) is held against
+    ``jax.grad`` of the Pallas function (interpret mode, XLA-recompute
+    ``custom_vjp``)."""
+    rng = np.random.default_rng(31)
+    if kernel == "vit_attention":
+        q, k, v = _qkv(rng, 2, 100, 2, 2, 72)
+        plain = lambda q, k, v: K1.vit_attention_plain(q, k, v, 90)  # noqa: E731
+        ref = lambda q, k, v: j_vit(q, k, v, interpret=True, valid_len=90)  # noqa: E731
+    else:
+        q, k, v = _qkv(rng, 2, 100, 4, 2, 32)
+        seg = _packed_seg(2, 100)
+        plain = lambda q, k, v: K2.onepass_attention_plain(q, k, v, torch.tensor(seg))  # noqa: E731
+        ref = lambda q, k, v: j_onepass(q, k, v, segment_ids=jnp.asarray(seg), interpret=True)  # noqa: E731
+    want = jax.grad(lambda q, k, v: jnp.sum(jnp.sin(ref(q, k, v))), argnums=(0, 1, 2))(*_j(q, k, v))
+    tq, tk, tv = (t.requires_grad_() for t in _t(q, k, v))
+    torch.sin(KernelForwardPlainGrad.apply(plain, plain, tq, tk, tv)).sum().backward()
+    for got, w, name in zip((tq.grad, tk.grad, tv.grad), want, "qkv"):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), atol=5e-5, rtol=5e-4, err_msg=f"d{name}")
 
 
 # ---------------------------------------------------------------------------
@@ -122,7 +219,8 @@ def _bf16(rng, *shape):
 
 def _causal_gqa(q, k, v, seg, drop_rows=slice(0, 0), drop_keys=slice(0, 0)):
     """K2's function written out with a key mask: causal within a segment,
-    and keys ``drop_keys`` left out for the query rows ``drop_rows``."""
+    and keys ``drop_keys`` left out for the query rows ``drop_rows``; GQA
+    query head h reads kv head h // G."""
     S, D = q.shape[1], q.shape[3]
     g = q.shape[2] // k.shape[2]
     kk, vv = (t.float().repeat_interleave(g, dim=2) for t in (k, v))
@@ -134,15 +232,23 @@ def _causal_gqa(q, k, v, seg, drop_rows=slice(0, 0), drop_keys=slice(0, 0)):
     return torch.einsum("bhqk,bkhd->bqhd", p.to(torch.bfloat16).float(), vv).to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("kernel", ["vit_attention", "onepass_attention", "decode_attention_int8_flat"])
+@pytest.mark.parametrize(
+    "kernel",
+    [
+        "vit_attention", "onepass_attention", "decode_attention_int8_flat",
+        "flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+    ],
+)
 def test_bound_rejects_a_kernel_that_skips_a_key_tile(kernel):
     """``bf16_err_over_bound`` at the main path's head dims and lengths, in
     bf16: a kernel that left out the 64 keys [64, 128) (for K2 only in the
     query rows from 128 on, where ~200-300 keys are live) would exceed it.
     Such a kernel's output is the plain function with those keys masked.
     K1 and K3 mask them by moving them past ``valid_len`` / ``lengths``
-    (attention is invariant to the order of its keys)."""
-    from spatialrgpt_tpu_torch.ops._checks import bf16_err_over_bound
+    (attention is invariant to the order of its keys).  For K4 the fault
+    is one 64-row tile left out of the forward, of dK/dV (a q tile) or of
+    dQ (a key tile), at D = 128 with packed segments."""
+    from spatialrgpt_tpu_torch.ops._checks import GRAD_FLOOR, bf16_err_over_bound
 
     rng = np.random.default_rng(5)
     tile = list(range(64, 128))
@@ -161,6 +267,39 @@ def test_bound_rejects_a_kernel_that_skips_a_key_tile(kernel):
         # the masked reimplementation itself stays within the bound
         assert bf16_err_over_bound(_causal_gqa(q, k, v, seg), ref) <= 1.0
         fault = _causal_gqa(q, k, v, seg, drop_rows=slice(128, S), drop_keys=slice(64, 128))
+    elif kernel.startswith("flash"):
+        # K4 at D = 128 and one packed row of 4 x 256-token samples with a
+        # padded tail (the align step's 4 x ~1024, cut to keep the CPU short)
+        S, Hq, Hk = 1088, 4, 1
+        q, k, v, dout = _bf16(rng, 1, S, Hq, 128), _bf16(rng, 1, S, Hk, 128), _bf16(rng, 1, S, Hk, 128), _bf16(rng, 1, S, Hq, 128)
+        seg = torch.zeros(1, S, dtype=torch.int32)
+        for i in range(4):
+            seg[0, 256 * i : 256 * (i + 1)] = i + 1
+        out, lse = K4.flash_attention_fwd_plain(q, k, v, seg)
+        delta = K4.attention_delta(out, dout)
+        if kernel == "flash_attention_fwd":
+            # the key tile [576, 640) left out for the queries after it
+            ref = out
+            fault = _causal_gqa(q, k, v, seg, drop_rows=slice(640, S), drop_keys=slice(576, 640))
+            assert bf16_err_over_bound(_causal_gqa(q, k, v, seg), ref) <= 1.0
+        else:
+            # the q tile [576, 640) left out of dK/dV, or the key tile
+            # [576, 640) left out of dQ: its P and dS are zeroed
+            p, ds = K4._probs_and_ds(q, k, v, seg, lse, delta, dout)
+            cut = (slice(None),) * 3 + ((slice(576, 640), slice(None)) if kernel.endswith("dkv") else (slice(None), slice(576, 640)))
+            p_bad, ds_bad = p.clone(), ds.clone()
+            p_bad[cut] = 0
+            ds_bad[cut] = 0
+            if kernel.endswith("dkv"):
+                ref = torch.cat(K4.flash_attention_bwd_dkv_plain(q, k, v, seg, lse, delta, dout), dim=2)
+                qg, dog = (t.reshape(1, S, Hk, Hq // Hk, 128).float() for t in (q, dout))
+                dv = torch.einsum("bhgqk,bqhgd->bkhgd", p_bad.to(torch.bfloat16).float(), dog)
+                dk = torch.einsum("bhgqk,bqhgd->bkhgd", ds_bad.to(torch.bfloat16).float(), qg)
+                fault = torch.cat([K4._group_sum(dk, q.dtype), K4._group_sum(dv, q.dtype)], dim=2)
+            else:
+                ref = K4.flash_attention_bwd_dq_plain(q, k, v, seg, lse, delta, dout)
+                dq = torch.einsum("bhgqk,bkhd->bqhgd", ds_bad.to(torch.bfloat16).float(), k.float())
+                fault = dq.reshape(1, S, Hq, 128).to(torch.bfloat16)
     else:
         C, Hk = 352, 2
         q = _bf16(rng, 2, 8, 128)
@@ -170,8 +309,9 @@ def test_bound_rejects_a_kernel_that_skips_a_key_tile(kernel):
         order = list(range(64)) + list(range(128, C)) + tile
         kq, ks, vq, vs = (t[:, order] for t in (kq, ks, vq, vs))
         fault = K3.decode_attention_int8_flat_plain(q, kq, ks, vq, vs, lengths - 64, Hk)
-    assert bf16_err_over_bound(ref, ref) == 0.0
-    assert bf16_err_over_bound(fault, ref) > 1.0
+    floor = GRAD_FLOOR if "_bwd_" in kernel else 0.0
+    assert bf16_err_over_bound(ref, ref, floor) == 0.0
+    assert bf16_err_over_bound(fault, ref, floor) > 1.0
 
 
 # ---------------------------------------------------------------------------
@@ -182,6 +322,7 @@ def test_bound_rejects_a_kernel_that_skips_a_key_tile(kernel):
 def test_cpu_tensors_take_the_plain_version_without_a_launch(monkeypatch):
     for mod in (K1, K2, K3):
         monkeypatch.setattr(mod, "launches", 0)
+    monkeypatch.setattr(K4, "launches", dict.fromkeys(K4.launches, 0))
     rng = np.random.default_rng(3)
     q, k, v = _t(*_qkv(rng, 1, 20, 4, 2, 16))
     qv = q[:, :, :2]
@@ -193,6 +334,16 @@ def test_cpu_tensors_take_the_plain_version_without_a_launch(monkeypatch):
         K3.decode_attention_int8_flat(*args), K3.decode_attention_int8_flat_plain(*args), rtol=0, atol=0
     )
     assert (K1.launches, K2.launches, K3.launches) == (0, 0, 0)
+    seg = torch.ones(1, 20, dtype=torch.int32)
+    out, lse = K4.flash_attention_fwd(q, k, v, seg)
+    want = K4.flash_attention_fwd_plain(q, k, v, seg)
+    torch.testing.assert_close((out, lse), want, rtol=0, atol=0)
+    delta = K4.attention_delta(out, q)
+    torch.testing.assert_close(K4.flash_attention_bwd_dkv(q, k, v, seg, lse, delta, q),
+                               K4.flash_attention_bwd_dkv_plain(q, k, v, seg, lse, delta, q), rtol=0, atol=0)
+    torch.testing.assert_close(K4.flash_attention_bwd_dq(q, k, v, seg, lse, delta, q),
+                               K4.flash_attention_bwd_dq_plain(q, k, v, seg, lse, delta, q), rtol=0, atol=0)
+    assert set(K4.launches.values()) == {0}
 
 
 def _meta(*shape, dtype=torch.bfloat16):
@@ -226,3 +377,21 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         K3.decode_attention_int8_flat(**{**good, "k_q": _meta(B, C + 1, Hk * D, dtype=torch.int8)})
     with pytest.raises(ValueError, match="CUDA"):
         K3.decode_attention_int8_flat(**good)
+    B, S, Hq, Hk, D = 1, 64, 8, 2, 128
+    q, k, seg = _meta(B, S, Hq, D), _meta(B, S, Hk, D), _meta(B, S, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        K4.flash_attention_fwd(q, k, k, _meta(B, S, dtype=torch.int64))
+    with pytest.raises(ValueError, match="must divide 64"):
+        K4.flash_attention_fwd(_meta(B, S, 3 * 128, D), _meta(B, S, 1, D), _meta(B, S, 1, D), seg)
+    with pytest.raises(ValueError, match="at most 128|<= 128"):
+        K4.flash_attention_fwd(_meta(B, S, Hq, 256), _meta(B, S, Hk, 256), _meta(B, S, Hk, 256), seg)
+    with pytest.raises(ValueError, match="CUDA"):
+        K4.flash_attention_fwd(q, k, k, seg)
+    lse, delta = _meta(B, Hq, S, dtype=torch.float32), _meta(B, S, Hq, dtype=torch.float32)
+    for fn in (K4.flash_attention_bwd_dkv, K4.flash_attention_bwd_dq):
+        with pytest.raises(ValueError, match=r"\(1, 8, 64\)"):
+            fn(q, k, k, seg, _meta(B, S, Hq, dtype=torch.float32), delta, q)
+        with pytest.raises(TypeError):
+            fn(q, k, k, seg, lse, delta, _meta(B, S, Hq, D, dtype=torch.float32))
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(q, k, k, seg, lse, delta, q.transpose(1, 2).contiguous().transpose(1, 2))
