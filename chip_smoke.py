@@ -15,7 +15,9 @@ Phases, each printed as one JSON line:
    ulps of the element plus of its row's largest value; at most 1
    passes), and the median time of both: K1-K3 at the serving shapes,
    K4's forward, dK/dV and dQ kernels at the align step's (B4 S4096 Hq32
-   Hk8 D128, 4 packed samples per row and a padded tail).
+   Hk8 D128, 4 packed samples per row and a padded tail), K5 at SAM
+   vit_h's global layers (B4 S4096 on a 64 x 64 grid, H16 D80, f32 rel-pos
+   bias) and K6 at SAM's and Depth-Anything's LayerNorm rows.
 4. grad    -- gradients of q, k and v through the CUDA routes of K1 and K2
    against the plain path's, with the same bound.
 5. main    -- region-QA ``generate`` at the full width of llama3-8b (bf16
@@ -33,13 +35,24 @@ Phases, each printed as one JSON line:
    three ``Trainer`` steps with a checkpoint.  Checks the launch counts
    of every step, the first loss, that the frozen modules stay
    bit-unchanged and that the tuned ones move once the lr is above 0.
+7. demo    -- bench_demo.py's pipeline (``demo/pipeline.py``) on 8
+   synthetic photos of 768 x 1024: Depth-Anything ViT-L colorized depth,
+   SAM-HQ vit_h masks for 2 boxes per image in chunks of 4, device
+   preprocessing, region QA on llama3-8b (32 greedy tokens), all from
+   fixed seeds on the card, with ``SRGPT_FUSED_LN``'s switch on.  Checks
+   the launch counts (K5 per SAM global layer and chunk, K6 at every
+   LayerNorm that passes the gate, K1-K3 as in phase 5), then runs the
+   same pipeline on K5's and K6's plain versions and the VLM's xla route
+   and holds depth, mask logits and first-token logits to it; also
+   ``DemoEngine.set_image`` / ``add_regions`` on one photo through the
+   adapters.
 
-The times of phases 5 and 6 are smoke figures of this card, not a
+The times of phases 5-7 are smoke figures of this card, not a
 benchmark.  Then the ``kernels`` line and, last, ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero before that line; so does a machine
 without a CUDA card, and a directory without the port's package.
-``--profile DIR`` also profiles one align step with ``torch.profiler``
-and writes its operator table to DIR.
+``--profile DIR`` also profiles one align step and one demo pipeline run
+with ``torch.profiler`` and writes their operator tables to DIR.
 """
 
 from __future__ import annotations
@@ -79,6 +92,21 @@ CE_CHUNK = 1024
 # run bf16 forward and backward through 26 ViT and 32 decoder layers)
 TRAIN_LOSS_REL_BOUND = 0.01
 TRAIN_GRAD_REL_BOUND = 0.1
+# the demo: bench_demo.py's batch of photos, their size, SAM's chunk
+DEMO_IMAGES = 8
+DEMO_HW = (768, 1024)
+DEMO_SAM_CHUNK = 4
+# kernel path against plain path over the whole demo pipeline, relative L2:
+# the depth (only K6 differs; ViT-L in bf16), SAM's mask logits (K5 in 4 of
+# 32 bf16 layers, K6) and, as in phase 5, the VLM's first-token logits.  On
+# an H100 the sound K6 reads 0.0180 on the depth and a LayerNorm whose
+# statistics leave out a row's last 8 columns reads 0.0214: the depth bound
+# lies between them (PERF.md lists the faults it cannot see)
+DEMO_DEPTH_REL_BOUND = 0.02
+DEMO_MASK_REL_BOUND = 0.05
+# the binary masks must agree wherever the plain path's logit is at least
+# this share of the logits' RMS away from 0
+DEMO_MASK_MARGIN = 0.5
 
 
 class SmokeFailure(Exception):
@@ -208,6 +236,7 @@ def phase_kernels(torch):
 
     from spatialrgpt_tpu_torch.ops import decode_attention as K3
     from spatialrgpt_tpu_torch.ops import flash_attention as K4
+    from spatialrgpt_tpu_torch.ops import layer_norm as K6
     from spatialrgpt_tpu_torch.ops import prefill_attention as K2
     from spatialrgpt_tpu_torch.ops import vit_attention as K1
     from spatialrgpt_tpu_torch.ops._checks import GRAD_FLOOR, bf16_err_over_bound
@@ -274,6 +303,32 @@ def phase_kernels(torch):
          lambda: per_row(torch, K4.flash_attention_bwd_dq_plain, *bwd), (3, 3)),
     ]
 
+    # K5: SAM vit_h's global layers, a chunk of 4 images: q/k/v as views into
+    # the fused qkv projection, f32 rel-pos bias terms of the 64 x 64 grid
+    B, gh, gw, H, D = DEMO_SAM_CHUNK, 64, 64, 16, 80
+    S = gh * gw
+    q5, k5, v5 = rn(B, S, 3, H, D).unbind(2)
+    rel_h = torch.randn(B, H, S, gh, generator=g, device=dev)
+    rel_w = torch.randn(B, H, S, gw, generator=g, device=dev)
+    cases.append((
+        "grid_bias_attention", "spatialrgpt_tpu_torch/csrc/grid_bias_attention.cu",
+        "spatialrgpt_tpu/ops/flash_attention.py:397", {"B": B, "S": S, "grid": [gh, gw], "H": H, "D": D},
+        lambda: K4.grid_bias_attention(q5, k5, v5, rel_h, rel_w, gw),
+        lambda: per_row(torch, lambda *a: K4.grid_bias_attention_plain(*a, gw), q5, k5, v5, rel_h, rel_w), (3, 3),
+    ))
+    # K6: SAM vit_h's encoder rows (a chunk of 4 images x 4096 tokens, C 1280)
+    # and Depth-Anything ViT-L's (8 images x 1814 tokens, C 1024), bf16
+    # weights as the models hold them
+    for rows6, C in ((DEMO_SAM_CHUNK * 4096, 1280), (DEMO_IMAGES * 1814, 1024)):
+        x6 = (torch.randn(rows6, C, generator=g, device=dev) * 3 + 1).to(torch.bfloat16)
+        w6, b6 = rn(C), rn(C)
+        cases.append((
+            "fused_layer_norm", "spatialrgpt_tpu_torch/csrc/layer_norm.cu", "spatialrgpt_tpu/ops/layer_norm.py:36",
+            {"rows": rows6, "C": C},
+            lambda x=x6, w=w6, b=b6: K6.fused_layer_norm(x, w, b, 1e-6),
+            lambda x=x6, w=w6, b=b6: K6.fused_layer_norm_plain(x, w, b, 1e-6), (5, 50),
+        ))
+
     rows = []
     for name, source, replaces, shape, kernel, plain, (reps, iters) in cases:
         out = kernel()
@@ -299,7 +354,11 @@ def phase_kernels(torch):
         check(ratio <= 1.0, f"{name}: error {ratio} x the per-element bound (max abs err {err})")
         rows.append(row)
     torch.cuda.empty_cache()
-    return rows
+    # one row per kernel in the kernels line: K6's at its first (SAM) shape
+    first = {}
+    for row in rows:
+        first.setdefault(row["name"], row)
+    return list(first.values())
 
 
 def phase_grads(torch):
@@ -374,23 +433,27 @@ def build_batch(torch, cfg, rng):
 def reset_counts():
     from spatialrgpt_tpu_torch.ops import decode_attention as K3
     from spatialrgpt_tpu_torch.ops import flash_attention as K4
+    from spatialrgpt_tpu_torch.ops import layer_norm as K6
     from spatialrgpt_tpu_torch.ops import prefill_attention as K2
     from spatialrgpt_tpu_torch.ops import vit_attention as K1
 
-    for m in (K1, K2, K3):
+    for m in (K1, K2, K3, K6):
         m.launches = 0
     for name in K4.launches:
         K4.launches[name] = 0
+    K4.grid_bias_launches = 0
 
 
 def read_counts() -> dict:
     from spatialrgpt_tpu_torch.ops import decode_attention as K3
     from spatialrgpt_tpu_torch.ops import flash_attention as K4
+    from spatialrgpt_tpu_torch.ops import layer_norm as K6
     from spatialrgpt_tpu_torch.ops import prefill_attention as K2
     from spatialrgpt_tpu_torch.ops import vit_attention as K1
 
     return {"vit_attention": K1.launches, "onepass_attention": K2.launches,
-            "decode_attention_int8_flat": K3.launches, **K4.launches}
+            "decode_attention_int8_flat": K3.launches, **K4.launches,
+            "grid_bias_attention": K4.grid_bias_launches, "fused_layer_norm": K6.launches}
 
 
 def phase_main(torch) -> dict:
@@ -434,6 +497,7 @@ def phase_main(torch) -> dict:
         "onepass_attention": L,
         "decode_attention_int8_flat": L * (MAX_NEW - 1),
         "flash_attention_fwd": 0, "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
+        "grid_bias_attention": 0, "fused_layer_norm": 0,
     }
     vocab = cfg.llm.vocab_size + cfg.num_extra_tokens
     tokens, first = res.tokens, res.first_logits
@@ -546,7 +610,8 @@ def phase_train(torch, profile_dir):
 
     L, T = cfg.llm.num_hidden_layers, cfg.vision.num_hidden_layers + 1 + cfg.vision.select_layer
     want_step = {"vit_attention": T, "onepass_attention": 0, "decode_attention_int8_flat": 0,
-                 "flash_attention_fwd": 2 * L, "flash_attention_bwd_dkv": L, "flash_attention_bwd_dq": L}
+                 "flash_attention_fwd": 2 * L, "flash_attention_bwd_dkv": L, "flash_attention_bwd_dq": L,
+                 "grid_bias_attention": 0, "fused_layer_norm": 0}
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as out_dir:
         saved = []
@@ -603,39 +668,205 @@ def phase_train(torch, profile_dir):
     })
     check(all(checks.values()), f"train checks failed: {checks}")
     if profile_dir:
-        profile_step(torch, step_fn, create_train_state(model, optimizer), batch, profile_dir)
+        state = create_train_state(model, optimizer)
+        profile_run(torch, lambda: step_fn(state, batch), profile_dir, "train_step")
     return counts
 
 
-def profile_step(torch, step_fn, state, batch, out_dir):
-    """One align step under torch.profiler: device-busy share and the
-    operator table by device time, written to ``out_dir``.  Device time is
-    summed over the device's own events (kernels, copies); an operator's
-    "self device time" repeats the time of the kernels it launched."""
+def demo_expected_counts(vlm_cfg, sam_cfg, da_cfg, n_images: int, chunk: int, hw):
+    """The demo pipeline's launch counts, from its shapes, and K6's by stage.
+    K6 is counted at every LayerNorm whose input passes
+    ``ops/layers.py::layer_norm``'s gate (bf16, C % 128 == 0, at least 4096
+    rows): per stage and site, the rows and width it normalizes."""
+    from spatialrgpt_tpu_torch.models.depth_anything import resize_lower_bound_hw
+
+    def gate(rows: int, c: int) -> int:
+        return int(c % 128 == 0 and rows >= 4096)
+
+    # Depth-Anything: norm1 + norm2 per layer over cls + patch tokens, and the
+    # final norm at each selected layer
+    oh, ow = resize_lower_bound_hw(*hw, 518, da_cfg.patch_size)
+    da_rows = n_images * (1 + (oh // da_cfg.patch_size) * (ow // da_cfg.patch_size))
+    depth = gate(da_rows, da_cfg.hidden_size) * (2 * da_cfg.num_hidden_layers + len(da_cfg.out_indices))
+    # SAM-HQ per chunk of b images, 2 boxes (prompt rows) per image
+    v, g, c = sam_cfg.vision, sam_cfg.image_embedding_size, sam_cfg.decoder_hidden_size
+    chunks = [min(chunk, n_images - i) for i in range(0, n_images, chunk)]
+    sam = 0
+    for b in chunks:
+        sam += gate(b * g * g, v.hidden_size) * 2 * v.num_hidden_layers  # ln1, ln2 (before windowing)
+        sam += gate(b * g * g, v.output_channels) * 2  # neck
+        # the mask decoder runs in f32 as the reference's does: the box
+        # prompts' Fourier features are f32 and promote the tokens, and the
+        # keys after the first image-to-token attention; only the HQ head's
+        # norms over the bf16 image embedding and ViT features stay bf16
+        sam += gate(2 * b * 4 * g * g, c // 4)  # HQ encoder norm
+        sam += gate(2 * b * 4 * g * g, c)  # HQ compress-ViT norm
+    # the VLM: SigLIP over [images; depths], the refinement's deconv norms,
+    # the projector's norm (Llama's are RMSNorms)
+    sv, r = vlm_cfg.vision, vlm_cfg.region
+    side = sv.image_size // sv.patch_size
+    layers_run = sv.num_hidden_layers + 1 + sv.select_layer
+    vlm = gate(2 * n_images * side * side, sv.hidden_size) * 2 * layers_run
+    vlm += sum(gate(n_images * (side * 2 ** (d + 1)) ** 2, r.mm_hidden_size) for d in range(r.deconv_depth - 1))
+    vlm += gate(n_images * ((r.ada_pool_size + 1) // 2) ** 2, 4 * vlm_cfg.projector.mm_hidden_size)
+    L = vlm_cfg.llm.num_hidden_layers
+    counts = {
+        "vit_attention": layers_run, "onepass_attention": L, "decode_attention_int8_flat": L * (MAX_NEW - 1),
+        "flash_attention_fwd": 0, "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
+        "grid_bias_attention": len(v.global_attn_indexes) * len(chunks), "fused_layer_norm": depth + sam + vlm,
+    }
+    return counts, {"depth": depth, "sam": sam, "vlm": vlm}
+
+
+def phase_demo(torch, profile_dir=None) -> dict:
+    import numpy as np
+
+    from spatialrgpt_tpu_torch.demo import pipeline
+    from spatialrgpt_tpu_torch.models import depth_anything as tda
+    from spatialrgpt_tpu_torch.models.sam import SamConfig
+    from spatialrgpt_tpu_torch.ops import layers
+    from spatialrgpt_tpu_torch.utils.weights import init_random, init_random_depth_anything, init_random_sam_hq
+
+    dev = torch.device(DEVICE)
+    cfg, scfg, dcfg = llama3_8b_cfg(), SamConfig(), tda.DepthAnythingConfig()  # llama3-8b, SAM-HQ vit_h, DA ViT-L
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    models = pipeline.DemoModels(
+        depth=tda.DepthPredictor(init_random_depth_anything(dcfg, dev, torch.bfloat16, seed=2), dcfg),
+        sam=init_random_sam_hq(scfg, dev, torch.bfloat16, seed=1), sam_cfg=scfg,
+        vlm=init_random(cfg, dev, torch.bfloat16, seed=0), vlm_cfg=cfg,
+    )
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    h, w = DEMO_HW
+    photos = np.stack([pipeline.synth_photo(rng, h, w) for _ in range(DEMO_IMAGES)])
+    images = torch.as_tensor(photos, device=dev)
+    boxes = torch.as_tensor(pipeline.demo_boxes(DEMO_IMAGES, h, w), device=dev)
+    spliced = pipeline.demo_prompts(cfg, rng, DEMO_IMAGES)
+
+    def run(impl):
+        return pipeline.run_pipeline(models, images, boxes, spliced, MAX_NEW, attn_impl=impl, chunk=DEMO_SAM_CHUNK,
+                                     sync=torch.cuda.synchronize)
+
+    def depth_and_head():
+        """Depth maps and the head's pre-relu output of the photos (all 8:
+        Depth-Anything's rows pass K6's gate from 3 photos on)."""
+        with torch.no_grad():
+            px = models.depth.preprocess(images)
+            return models.depth.depth(images), tda.head_logits(models.depth.model, px, dcfg)
+
+    fused_before = layers.FUSED_LN
+    try:
+        layers.FUSED_LN = True
+        run("onepass")  # warm-up: cuBLAS / cuDNN handles, allocator, every op of the path once
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        out = run("onepass")
+        counts = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        depth_k, head_k = depth_and_head()
+        engine = pipeline.DemoEngine(pipeline.segment_boxes_fn(models.sam, scfg),
+                                     pipeline.estimate_depth_fn(models.depth), generate=None)
+        state = pipeline.DemoState()
+        engine.set_image(state, photos[0])
+        overlay = engine.add_regions(state, pipeline.demo_boxes(1, h, w)[0].tolist())
+        layers.FUSED_LN = False
+        plain = run("xla")
+        depth_p, head_p = depth_and_head()
+    finally:
+        layers.FUSED_LN = fused_before
+
+    want, by_stage = demo_expected_counts(cfg, scfg, dcfg, DEMO_IMAGES, DEMO_SAM_CHUNK, DEMO_HW)
+    logits, ref = out.mask_logits, plain.mask_logits
+    rms = float(ref.float().square().mean().sqrt())
+    sure = ref.abs() > DEMO_MASK_MARGIN * rms
+    mask_mismatch = int(((logits > 0) != (ref > 0))[sure].sum())
+    depth_spread = float(depth_k.float().std())
+    # a random relu head may output a constant map: then its input is compared
+    depth_rel = rel_l2(depth_k, depth_p) if depth_spread > 0 else rel_l2(head_k, head_p)
+    mask_rel = rel_l2(logits, ref)
+    first_rel = rel_l2(out.result.first_logits, plain.result.first_logits)
+    vocab = cfg.llm.vocab_size + cfg.num_extra_tokens
+    tokens, g = out.result.tokens, scfg.image_embedding_size * 4
+    checks = {
+        "colorized_shape": list(out.colorized.shape) == [DEMO_IMAGES, h, w, 3] and out.colorized.dtype == torch.uint8,
+        "mask_logits_shape_finite": list(logits.shape) == [DEMO_IMAGES * 2, g, g] and bool(torch.isfinite(logits).all()),
+        "tokens_shape_in_vocab": list(tokens.shape) == [DEMO_IMAGES, MAX_NEW] and bool(((tokens >= 0) & (tokens < vocab)).all()),
+        "logits_finite": bool(torch.isfinite(out.result.first_logits).all()),
+        "launch_counts": counts == want,
+        "depth_vs_plain": depth_rel <= DEMO_DEPTH_REL_BOUND,
+        "mask_logits_vs_plain": mask_rel <= DEMO_MASK_REL_BOUND,
+        "masks_vs_plain_beyond_margin": mask_mismatch == 0,
+        "first_logits_vs_plain": first_rel <= LOGITS_REL_BOUND,
+        "engine_depth_and_masks": state.depth_colorized.shape == (h, w, 3) and len(state.region_masks) == 2
+        and all(m.shape == (h, w) and m.dtype == np.uint8 for m in state.region_masks) and overlay.shape == (h, w, 3),
+    }
+    seconds = out.seconds
+    emit({
+        "phase": "demo", "ok": all(checks.values()), "checks": checks,
+        "models": "Depth-Anything ViT-L (24 layers) + SAM-HQ vit_h (32 layers) + llama3-8b (32 layers) with "
+                  "siglip-so400m (26 of 27 layers), bf16, random from seeds 2 / 1 / 0; SRGPT_FUSED_LN on",
+        "batch": {"images": DEMO_IMAGES, "hw": list(DEMO_HW), "boxes_per_image": 2, "sam_chunk": DEMO_SAM_CHUNK,
+                  "prompt_bucket": PAD_BUCKET, "max_new_tokens": MAX_NEW},
+        "launches": counts, "launches_expected": want, "fused_layer_norm_expected_by_stage": by_stage,
+        "depth_spread_std": depth_spread, "depth_compared": "depth" if depth_spread > 0 else "head pre-relu",
+        "depth_rel_l2_vs_plain": depth_rel, "depth_bound": DEMO_DEPTH_REL_BOUND,
+        "mask_logits_rel_l2_vs_plain": mask_rel, "mask_bound": DEMO_MASK_REL_BOUND,
+        "mask_margin_abs": DEMO_MASK_MARGIN * rms, "mask_pixels_beyond_margin": int(sure.sum()),
+        "mask_mismatches_beyond_margin": mask_mismatch,
+        "mask_pixels_positive_share": float((logits > 0).float().mean()),
+        "first_logits_rel_l2_vs_plain": first_rel, "rel_bound": LOGITS_REL_BOUND,
+        "tokens_agreement_vs_plain": float((tokens == plain.result.tokens).float().mean()),
+        "smoke_figures_not_a_benchmark": {
+            "init_s": init_s, "images_per_s": DEMO_IMAGES / sum(seconds.values()), **seconds,
+            "plain_path_seconds": plain.seconds, "peak_mem_gb": peak_gb,
+        },
+    })
+    check(all(checks.values()), f"demo checks failed: {checks}")
+    if profile_dir:
+        layers.FUSED_LN = True
+        try:
+            profile_run(torch, lambda: run("onepass"), profile_dir, "demo_pipeline")
+        finally:
+            layers.FUSED_LN = fused_before
+    return counts
+
+
+def profile_run(torch, fn, out_dir, name):
+    """One warm call of ``fn`` under torch.profiler: device-busy share and
+    the operator table by device time, written to ``out_dir/<name>_ops.txt``.
+    Device time is summed over the device's own events (kernels, copies); an
+    operator's "self device time" repeats the time of the kernels it
+    launched."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(out_dir, exist_ok=True)
-    step_fn(state, batch)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step_fn(state, batch)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    # the device's own events; a profiler range (a demo stage) also appears
+    # on the device as a user annotation spanning its kernels
     events = prof.key_averages()
-    busy_us = sum(e.self_device_time_total for e in events if e.device_type == DeviceType.CUDA)
-    with open(os.path.join(out_dir, "train_step_ops.txt"), "w") as f:
+    device = [e for e in events if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    busy_us = sum(e.self_device_time_total for e in device)
+    with open(os.path.join(out_dir, f"{name}_ops.txt"), "w") as f:
         f.write(events.table(sort_by="self_device_time_total", row_limit=60))
-    top = sorted((e for e in events if e.device_type == DeviceType.CUDA), key=lambda e: -e.self_device_time_total)[:25]
-    emit({"phase": "profile", "ok": True, "wall_s": wall, "device_busy_s": busy_us / 1e6,
+    top = sorted(device, key=lambda e: -e.self_device_time_total)[:25]
+    emit({"phase": "profile", "ok": True, "run": name, "wall_s": wall, "device_busy_s": busy_us / 1e6,
           "device_idle_share": max(0.0, 1 - busy_us / 1e6 / wall),
           "top_kernels_ms_calls": {e.key[:120]: [e.self_device_time_total / 1e3, e.count] for e in top}})
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--profile", metavar="DIR", help="also profile one align step; write its table to DIR")
+    parser.add_argument("--profile", metavar="DIR", help="also profile one align step and one demo pipeline run; "
+                        "write their tables to DIR")
     args = parser.parse_args()
     if not os.path.isdir(os.path.join(ROOT, "spatialrgpt_tpu_torch")):
         print("chip_smoke.py: run it from a checkout of the repository (spatialrgpt_tpu_torch/ is missing)",
@@ -658,13 +889,17 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase = "train"
         train = phase_train(torch, args.profile)
+        torch.cuda.empty_cache()
+        phase = "demo"
+        demo = phase_demo(torch, args.profile)
     except Exception as e:  # report which phase failed, then exit non-zero
         traceback.print_exc()
         emit({"phase": phase, "ok": False, "error": f"{type(e).__name__}: {e}"})
         return 1
     for row in rows:
-        row["launches"] = serve[row["name"]] + train[row["name"]]
-        row["launches_by_path"] = {"serve": serve[row["name"]], "train": train[row["name"]]}
+        by_path = {"serve": serve[row["name"]], "train": train[row["name"]], "demo": demo[row["name"]]}
+        row["launches"] = sum(by_path.values())
+        row["launches_by_path"] = by_path
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({
         "ok": True,

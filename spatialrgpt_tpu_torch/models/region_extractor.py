@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from spatialrgpt_tpu.config import RegionExtractorConfig
-from spatialrgpt_tpu_torch.ops.layers import gelu_erf, layer_norm, linear
+from spatialrgpt_tpu_torch.ops.layers import deconv, gelu_erf, layer_norm, linear
 
 
 class RegionExtractor(nn.Module):
@@ -29,7 +29,7 @@ class RegionExtractor(nn.Module):
         c, h = cfg.mm_hidden_size, cfg.hidden_size
         mods = []
         for d in range(cfg.deconv_depth):
-            # parameter storage only (weight (C_in, C_out, 2, 2)); see deconv2x2_s2
+            # parameter storage only (weight (C_in, C_out, 2, 2)); see ops/layers.py::deconv
             mods.append(nn.ConvTranspose2d(c, c, 2, stride=2, dtype=dtype))
             if d < cfg.deconv_depth - 1:
                 mods.append(nn.LayerNorm(c, eps=1e-6, dtype=dtype))
@@ -43,22 +43,6 @@ class RegionExtractor(nn.Module):
 
     def lns(self):
         return [m for m in self.feature_refinement_module if isinstance(m, nn.LayerNorm)]
-
-
-def deconv2x2_s2(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """Stride-2 kernel-2 transposed conv: every input pixel (i, j) makes the
-    output block (2i..2i+1, 2j..2j+1) as ``x[i, j] @ W[:, :, di, dj]``.
-
-    x: (N, H, W, C_in) NHWC; weight: (C_in, C_out, 2, 2) -> (N, 2H, 2W, C_out).
-    The product is cast to the input dtype before the bias add, as in the
-    reference."""
-    n, h, w, ci = x.shape
-    co = weight.shape[1]
-    k = weight.to(x.dtype).permute(0, 2, 3, 1).reshape(ci, 4 * co)  # (Ci, (p, q, Co))
-    y = torch.matmul(x.reshape(-1, ci), k).reshape(n, h, w, 2, 2, co)
-    y = y + bias.to(x.dtype)
-    # interleave: (N, H, 2, W, 2, Co) -> (N, 2H, 2W, Co)
-    return y.permute(0, 1, 3, 2, 4, 5).reshape(n, 2 * h, 2 * w, co)
 
 
 def _adaptive_pool_matrix(in_size: int, out_size: int) -> np.ndarray:
@@ -90,7 +74,7 @@ def feature_refinement(
     x = tower_features.reshape(n, side, side, c)
     deconvs, lns = module.deconvs(), module.lns()
     for d, dc in enumerate(deconvs):
-        x = deconv2x2_s2(x, dc.weight, dc.bias)
+        x = deconv(x, dc.weight, dc.bias)
         if d < len(deconvs) - 1:
             x = layer_norm(x, lns[d].weight, lns[d].bias, eps=1e-6)
         x = gelu_erf(x)

@@ -1,5 +1,6 @@
 """K4: FlashAttention-2 forward and backward for packed-segment causal GQA
-(the training step's attention).
+(the training step's attention), and K5: SAM's grid-bias attention (end of
+the file).
 
 Port of the Pallas kernels of
 ``spatialrgpt_tpu/ops/flash_attention.py::flash_attention`` (``_fwd`` and
@@ -246,3 +247,68 @@ def flash_attention(
         segment_ids = torch.ones(q.shape[:2], dtype=torch.int32, device=q.device)
     out = FlashAttention.apply(q, k, v, segment_ids.to(torch.int32).contiguous())
     return out * (segment_ids != 0)[:, :, None, None].to(out.dtype)
+
+
+# ---------------------------------------------------------------------------
+# K5: attention with SAM ViT-det's decomposed 2-D rel-pos bias, forward only
+# (grid_bias_attention, csrc/grid_bias_attention.cu)
+# ---------------------------------------------------------------------------
+
+grid_bias_launches = 0  # K5 kernel launches since the last reset
+
+
+def grid_bias_attention_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rel_h: torch.Tensor, rel_w: torch.Tensor, grid_w: int
+) -> torch.Tensor:
+    """The Pallas kernel's function in plain PyTorch, as XLA runs it in the
+    reference: dense f32 scores ``q.k * D^-0.5 + rel_h[q, k // gw] +
+    rel_w[q, k % gw]`` (the bias added after the scaling, as HF builds it
+    from the unscaled q), one f32 softmax, the probabilities cast to the
+    value dtype, then PV.  (B, S, H, D) -> (B, S, H, D)."""
+    B, S, H, D = q.shape
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * D**-0.5
+    s = (s.view(B, H, S, S // grid_w, grid_w) + rel_h.float()[..., None] + rel_w.float()[..., None, :]).view(B, H, S, S)
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1).to(v.dtype), v)
+
+
+def grid_bias_attention(
+    q: torch.Tensor,  # (B, S, H, D) over a flattened gh x gw token grid
+    k: torch.Tensor,
+    v: torch.Tensor,
+    rel_h: torch.Tensor,  # (B, H, S, gh) f32: query x key-row bias
+    rel_w: torch.Tensor,  # (B, H, S, gw) f32: query x key-column bias
+    grid_w: int,  # gw: keys per grid row (k = kh * gw + kw)
+) -> torch.Tensor:
+    """SAM's global-layer attention with the decomposed rel-pos bias; K5 on
+    the card.  Forward only, as the reference (which SAM's demo never
+    differentiates): an input that requires grad raises rather than losing
+    its gradient."""
+    name = "grid_bias_attention"
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, rel_h, rel_w)):
+        raise RuntimeError(f"{name} is forward only: run it under torch.no_grad() or on detached inputs")
+    if q.device.type == "cpu":
+        return grid_bias_attention_plain(q, k, v, rel_h, rel_w, grid_w)
+    if k.shape != q.shape:
+        raise ValueError(f"{name}: k/v shape {tuple(k.shape)} != q shape {tuple(q.shape)}")
+    B, S, H, D = q.shape
+    if grid_w <= 0 or S % grid_w:
+        raise ValueError(f"{name}: grid_w {grid_w} must divide S {S}")
+    gh = S // grid_w
+    for t, shape in ((rel_h, (B, H, S, gh)), (rel_w, (B, H, S, grid_w))):
+        check_dtype(name, torch.float32, t)
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous {shape} float32 bias, got {tuple(t.shape)}")
+    check_bshd(name, q, k, v)
+    if rel_h.device != q.device or rel_w.device != q.device:
+        raise ValueError(f"{name}: all tensors must be on {q.device}")
+    out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    err = _build.lib().srgpt_grid_bias_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(), out.data_ptr(),
+        B, S, H, D, gh, grid_w,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        D**-0.5, _build.stream_ptr(q),
+    )
+    _build.check(err, name)
+    global grid_bias_launches
+    grid_bias_launches += 1
+    return out

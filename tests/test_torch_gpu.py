@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
-version in bf16, gradients through K1, K2 and K4, a tiny region-QA
-``generate`` through K1-K3 and a tiny align step through K1 and K4.
+version in bf16, gradients through K1, K2, K4 and K6, a tiny region-QA
+``generate`` through K1-K3, a tiny align step through K1 and K4, and a
+narrow demo pipeline (Depth-Anything -> SAM-HQ -> region QA) through K5
+and K6.
 
 Every test here is marked ``gpu`` and skips where there is no CUDA card
 (the kernels are CUDA C++ for sm_90a and have no CPU mode).  The file
@@ -26,6 +28,8 @@ from spatialrgpt_tpu.data.splice import expand_rows
 from spatialrgpt_tpu_torch.models.vlm import VLMInputs
 from spatialrgpt_tpu_torch.ops import decode_attention as K3
 from spatialrgpt_tpu_torch.ops import flash_attention as K4
+from spatialrgpt_tpu_torch.ops import flash_attention as K5
+from spatialrgpt_tpu_torch.ops import layer_norm as K6
 from spatialrgpt_tpu_torch.ops import prefill_attention as K2
 from spatialrgpt_tpu_torch.ops import vit_attention as K1
 from spatialrgpt_tpu_torch.ops._checks import GRAD_FLOOR, bf16_err_over_bound
@@ -261,3 +265,126 @@ def test_tiny_align_step_runs_k1_and_k4(cuda):
     assert pk1 == 0 and set(pk4.values()) == {0}
     assert abs(loss - ploss) <= 0.01 * abs(ploss)
     assert float((grad - pgrad).norm() / pgrad.norm()) < 0.05
+
+
+@pytest.mark.parametrize("gh,gw,D", [(32, 48, 80), (32, 48, 64), (64, 64, 80), (10, 13, 64)])
+def test_grid_bias_kernel_matches_plain(cuda, gh, gw, D):
+    """K5 against its plain version: SAM vit_h's grid and head dim (64 x 64,
+    D 80), vit_b's D 64 (padded to 80 in shared memory), a grid row that is
+    not one key tile (gw 48: tiles straddle rows), and S = 130, not a
+    multiple of 64; q/k/v are views into a fused (B, S, 3, H, D) projection,
+    as SAM's attention passes them."""
+    rng = np.random.default_rng(8)
+    B, H, S = 2, 3, gh * gw
+    q, k, v = _rand(rng, B, S, 3, H, D, device=cuda).unbind(2)
+    rel_h = torch.tensor(rng.standard_normal((B, H, S, gh)).astype(np.float32), device=cuda)
+    rel_w = torch.tensor(rng.standard_normal((B, H, S, gw)).astype(np.float32), device=cuda)
+    before = K5.grid_bias_launches
+    out = K5.grid_bias_attention(q, k, v, rel_h, rel_w, gw)
+    torch.cuda.synchronize()
+    assert K5.grid_bias_launches == before + 1
+    _bf16_close(out, K5.grid_bias_attention_plain(q, k, v, rel_h, rel_w, gw))
+
+
+def test_grid_bias_bound_separates_a_skipped_key_tile(cuda):
+    """At vit_h's grid (gw 64) a key tile is one grid row, so the kernel run
+    with that row's rel_h at -inf is a kernel that skips the tile: against
+    the plain version on the true bias it exceeds the bound that the sound
+    kernel meets."""
+    rng = np.random.default_rng(9)
+    B, H, D, gh, gw = 1, 2, 80, 64, 64
+    S = gh * gw
+    q, k, v = (_rand(rng, B, S, H, D, device=cuda) for _ in range(3))
+    rel_h = torch.tensor(rng.standard_normal((B, H, S, gh)).astype(np.float32), device=cuda)
+    rel_w = torch.tensor(rng.standard_normal((B, H, S, gw)).astype(np.float32), device=cuda)
+    ref = K5.grid_bias_attention_plain(q, k, v, rel_h, rel_w, gw)
+    skipped = rel_h.clone()
+    skipped[..., 17] = -torch.inf
+    assert bf16_err_over_bound(K5.grid_bias_attention(q, k, v, rel_h, rel_w, gw), ref) <= 1.0
+    assert bf16_err_over_bound(K5.grid_bias_attention(q, k, v, skipped, rel_w, gw), ref) > 1.0
+
+
+@pytest.mark.parametrize("rows,C,offset", [(4099, 1280, 0), (37, 200, 0), (5, 77, 0), (3, 4100, 0), (70, 256, 3)])
+def test_layer_norm_kernel_matches_plain(cuda, rows, C, offset):
+    """K6 against its plain version: a ragged row count at SAM's width, a C
+    that is a multiple of 8 but not of 128, a C that is not a multiple of 8
+    (one element per lane), C > 2048 (the row read once per pass) and a row
+    start that is not 16-byte aligned (the scalar route); bf16 weights as
+    the models hold them.  Gradients flow through the kernel route."""
+    rng = np.random.default_rng(rows)
+    base = torch.tensor((rng.standard_normal(rows * C + offset) * 3 + 1).astype(np.float32), device=cuda)
+    x = base.to(torch.bfloat16)[offset:].view(rows, C)
+    w, b = _rand(rng, C, device=cuda), _rand(rng, C, device=cuda)
+    before = K6.launches
+    out = K6.fused_layer_norm(x, w, b, 1e-6)
+    torch.cuda.synchronize()
+    assert K6.launches == before + 1
+    _bf16_close(out, K6.fused_layer_norm_plain(x, w, b, 1e-6))
+    g = _rand(rng, rows, C, device=cuda)
+    grads = []
+    for fn in (K6.fused_layer_norm, K6.fused_layer_norm_plain):
+        ins = [t.detach().clone().requires_grad_() for t in (x, w, b)]
+        fn(*ins, 1e-6).backward(g)
+        grads.append([t.grad for t in ins])
+    for got, want in zip(*grads):
+        assert got is not None and torch.equal(got, want)
+
+
+def test_narrow_demo_pipeline_runs_k5_and_k6(cuda, monkeypatch):
+    """The demo pipeline at full resolution (8 -> 4 photos of 768 x 1024,
+    SAM at 1024 px, SigLIP at 384 px) but narrow and shallow models (width
+    128, 1-4 layers), with ``SRGPT_FUSED_LN``'s switch on: K5 once per SAM
+    global layer and chunk, K6 at every LayerNorm that passes the gate
+    (Depth-Anything 2 x 4 layers + 4 final norms; per SAM chunk 2 x 2
+    layers + 2 neck + the compress-ViT norm, the rest of the mask decoder
+    runs in f32 as the reference's does; SigLIP 2 x 1 layer + the
+    refinement norm: 12 + 2 x 7 + 3 = 29); outputs agree with the plain
+    path's (K5's and K6's plain versions, the VLM's xla route)."""
+    from spatialrgpt_tpu_torch.demo import pipeline
+    from spatialrgpt_tpu_torch.models import depth_anything as tda
+    from spatialrgpt_tpu_torch.models import sam as tsam
+    from spatialrgpt_tpu_torch.ops import layers
+    from spatialrgpt_tpu_torch.utils.weights import init_random_depth_anything, init_random_sam_hq
+
+    cfg = SpatialRGPTConfig(
+        llm=LlamaConfig(vocab_size=64, hidden_size=128, intermediate_size=256, num_hidden_layers=2,
+                        num_attention_heads=4, num_key_value_heads=2, eos_token_id=63),
+        vision=SiglipVisionConfig(hidden_size=128, intermediate_size=256, num_hidden_layers=2, num_attention_heads=2),
+        projector=ProjectorConfig(mm_hidden_size=128, hidden_size=128),
+        region=RegionExtractorConfig(mm_hidden_size=128, hidden_size=128),
+        mask_token_id=60, depth_token_id=61,
+    )
+    scfg = tsam.SamConfig(
+        vision=tsam.SamVisionConfig(hidden_size=128, num_hidden_layers=2, num_attention_heads=2, intermediate_size=256,
+                                    output_channels=128, global_attn_indexes=(1,)),
+        prompt_hidden_size=128, decoder_hidden_size=128, decoder_num_heads=4, decoder_mlp_dim=256,
+    )
+    dcfg = tda.DepthAnythingConfig(hidden_size=128, num_hidden_layers=4, num_attention_heads=2, intermediate_size=256,
+                                   out_indices=(1, 2, 3, 4), neck_hidden_sizes=(32, 64, 128, 128),
+                                   fusion_hidden_size=64, head_hidden_size=16)
+    models = pipeline.DemoModels(
+        depth=tda.DepthPredictor(init_random_depth_anything(dcfg, cuda, torch.bfloat16, seed=1), dcfg),
+        sam=init_random_sam_hq(scfg, cuda, torch.bfloat16, seed=2), sam_cfg=scfg,
+        vlm=init_random(cfg, cuda, torch.bfloat16, seed=3), vlm_cfg=cfg,
+    )
+    rng = np.random.default_rng(10)
+    B, h, w = 4, 768, 1024
+    images = torch.tensor(np.stack([pipeline.synth_photo(rng, h, w) for _ in range(B)]), device=cuda)
+    boxes = torch.tensor(pipeline.demo_boxes(B, h, w), device=cuda)
+    sb = pipeline.demo_prompts(cfg, rng, B)
+    runs = {}
+    for impl, fused in (("onepass", True), ("xla", False)):
+        monkeypatch.setattr(layers, "FUSED_LN", fused)
+        K5.grid_bias_launches, K6.launches = 0, 0
+        out = pipeline.run_pipeline(models, images, boxes, sb, 4, attn_impl=impl, chunk=2, sync=torch.cuda.synchronize)
+        runs[impl] = (out, (K5.grid_bias_launches, K6.launches), models.depth.depth(images))
+    (fast, launches, depth), (plain, plain_launches, plain_depth) = runs["onepass"], runs["xla"]
+    assert launches == (2, 29) and plain_launches == (0, 0)
+    assert fast.colorized.shape == (B, h, w, 3) and fast.mask_logits.shape == (2 * B, 256, 256)
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    assert float(plain_depth.float().std()) > 0 and rel(depth, plain_depth) < 0.05
+    assert rel(fast.mask_logits, plain.mask_logits) < 0.05
+    assert rel(fast.result.first_logits, plain.result.first_logits) < 0.05

@@ -109,8 +109,8 @@ def test_quantize_kv_half_steps_round_to_even():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port (the training slice's included), and
-    chip_smoke.py, import without jax."""
+    """Every module of the port (the training and demo slices' included),
+    and chip_smoke.py, import without jax."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import spatialrgpt_tpu_torch as p\n"
@@ -120,7 +120,8 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'jaxlib']\n"
         "assert not bad, bad\n"
         "assert len(names) >= 15, names\n"
-        "new = {'ops._autograd', 'ops.flash_attention', 'train.optimizer', 'train.step', 'train.trainer'}\n"
+        "new = {'ops._autograd', 'ops.flash_attention', 'train.optimizer', 'train.step', 'train.trainer',\n"
+        "       'ops.layer_norm', 'models.sam', 'models.depth_anything', 'data.device_preprocess', 'demo.pipeline'}\n"
         "assert {'spatialrgpt_tpu_torch.' + n for n in new} <= set(names), names\n"
         "print(len(names))\n"
     )
