@@ -10,14 +10,25 @@ Phases, each printed as one JSON line:
 2. build   -- nvcc builds every kernel of ``spatialrgpt_tpu_torch/csrc``
    (one nvcc per source, all at once).
 3. kernel  -- each kernel against its plain PyTorch version at its main
-   path's shapes, in bf16, with the max abs error, its ratio to the
+   path's shapes, in bf16, with the max abs error and its ratio to the
    per-element bound of ``ops/_checks.py::bf16_err_over_bound`` (4 bf16
    ulps of the element plus of its row's largest value; at most 1
-   passes), and the median time of both: K1-K3 at the serving shapes,
-   K4's forward, dK/dV and dQ kernels at the align step's (B4 S4096 Hq32
-   Hk8 D128, 4 packed samples per row and a padded tail), K5 at SAM
-   vit_h's global layers (B4 S4096 on a 64 x 64 grid, H16 D80, f32 rel-pos
-   bias) and K6 at SAM's and Depth-Anything's LayerNorm rows.
+   passes): K1-K3 at the serving shapes, K4's forward, dK/dV and dQ
+   kernels at the align step's (B4 S4096 Hq32 Hk8 D128, 4 packed samples
+   per row and a padded tail), K5 at SAM vit_h's global layers (B4 S4096
+   on a 64 x 64 grid, H16 D80, f32 rel-pos bias) and K6 at SAM's and
+   Depth-Anything's LayerNorm rows.  Per row: the device time of the
+   kernel (``ms``), of its plain version (``plain_ms``) and of one PyTorch
+   call of the same function (``library_ms``, with ``library`` naming it
+   and its pinned SDPA backend; null for K3, which no single call
+   computes), all by CUDA events: around one replay of a CUDA graph of
+   many calls where a call is shorter than its launch on the host (K1-K3,
+   K6), around many back-to-back calls for the kernels of milliseconds
+   (K4, K5); and ``bound_ms`` / ``bound_by``, the larger of the live
+   work's operations over the bf16 peak (989 TFLOP/s) and its bytes over
+   3.35 TB/s (causal and segment pairs only for K2 and K4, and q, k, v
+   read at positions of a nonzero segment only; K3's live cache
+   positions).
 4. grad    -- gradients of q, k and v through the CUDA routes of K1 and K2
    against the plain path's, with the same bound.
 5. main    -- region-QA ``generate`` at the full width of llama3-8b (bf16
@@ -122,21 +133,6 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def time_ms(torch, fn, reps: int = 5, iters: int = 10) -> float:
-    """Median over ``reps`` timed runs of ``iters`` calls each, ms per call."""
-    fn()
-    torch.cuda.synchronize()
-    runs = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        runs.append((time.perf_counter() - t0) * 1e3 / iters)
-    return statistics.median(runs)
-
-
 def rel_l2(a, b) -> float:
     return float((a.float() - b.float()).norm() / b.float().norm())
 
@@ -231,8 +227,114 @@ def per_row(torch, fn, *args):
     return torch.cat(outs)
 
 
+def event_ms(torch, fn, iters: int, reps: int = 3) -> float:
+    """Device time per call of a function that runs for milliseconds: CUDA
+    events around ``iters`` back-to-back calls after a warm-up call, the
+    median of ``reps`` such runs.  The host enqueues the next call while
+    the device runs this one, so its launch cost stays hidden."""
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(end) / iters)
+    return statistics.median(runs)
+
+
+def graph_ms(torch, fn, iters: int, reps: int = 3) -> float:
+    """Device time per call of a function shorter than its own launch on
+    the host (ctypes, the wrapper's checks, PyTorch's dispatch): ``iters``
+    calls captured in one CUDA graph after a warm-up call, CUDA events
+    around one replay, the median of ``reps`` replays."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(end) / iters)
+    del graph
+    torch.cuda.empty_cache()
+    return statistics.median(runs)
+
+
+TIMERS = {
+    "graph": (graph_ms, "a CUDA graph of {n} calls, CUDA events around its replay, median of 3 replays"),
+    "events": (event_ms, "CUDA events around {n} back-to-back calls, median of 3 runs"),
+}
+
+
+# the H100 SXM's dense bf16 tensor-core peak and its memory rate (NVIDIA's
+# data sheet), for the least time a kernel's work can take on this card
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_S = 3.35e12
+
+
+def bound(flops: float, nbytes: float) -> dict:
+    """The larger of operations over the bf16 peak and bytes (each input
+    read once, each output written once) over the memory rate, in ms."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def live_bytes(seg, *tensors) -> int:
+    """Bytes of per-position tensors (B * S positions in any layout) at the
+    positions of a nonzero segment: a packed-segment kernel never reads
+    the rest (its rows of segment 0 come out as zeros)."""
+    live = int((seg != 0).sum())
+    return sum(t.numel() // seg.numel() * t.element_size() * live for t in tensors)
+
+
+def live_pairs(torch, seg) -> int:
+    """(query, key) pairs a causal packed-segment kernel must compute: both
+    in one nonzero segment, key <= query."""
+    n = 0
+    for row in seg:
+        _, counts = torch.unique_consecutive(row[row != 0], return_counts=True)
+        n += int((counts * (counts + 1) // 2).sum())
+    return n
+
+
+def sdpa_library(torch, backend: str, q, k, v, mask=None):
+    """One call of F.scaled_dot_product_attention on (B, H, S, D) copies of
+    (B, S, H, D) inputs (k and v expanded to q's heads), made here, outside
+    any timed window; pinned to ``backend``."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    rep = q.shape[2] // k.shape[2]
+    qt, kt, vt = (t.repeat_interleave(r, dim=2).transpose(1, 2).contiguous() for t, r in ((q, 1), (k, rep), (v, rep)))
+    pinned = getattr(SDPBackend, backend)
+
+    def call(*ins):
+        with sdpa_kernel(pinned):
+            return F.scaled_dot_product_attention(*ins, attn_mask=mask)
+
+    return (qt, kt, vt), call
+
+
 def phase_kernels(torch):
     import numpy as np
+    import torch.nn.functional as F
 
     from spatialrgpt_tpu_torch.ops import decode_attention as K3
     from spatialrgpt_tpu_torch.ops import flash_attention as K4
@@ -248,14 +350,29 @@ def phase_kernels(torch):
     def rn(*shape):
         return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
 
-    cases = []  # name, source, replaces, shape, kernel, plain, timing (reps, iters)
+    def causal_segment_mask(seg):
+        """(B, 1, S, S) additive bf16 mask of K2's and K4's function."""
+        same = (seg[:, :, None] == seg[:, None, :]) & (seg[:, :, None] != 0)
+        causal = torch.ones(seg.shape[1], seg.shape[1], dtype=torch.bool, device=dev).tril()
+        live = (same & causal)[:, None]
+        return torch.zeros(live.shape, dtype=torch.bfloat16, device=dev).masked_fill(~live, float("-inf"))
+
+    # each case: name, source, replaces, shape, kernel, plain, iterations
+    # timed (kernel, plain) and the timer of TIMERS (a graph where one call
+    # is shorter than its launch on the host: K1-K3, K6), the work of
+    # bound(), and the library call: (what it is, a function of no
+    # arguments, or None and the reason)
+    cases = []
     # K1: the SigLIP tower over [images; depths] of 8 rows
     B, S, H, D = 2 * N_ROWS, 729, 16, 72
     q, k, v = rn(B, S, H, D), rn(B, S, H, D), rn(B, S, H, D)
+    lib_in, lib_call = sdpa_library(torch, "FLASH_ATTENTION", q, k, v)
     cases.append((
         "vit_attention", "spatialrgpt_tpu_torch/csrc/vit_attention.cu",
         "spatialrgpt_tpu/ops/vit_attention.py:196", {"B": B, "S": S, "H": H, "D": D},
-        lambda: K1.vit_attention(q, k, v), lambda: K1.vit_attention_plain(q, k, v), (5, 10),
+        lambda: K1.vit_attention(q, k, v), lambda: K1.vit_attention_plain(q, k, v), (50, 5, "graph"),
+        bound(4 * B * H * S * S * D, nbytes(q, k, v, q)),
+        ("F.scaled_dot_product_attention, (B, H, S, D) copies, SDPBackend.FLASH_ATTENTION", lambda: lib_call(*lib_in)),
     ))
     # K2: llama3-8b prefill over the 320 bucket, right-padded rows
     B, S, Hq, Hk, D = N_ROWS, PAD_BUCKET, 32, 8, 128
@@ -263,10 +380,15 @@ def phase_kernels(torch):
     seg = torch.zeros(B, S, dtype=torch.int32, device=dev)
     for b in range(B):
         seg[b, : S - 3 * b - 15] = 1
+    lib2_in, lib2_call = sdpa_library(torch, "EFFICIENT_ATTENTION", q2, k2, v2, causal_segment_mask(seg))
     cases.append((
         "onepass_attention", "spatialrgpt_tpu_torch/csrc/prefill_attention.cu",
         "spatialrgpt_tpu/ops/prefill_attention.py:228", {"B": B, "S": S, "Hq": Hq, "Hk": Hk, "D": D},
-        lambda: K2.onepass_attention(q2, k2, v2, seg), lambda: K2.onepass_attention_plain(q2, k2, v2, seg), (5, 10),
+        lambda: K2.onepass_attention(q2, k2, v2, seg), lambda: K2.onepass_attention_plain(q2, k2, v2, seg),
+        (50, 5, "graph"),
+        bound(4 * D * Hq * live_pairs(torch, seg), live_bytes(seg, q2, k2, v2) + nbytes(seg, q2)),
+        ("F.scaled_dot_product_attention, k/v expanded to Hq, (B, 1, S, S) causal x segment mask, "
+         "SDPBackend.EFFICIENT_ATTENTION", lambda: lib2_call(*lib2_in)),
     ))
     # K3: one decode step against the int8 cache of 320 + 32 slots
     B, C, Hq, Hk, D = N_ROWS, PAD_BUCKET + MAX_NEW, 32, 8, 128
@@ -275,11 +397,14 @@ def phase_kernels(torch):
     vq, vs = quantize_kv(rn(B, C, Hk, D))
     kq, vq = kq.reshape(B, C, Hk * D), vq.reshape(B, C, Hk * D)
     lengths = torch.tensor([0, C - 1, 5, 63, 64, 200, 305, 330], dtype=torch.int32, device=dev)
+    live3 = int(torch.clamp(lengths + 1, max=C).sum())  # cache positions <= lengths[b]
     cases.append((
         "decode_attention_int8_flat", "spatialrgpt_tpu_torch/csrc/decode_attention.cu",
         "spatialrgpt_tpu/ops/decode_attention.py:174", {"B": B, "C": C, "Hq": Hq, "Hk": Hk, "D": D},
         lambda: K3.decode_attention_int8_flat(q3, kq, ks, vq, vs, lengths, Hk),
-        lambda: K3.decode_attention_int8_flat_plain(q3, kq, ks, vq, vs, lengths, Hk), (5, 10),
+        lambda: K3.decode_attention_int8_flat_plain(q3, kq, ks, vq, vs, lengths, Hk), (200, 20, "graph"),
+        bound(4 * Hq * D * live3, nbytes(q3, lengths, q3) + live3 * Hk * (2 * D + 2 * 4)),
+        ("no single call dequantises an int8 cache", None),
     ))
     # K4: the align step's attention, segment ids of bench_train.py's packing
     B, S, Hq, Hk, D = TRAIN_ROWS, TRAIN_SEQ, 32, 8, 128
@@ -288,21 +413,42 @@ def phase_kernels(torch):
     out4, lse4 = K4.flash_attention_fwd(q4, k4, v4, seg4)
     delta4 = K4.attention_delta(out4, do4)
     bwd = (q4, k4, v4, seg4, lse4, delta4, do4)
+    bwd_per_position = (q4, k4, v4, lse4, delta4, do4)
     shape4 = {"B": B, "S": S, "Hq": Hq, "Hk": Hk, "D": D, "samples_per_row": TRAIN_SAMPLES_PER_ROW,
               "padded_tail": int((seg4 == 0).sum(dim=1).min())}
     src4, fa = "spatialrgpt_tpu_torch/csrc/flash_attention.cu", "spatialrgpt_tpu/ops/flash_attention.py"
+    pairs4 = live_pairs(torch, seg4)
+    lib4_in, lib4_call = sdpa_library(torch, "EFFICIENT_ATTENTION", q4, k4, v4, causal_segment_mask(seg4))
+    lib4_in = tuple(t.requires_grad_() for t in lib4_in)
+    do4_t = do4.transpose(1, 2).contiguous()
+
+    def lib4_fwd():
+        with torch.no_grad():
+            return lib4_call(*lib4_in)
+
+    def lib4_fwd_bwd():
+        return torch.autograd.grad(lib4_call(*lib4_in), lib4_in, do4_t)
+
+    lib4_name = ("the backward of F.scaled_dot_product_attention (k/v expanded to Hq, (B, 1, S, S) causal x segment "
+                 "mask, SDPBackend.EFFICIENT_ATTENTION): forward + backward minus forward, one figure for dK/dV + dQ")
     cases += [
         ("flash_attention_fwd", src4, f"{fa}:226", shape4,
          lambda: K4.flash_attention_fwd(q4, k4, v4, seg4),
-         lambda: per_row(torch, K4.flash_attention_fwd_plain, q4, k4, v4, seg4), (3, 3)),
+         lambda: per_row(torch, K4.flash_attention_fwd_plain, q4, k4, v4, seg4), (10, 1, "events"),
+         bound(4 * D * Hq * pairs4, live_bytes(seg4, q4, k4, v4) + nbytes(seg4, q4, lse4)),
+         ("F.scaled_dot_product_attention, k/v expanded to Hq, (B, 1, S, S) causal x segment mask, "
+          "SDPBackend.EFFICIENT_ATTENTION", lib4_fwd)),
         ("flash_attention_bwd_dkv", src4, f"{fa}:716", shape4,
          lambda: K4.flash_attention_bwd_dkv(*bwd),
-         lambda: per_row(torch, K4.flash_attention_bwd_dkv_plain, *bwd), (3, 3)),
+         lambda: per_row(torch, K4.flash_attention_bwd_dkv_plain, *bwd), (10, 1, "events"),
+         bound(8 * D * Hq * pairs4, live_bytes(seg4, *bwd_per_position) + nbytes(seg4, k4, v4)),
+         (lib4_name, "backward")),
         ("flash_attention_bwd_dq", src4, f"{fa}:776", shape4,
          lambda: K4.flash_attention_bwd_dq(*bwd),
-         lambda: per_row(torch, K4.flash_attention_bwd_dq_plain, *bwd), (3, 3)),
+         lambda: per_row(torch, K4.flash_attention_bwd_dq_plain, *bwd), (10, 1, "events"),
+         bound(6 * D * Hq * pairs4, live_bytes(seg4, *bwd_per_position) + nbytes(seg4, q4)),
+         (lib4_name, "backward")),
     ]
-
     # K5: SAM vit_h's global layers, a chunk of 4 images: q/k/v as views into
     # the fused qkv projection, f32 rel-pos bias terms of the 64 x 64 grid
     B, gh, gw, H, D = DEMO_SAM_CHUNK, 64, 64, 16, 80
@@ -310,11 +456,17 @@ def phase_kernels(torch):
     q5, k5, v5 = rn(B, S, 3, H, D).unbind(2)
     rel_h = torch.randn(B, H, S, gh, generator=g, device=dev)
     rel_w = torch.randn(B, H, S, gw, generator=g, device=dev)
+    bias5 = (rel_h[..., :, None] + rel_w[..., None, :]).reshape(B, H, S, S).to(torch.bfloat16)  # 2.1 GB
+    lib5_in, lib5_call = sdpa_library(torch, "EFFICIENT_ATTENTION", q5, k5, v5, bias5)
     cases.append((
         "grid_bias_attention", "spatialrgpt_tpu_torch/csrc/grid_bias_attention.cu",
         "spatialrgpt_tpu/ops/flash_attention.py:397", {"B": B, "S": S, "grid": [gh, gw], "H": H, "D": D},
         lambda: K4.grid_bias_attention(q5, k5, v5, rel_h, rel_w, gw),
-        lambda: per_row(torch, lambda *a: K4.grid_bias_attention_plain(*a, gw), q5, k5, v5, rel_h, rel_w), (3, 3),
+        lambda: per_row(torch, lambda *a: K4.grid_bias_attention_plain(*a, gw), q5, k5, v5, rel_h, rel_w),
+        (20, 2, "events"),
+        bound(4 * B * H * S * S * D, nbytes(q5, k5, v5, rel_h, rel_w, q5)),
+        ("F.scaled_dot_product_attention, (B, H, S, S) bf16 bias materialised from rel_h / rel_w, "
+         "SDPBackend.EFFICIENT_ATTENTION", lambda: lib5_call(*lib5_in)),
     ))
     # K6: SAM vit_h's encoder rows (a chunk of 4 images x 4096 tokens, C 1280)
     # and Depth-Anything ViT-L's (8 images x 1814 tokens, C 1024), bf16
@@ -326,11 +478,14 @@ def phase_kernels(torch):
             "fused_layer_norm", "spatialrgpt_tpu_torch/csrc/layer_norm.cu", "spatialrgpt_tpu/ops/layer_norm.py:36",
             {"rows": rows6, "C": C},
             lambda x=x6, w=w6, b=b6: K6.fused_layer_norm(x, w, b, 1e-6),
-            lambda x=x6, w=w6, b=b6: K6.fused_layer_norm_plain(x, w, b, 1e-6), (5, 50),
+            lambda x=x6, w=w6, b=b6: K6.fused_layer_norm_plain(x, w, b, 1e-6), (200, 20, "graph"),
+            bound(8 * rows6 * C, nbytes(x6, w6, b6, x6)),
+            ("F.layer_norm", lambda x=x6, w=w6, b=b6, C=C: F.layer_norm(x, (C,), w, b, 1e-6)),
         ))
 
     rows = []
-    for name, source, replaces, shape, kernel, plain, (reps, iters) in cases:
+    library_bwd_ms = None
+    for name, source, replaces, shape, kernel, plain, (iters, plain_iters, how), work, (library, lib_fn) in cases:
         out = kernel()
         torch.cuda.synchronize()
         ref = plain()
@@ -344,15 +499,28 @@ def phase_kernels(torch):
         floor = GRAD_FLOOR if "_bwd_" in name else 0.0
         ratio = max(bf16_err_over_bound(o, r, floor) for o, r in zip(outs, refs))
         del out, ref, outs, refs
-        plain_ms = time_ms(torch, plain, reps, iters)
-        ms = time_ms(torch, kernel, reps, iters)
+        timer, timing = TIMERS[how]
+        plain_ms = timer(torch, plain, plain_iters)
+        ms = timer(torch, kernel, iters)
+        if lib_fn == "backward":  # K4's dK/dV and dQ share one figure
+            if library_bwd_ms is None:
+                library_bwd_ms = timer(torch, lib4_fwd_bwd, iters) - timer(torch, lib4_fwd, iters)
+            library_ms = library_bwd_ms
+        else:
+            library_ms = timer(torch, lib_fn, iters) if lib_fn is not None else None
         row = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "max_abs_err": err, "err_over_bound": ratio, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": work["bound_ms"], "bound_by": work["bound_by"], "library_ms": library_ms, "library": library,
+            "share_of_bound": work["bound_ms"] / ms,
+            "library_over_kernel": library_ms / ms if library_ms is not None else None,
+            "flops": work["flops"], "bytes": work["bytes"],
+            "timing": timing.format(n=iters) + f" ({plain_iters} calls for the plain version)",
         }
         emit({"phase": "kernel", "ok": ratio <= 1.0, "shape": shape, **row})
         check(ratio <= 1.0, f"{name}: error {ratio} x the per-element bound (max abs err {err})")
         rows.append(row)
+    del bias5, lib_in, lib2_in, lib4_in, lib5_in
     torch.cuda.empty_cache()
     # one row per kernel in the kernels line: K6's at its first (SAM) shape
     first = {}
@@ -819,7 +987,10 @@ def phase_demo(torch, profile_dir=None) -> dict:
         "first_logits_rel_l2_vs_plain": first_rel, "rel_bound": LOGITS_REL_BOUND,
         "tokens_agreement_vs_plain": float((tokens == plain.result.tokens).float().mean()),
         "smoke_figures_not_a_benchmark": {
-            "init_s": init_s, "images_per_s": DEMO_IMAGES / sum(seconds.values()), **seconds,
+            "init_s": init_s, "images_per_s": DEMO_IMAGES / sum(seconds.values()),
+            # without the VLM, whose decode loop the host paces
+            "vision_images_per_s": DEMO_IMAGES / (seconds["depth_s"] + seconds["sam_s"] + seconds["preprocess_s"]),
+            **seconds,
             "plain_path_seconds": plain.seconds, "peak_mem_gb": peak_gb,
         },
     })

@@ -1,0 +1,484 @@
+// Hopper (sm_90a) main loop of the non-causal attention kernels with a
+// head dim of at most 80: K1 (vit_attention.cu, SigLIP's D = 72) and K5
+// (grid_bias_attention.cu, SAM vit_h's D = 80 and vit_b's 64).
+//
+// One CTA owns BM = 128 query rows of one (image, head) and walks all keys
+// in tiles of BN = 128:
+//   - warpgroup 0 is the producer: one thread issues TMA loads of the Q
+//     tile (once) and of each K/V tile into a ring of 2 stages, with a
+//     full and an empty mbarrier per stage; setmaxnreg gives its registers
+//     to the consumers.
+//   - warpgroups 1 and 2 are consumers, 64 query rows each.  S = Q K^T is
+//     5 wgmma m64n128k16 from shared memory (D zero-padded to 80 by TMA's
+//     out-of-bounds fill), f32 in registers.  The online softmax runs in
+//     registers in the exp2 domain (the scale folded into log2(e)); a row
+//     is spread over the 4 threads of a quad, so its max and sum take two
+//     shuffles.  P is rounded to bf16 in registers (the accumulator layout
+//     of S is the A-operand layout of the next product) and O += P V is 8
+//     wgmma m64n80k16 with A from registers and V read MN-major from shared
+//     memory, so V is never transposed.  O (64 x 80 f32) stays in
+//     registers; the epilogue divides by l and stores bf16 through the
+//     caller's (B, S, H, D) strides.
+//
+// Shared-memory layout of a 128-row operand tile: two 64-column atoms of
+// 128 rows x 128 bytes, each 1024-byte aligned and 128B-swizzled as TMA
+// writes them (columns 64-127 of the second atom are TMA's zero fill past
+// D, so one N = 80 product spans both atoms).  Q 32 KB + 2 stages x (K 32
+// KB + V 32 KB) = 160 KB; K5 adds its rel-pos bias rows, 64 KB, for 224 KB
+// of the 227 KB a CTA may use.  Ragged S, valid_len and D < 80 need no
+// masked loads: the tensor maps are 4-D {D, H, S, B} over the caller's
+// strides and TMA fills zeros past each edge; only the last key tile masks
+// keys >= kv_len.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace srgpt {
+namespace sm90 {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int BM = 128;        // query rows per CTA (2 consumer warpgroups x 64)
+constexpr int BN = 128;        // keys per tile
+constexpr int ATOM = 64;       // bf16 columns of one 128-byte swizzle atom
+constexpr int DMAX = 80;       // largest head dim (5 k-steps of 16; PV N = 80)
+constexpr int NSTAGES = 2;     // K/V ring depth
+constexpr int NTHREADS = 384;  // producer + 2 consumer warpgroups
+constexpr int NCONSUMER = 256;
+constexpr int ATOM_BYTES = 128 * ATOM * 2;     // 128 rows of one atom: 16 KB
+constexpr int OPERAND_BYTES = 2 * ATOM_BYTES;  // a 128-row operand tile: 32 KB
+constexpr int BIAS_LD = 64;                    // f32 per bias row (gh, gw <= 64)
+constexpr float LOG2E = 1.4426950408889634f;
+
+// byte offsets from the 1024-aligned base of dynamic shared memory
+constexpr int OFF_Q = 0;
+constexpr int OFF_K = OFF_Q + OPERAND_BYTES;            // + stage * OPERAND_BYTES
+constexpr int OFF_V = OFF_K + NSTAGES * OPERAND_BYTES;  // + stage * OPERAND_BYTES
+constexpr int OFF_BIAS = OFF_V + NSTAGES * OPERAND_BYTES;
+constexpr int BIAS_BYTES = 2 * BM * BIAS_LD * 4;        // rel_h rows, then rel_w rows
+__host__ __device__ constexpr int off_bars(bool bias) { return OFF_BIAS + (bias ? BIAS_BYTES : 0); }
+// barriers (q_full, full[2], empty[2]) and 1024 bytes to align the base
+__host__ __device__ constexpr int smem_bytes(bool bias) { return off_bars(bias) + 64 + 1024; }
+
+struct Params {
+  bf16* out;
+  long long sob, sos, soh;  // element strides of the (B, S, H, D) output
+  int S, H, D;
+  int kv_len;               // keys >= kv_len are masked (K1: valid_len; K5: S)
+  float scale_log2;         // sm_scale * log2(e)
+  const float* rel_h;       // K5: (B, H, S, gh) f32, contiguous
+  const float* rel_w;       // K5: (B, H, S, gw) f32, contiguous
+  int gh, gw;
+};
+
+// ---------------------------------------------------------------------------
+// PTX wrappers: mbarrier, TMA, wgmma
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// spin until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one box of the 4-D tensor map {D, H, S, B} into shared memory; completion
+// is counted in bytes on `bar`
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128B-swizzled operand: start address,
+// leading and stride byte offsets (16-byte units), layout type 1 = SW128
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo) << 16) |
+         (static_cast<uint64_t>(sbo) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+
+// keep the compiler from moving reads of an accumulator across the wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x 128, f32, registers) (+)= A (64 x 16, shared, K-major) * B (16 x 128, shared, K-major)
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D (64 x 80, f32, registers) += A (64 x 16, bf16 registers) * B (16 x 80, shared, MN-major)
+__device__ __forceinline__ void wgmma_m64n80k16_rs(float (&d)[40], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// bias rows in shared memory: row r's entry c sits at r * 64 + (c ^ swz),
+// so the 8 rows a warp reads at once fall in different banks
+__device__ __forceinline__ int rel_h_at(int r, int kh) { return r * BIAS_LD + (kh ^ (r & 7)); }
+__device__ __forceinline__ int rel_w_at(int r, int kw) { return r * BIAS_LD + (kw ^ ((r & 7) << 3)); }
+
+// ---------------------------------------------------------------------------
+// the kernel
+// ---------------------------------------------------------------------------
+
+// BIAS: what is added to the scaled scores
+enum Bias : int {
+  NO_BIAS = 0,  // K1
+  GRID = 1,     // K5, any grid width: each score looks its two terms up in shared memory
+  GRID64 = 2,   // K5 at gw = 64 (SAM's grids): a 128-key tile is two whole grid rows, so a
+                // thread's rel_w terms are the same in every tile (32 registers) and its
+                // rel_h terms are 2 per row and tile
+};
+
+template <int BIAS>
+__global__ void __launch_bounds__(NTHREADS, 1)
+attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v, const Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                                         ~static_cast<uintptr_t>(1023));
+  const uint32_t base = smem_u32(smem);
+  constexpr bool HAS_BIAS = BIAS != NO_BIAS;
+  const uint32_t bar_q = base + off_bars(HAS_BIAS);
+  const uint32_t bar_full = bar_q + 8;    // + 8 * stage
+  const uint32_t bar_empty = bar_q + 24;  // + 8 * stage
+
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BM;
+  const int n_tiles = (p.kv_len + BN - 1) / BN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < NSTAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, NCONSUMER);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---------------- producer ----------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_q, OPERAND_BYTES);
+      for (int a = 0; a < 2; ++a) tma_load_4d(base + OFF_Q + a * ATOM_BYTES, &tm_q, bar_q, a * ATOM, h, q0, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % NSTAGES;
+        const uint32_t ph = (t / NSTAGES) & 1;
+        mbar_wait(bar_empty + 8 * st, ph ^ 1);  // the first round passes at once
+        mbar_expect_tx(bar_full + 8 * st, 2 * OPERAND_BYTES);
+        for (int a = 0; a < 2; ++a) {
+          tma_load_4d(base + OFF_K + st * OPERAND_BYTES + a * ATOM_BYTES, &tm_k, bar_full + 8 * st, a * ATOM, h,
+                      t * BN, b);
+          tma_load_4d(base + OFF_V + st * OPERAND_BYTES + a * ATOM_BYTES, &tm_v, bar_full + 8 * st, a * ATOM, h,
+                      t * BN, b);
+        }
+      }
+    }
+  } else {
+    // ---------------- consumers ----------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int cw = wg - 1;  // query rows [64 cw, 64 cw + 64) of the tile
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int r_lo = 64 * cw + 16 * warp + lane / 4;  // this thread's rows: r_lo and r_lo + 8
+    const int cq = 2 * (lane % 4);                    // its first column in each group of 8
+
+    float* s_rel_h = reinterpret_cast<float*>(smem + OFF_BIAS);
+    float* s_rel_w = s_rel_h + BM * BIAS_LD;
+    if constexpr (HAS_BIAS) {
+      // this warpgroup's 64 bias rows are contiguous in device memory
+      const long long row0 = (static_cast<long long>(b) * p.H + h) * p.S + q0 + 64 * cw;
+      const int rows = min(64, p.S - q0 - 64 * cw);
+      // two rows per pass, one column per thread (gh, gw <= 64)
+      const int c = tid % 64;
+#pragma unroll 4
+      for (int r = tid / 64; r < 64; r += 2) {
+        if (c < p.gh) s_rel_h[rel_h_at(64 * cw + r, c)] = r < rows ? p.rel_h[(row0 + r) * p.gh + c] * LOG2E : 0.f;
+        if (c < p.gw) s_rel_w[rel_w_at(64 * cw + r, c)] = r < rows ? p.rel_w[(row0 + r) * p.gw + c] * LOG2E : 0.f;
+      }
+      named_barrier_sync(1 + cw, 128);
+    }
+    const float inv_gw = BIAS == GRID ? 1.f / static_cast<float>(p.gw) : 0.f;
+    // GRID64: rel_w of this thread's two rows at its 16 columns mod 64
+    float rw[2][8][2];
+    if constexpr (BIAS == GRID64) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) rw[hr][jj][e] = s_rel_w[rel_w_at(r_lo + 8 * hr, 8 * jj + cq + e)];
+    }
+
+    float o[DMAX / 2];
+#pragma unroll
+    for (int i = 0; i < DMAX / 2; ++i) o[i] = 0.f;
+    float m_run[2] = {-INFINITY, -INFINITY};
+    float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
+
+    mbar_wait(bar_q, 0);
+    const uint32_t q_tile = base + OFF_Q + cw * 64 * 128;  // 64 rows x 128 bytes into each atom
+
+    for (int t = 0; t < n_tiles; ++t) {
+      const int st = t % NSTAGES;
+      mbar_wait(bar_full + 8 * st, (t / NSTAGES) & 1);
+      const uint32_t k_tile = base + OFF_K + st * OPERAND_BYTES;
+      const uint32_t v_tile = base + OFF_V + st * OPERAND_BYTES;
+
+      // ---- S = Q K^T: 5 k-steps of 16 columns (4 in atom 0, 1 in atom 1) ----
+      float s[BN / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DMAX / 16; ++kk) {
+        const uint32_t off = (kk / 4) * ATOM_BYTES + (kk % 4) * 32;
+        wgmma_m64n128k16_ss(s, sw128_desc(q_tile + off, 1, 64), sw128_desc(k_tile + off, 1, 64), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+
+      // ---- scores in the exp2 domain, bias, mask of the last tile ----
+      const int j0 = t * BN;
+      const bool edge = j0 + BN > p.kv_len;
+      float rh[2][2];  // GRID64: rel_h of this thread's rows at the tile's two grid rows
+      if constexpr (BIAS == GRID64) {
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+          for (int g = 0; g < 2; ++g) rh[hr][g] = s_rel_h[rel_h_at(r_lo + 8 * hr, min(2 * t + g, BIAS_LD - 1))];
+      }
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        const int jj = i / 4, hr = (i >> 1) & 1, e = i & 1;
+        float x = s[i] * p.scale_log2;
+        if constexpr (BIAS == GRID64) {
+          x += rh[hr][jj / 8] + rw[hr][jj % 8][e];
+        } else if constexpr (BIAS == GRID) {
+          const int key = j0 + 8 * jj + cq + e;
+          if (key < p.kv_len) {  // past S, the grid row would fall outside the bias rows
+            const int r = r_lo + 8 * hr;
+            const int kh = __float2int_rz((static_cast<float>(key) + 0.5f) * inv_gw);
+            x += s_rel_h[rel_h_at(r, kh)] + s_rel_w[rel_w_at(r, key - kh * p.gw)];
+          }
+        }
+        s[i] = x;
+      }
+      if (edge) {  // only the last tile masks; the interior tiles are maskless
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i)
+          if (j0 + 8 * (i / 4) + cq + (i & 1) >= p.kv_len) s[i] = -INFINITY;
+      }
+
+      // ---- online softmax: rows r_lo (hr = 0) and r_lo + 8 (hr = 1) ----
+      float alpha[2];
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i)
+          if (((i >> 1) & 1) == hr) mx = fmaxf(mx, s[i]);
+        const float m_new = fmaxf(m_run[hr], quad_max(mx));
+        const float m_use = m_new == -INFINITY ? 0.f : m_new;  // a row with no live key yet
+        alpha[hr] = exp2f(m_run[hr] - m_use);
+        m_run[hr] = m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i)
+          if (((i >> 1) & 1) == hr) {
+            s[i] = exp2f(s[i] - m_use);
+            sum += s[i];
+          }
+        l_run[hr] = l_run[hr] * alpha[hr] + sum;
+      }
+#pragma unroll
+      for (int i = 0; i < DMAX / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+      // ---- O += P V: 8 k-steps of 16 keys, P from registers ----
+      uint32_t pa[BN / 16][4];  // all of P in bf16 before the fence, so no wgmma waits on a conversion
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) pa[kk][c] = pack_bf16(s[8 * kk + 2 * c], s[8 * kk + 2 * c + 1]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        // V MN-major: 8-key groups 1024 bytes apart (SBO), the two 64-column
+        // atoms ATOM_BYTES apart (LBO)
+        wgmma_m64n80k16_rs(o, pa[kk], sw128_desc(v_tile + kk * 16 * 128, ATOM_BYTES / 16, 64));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(o);
+      mbar_arrive(bar_empty + 8 * st);
+    }
+
+    // ---- epilogue: O / l through the caller's strides ----
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const float l = quad_sum(l_run[hr]);
+      const float inv = l > 0.f ? 1.f / l : 0.f;
+      const int row = q0 + r_lo + 8 * hr;
+      if (row < p.S) {
+        bf16* dst = p.out + b * p.sob + row * p.sos + h * p.soh;
+#pragma unroll
+        for (int j = 0; j < DMAX / 8; ++j) {
+          const int col = 8 * j + cq;
+          if (col < p.D)
+            *reinterpret_cast<__nv_bfloat162*>(dst + col) =
+                __floats2bfloat162_rn(o[4 * j + 2 * hr] * inv, o[4 * j + 2 * hr + 1] * inv);
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                   const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                   CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver-API function: reach it through the
+// runtime's entry-point query, so the library needs no -lcuda
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// a (B, S, H, D) bf16 tensor with element strides (sb, ss, sh, 1) as a 4-D
+// map {D, H, S, B}; boxes of 64 columns x 1 head x 128 rows, 128B-swizzled,
+// zeros past every edge
+inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D, long long sb,
+                            long long ss, long long sh) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2, static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {ATOM, 1, BM, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, elem,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+struct Operand {
+  const void* ptr;
+  long long sb, ss, sh;
+};
+
+// q, k, v: (B, S, H, D) through their strides, D % 8 == 0 and D <= 80
+template <int BIAS>
+cudaError_t launch(Operand q, Operand k, Operand v, Params p, int B, cudaStream_t stream) {
+  if (p.D <= 0 || p.D % 8 != 0 || p.D > DMAX || p.S <= 0 || p.kv_len <= 0 || p.kv_len > p.S)
+    return cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = make_map(&tq, q.ptr, B, p.S, p.H, p.D, q.sb, q.ss, q.sh);
+  if (err == cudaSuccess) err = make_map(&tk, k.ptr, B, p.S, p.H, p.D, k.sb, k.ss, k.sh);
+  if (err == cudaSuccess) err = make_map(&tv, v.ptr, B, p.S, p.H, p.D, v.sb, v.ss, v.sh);
+  if (err != cudaSuccess) return err;
+  auto kern = attention_sm90_kernel<BIAS>;
+  constexpr int bytes = smem_bytes(BIAS != NO_BIAS);
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid((p.S + BM - 1) / BM, p.H, B);
+  kern<<<grid, NTHREADS, bytes, stream>>>(tq, tk, tv, p);
+  return cudaGetLastError();
+}
+
+}  // namespace sm90
+}  // namespace srgpt

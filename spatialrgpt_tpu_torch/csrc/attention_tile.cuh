@@ -1,6 +1,7 @@
-// Shared tile machinery of the prefill-shaped attention kernels
-// (vit_attention.cu: K1, prefill_attention.cu: K2, the forward of
-// flash_attention.cu: K4, and grid_bias_attention.cu: K5).
+// Shared tile machinery of the causal attention kernels with a head dim
+// up to 128 (prefill_attention.cu: K2, and the forward of
+// flash_attention.cu: K4).  The non-causal kernels with D <= 80 (K1, K5)
+// run on the Hopper main loop of attention_sm90.cuh.
 //
 // One CTA of 4 warps owns BM = 64 query rows; each warp owns 16 of them.
 // Key/value tiles of BN = 64 positions stream through shared memory; the
@@ -91,15 +92,13 @@ __device__ __forceinline__ void load_tile(bf16* dst, int rows, int D, RowSrc row
   }
 }
 
-// Optional policy hooks, detected at compile time (K1 and K2 have none):
+// Optional policy hooks, detected at compile time (K2 has none):
 //   __device__ bool tile_live(const int* rowmeta, const int* keymeta) const
 //       -- called by every warp after init_keys; false skips the key tile
 //          before its K/V are loaded (must be uniform across the CTA)
 //   __device__ float* lse_row(const int* rowmeta, int r) const
 //       -- where row r's log-sum-exp goes (nullptr: skip); -1e30 for a row
 //          with no live key
-//   __device__ float score_bias(const int* rowmeta, const int* keymeta, int r, int jj, int j) const
-//       -- added to a live key's score after sm_scale (K5's rel-pos bias)
 template <typename P, typename = void>
 struct has_tile_live : std::false_type {};
 template <typename P>
@@ -108,12 +107,8 @@ template <typename P, typename = void>
 struct has_lse_row : std::false_type {};
 template <typename P>
 struct has_lse_row<P, std::void_t<decltype(&P::lse_row)>> : std::true_type {};
-template <typename P, typename = void>
-struct has_score_bias : std::false_type {};
-template <typename P>
-struct has_score_bias<P, std::void_t<decltype(&P::score_bias)>> : std::true_type {};
 
-// Policy interface (see vit_attention.cu / prefill_attention.cu):
+// Policy interface (see prefill_attention.cu / flash_attention.cu):
 //   __device__ void init_rows(int* rowmeta) const        -- fill per-row metadata
 //   __device__ const bf16* q_row(const int* rowmeta, int r) const
 //   __device__ int key_tile_begin() const, key_tile_end() const
@@ -194,12 +189,8 @@ attention_tile_kernel(Policy pol, int S, int D, float sm_scale) {
       const int c0 = lane, c1 = lane + 32;
       const bool live0 = pol.live(rowmeta, keymeta, r, c0, j0 + c0);
       const bool live1 = pol.live(rowmeta, keymeta, r, c1, j0 + c1);
-      float s0 = sS[r * LDS + c0] * sm_scale;
-      float s1 = sS[r * LDS + c1] * sm_scale;
-      if constexpr (has_score_bias<Policy>::value) {
-        if (live0) s0 += pol.score_bias(rowmeta, keymeta, r, c0, j0 + c0);
-        if (live1) s1 += pol.score_bias(rowmeta, keymeta, r, c1, j0 + c1);
-      }
+      const float s0 = sS[r * LDS + c0] * sm_scale;
+      const float s1 = sS[r * LDS + c1] * sm_scale;
       const float mt = warp_max(fmaxf(live0 ? s0 : -INFINITY, live1 ? s1 : -INFINITY));
       const float m_old = sM[r];
       const float m_new = fmaxf(m_old, mt);
@@ -275,10 +266,8 @@ cudaError_t launch_tile(Policy pol, dim3 grid, int S, int D, float sm_scale, cud
   return cudaGetLastError();
 }
 
-// Dispatch a runtime head dim (D % 8 == 0) to a padded tile width.  Only the
-// widths of the ported callers are built: 80 for SigLIP (D = 72) and SAM
-// (vit_h D = 80, vit_b D = 64), 128 for Llama; a smaller D pads into the
-// next of them.
+// Dispatch a runtime head dim (D % 8 == 0) to a padded tile width: 128
+// for Llama, 80 for a head dim of at most 80 (which pads into it).
 template <template <int> class Launch, typename... Args>
 cudaError_t dispatch_dp(int D, Args... args) {
   if (D % 8 != 0 || D <= 0) return cudaErrorInvalidValue;

@@ -10,77 +10,21 @@
 // Bound on the H100: tensor-core FLOPs.  At SAM vit_h (B = 4 images,
 // S = 4096 on a 64 x 64 grid, H = 16, D = 80) a call does
 // 2 * 2 * 4096^2 * 80 FLOPs per (b, h), 344 GFLOP (0.35 ms at
-// 989 TFLOP/s), against ~63 MB of q/k/v/out and 134 MB of f32 bias reads.
+// 989 TFLOP/s), against 42 MB of q/k/v/out and 134 MB of f32 bias reads.
 //
-// Design: a fourth policy of attention_tile.cuh (one CTA per 64 query
-// rows, head, image; 64-key tiles; WMMA bf16 with f32 accumulation; q/k/v
-// read through their (B, S, H, D) strides; D = 80 needs no padding, vit_b's
-// D = 64 pads to 80 in shared memory).  The policy's score_bias hook adds
-// the two bias terms to each live score after sm_scale; init_keys stores
-// each key's grid row j / gw once per tile, so any gw works (the Pallas
-// kernel's rule that a key block covers whole grid rows, and its
-// iota-selector matmuls, are Mosaic layout rules, not needed here).  The
-// bias is read from global memory (L1/L2): at gw = 64 a key tile is one
-// grid row, one rel_h value and one 64-wide rel_w row per query row.
+// Design: the Hopper main loop of attention_sm90.cuh with its bias branch.
+// At CTA start each consumer warpgroup copies its 64 query rows of rel_h
+// (64 x gh f32) and rel_w (64 x gw f32) into shared memory, scaled by
+// log2(e) for the exp2-domain softmax (64 KB for the CTA at gh = gw = 64,
+// so gh and gw are at most 64); each score then adds
+// rel_h[r][j / gw] + rel_w[r][j % gw] from there, after the scale.  Any
+// grid width works (tested at 64, 48 and 13) without the Pallas kernel's
+// rule that a key block covers whole grid rows, and without its
+// iota-selector matmuls (Mosaic layout rules).  q/k/v are views into the
+// fused qkv projection, read through their strides by the tensor maps.
+// At S = 4096: 32 key tiles per CTA, a grid of 32 x 16 x 4.
 
-#include "attention_tile.cuh"
-
-namespace srgpt {
-
-struct GridBiasPolicy {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const float* rel_h;  // (B, H, S, gh) f32, contiguous
-  const float* rel_w;  // (B, H, S, gw) f32, contiguous
-  bf16* out;
-  Strides sq, sk, sv, so;
-  int S;
-  int H;
-  int gh;
-  int gw;
-
-  __device__ int b() const { return blockIdx.z; }
-  __device__ int h() const { return blockIdx.y; }
-  __device__ int row_pos(int r) const { return blockIdx.x * BM + r; }
-
-  __device__ void init_rows(int*) const {}
-  __device__ const bf16* q_row(const int*, int r) const {
-    const int i = row_pos(r);
-    return i < S ? q + b() * sq.b + i * sq.s + h() * sq.h : nullptr;
-  }
-  __device__ int key_tile_begin() const { return 0; }
-  __device__ int key_tile_end() const { return (S + BN - 1) / BN; }
-  __device__ const bf16* k_row(int j) const { return k + b() * sk.b + j * sk.s + h() * sk.h; }
-  __device__ const bf16* v_row(int j) const { return v + b() * sv.b + j * sv.s + h() * sv.h; }
-  // keymeta[jj] = grid row of key j0 + jj
-  __device__ void init_keys(int* keymeta, int j0) const {
-    for (int jj = threadIdx.x; jj < BN; jj += NTHREADS) {
-      const int j = j0 + jj;
-      keymeta[jj] = j < S ? j / gw : 0;
-    }
-  }
-  __device__ bool live(const int*, const int*, int r, int, int j) const { return j < S && row_pos(r) < S; }
-  __device__ float score_bias(const int*, const int* keymeta, int r, int jj, int j) const {
-    const long long row = (static_cast<long long>(b()) * H + h()) * S + row_pos(r);
-    const int kh = keymeta[jj];
-    return rel_h[row * gh + kh] + rel_w[row * gw + (j - kh * gw)];
-  }
-  __device__ bf16* out_row(const int*, int r) const {
-    const int i = row_pos(r);
-    return i < S ? out + b() * so.b + i * so.s + h() * so.h : nullptr;
-  }
-};
-
-template <int DP>
-struct GridBiasLaunch {
-  static cudaError_t run(GridBiasPolicy pol, int B, int D, float sm_scale, cudaStream_t stream) {
-    dim3 grid((pol.S + BM - 1) / BM, pol.H, B);
-    return launch_tile<DP>(pol, grid, pol.S, D, sm_scale, stream);
-  }
-};
-
-}  // namespace srgpt
+#include "attention_sm90.cuh"
 
 extern "C" int srgpt_grid_bias_attention(
     const void* q, const void* k, const void* v, const void* rel_h, const void* rel_w, void* out,
@@ -90,23 +34,24 @@ extern "C" int srgpt_grid_bias_attention(
     long long svb, long long svs, long long svh,
     long long sob, long long sos, long long soh,
     float sm_scale, void* stream) {
-  using namespace srgpt;
-  if (gh <= 0 || gw <= 0 || gh * gw != S) return static_cast<int>(cudaErrorInvalidValue);
-  GridBiasPolicy pol;
-  pol.q = static_cast<const bf16*>(q);
-  pol.k = static_cast<const bf16*>(k);
-  pol.v = static_cast<const bf16*>(v);
-  pol.rel_h = static_cast<const float*>(rel_h);
-  pol.rel_w = static_cast<const float*>(rel_w);
-  pol.out = static_cast<bf16*>(out);
-  pol.sq = {sqb, sqs, sqh};
-  pol.sk = {skb, sks, skh};
-  pol.sv = {svb, svs, svh};
-  pol.so = {sob, sos, soh};
-  pol.S = S;
-  pol.H = H;
-  pol.gh = gh;
-  pol.gw = gw;
-  return static_cast<int>(dispatch_dp<GridBiasLaunch>(D, pol, B, D, sm_scale,
-                                                      static_cast<cudaStream_t>(stream)));
+  using namespace srgpt::sm90;
+  if (gh <= 0 || gw <= 0 || gh > BIAS_LD || gw > BIAS_LD || gh * gw != S)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p{};
+  p.out = static_cast<bf16*>(out);
+  p.sob = sob;
+  p.sos = sos;
+  p.soh = soh;
+  p.S = S;
+  p.H = H;
+  p.D = D;
+  p.kv_len = S;
+  p.scale_log2 = sm_scale * LOG2E;
+  p.rel_h = static_cast<const float*>(rel_h);
+  p.rel_w = static_cast<const float*>(rel_w);
+  p.gh = gh;
+  p.gw = gw;
+  const Operand oq{q, sqb, sqs, sqh}, ok{k, skb, sks, skh}, ov{v, svb, svs, svh};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(gw == 64 ? launch<GRID64>(oq, ok, ov, p, B, st) : launch<GRID>(oq, ok, ov, p, B, st));
 }

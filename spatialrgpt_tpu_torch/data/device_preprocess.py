@@ -13,9 +13,9 @@ card and are resized and normalized there.
   same f32 operation order.
 - ``device_mask_resize_nearest``: cv2 INTER_NEAREST's index map as a gather.
 
-The coefficients are the host path's own
-(``spatialrgpt_tpu/data/preprocess.py::_resample_matrix``, numpy + Pillow,
-both on the GPU machine).
+The coefficients are the host path's own: ``_resample_matrix`` is the
+port's copy of ``spatialrgpt_tpu/data/preprocess.py::_resample_matrix``
+(numpy only).
 """
 
 from __future__ import annotations
@@ -24,7 +24,35 @@ import functools
 import numpy as np
 import torch
 
-from spatialrgpt_tpu.data.preprocess import _PIL_PRECISION_BITS, _resample_matrix
+_PIL_PRECISION_BITS = 32 - 8 - 2  # Pillow src/libImaging/Resample.c
+
+
+def _bicubic_kernel(x: np.ndarray, a: float = -0.5) -> np.ndarray:
+    ax = np.abs(x)
+    head = ((a + 2.0) * ax - (a + 3.0)) * ax * ax + 1.0
+    tail = (((ax - 5.0) * ax + 8.0) * ax - 4.0) * a
+    return np.where(ax < 1.0, head, np.where(ax < 2.0, tail, 0.0))
+
+
+def _resample_matrix(in_size: int, out_size: int, support: float = 2.0):
+    """Dense (out_size, in_size) float64 weight matrix of PIL's bicubic
+    coefficients (normalized per clipped window), plus the fixed-point
+    int64 variant used for 8-bit images."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    supp = support * filterscale
+    inv = 1.0 / filterscale
+    m = np.zeros((out_size, in_size), np.float64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - supp + 0.5), 0)
+        xmax = min(int(center + supp + 0.5), in_size)
+        k = _bicubic_kernel((np.arange(xmin, xmax) - center + 0.5) * inv)
+        m[xx, xmin:xmax] = k / k.sum()
+    # PIL rounds coefficients half-away-from-zero into fixed point
+    v = m * (1 << _PIL_PRECISION_BITS)
+    mi = np.where(v < 0, np.ceil(v - 0.5), np.floor(v + 0.5)).astype(np.int64)
+    return m, mi
 
 
 @functools.lru_cache(maxsize=64)

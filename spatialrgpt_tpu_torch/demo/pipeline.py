@@ -25,10 +25,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from spatialrgpt_tpu.config import SpatialRGPTConfig
-from spatialrgpt_tpu.constants import IMAGE_TOKEN_INDEX, NUM_TOKENS_PER_IMAGE
-from spatialrgpt_tpu.data.splice import expand_rows
-from spatialrgpt_tpu.demo.engine import DemoEngine, DemoState  # noqa: F401  (re-exported)
+from spatialrgpt_tpu_torch.config import SpatialRGPTConfig
+from spatialrgpt_tpu_torch.constants import IMAGE_TOKEN_INDEX, NUM_TOKENS_PER_IMAGE
+from spatialrgpt_tpu_torch.data.splice import expand_rows
+from spatialrgpt_tpu_torch.demo.engine import DemoEngine, DemoState  # noqa: F401  (re-exported)
 from spatialrgpt_tpu_torch.data.device_preprocess import (
     device_mask_resize_nearest,
     device_preprocess_uint8,

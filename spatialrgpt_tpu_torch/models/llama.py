@@ -21,7 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from spatialrgpt_tpu.config import LlamaConfig
+from spatialrgpt_tpu_torch.config import LlamaConfig
 from spatialrgpt_tpu_torch.ops.attention import causal_attention
 from spatialrgpt_tpu_torch.ops.layers import linear, qkv_proj, rms_norm, silu
 from spatialrgpt_tpu_torch.ops.quant import quantize_kv

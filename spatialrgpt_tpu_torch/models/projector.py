@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from spatialrgpt_tpu.config import ProjectorConfig
+from spatialrgpt_tpu_torch.config import ProjectorConfig
 from spatialrgpt_tpu_torch.ops.layers import gelu_erf, layer_norm, linear
 
 

@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from spatialrgpt_tpu.config import RegionExtractorConfig
+from spatialrgpt_tpu_torch.config import RegionExtractorConfig
 from spatialrgpt_tpu_torch.ops.layers import deconv, gelu_erf, layer_norm, linear
 
 

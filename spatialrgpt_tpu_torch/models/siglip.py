@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from spatialrgpt_tpu.config import SiglipVisionConfig
+from spatialrgpt_tpu_torch.config import SiglipVisionConfig
 from spatialrgpt_tpu_torch.ops.layers import gelu_tanh, layer_norm, linear, qkv_proj
 from spatialrgpt_tpu_torch.ops.vit_attention import vit_attention, vit_attention_plain
 

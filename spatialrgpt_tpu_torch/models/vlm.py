@@ -25,8 +25,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from spatialrgpt_tpu.config import SpatialRGPTConfig
-from spatialrgpt_tpu.constants import IGNORE_INDEX
+from spatialrgpt_tpu_torch.config import SpatialRGPTConfig
+from spatialrgpt_tpu_torch.constants import IGNORE_INDEX
 from spatialrgpt_tpu_torch.models import llama, projector, region_extractor, siglip
 from spatialrgpt_tpu_torch.ops.layers import linear
 

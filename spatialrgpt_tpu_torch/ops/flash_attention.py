@@ -25,7 +25,7 @@ from typing import Optional, Tuple
 import torch
 
 from spatialrgpt_tpu_torch.ops import _build
-from spatialrgpt_tpu_torch.ops._checks import check_bshd, check_dtype
+from spatialrgpt_tpu_torch.ops._checks import SM90_MAX_HEAD_DIM, check_bshd, check_dtype
 
 NEG_INF = -1e30
 
@@ -251,10 +251,12 @@ def flash_attention(
 
 # ---------------------------------------------------------------------------
 # K5: attention with SAM ViT-det's decomposed 2-D rel-pos bias, forward only
-# (grid_bias_attention, csrc/grid_bias_attention.cu)
+# (grid_bias_attention, csrc/grid_bias_attention.cu on the Hopper main loop of
+# csrc/attention_sm90.cuh: head dims up to 80, grids up to 64 x 64)
 # ---------------------------------------------------------------------------
 
 grid_bias_launches = 0  # K5 kernel launches since the last reset
+GRID_BIAS_MAX_GRID = 64  # csrc/attention_sm90.cuh::BIAS_LD: rel_h / rel_w rows in shared memory
 
 
 def grid_bias_attention_plain(
@@ -294,6 +296,10 @@ def grid_bias_attention(
     if grid_w <= 0 or S % grid_w:
         raise ValueError(f"{name}: grid_w {grid_w} must divide S {S}")
     gh = S // grid_w
+    if gh > GRID_BIAS_MAX_GRID or grid_w > GRID_BIAS_MAX_GRID:
+        raise ValueError(f"{name}: grid {gh} x {grid_w}: the kernel takes at most {GRID_BIAS_MAX_GRID} per side")
+    if D > SM90_MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {D} > {SM90_MAX_HEAD_DIM}, the kernel's widest")
     for t, shape in ((rel_h, (B, H, S, gh)), (rel_w, (B, H, S, grid_w))):
         check_dtype(name, torch.float32, t)
         if tuple(t.shape) != shape or not t.is_contiguous():

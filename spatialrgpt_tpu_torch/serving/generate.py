@@ -25,7 +25,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from spatialrgpt_tpu.config import SpatialRGPTConfig
+from spatialrgpt_tpu_torch.config import SpatialRGPTConfig
 from spatialrgpt_tpu_torch.models import llama, vlm
 from spatialrgpt_tpu_torch.ops.decode_attention import decode_attention_int8_flat, decode_attention_int8_flat_plain
 from spatialrgpt_tpu_torch.ops.layers import linear, qkv_proj

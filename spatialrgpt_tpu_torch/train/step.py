@@ -21,7 +21,7 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
-from spatialrgpt_tpu.config import SpatialRGPTConfig
+from spatialrgpt_tpu_torch.config import SpatialRGPTConfig
 from spatialrgpt_tpu_torch.models import vlm
 from spatialrgpt_tpu_torch.train.optimizer import MODULES, AdamW
 

@@ -32,7 +32,7 @@ from typing import Callable, Dict, Iterable, Optional
 
 import torch
 
-from spatialrgpt_tpu.config import SpatialRGPTConfig
+from spatialrgpt_tpu_torch.config import SpatialRGPTConfig
 from spatialrgpt_tpu_torch.utils.weights import save_composite
 
 

@@ -1,9 +1,9 @@
 """Weights for the port's modules.
 
 ``load_from_jax`` carries a JAX parameter pytree (numpy arrays) across
-through the HF-named state dicts that
-``spatialrgpt_tpu/utils/export.py`` writes, so the port loads exactly the
-tensor names of the reference checkpoint layout.  ``init_random`` makes a
+through the HF-named state dicts of ``utils/export.py`` (the port's copy
+of the JAX package's name maps), so the port loads exactly the tensor
+names of the reference checkpoint layout.  ``init_random`` makes a
 model directly on the device from a seeded ``torch.Generator``, with the
 standard deviations of the JAX package's ``init_params``.
 ``save_composite`` writes a model back in the reference's split layout.
@@ -21,8 +21,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from spatialrgpt_tpu.config import SpatialRGPTConfig
-from spatialrgpt_tpu.utils import export
+from spatialrgpt_tpu_torch.config import SpatialRGPTConfig
+from spatialrgpt_tpu_torch.utils import export
 from spatialrgpt_tpu_torch.models.depth_anything import DepthAnythingConfig, DepthAnythingModel, LayerScale
 from spatialrgpt_tpu_torch.models.sam import SamConfig, SamHQModel
 from spatialrgpt_tpu_torch.models.vlm import SpatialRGPT

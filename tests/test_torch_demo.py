@@ -17,13 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from spatialrgpt_tpu.config import (
-    LlamaConfig,
-    ProjectorConfig,
-    RegionExtractorConfig,
-    SiglipVisionConfig,
-    SpatialRGPTConfig,
-)
+from spatialrgpt_tpu import config as jconfig
 from spatialrgpt_tpu.data import device_preprocess as jdp
 from spatialrgpt_tpu.data.dataset import to_vlm_inputs
 from spatialrgpt_tpu.models import depth_anything as jda
@@ -31,6 +25,7 @@ from spatialrgpt_tpu.models import sam as jsam
 from spatialrgpt_tpu.models import vlm as jvlm
 from spatialrgpt_tpu.ops.layer_norm import fused_layer_norm as j_fused_ln
 from spatialrgpt_tpu.serving import generate as jgen
+from spatialrgpt_tpu_torch import config as tconfig
 from spatialrgpt_tpu_torch.data import device_preprocess as tdp
 from spatialrgpt_tpu_torch.demo import pipeline
 from spatialrgpt_tpu_torch.models import depth_anything as tda
@@ -40,18 +35,25 @@ from spatialrgpt_tpu_torch.ops import layer_norm as K6
 from spatialrgpt_tpu_torch.ops import layers
 from spatialrgpt_tpu_torch.utils.weights import init_random_depth_anything, init_random_sam_hq, load_from_jax
 
-# tests/test_torch_models.py's TINY VLM: SigLIP 2 layers / 16 wide at 56 px
-# (4 image tokens), Llama 2 layers / 32 wide, 2 regions
-VLM_TINY = SpatialRGPTConfig(
-    llm=LlamaConfig(vocab_size=64, hidden_size=32, intermediate_size=64, num_hidden_layers=2, num_attention_heads=4,
-                    num_key_value_heads=2, max_position_embeddings=256, eos_token_id=63),
-    vision=SiglipVisionConfig(hidden_size=16, intermediate_size=32, num_hidden_layers=2, num_attention_heads=2,
-                              image_size=56, patch_size=14),
-    projector=ProjectorConfig(mm_hidden_size=16, hidden_size=32),
-    region=RegionExtractorConfig(mm_hidden_size=16, hidden_size=32, ada_pool_size=4),
-    mask_token_id=60,
-    depth_token_id=61,
-)
+
+
+def _vlm_tiny(c):
+    """tests/test_torch_models.py's TINY VLM (SigLIP 2 layers / 16 wide at
+    56 px, 4 image tokens; Llama 2 layers / 32 wide; 2 regions) in the
+    config classes of module ``c``."""
+    return c.SpatialRGPTConfig(
+        llm=c.LlamaConfig(vocab_size=64, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+                          num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=256, eos_token_id=63),
+        vision=c.SiglipVisionConfig(hidden_size=16, intermediate_size=32, num_hidden_layers=2, num_attention_heads=2,
+                                    image_size=56, patch_size=14),
+        projector=c.ProjectorConfig(mm_hidden_size=16, hidden_size=32),
+        region=c.RegionExtractorConfig(mm_hidden_size=16, hidden_size=32, ada_pool_size=4),
+        mask_token_id=60,
+        depth_token_id=61,
+    )
+
+
+VLM_TINY, VLM_TINY_T = _vlm_tiny(jconfig), _vlm_tiny(tconfig)
 
 # tests/test_sam.py's TINY, in both packages' config classes
 _SAM_V = dict(hidden_size=64, num_hidden_layers=4, num_attention_heads=4, intermediate_size=128, image_size=64,
@@ -182,7 +184,7 @@ def test_tiny_demo_pipeline_matches_jax():
     B, h, w = 2, 48, 64
     images = np.stack([pipeline.synth_photo(rng, h, w) for _ in range(B)])
     boxes = pipeline.demo_boxes(B, h, w)
-    sb = pipeline.demo_prompts(VLM_TINY, rng, B, text_tokens=8, pad_to=32, tokens_per_image=4)
+    sb = pipeline.demo_prompts(VLM_TINY_T, rng, B, text_tokens=8, pad_to=32, tokens_per_image=4)
 
     da_model = init_random_depth_anything(DA_T, "cpu", torch.float32, seed=6)
     da_p = jda.convert_depth_anything(da_model.state_dict(), DA_J)
@@ -191,8 +193,8 @@ def test_tiny_demo_pipeline_matches_jax():
     vlm_p = jax.jit(jvlm.init_params, static_argnums=1, compiler_options=QUICK_XLA)(jax.random.PRNGKey(2), VLM_TINY)
     models = pipeline.DemoModels(
         depth=tda.DepthPredictor(da_model, DA_T, target=42),
-        sam=sam_model, sam_cfg=SAM_T, vlm=load_from_jax(jax.tree.map(np.asarray, vlm_p), VLM_TINY, "cpu"),
-        vlm_cfg=VLM_TINY,
+        sam=sam_model, sam_cfg=SAM_T, vlm=load_from_jax(jax.tree.map(np.asarray, vlm_p), VLM_TINY_T, "cpu"),
+        vlm_cfg=VLM_TINY_T,
     )
     out = pipeline.run_pipeline(models, torch.tensor(images), torch.tensor(boxes), sb, max_new_tokens=6, chunk=1)
 
@@ -225,10 +227,10 @@ def test_tiny_demo_pipeline_matches_jax():
 
 
 def test_demo_engine_runs_on_the_port_adapters():
-    """``DemoEngine.set_image`` and ``add_regions`` (the JAX package's
-    framework-free engine) on the port's models: a depth map colorized at
-    the image size and one image-sized mask per box."""
-    from spatialrgpt_tpu.demo.engine import DemoEngine, DemoState
+    """``DemoEngine.set_image`` and ``add_regions`` (the port's copy of the
+    JAX package's framework-free engine) on the port's models: a depth map
+    colorized at the image size and one image-sized mask per box."""
+    from spatialrgpt_tpu_torch.demo.engine import DemoEngine, DemoState
 
     predictor = tda.DepthPredictor(init_random_depth_anything(DA_T, "cpu", torch.float32, seed=7), DA_T, target=42)
     sam_model = init_random_sam_hq(SAM_T, "cpu", torch.float32, seed=2)

@@ -16,15 +16,15 @@ import numpy as np
 import pytest
 import torch
 
-from spatialrgpt_tpu.config import (
+from spatialrgpt_tpu_torch.config import (
     LlamaConfig,
     ProjectorConfig,
     RegionExtractorConfig,
     SiglipVisionConfig,
     SpatialRGPTConfig,
 )
-from spatialrgpt_tpu.constants import IMAGE_TOKEN_INDEX
-from spatialrgpt_tpu.data.splice import expand_rows
+from spatialrgpt_tpu_torch.constants import IMAGE_TOKEN_INDEX
+from spatialrgpt_tpu_torch.data.splice import expand_rows
 from spatialrgpt_tpu_torch.models.vlm import VLMInputs
 from spatialrgpt_tpu_torch.ops import decode_attention as K3
 from spatialrgpt_tpu_torch.ops import flash_attention as K4
@@ -62,24 +62,53 @@ def _bf16_close(out, ref, floor=0.0):
     assert ratio <= 1.0, ratio
 
 
-def test_vit_kernel_matches_plain(cuda):
-    rng = np.random.default_rng(0)
-    for S, valid_len in ((729, None), (256, 200), (5, None)):
-        q, k, v = (_rand(rng, 3, S, 4, 72, device=cuda) for _ in range(3))
-        before = K1.launches
-        out = K1.vit_attention(q, k, v, valid_len=valid_len)
-        torch.cuda.synchronize()
-        assert K1.launches == before + 1
-        _bf16_close(out, K1.vit_attention_plain(q, k, v, valid_len=valid_len))
+_VIT_CASES = [(S, None) for S in (1, 63, 64, 65, 127, 128, 129, 729, 4096)] + [
+    (65, 1), (129, 100), (256, 200), (729, 700), (4096, 4000)]
 
 
-def test_vit_kernel_reads_strided_heads(cuda):
-    """q/k/v as views into a fused (B, S, 3, H, D) projection: the kernel
-    reads through strides, no copy."""
-    qkv = _rand(np.random.default_rng(1), 2, 100, 3, 4, 72, device=cuda)
+@pytest.mark.parametrize("D", [64, 72, 80])
+@pytest.mark.parametrize("S,valid_len", _VIT_CASES)
+def test_vit_kernel_matches_plain(cuda, S, valid_len, D):
+    """K1 on the Hopper main loop against its plain version: head dims 64
+    (one swizzle atom), 72 (SigLIP) and 80 (both atoms full); S around the
+    128-row tiles (a ragged last query and key tile, a single token,
+    SigLIP's 729, SAM's 4096), and keys masked from valid_len < S on."""
+    rng = np.random.default_rng(S * 100 + D)
+    B, H = (1, 2) if S >= 4096 else (3, 4)
+    q, k, v = (_rand(rng, B, S, H, D, device=cuda) for _ in range(3))
+    before = K1.launches
+    out = K1.vit_attention(q, k, v, valid_len=valid_len)
+    torch.cuda.synchronize()
+    assert K1.launches == before + 1
+    _bf16_close(out, K1.vit_attention_plain(q, k, v, valid_len=valid_len))
+
+
+@pytest.mark.parametrize("S,D", [(100, 72), (729, 72), (300, 64), (129, 80)])
+def test_vit_kernel_reads_strided_heads(cuda, S, D):
+    """q/k/v as views into a fused (B, S, 3, H, D) projection: the tensor
+    maps read through strides, no copy."""
+    qkv = _rand(np.random.default_rng(1), 2, S, 3, 4, D, device=cuda)
     q, k, v = qkv.unbind(2)
     assert not q.is_contiguous()
     _bf16_close(K1.vit_attention(q, k, v), K1.vit_attention_plain(q, k, v))
+
+
+def test_vit_bound_separates_a_skipped_key_tile(cuda):
+    """A K1 that skips one 128-key tile fails the bound that the sound
+    kernel meets.  Attention does not depend on the order of the keys, so
+    the kernel run on keys whose tile 2 was moved to the end, with
+    valid_len cutting it off, is exactly a kernel that skips that tile."""
+    rng = np.random.default_rng(4)
+    B, S, H, D = 2, 729, 4, 72
+    q, k, v = (_rand(rng, B, S, H, D, device=cuda) for _ in range(3))
+    ref = K1.vit_attention_plain(q, k, v)
+    tile = slice(256, 384)
+
+    def moved(t):
+        return torch.cat([t[:, : tile.start], t[:, tile.stop :], t[:, tile]], dim=1)
+
+    assert bf16_err_over_bound(K1.vit_attention(q, moved(k), moved(v)), ref) <= 1.0
+    assert bf16_err_over_bound(K1.vit_attention(q, moved(k), moved(v), valid_len=S - 128), ref) > 1.0
 
 
 def test_onepass_kernel_matches_plain(cuda):
@@ -267,13 +296,14 @@ def test_tiny_align_step_runs_k1_and_k4(cuda):
     assert float((grad - pgrad).norm() / pgrad.norm()) < 0.05
 
 
-@pytest.mark.parametrize("gh,gw,D", [(32, 48, 80), (32, 48, 64), (64, 64, 80), (10, 13, 64)])
+@pytest.mark.parametrize("gh,gw,D", [(32, 48, 80), (32, 48, 64), (64, 64, 80), (64, 64, 64), (10, 13, 64),
+                                     (13, 64, 72)])
 def test_grid_bias_kernel_matches_plain(cuda, gh, gw, D):
     """K5 against its plain version: SAM vit_h's grid and head dim (64 x 64,
-    D 80), vit_b's D 64 (padded to 80 in shared memory), a grid row that is
-    not one key tile (gw 48: tiles straddle rows), and S = 130, not a
-    multiple of 64; q/k/v are views into a fused (B, S, 3, H, D) projection,
-    as SAM's attention passes them."""
+    D 80), vit_b's D 64 (TMA's zero fill pads it to 80), a grid row that is
+    not a divisor of the 128-key tile (gw 48: tiles straddle rows), S = 130
+    and 832, not multiples of 128; q/k/v are views into a fused (B, S, 3,
+    H, D) projection, as SAM's attention passes them."""
     rng = np.random.default_rng(8)
     B, H, S = 2, 3, gh * gw
     q, k, v = _rand(rng, B, S, 3, H, D, device=cuda).unbind(2)
@@ -287,10 +317,10 @@ def test_grid_bias_kernel_matches_plain(cuda, gh, gw, D):
 
 
 def test_grid_bias_bound_separates_a_skipped_key_tile(cuda):
-    """At vit_h's grid (gw 64) a key tile is one grid row, so the kernel run
-    with that row's rel_h at -inf is a kernel that skips the tile: against
-    the plain version on the true bias it exceeds the bound that the sound
-    kernel meets."""
+    """At vit_h's grid (gw 64) a grid row is half of one 128-key tile, so the
+    kernel run with that row's rel_h at -inf is a kernel that skips those
+    64 keys: against the plain version on the true bias it exceeds the
+    bound that the sound kernel meets."""
     rng = np.random.default_rng(9)
     B, H, D, gh, gw = 1, 2, 80, 64, 64
     S = gh * gw
@@ -302,6 +332,21 @@ def test_grid_bias_bound_separates_a_skipped_key_tile(cuda):
     skipped[..., 17] = -torch.inf
     assert bf16_err_over_bound(K5.grid_bias_attention(q, k, v, rel_h, rel_w, gw), ref) <= 1.0
     assert bf16_err_over_bound(K5.grid_bias_attention(q, k, v, skipped, rel_w, gw), ref) > 1.0
+
+
+def test_grid_bias_wrapper_raises_past_its_grid(cuda):
+    """K5 keeps each CTA's rel_h and rel_w rows in shared memory, at most 64
+    per side: a 65-wide grid raises on the card, before any launch."""
+    rng = np.random.default_rng(10)
+    B, H, D, gh, gw = 1, 2, 64, 2, 65
+    S = gh * gw
+    q, k, v = (_rand(rng, B, S, H, D, device=cuda) for _ in range(3))
+    rel_h = torch.zeros(B, H, S, gh, device=cuda)
+    rel_w = torch.zeros(B, H, S, gw, device=cuda)
+    before = K5.grid_bias_launches
+    with pytest.raises(ValueError, match="at most 64"):
+        K5.grid_bias_attention(q, k, v, rel_h, rel_w, gw)
+    assert K5.grid_bias_launches == before
 
 
 @pytest.mark.parametrize("rows,C,offset", [(4099, 1280, 0), (37, 200, 0), (5, 77, 0), (3, 4100, 0), (70, 256, 3)])

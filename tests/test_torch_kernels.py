@@ -395,3 +395,21 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
             fn(q, k, k, seg, lse, delta, _meta(B, S, Hq, D, dtype=torch.float32))
         with pytest.raises(ValueError, match="CUDA"):
             fn(q, k, k, seg, lse, delta, q.transpose(1, 2).contiguous().transpose(1, 2))
+
+
+def test_hopper_wrappers_reject_wide_heads_and_grids():
+    """K1 and K5 run on the Hopper main loop (head dims up to 80, K5's bias
+    rows for grids up to 64 per side in shared memory): wider raises
+    before any pointer reaches C; the widest that fits fails only for not
+    being on a CUDA card."""
+    with pytest.raises(ValueError, match="head dim 96 > 80"):
+        K1.vit_attention(*(_meta(1, 8, 2, 96),) * 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        K1.vit_attention(*(_meta(1, 8, 2, 80),) * 3)
+    for (gh, gw, D), match in (((2, 65, 64), "at most 64"), ((65, 2, 64), "at most 64"),
+                               ((8, 8, 96), "head dim 96 > 80"), ((64, 64, 80), "CUDA")):
+        S, H = gh * gw, 2
+        qkv = [_meta(1, S, H, D) for _ in range(3)]
+        rel_h, rel_w = _meta(1, H, S, gh, dtype=torch.float32), _meta(1, H, S, gw, dtype=torch.float32)
+        with pytest.raises(ValueError, match=match):
+            K4.grid_bias_attention(*qkv, rel_h, rel_w, gw)

@@ -13,22 +13,17 @@ import numpy as np
 import pytest
 import torch
 
-from spatialrgpt_tpu.config import (
-    LlamaConfig,
-    ProjectorConfig,
-    RegionExtractorConfig,
-    SiglipVisionConfig,
-    SpatialRGPTConfig,
-)
-from spatialrgpt_tpu.constants import IMAGE_TOKEN_INDEX
+from spatialrgpt_tpu import config as jconfig
 from spatialrgpt_tpu.data.dataset import to_vlm_inputs
-from spatialrgpt_tpu.data.splice import expand_rows
 from spatialrgpt_tpu.models import llama as jllama
 from spatialrgpt_tpu.models import projector as jproj
 from spatialrgpt_tpu.models import region_extractor as jre
 from spatialrgpt_tpu.models import siglip as jsiglip
 from spatialrgpt_tpu.models import vlm as jvlm
 from spatialrgpt_tpu.serving import generate as jgen
+from spatialrgpt_tpu_torch import config as tconfig
+from spatialrgpt_tpu_torch.constants import IMAGE_TOKEN_INDEX
+from spatialrgpt_tpu_torch.data.splice import expand_rows
 from spatialrgpt_tpu_torch.models import llama as tllama
 from spatialrgpt_tpu_torch.models import projector as tproj
 from spatialrgpt_tpu_torch.models import region_extractor as tre
@@ -37,31 +32,40 @@ from spatialrgpt_tpu_torch.models import vlm as tvlm
 from spatialrgpt_tpu_torch.serving import generate as tgen
 from spatialrgpt_tpu_torch.utils.weights import init_random, load_from_jax
 
-# tests/test_generate.py's TINY: SigLIP 2 layers / 16 wide, Llama 2 layers /
-# 32 wide with GQA 4q/2kv, 2 regions per image
-TINY = SpatialRGPTConfig(
-    llm=LlamaConfig(
-        vocab_size=64, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
-        num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=256, eos_token_id=63,
-    ),
-    vision=SiglipVisionConfig(
-        hidden_size=16, intermediate_size=32, num_hidden_layers=2, num_attention_heads=2,
-        image_size=56, patch_size=14,
-    ),
-    projector=ProjectorConfig(mm_hidden_size=16, hidden_size=32),
-    region=RegionExtractorConfig(mm_hidden_size=16, hidden_size=32, ada_pool_size=4),
-    mask_token_id=60,
-    depth_token_id=61,
-)
-# PARITY.md's fixture widths for the single-module tests
-SIGLIP = SiglipVisionConfig(
-    hidden_size=32, intermediate_size=64, num_hidden_layers=2, num_attention_heads=2,
-    image_size=56, patch_size=14, select_layer=-2, select_feature="patch",
-)
-LLAMA = LlamaConfig(
-    vocab_size=96, hidden_size=48, intermediate_size=96, num_hidden_layers=2,
-    num_attention_heads=4, num_key_value_heads=2, rope_theta=500000.0, rope_scaling_factor=2.0,
-)
+
+def _configs(c):
+    """tests/test_generate.py's TINY (SigLIP 2 layers / 16 wide, Llama 2
+    layers / 32 wide with GQA 4q/2kv, 2 regions per image) and PARITY.md's
+    fixture widths for the single-module tests, built from one config
+    module: each package's own."""
+    tiny = c.SpatialRGPTConfig(
+        llm=c.LlamaConfig(
+            vocab_size=64, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+            num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=256, eos_token_id=63,
+        ),
+        vision=c.SiglipVisionConfig(
+            hidden_size=16, intermediate_size=32, num_hidden_layers=2, num_attention_heads=2,
+            image_size=56, patch_size=14,
+        ),
+        projector=c.ProjectorConfig(mm_hidden_size=16, hidden_size=32),
+        region=c.RegionExtractorConfig(mm_hidden_size=16, hidden_size=32, ada_pool_size=4),
+        mask_token_id=60,
+        depth_token_id=61,
+    )
+    siglip = c.SiglipVisionConfig(
+        hidden_size=32, intermediate_size=64, num_hidden_layers=2, num_attention_heads=2,
+        image_size=56, patch_size=14, select_layer=-2, select_feature="patch",
+    )
+    llama = c.LlamaConfig(
+        vocab_size=96, hidden_size=48, intermediate_size=96, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=2, rope_theta=500000.0, rope_scaling_factor=2.0,
+    )
+    return tiny, siglip, llama
+
+
+# the JAX package's configs go to its functions, the port's to the port's
+TINY, SIGLIP, LLAMA = _configs(jconfig)
+TINY_T, SIGLIP_T, LLAMA_T = _configs(tconfig)
 ATOL = 2e-5
 
 
@@ -85,20 +89,19 @@ def _init(cfg, seed):
 @pytest.fixture(scope="module")
 def tiny():
     params = _init(TINY, 7)
-    return params, load_from_jax(_np_tree(params), TINY, "cpu")
+    return params, load_from_jax(_np_tree(params), TINY_T, "cpu")
 
 
 def test_siglip_forward_features_and_full(tiny):
     params = dict(tiny[0], vision=jax.jit(jsiglip.init_params, static_argnums=1)(jax.random.PRNGKey(1), SIGLIP))
-    cfg = TINY.replace(vision=SIGLIP)
-    model = load_from_jax(_np_tree(params), cfg, "cpu")
+    model = load_from_jax(_np_tree(params), TINY_T.replace(vision=SIGLIP_T), "cpu")
     px = np.random.default_rng(0).standard_normal((3, 56, 56, 3)).astype(np.float32)
     want = jax.jit(jsiglip.forward_features, static_argnums=2)(params["vision"], jnp.asarray(px), SIGLIP)
-    got = tsiglip.forward_features(model.vision_tower, torch.tensor(px), SIGLIP)
+    got = tsiglip.forward_features(model.vision_tower, torch.tensor(px), SIGLIP_T)
     assert tuple(got.shape) == want.shape == (3, 15, 32)  # 'patch' drops token 0
     _close(got, want)
     want = jax.jit(jsiglip.forward_full, static_argnums=2)(params["vision"], jnp.asarray(px), SIGLIP)
-    got = tsiglip.forward_full(model.vision_tower, torch.tensor(px), SIGLIP)
+    got = tsiglip.forward_full(model.vision_tower, torch.tensor(px), SIGLIP_T)
     _close(got, want, atol=1e-4)  # post-LN renormalizes to unit scale
 
 
@@ -106,7 +109,7 @@ def test_projector_odd_grid(tiny):
     params, model = tiny
     x = np.random.default_rng(1).standard_normal((2, 25, 16)).astype(np.float32)  # 5x5 -> pad to 6x6 -> 9 tokens
     want = jproj.forward(params["projector"], jnp.asarray(x), TINY.projector)
-    got = tproj.forward(model.mm_projector, torch.tensor(x), TINY.projector)
+    got = tproj.forward(model.mm_projector, torch.tensor(x), TINY_T.projector)
     assert tuple(got.shape) == want.shape == (2, 9, 32)
     _close(got, want)
 
@@ -128,19 +131,19 @@ def test_region_extractor(tiny):
         return h, lres, jre.mask_pool(h, masks), jre.extract_regions(p, h, depth, masks, cfg)
 
     jh, jlres, jpool, (jm, jd) = ref(params["region"], *map(jnp.asarray, (tower, depth, masks)))
-    th, tlres = tre.feature_refinement(model.region_extractor, torch.tensor(tower), cfg)
+    th, tlres = tre.feature_refinement(model.region_extractor, torch.tensor(tower), TINY_T.region)
     assert tuple(th.shape) == jh.shape == (2, 144, 16) and tuple(tlres.shape) == jlres.shape == (2, 16, 16)
     _close(th, jh)
     _close(tlres, jlres)
     _close(tre.mask_pool(th, torch.tensor(masks)), jpool)
-    tm, td = tre.extract_regions(model.region_extractor, th, torch.tensor(depth), torch.tensor(masks), cfg)
+    tm, td = tre.extract_regions(model.region_extractor, th, torch.tensor(depth), torch.tensor(masks), TINY_T.region)
     _close(tm, jm)
     _close(td, jd)
 
 
 def test_llama_forward_collects_quantized_kv(tiny):
-    cfg = TINY.replace(llm=LLAMA, num_extra_tokens=2)
     params = jax.jit(jllama.init_params, static_argnums=(1, 2, 3))(jax.random.PRNGKey(3), LLAMA, jnp.float32, 2)
+    cfg = TINY_T.replace(llm=LLAMA_T, num_extra_tokens=2)
     model = load_from_jax(_np_tree(dict(tiny[0], llm=params)), cfg, "cpu").llm
     rng = np.random.default_rng(3)
     x = rng.standard_normal((2, 12, 48)).astype(np.float32)
@@ -155,7 +158,7 @@ def test_llama_forward_collects_quantized_kv(tiny):
         return h, kv, jllama.logits(p, h, LLAMA)
 
     jh, jkv, jlogits = ref(params, *map(jnp.asarray, (x, pos, seg)))
-    th, tkv = tllama.forward(model, LLAMA, inputs_embeds=torch.tensor(x), position_ids=torch.tensor(pos),
+    th, tkv = tllama.forward(model, LLAMA_T, inputs_embeds=torch.tensor(x), position_ids=torch.tensor(pos),
                              segment_ids=torch.tensor(seg), attn_impl="onepass", collect_kv=True, kv_quant=True)
     _close(th, jh)
     _close(tllama.logits(model, th), jlogits, atol=1e-4)
@@ -175,7 +178,7 @@ def test_vlm_prepare_embeds_rgb_depth_regions(tiny):
     params, model = tiny
     sb, inputs, jin = _batch()
     want = jax.jit(jvlm.prepare_embeds, static_argnums=1)(params, TINY, jin)
-    got = tvlm.prepare_embeds(model, TINY, inputs)
+    got = tvlm.prepare_embeds(model, TINY_T, inputs)
     assert tuple(got.shape) == want.shape == (2, 10, 32)
     _close(got, want)
 
@@ -184,8 +187,8 @@ def test_init_random_matches_the_jax_recipe(tiny):
     """Seeded on-device init: same parameter names and shapes as the bridge,
     reproducible from the seed, and the JAX init_params scales
     (fan_in^-1/2 kernels, 0.02 tables, unit norms, zero biases)."""
-    model = init_random(TINY, "cpu", torch.float32, seed=0)
-    again = init_random(TINY, "cpu", torch.float32, seed=0)
+    model = init_random(TINY_T, "cpu", torch.float32, seed=0)
+    again = init_random(TINY_T, "cpu", torch.float32, seed=0)
     sd, sd2, ref = model.state_dict(), again.state_dict(), tiny[1].state_dict()
     assert sd.keys() == ref.keys()
     for name, t in sd.items():
@@ -201,7 +204,7 @@ def test_init_random_matches_the_jax_recipe(tiny):
 def test_unported_llama_knobs_raise():
     for kw in ({"num_experts": 4}, {"sliding_window": 8}, {"hidden_act": "gelu_tanh"}, {"tie_word_embeddings": True}):
         with pytest.raises(NotImplementedError):
-            tllama.LlamaForCausalLM(LlamaConfig(**{**LLAMA.__dict__, **kw}))
+            tllama.LlamaForCausalLM(tconfig.LlamaConfig(**{**LLAMA_T.__dict__, **kw}))
 
 
 # ---------------------------------------------------------------------------
@@ -237,7 +240,7 @@ def _both(slice_pair, max_new=8, **kw):
     params, model, inputs, jin, plens = slice_pair
     j = jgen.generate(params, TINY, jin, jnp.asarray(plens, jnp.int32), max_new_tokens=max_new,
                       temperature=0.0, kv_quant=True, attn_impl="onepass", **kw)
-    t = tgen.generate(model, TINY, inputs, torch.as_tensor(plens), max_new_tokens=max_new,
+    t = tgen.generate(model, TINY_T, inputs, torch.as_tensor(plens), max_new_tokens=max_new,
                       temperature=0.0, attn_impl="onepass", **kw)
     return j, t
 

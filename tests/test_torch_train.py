@@ -19,14 +19,15 @@ import pytest
 import torch
 from torch import nn
 
-import __graft_entry__ as graft
-from spatialrgpt_tpu.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
+from spatialrgpt_tpu import config as jconfig
 from spatialrgpt_tpu.data.dataset import to_vlm_inputs
-from spatialrgpt_tpu.data.splice import expand_rows, pack_rows
 from spatialrgpt_tpu.models import vlm as jvlm
 from spatialrgpt_tpu.train import optimizer as jopt
 from spatialrgpt_tpu.train import step as jstep
 from spatialrgpt_tpu.utils import export
+from spatialrgpt_tpu_torch import config as tconfig
+from spatialrgpt_tpu_torch.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
+from spatialrgpt_tpu_torch.data.splice import expand_rows, pack_rows
 from spatialrgpt_tpu_torch.models import vlm as tvlm
 from spatialrgpt_tpu_torch.ops import flash_attention as K4
 from spatialrgpt_tpu_torch.train import optimizer as topt
@@ -34,9 +35,25 @@ from spatialrgpt_tpu_torch.train import step as tstep
 from spatialrgpt_tpu_torch.train import trainer as ttrainer
 from spatialrgpt_tpu_torch.utils.weights import load_from_jax
 
-# __graft_entry__'s tiny config: Llama 2 layers / 64 wide with GQA 4q/2kv and
-# a 128-token vocab, SigLIP 2 layers / 32 wide, 2 regions per image
-TINY = graft._tiny_cfg()
+
+
+def _tiny(c):
+    """__graft_entry__.py::_tiny_cfg (Llama 2 layers / 64 wide with GQA
+    4q/2kv and a 128-token vocab, SigLIP 2 layers / 32 wide, 2 regions per
+    image) in the config classes of module ``c``."""
+    return c.SpatialRGPTConfig(
+        llm=c.LlamaConfig(vocab_size=128, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+                          num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=512),
+        vision=c.SiglipVisionConfig(hidden_size=32, intermediate_size=64, num_hidden_layers=2, num_attention_heads=2,
+                                    image_size=56, patch_size=14),
+        projector=c.ProjectorConfig(mm_hidden_size=32, hidden_size=64),
+        region=c.RegionExtractorConfig(mm_hidden_size=32, hidden_size=64, ada_pool_size=4),
+        mask_token_id=120, depth_token_id=121, model_max_length=512,
+    )
+
+
+# the JAX package's config goes to its functions, the port's to the port's
+TINY, TINY_T = _tiny(jconfig), _tiny(tconfig)
 S = 64
 ALIGN = ("llm", "vision")
 
@@ -75,7 +92,7 @@ def weights():
 
 
 def _model(np_params):
-    return load_from_jax(np_params, TINY, "cpu")
+    return load_from_jax(np_params, TINY_T, "cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -92,18 +109,18 @@ def test_loss_fn_matches_jax(weights, ce_chunk):
     inputs, jin = _batch(0)
     jloss, jm = jax.jit(jvlm.loss_fn, static_argnums=1)(params, TINY, jin)
     model = _model(np_params)
-    loss, m = tvlm.loss_fn(model, TINY, inputs, attn_impl="pallas", ce_chunk=ce_chunk)
+    loss, m = tvlm.loss_fn(model, TINY_T, inputs, attn_impl="pallas", ce_chunk=ce_chunk)
     assert int(m["num_tokens"]) == int(jm["num_tokens"]) > 0
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
-    plain, _ = tvlm.loss_fn(model, TINY, inputs, attn_impl="xla", ce_chunk=16 - ce_chunk)
+    plain, _ = tvlm.loss_fn(model, TINY_T, inputs, attn_impl="xla", ce_chunk=16 - ce_chunk)
     np.testing.assert_allclose(float(loss), float(plain), rtol=1e-6)  # chunked == unchunked
     with pytest.raises(ValueError, match="divide"):
-        tvlm.loss_fn(model, TINY, inputs, ce_chunk=24)
+        tvlm.loss_fn(model, TINY_T, inputs, ce_chunk=24)
 
 
 def _grads(model, inputs, **kw):
     model.zero_grad(set_to_none=True)
-    loss, _ = tvlm.loss_fn(model, TINY, inputs, **kw)
+    loss, _ = tvlm.loss_fn(model, TINY_T, inputs, **kw)
     loss.backward()
     return {n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None}
 
@@ -214,7 +231,7 @@ def test_align_steps_match_jax(weights):
     model = _model(np_params)
     tx = topt.build_optimizer(model, topt.OptimizerConfig(**ocfg))
     state = tstep.create_train_state(model, tx)
-    fn = tstep.make_train_step(TINY, tx, attn_impl="pallas", remat=True, frozen=ALIGN, ce_chunk=32)
+    fn = tstep.make_train_step(TINY_T, tx, attn_impl="pallas", remat=True, frozen=ALIGN, ce_chunk=32)
     frozen_before = {n: p.clone() for n, p in model.named_parameters() if n.startswith(("llm.", "vision_tower."))}
     for i in range(3):
         inputs, jin = _batch(10 + i)
@@ -254,10 +271,10 @@ def test_trainer_resume_is_bit_exact(weights, tmp_path):
     def fresh():
         model = _model(np_params)
         tx = topt.build_optimizer(model, ocfg)
-        return tstep.create_train_state(model, tx), tstep.make_train_step(TINY, tx, attn_impl="pallas")
+        return tstep.create_train_state(model, tx), tstep.make_train_step(TINY_T, tx, attn_impl="pallas")
 
     state, fn = fresh()
-    straight = ttrainer.Trainer(TINY, ttrainer.TrainerConfig(output_dir=str(tmp_path / "a"), max_steps=6,
+    straight = ttrainer.Trainer(TINY_T, ttrainer.TrainerConfig(output_dir=str(tmp_path / "a"), max_steps=6,
                                                              save_steps=100, log_steps=1),
                                 fn, state, (_batch(20 + i, rows=1)[0] for i in range(6)))
     assert straight.train() == {"status": "completed", "step": 6}
@@ -266,12 +283,12 @@ def test_trainer_resume_is_bit_exact(weights, tmp_path):
     tcfg = ttrainer.TrainerConfig(output_dir=str(tmp_path / "b"), max_steps=6, save_steps=2, log_steps=1,
                                   autoresume_poll_steps=3)
     state, fn = fresh()
-    first = ttrainer.Trainer(TINY, tcfg, fn, state, (_batch(20 + i, rows=1)[0] for i in range(6)),
+    first = ttrainer.Trainer(TINY_T, tcfg, fn, state, (_batch(20 + i, rows=1)[0] for i in range(6)),
                              autoresume_check=lambda: not hits.append(1))
     assert first.train() == {"status": "preempted", "step": 3}
     assert sorted(os.listdir(tmp_path / "b")) == ["checkpoint-3", "metrics.jsonl"]  # checkpoint-2 pruned
     state, fn = fresh()
-    resumed = ttrainer.Trainer(TINY, tcfg, fn, state, (_batch(20 + i, rows=1)[0] for i in range(6)))
+    resumed = ttrainer.Trainer(TINY_T, tcfg, fn, state, (_batch(20 + i, rows=1)[0] for i in range(6)))
     assert resumed.train() == {"status": "completed", "step": 6}
     assert ttrainer.find_resume_checkpoint(str(tmp_path / "b")) == "DONE"
 
@@ -301,8 +318,8 @@ def test_unported_training_options_raise(weights):
     with pytest.raises(NotImplementedError):
         ttrainer.TrainerConfig(ckpt_backend="orbax")
     with pytest.raises(ValueError, match="unknown frozen"):
-        tstep.make_train_step(TINY, None, frozen=("tower",))
-    moe = TINY.replace(llm=TINY.llm.__class__(**{**TINY.llm.__dict__, "num_experts": 2}))
+        tstep.make_train_step(TINY_T, None, frozen=("tower",))
+    moe = TINY_T.replace(llm=TINY_T.llm.__class__(**{**TINY_T.llm.__dict__, "num_experts": 2}))
     with pytest.raises(NotImplementedError):
         tvlm.loss_fn(_model(weights[1]), moe, _batch(0)[0])
     assert K4.launches == {"flash_attention_fwd": 0, "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0}
