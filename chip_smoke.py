@@ -8,7 +8,8 @@ Phases, each printed as one JSON line:
 1. device  -- the card, its power limit, TF32 switched off for every
    comparison (float32 matmuls and cuDNN convolutions in full float32).
 2. build   -- nvcc builds every kernel of ``spatialrgpt_tpu_torch/csrc``
-   (one nvcc per source, all at once).
+   (one nvcc per source, all at once); ptxas's registers and spill bytes
+   per kernel, from the build's log.
 3. kernel  -- each kernel against its plain PyTorch version at its main
    path's shapes, in bf16, with the max abs error and its ratio to the
    per-element bound of ``ops/_checks.py::bf16_err_over_bound`` (4 bf16
@@ -17,7 +18,11 @@ Phases, each printed as one JSON line:
    kernels at the align step's (B4 S4096 Hq32 Hk8 D128, 4 packed samples
    per row and a padded tail), K5 at SAM vit_h's global layers (B4 S4096
    on a 64 x 64 grid, H16 D80, f32 rel-pos bias) and K6 at SAM's and
-   Depth-Anything's LayerNorm rows.  Per row: the device time of the
+   Depth-Anything's LayerNorm rows.  K1, K2 and K5 run on the TMA + wgmma
+   main loop of ``csrc/attention_sm90.cuh`` (K2 with G = 4 query heads x
+   32 positions per CTA and its causal x segment mask built in the
+   kernel); K6 is a streaming kernel that takes the models' bf16 weights
+   as they are (one launch per LayerNorm).  Per row: the device time of the
    kernel (``ms``), of its plain version (``plain_ms``) and of one PyTorch
    call of the same function (``library_ms``, with ``library`` naming it
    and its pinned SDPA backend; null for K3, which no single call
@@ -154,14 +159,36 @@ def phase_device(torch):
     })
 
 
+def ptxas_usage(log: str) -> dict:
+    """Per compiled kernel (mangled name) in ptxas's -v output: [registers,
+    spill store bytes, spill load bytes]."""
+    import re
+
+    usage, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            usage[name] = [None, 0, 0]
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            usage[name][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            usage[name][0] = int(m.group(1))
+    return usage
+
+
 def phase_build():
     from spatialrgpt_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     _build.lib()
+    log_path = os.path.join(os.path.dirname(_build.build_info["path"]), "build.log")
     emit({
         "phase": "build", "ok": True, "seconds": round(time.perf_counter() - t0, 3),
         "library": os.path.relpath(_build.build_info["path"], ROOT),
+        "ptxas_registers_spill_store_load_bytes": ptxas_usage(open(log_path).read()) if os.path.exists(log_path) else {},
     })
 
 
@@ -374,7 +401,8 @@ def phase_kernels(torch):
         bound(4 * B * H * S * S * D, nbytes(q, k, v, q)),
         ("F.scaled_dot_product_attention, (B, H, S, D) copies, SDPBackend.FLASH_ATTENTION", lambda: lib_call(*lib_in)),
     ))
-    # K2: llama3-8b prefill over the 320 bucket, right-padded rows
+    # K2: llama3-8b prefill over the 320 bucket, right-padded rows; the
+    # Hopper main loop at D 128 with G = 4 heads x 32 positions per CTA
     B, S, Hq, Hk, D = N_ROWS, PAD_BUCKET, 32, 8, 128
     q2, k2, v2 = rn(B, S, Hq, D), rn(B, S, Hk, D), rn(B, S, Hk, D)
     seg = torch.zeros(B, S, dtype=torch.int32, device=dev)
@@ -470,7 +498,8 @@ def phase_kernels(torch):
     ))
     # K6: SAM vit_h's encoder rows (a chunk of 4 images x 4096 tokens, C 1280)
     # and Depth-Anything ViT-L's (8 images x 1814 tokens, C 1024), bf16
-    # weights as the models hold them
+    # weights as the models hold them (the streaming kernel takes them as
+    # they are: one launch per call)
     for rows6, C in ((DEMO_SAM_CHUNK * 4096, 1280), (DEMO_IMAGES * 1814, 1024)):
         x6 = (torch.randn(rows6, C, generator=g, device=dev) * 3 + 1).to(torch.bfloat16)
         w6, b6 = rn(C), rn(C)

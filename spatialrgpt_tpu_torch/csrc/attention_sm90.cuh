@@ -1,40 +1,54 @@
-// Hopper (sm_90a) main loop of the non-causal attention kernels with a
-// head dim of at most 80: K1 (vit_attention.cu, SigLIP's D = 72) and K5
-// (grid_bias_attention.cu, SAM vit_h's D = 80 and vit_b's 64).
+// Hopper (sm_90a) main loop of the attention kernels: K1 (vit_attention.cu,
+// SigLIP's D = 72) and K5 (grid_bias_attention.cu, SAM vit_h's D = 80 and
+// vit_b's 64) at a head-dim width DMAX of 80, and K2 (prefill_attention.cu,
+// llama's D = 128: causal x packed segment x window, GQA) at DMAX = 128.
 //
-// One CTA owns BM = 128 query rows of one (image, head) and walks all keys
-// in tiles of BN = 128:
+// One CTA owns BM = 128 query rows and walks its key tiles of BN = 128:
 //   - warpgroup 0 is the producer: one thread issues TMA loads of the Q
 //     tile (once) and of each K/V tile into a ring of 2 stages, with a
 //     full and an empty mbarrier per stage; setmaxnreg gives its registers
 //     to the consumers.
 //   - warpgroups 1 and 2 are consumers, 64 query rows each.  S = Q K^T is
-//     5 wgmma m64n128k16 from shared memory (D zero-padded to 80 by TMA's
-//     out-of-bounds fill), f32 in registers.  The online softmax runs in
-//     registers in the exp2 domain (the scale folded into log2(e)); a row
-//     is spread over the 4 threads of a quad, so its max and sum take two
-//     shuffles.  P is rounded to bf16 in registers (the accumulator layout
-//     of S is the A-operand layout of the next product) and O += P V is 8
-//     wgmma m64n80k16 with A from registers and V read MN-major from shared
-//     memory, so V is never transposed.  O (64 x 80 f32) stays in
-//     registers; the epilogue divides by l and stores bf16 through the
-//     caller's (B, S, H, D) strides.
+//     DMAX / 16 wgmma m64n128k16 from shared memory (D zero-padded to DMAX
+//     by TMA's out-of-bounds fill), f32 in registers.  The online softmax
+//     runs in registers in the exp2 domain (the scale folded into
+//     log2(e)); a row is spread over the 4 threads of a quad, so its max
+//     and sum take two shuffles.  P is rounded to bf16 in registers (the
+//     accumulator layout of S is the A-operand layout of the next product)
+//     and O += P V is 8 wgmma m64n{DMAX}k16 with A from registers and V
+//     read MN-major from shared memory, so V is never transposed.  O (64 x
+//     DMAX f32) stays in registers; the epilogue divides by l and stores
+//     bf16 through the caller's (B, S, H, D) strides.
+//
+// K1 and K5 (modes NO_BIAS, GRID, GRID64): a CTA is 128 positions of one
+// (image, head) and walks every key tile; only the last one masks keys >=
+// kv_len.  K2 (mode PREFILL): a CTA is the G = Hq / Hk query heads of one kv
+// head x 128 / G positions (the Pallas kernel's fold_g): one 4-D TMA box
+// {64, G, 128 / G, 1} puts position q0 + r / G, head hk * G + r % G in smem
+// row r, and K and V are read once per kv head.  Key j is live for query i
+// iff seg[j] == seg[i] != 0, j <= i and (no window or i - j < window).  Both
+// sides walk the key tiles from the window's first to the causal last of
+// the CTA's live queries (rows of segment 0 need none); the producer's warp
+// copies each tile's 128 segment ids into its stage beside the TMA loads.
+// A tile is masked per score only where a thread's rows meet the diagonal,
+// the window edge or another segment; interior tiles are maskless.  Rows
+// of segment 0 store zeros, rows >= S nothing.
 //
 // Shared-memory layout of a 128-row operand tile: two 64-column atoms of
 // 128 rows x 128 bytes, each 1024-byte aligned and 128B-swizzled as TMA
-// writes them (columns 64-127 of the second atom are TMA's zero fill past
-// D, so one N = 80 product spans both atoms).  Q 32 KB + 2 stages x (K 32
-// KB + V 32 KB) = 160 KB; K5 adds its rel-pos bias rows, 64 KB, for 224 KB
-// of the 227 KB a CTA may use.  Ragged S, valid_len and D < 80 need no
-// masked loads: the tensor maps are 4-D {D, H, S, B} over the caller's
-// strides and TMA fills zeros past each edge; only the last key tile masks
-// keys >= kv_len.
+// writes them (at DMAX = 80 columns 80-127 are TMA's zero fill past D, so
+// one N = 80 product spans both atoms).  Q 32 KB + 2 stages x (K 32 KB + V
+// 32 KB) = 160 KB; K5 adds its rel-pos bias rows, 64 KB, for 224 KB of the
+// 227 KB a CTA may use; K2 adds 2 x 512 bytes of segment ids.  Ragged S,
+// valid_len and D < DMAX need no masked loads: the tensor maps are 4-D {D,
+// H, S, B} over the caller's strides and TMA fills zeros past each edge.
 
 #pragma once
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -46,34 +60,53 @@ using bf16 = __nv_bfloat16;
 constexpr int BM = 128;        // query rows per CTA (2 consumer warpgroups x 64)
 constexpr int BN = 128;        // keys per tile
 constexpr int ATOM = 64;       // bf16 columns of one 128-byte swizzle atom
-constexpr int DMAX = 80;       // largest head dim (5 k-steps of 16; PV N = 80)
+constexpr int NARROW = 80;     // K1's and K5's DMAX (5 k-steps of 16; PV N = 80)
+constexpr int WIDE = 128;      // K2's DMAX (8 k-steps; PV N = 128)
 constexpr int NSTAGES = 2;     // K/V ring depth
 constexpr int NTHREADS = 384;  // producer + 2 consumer warpgroups
 constexpr int NCONSUMER = 256;
 constexpr int ATOM_BYTES = 128 * ATOM * 2;     // 128 rows of one atom: 16 KB
 constexpr int OPERAND_BYTES = 2 * ATOM_BYTES;  // a 128-row operand tile: 32 KB
 constexpr int BIAS_LD = 64;                    // f32 per bias row (gh, gw <= 64)
+constexpr int SEG_BYTES = BN * 4;              // K2: one key tile's int32 segment ids
 constexpr float LOG2E = 1.4426950408889634f;
+
+// what the kernel adds to or masks in the scaled scores
+enum Mode : int {
+  NO_BIAS = 0,  // K1: keys >= kv_len masked
+  GRID = 1,     // K5, any grid width: each score looks its two terms up in shared memory
+  GRID64 = 2,   // K5 at gw = 64 (SAM's grids): a 128-key tile is two whole grid rows, so a
+                // thread's rel_w terms are the same in every tile (32 registers) and its
+                // rel_h terms are 2 per row and tile
+  PREFILL = 3,  // K2: causal x packed segment x window, G query heads per kv head
+};
 
 // byte offsets from the 1024-aligned base of dynamic shared memory
 constexpr int OFF_Q = 0;
 constexpr int OFF_K = OFF_Q + OPERAND_BYTES;            // + stage * OPERAND_BYTES
 constexpr int OFF_V = OFF_K + NSTAGES * OPERAND_BYTES;  // + stage * OPERAND_BYTES
-constexpr int OFF_BIAS = OFF_V + NSTAGES * OPERAND_BYTES;
+constexpr int OFF_EXTRA = OFF_V + NSTAGES * OPERAND_BYTES;  // K5's bias rows or K2's segment ids
 constexpr int BIAS_BYTES = 2 * BM * BIAS_LD * 4;        // rel_h rows, then rel_w rows
-__host__ __device__ constexpr int off_bars(bool bias) { return OFF_BIAS + (bias ? BIAS_BYTES : 0); }
-// barriers (q_full, full[2], empty[2]) and 1024 bytes to align the base
-__host__ __device__ constexpr int smem_bytes(bool bias) { return off_bars(bias) + 64 + 1024; }
+__host__ __device__ constexpr int extra_bytes(int mode) {
+  return mode == GRID || mode == GRID64 ? BIAS_BYTES : mode == PREFILL ? NSTAGES * SEG_BYTES : 0;
+}
+__host__ __device__ constexpr int off_bars(int mode) { return OFF_EXTRA + extra_bytes(mode); }
+// barriers (q_full, full[2], empty[2]), K2's live-query range (2 ints) and
+// 1024 bytes to align the base
+__host__ __device__ constexpr int smem_bytes(int mode) { return off_bars(mode) + 64 + 1024; }
 
 struct Params {
   bf16* out;
   long long sob, sos, soh;  // element strides of the (B, S, H, D) output
   int S, H, D;
-  int kv_len;               // keys >= kv_len are masked (K1: valid_len; K5: S)
+  int kv_len;               // K1: keys >= kv_len are masked (valid_len); K5: S
   float scale_log2;         // sm_scale * log2(e)
   const float* rel_h;       // K5: (B, H, S, gh) f32, contiguous
   const float* rel_w;       // K5: (B, H, S, gw) f32, contiguous
   int gh, gw;
+  const int* seg;           // K2: (B, S) int32 segment ids, contiguous; 0 = padding
+  int G;                    // K2: query heads per kv head (divides BM)
+  int window;               // K2: <= 0: none
 };
 
 // ---------------------------------------------------------------------------
@@ -173,6 +206,19 @@ __device__ __forceinline__ void wgmma_m64n80k16_rs(float (&d)[40], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// D (64 x 128, f32, registers) += A (64 x 16, bf16 registers) * B (16 x 128, shared, MN-major)
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -198,46 +244,97 @@ __device__ __forceinline__ int rel_w_at(int r, int kw) { return r * BIAS_LD + (k
 // the kernel
 // ---------------------------------------------------------------------------
 
-// BIAS: what is added to the scaled scores
-enum Bias : int {
-  NO_BIAS = 0,  // K1
-  GRID = 1,     // K5, any grid width: each score looks its two terms up in shared memory
-  GRID64 = 2,   // K5 at gw = 64 (SAM's grids): a 128-key tile is two whole grid rows, so a
-                // thread's rel_w terms are the same in every tile (32 registers) and its
-                // rel_h terms are 2 per row and tile
-};
-
-template <int BIAS>
+template <int DMAX, int MODE>
 __global__ void __launch_bounds__(NTHREADS, 1)
 attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v, const Params p) {
+  static_assert(DMAX == NARROW || DMAX == WIDE, "DMAX is 80 or 128");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
                                                          ~static_cast<uintptr_t>(1023));
   const uint32_t base = smem_u32(smem);
-  constexpr bool HAS_BIAS = BIAS != NO_BIAS;
-  const uint32_t bar_q = base + off_bars(HAS_BIAS);
+  constexpr bool HAS_BIAS = MODE == GRID || MODE == GRID64;
+  constexpr bool SEGMENTS = MODE == PREFILL;
+  const uint32_t bar_q = base + off_bars(MODE);
   const uint32_t bar_full = bar_q + 8;    // + 8 * stage
   const uint32_t bar_empty = bar_q + 24;  // + 8 * stage
+  int* live_range = reinterpret_cast<int*>(smem + off_bars(MODE) + 40);  // K2: first, last live query
 
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BM;
-  const int n_tiles = (p.kv_len + BN - 1) / BN;
+  // h: the head (K1, K5) or the kv head (K2); q0: the CTA's first position
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int BQ = SEGMENTS ? BM / p.G : BM;
+  const int q0 = blockIdx.x * BQ;
+  int t_begin = 0, n_tiles = (p.kv_len + BN - 1) / BN;
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
     for (int s = 0; s < NSTAGES; ++s) {
-      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_full + 8 * s, SEGMENTS ? 2 : 1);  // K2: the TMA bytes and the segment ids
       mbar_init(bar_empty + 8 * s, NCONSUMER);
+    }
+    if constexpr (SEGMENTS) {
+      live_range[0] = INT_MAX;
+      live_range[1] = -1;
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  if constexpr (SEGMENTS) {
+    // the key tiles the CTA's live queries need: [first - window + 1, last]
+    if (threadIdx.x < BQ) {
+      const int i = q0 + threadIdx.x;
+      if (i < p.S && p.seg[static_cast<long long>(b) * p.S + i] != 0) {
+        atomicMin(&live_range[0], i);
+        atomicMax(&live_range[1], i);
+      }
+    }
+    __syncthreads();
+    const int first = live_range[0], last = live_range[1];
+    t_begin = p.window > 0 && last >= 0 ? max(first - p.window + 1, 0) / BN : 0;
+    n_tiles = last < 0 ? 0 : last / BN + 1 - t_begin;
+  }
 
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
     // ---------------- producer ----------------
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    if (threadIdx.x == 0) {
+    if constexpr (SEGMENTS) {
+      // K2: lane 0 issues the TMA loads; the whole warp copies each key
+      // tile's segment ids into its stage (4 a lane), and lane 0 arrives
+      // on the stage's full barrier once more for them
+      const int lane = threadIdx.x;
+      if (lane < 32) {
+        if (lane == 0) {
+          mbar_expect_tx(bar_q, OPERAND_BYTES);
+          for (int a = 0; a < 2; ++a)
+            tma_load_4d(base + OFF_Q + a * ATOM_BYTES, &tm_q, bar_q, a * ATOM, h * p.G, q0, b);
+        }
+        for (int n = 0; n < n_tiles; ++n) {
+          const int st = n % NSTAGES;
+          const int j0 = (t_begin + n) * BN;
+          mbar_wait(bar_empty + 8 * st, ((n / NSTAGES) & 1) ^ 1);  // the first round passes at once
+          if (lane == 0) {
+            mbar_expect_tx(bar_full + 8 * st, 2 * OPERAND_BYTES);
+            for (int a = 0; a < 2; ++a) {
+              tma_load_4d(base + OFF_K + st * OPERAND_BYTES + a * ATOM_BYTES, &tm_k, bar_full + 8 * st, a * ATOM,
+                          h, j0, b);
+              tma_load_4d(base + OFF_V + st * OPERAND_BYTES + a * ATOM_BYTES, &tm_v, bar_full + 8 * st, a * ATOM,
+                          h, j0, b);
+            }
+          }
+          int ids[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int j = j0 + 4 * lane + u;
+            ids[u] = j < p.S ? p.seg[static_cast<long long>(b) * p.S + j] : 0;
+          }
+          *reinterpret_cast<int4*>(smem + OFF_EXTRA + st * SEG_BYTES + 16 * lane) =
+              make_int4(ids[0], ids[1], ids[2], ids[3]);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(bar_full + 8 * st);
+        }
+      }
+    } else if (threadIdx.x == 0) {
       mbar_expect_tx(bar_q, OPERAND_BYTES);
       for (int a = 0; a < 2; ++a) tma_load_4d(base + OFF_Q + a * ATOM_BYTES, &tm_q, bar_q, a * ATOM, h, q0, b);
       for (int t = 0; t < n_tiles; ++t) {
@@ -262,7 +359,7 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
     const int r_lo = 64 * cw + 16 * warp + lane / 4;  // this thread's rows: r_lo and r_lo + 8
     const int cq = 2 * (lane % 4);                    // its first column in each group of 8
 
-    float* s_rel_h = reinterpret_cast<float*>(smem + OFF_BIAS);
+    float* s_rel_h = reinterpret_cast<float*>(smem + OFF_EXTRA);
     float* s_rel_w = s_rel_h + BM * BIAS_LD;
     if constexpr (HAS_BIAS) {
       // this warpgroup's 64 bias rows are contiguous in device memory
@@ -277,16 +374,27 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
       }
       named_barrier_sync(1 + cw, 128);
     }
-    const float inv_gw = BIAS == GRID ? 1.f / static_cast<float>(p.gw) : 0.f;
+    const float inv_gw = MODE == GRID ? 1.f / static_cast<float>(p.gw) : 0.f;
     // GRID64: rel_w of this thread's two rows at its 16 columns mod 64
     float rw[2][8][2];
-    if constexpr (BIAS == GRID64) {
+    if constexpr (MODE == GRID64) {
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr)
 #pragma unroll
         for (int jj = 0; jj < 8; ++jj)
 #pragma unroll
           for (int e = 0; e < 2; ++e) rw[hr][jj][e] = s_rel_w[rel_w_at(r_lo + 8 * hr, 8 * jj + cq + e)];
+    }
+    // PREFILL: position and segment of this thread's two rows; -1 for a
+    // row of segment 0 or past S (it needs no key and stores zeros)
+    int pos[2] = {-1, -1}, sid[2] = {0, 0};
+    if constexpr (SEGMENTS) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int i = q0 + (r_lo + 8 * hr) / p.G;
+        sid[hr] = i < p.S ? p.seg[static_cast<long long>(b) * p.S + i] : 0;
+        pos[hr] = sid[hr] != 0 ? i : -1;
+      }
     }
 
     float o[DMAX / 2];
@@ -298,13 +406,14 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
     mbar_wait(bar_q, 0);
     const uint32_t q_tile = base + OFF_Q + cw * 64 * 128;  // 64 rows x 128 bytes into each atom
 
-    for (int t = 0; t < n_tiles; ++t) {
-      const int st = t % NSTAGES;
-      mbar_wait(bar_full + 8 * st, (t / NSTAGES) & 1);
+    for (int n = 0; n < n_tiles; ++n) {
+      const int st = n % NSTAGES;
+      const int t = t_begin + n;
+      mbar_wait(bar_full + 8 * st, (n / NSTAGES) & 1);
       const uint32_t k_tile = base + OFF_K + st * OPERAND_BYTES;
       const uint32_t v_tile = base + OFF_V + st * OPERAND_BYTES;
 
-      // ---- S = Q K^T: 5 k-steps of 16 columns (4 in atom 0, 1 in atom 1) ----
+      // ---- S = Q K^T: DMAX / 16 k-steps of 16 columns (4 per atom) ----
       float s[BN / 2];
       wgmma_fence();
 #pragma unroll
@@ -316,11 +425,10 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
       wgmma_wait_all();
       fence_regs(s);
 
-      // ---- scores in the exp2 domain, bias, mask of the last tile ----
+      // ---- scores in the exp2 domain, bias, masks ----
       const int j0 = t * BN;
-      const bool edge = j0 + BN > p.kv_len;
       float rh[2][2];  // GRID64: rel_h of this thread's rows at the tile's two grid rows
-      if constexpr (BIAS == GRID64) {
+      if constexpr (MODE == GRID64) {
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr)
 #pragma unroll
@@ -330,9 +438,9 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
       for (int i = 0; i < BN / 2; ++i) {
         const int jj = i / 4, hr = (i >> 1) & 1, e = i & 1;
         float x = s[i] * p.scale_log2;
-        if constexpr (BIAS == GRID64) {
+        if constexpr (MODE == GRID64) {
           x += rh[hr][jj / 8] + rw[hr][jj % 8][e];
-        } else if constexpr (BIAS == GRID) {
+        } else if constexpr (MODE == GRID) {
           const int key = j0 + 8 * jj + cq + e;
           if (key < p.kv_len) {  // past S, the grid row would fall outside the bias rows
             const int r = r_lo + 8 * hr;
@@ -342,7 +450,30 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
         }
         s[i] = x;
       }
-      if (edge) {  // only the last tile masks; the interior tiles are maskless
+      if constexpr (SEGMENTS) {
+        // the tile's segment range (per warp), then per thread: does any
+        // live row of this thread meet the diagonal, the window edge or
+        // another segment in this tile?
+        const int* kseg = reinterpret_cast<const int*>(smem + OFF_EXTRA + st * SEG_BYTES);
+        const int4 ids = *reinterpret_cast<const int4*>(kseg + 4 * lane);
+        const int kmin = __reduce_min_sync(0xffffffffu, min(min(ids.x, ids.y), min(ids.z, ids.w)));
+        const int kmax = __reduce_max_sync(0xffffffffu, max(max(ids.x, ids.y), max(ids.z, ids.w)));
+        bool interior = true;
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr)
+          if (pos[hr] >= 0)
+            interior = interior && kmin == sid[hr] && kmax == sid[hr] && j0 + BN - 1 <= pos[hr] &&
+                       (p.window <= 0 || pos[hr] - j0 < p.window);
+        if (!interior) {
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i) {
+            const int hr = (i >> 1) & 1, c = 8 * (i / 4) + cq + (i & 1), j = j0 + c;
+            const bool live =
+                kseg[c] == sid[hr] && j <= pos[hr] && (p.window <= 0 || pos[hr] - j < p.window);
+            if (!live) s[i] = -INFINITY;
+          }
+        }
+      } else if (j0 + BN > p.kv_len) {  // only the last tile masks; the interior tiles are maskless
 #pragma unroll
         for (int i = 0; i < BN / 2; ++i)
           if (j0 + 8 * (i / 4) + cq + (i & 1) >= p.kv_len) s[i] = -INFINITY;
@@ -383,7 +514,11 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
       for (int kk = 0; kk < BN / 16; ++kk) {
         // V MN-major: 8-key groups 1024 bytes apart (SBO), the two 64-column
         // atoms ATOM_BYTES apart (LBO)
-        wgmma_m64n80k16_rs(o, pa[kk], sw128_desc(v_tile + kk * 16 * 128, ATOM_BYTES / 16, 64));
+        const uint64_t desc = sw128_desc(v_tile + kk * 16 * 128, ATOM_BYTES / 16, 64);
+        if constexpr (DMAX == WIDE)
+          wgmma_m64n128k16_rs(o, pa[kk], desc);
+        else
+          wgmma_m64n80k16_rs(o, pa[kk], desc);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -396,15 +531,22 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
     for (int hr = 0; hr < 2; ++hr) {
       const float l = quad_sum(l_run[hr]);
       const float inv = l > 0.f ? 1.f / l : 0.f;
-      const int row = q0 + r_lo + 8 * hr;
+      int row = q0 + r_lo + 8 * hr, head = h;
+      if constexpr (SEGMENTS) {
+        const int r = r_lo + 8 * hr;
+        row = q0 + r / p.G;
+        head = h * p.G + r % p.G;
+      }
+      const bool dead = SEGMENTS && pos[hr] < 0;  // a row of segment 0 stores zeros
       if (row < p.S) {
-        bf16* dst = p.out + b * p.sob + row * p.sos + h * p.soh;
+        bf16* dst = p.out + b * p.sob + row * p.sos + head * p.soh;
 #pragma unroll
         for (int j = 0; j < DMAX / 8; ++j) {
           const int col = 8 * j + cq;
           if (col < p.D)
             *reinterpret_cast<__nv_bfloat162*>(dst + col) =
-                __floats2bfloat162_rn(o[4 * j + 2 * hr] * inv, o[4 * j + 2 * hr + 1] * inv);
+                dead ? __floats2bfloat162_rn(0.f, 0.f)
+                     : __floats2bfloat162_rn(o[4 * j + 2 * hr] * inv, o[4 * j + 2 * hr + 1] * inv);
         }
       }
     }
@@ -438,17 +580,17 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // a (B, S, H, D) bf16 tensor with element strides (sb, ss, sh, 1) as a 4-D
-// map {D, H, S, B}; boxes of 64 columns x 1 head x 128 rows, 128B-swizzled,
-// zeros past every edge
+// map {D, H, S, B}; boxes of 64 columns x box_h heads x box_s rows (128 rows
+// of 128 bytes in all), 128B-swizzled, zeros past every edge
 inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D, long long sb,
-                            long long ss, long long sh) {
+                            long long ss, long long sh, int box_h = 1, int box_s = BM) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2, static_cast<cuuint64_t>(ss) * 2,
                                  static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {ATOM, 1, BM, 1};
+  const cuuint32_t box[4] = {ATOM, static_cast<cuuint32_t>(box_h), static_cast<cuuint32_t>(box_s), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, elem,
                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
@@ -461,23 +603,28 @@ struct Operand {
   long long sb, ss, sh;
 };
 
-// q, k, v: (B, S, H, D) through their strides, D % 8 == 0 and D <= 80
-template <int BIAS>
+template <int DMAX, int MODE>
+cudaError_t launch_kernel(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, const Params& p,
+                          dim3 grid, cudaStream_t stream) {
+  auto kern = attention_sm90_kernel<DMAX, MODE>;
+  constexpr int bytes = smem_bytes(MODE);
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  kern<<<grid, NTHREADS, bytes, stream>>>(tq, tk, tv, p);
+  return cudaGetLastError();
+}
+
+// K1 and K5: q, k, v (B, S, H, D) through their strides, D % 8 == 0 and D <= 80
+template <int MODE>
 cudaError_t launch(Operand q, Operand k, Operand v, Params p, int B, cudaStream_t stream) {
-  if (p.D <= 0 || p.D % 8 != 0 || p.D > DMAX || p.S <= 0 || p.kv_len <= 0 || p.kv_len > p.S)
+  if (p.D <= 0 || p.D % 8 != 0 || p.D > NARROW || p.S <= 0 || p.kv_len <= 0 || p.kv_len > p.S)
     return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
   cudaError_t err = make_map(&tq, q.ptr, B, p.S, p.H, p.D, q.sb, q.ss, q.sh);
   if (err == cudaSuccess) err = make_map(&tk, k.ptr, B, p.S, p.H, p.D, k.sb, k.ss, k.sh);
   if (err == cudaSuccess) err = make_map(&tv, v.ptr, B, p.S, p.H, p.D, v.sb, v.ss, v.sh);
   if (err != cudaSuccess) return err;
-  auto kern = attention_sm90_kernel<BIAS>;
-  constexpr int bytes = smem_bytes(BIAS != NO_BIAS);
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  dim3 grid((p.S + BM - 1) / BM, p.H, B);
-  kern<<<grid, NTHREADS, bytes, stream>>>(tq, tk, tv, p);
-  return cudaGetLastError();
+  return launch_kernel<NARROW, MODE>(tq, tk, tv, p, dim3((p.S + BM - 1) / BM, p.H, B), stream);
 }
 
 }  // namespace sm90

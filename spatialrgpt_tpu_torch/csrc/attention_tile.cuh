@@ -1,7 +1,6 @@
-// Shared tile machinery of the causal attention kernels with a head dim
-// up to 128 (prefill_attention.cu: K2, and the forward of
-// flash_attention.cu: K4).  The non-causal kernels with D <= 80 (K1, K5)
-// run on the Hopper main loop of attention_sm90.cuh.
+// WMMA tile of K4's forward (flash_attention.cu), a causal attention with a
+// head dim up to 128.  The other attention kernels (K1, K2, K5) run on the
+// Hopper main loop of attention_sm90.cuh.
 //
 // One CTA of 4 warps owns BM = 64 query rows; each warp owns 16 of them.
 // Key/value tiles of BN = 64 positions stream through shared memory; the
@@ -23,8 +22,6 @@
 #include <math.h>
 #include <mma.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace srgpt {
 
@@ -92,30 +89,20 @@ __device__ __forceinline__ void load_tile(bf16* dst, int rows, int D, RowSrc row
   }
 }
 
-// Optional policy hooks, detected at compile time (K2 has none):
-//   __device__ bool tile_live(const int* rowmeta, const int* keymeta) const
-//       -- called by every warp after init_keys; false skips the key tile
-//          before its K/V are loaded (must be uniform across the CTA)
-//   __device__ float* lse_row(const int* rowmeta, int r) const
-//       -- where row r's log-sum-exp goes (nullptr: skip); -1e30 for a row
-//          with no live key
-template <typename P, typename = void>
-struct has_tile_live : std::false_type {};
-template <typename P>
-struct has_tile_live<P, std::void_t<decltype(&P::tile_live)>> : std::true_type {};
-template <typename P, typename = void>
-struct has_lse_row : std::false_type {};
-template <typename P>
-struct has_lse_row<P, std::void_t<decltype(&P::lse_row)>> : std::true_type {};
-
-// Policy interface (see prefill_attention.cu / flash_attention.cu):
+// Policy interface (flash_attention.cu::FlashFwdPolicy):
 //   __device__ void init_rows(int* rowmeta) const        -- fill per-row metadata
 //   __device__ const bf16* q_row(const int* rowmeta, int r) const
 //   __device__ int key_tile_begin() const, key_tile_end() const
 //   __device__ const bf16* k_row(int j) const, v_row(int j) const   (j < S)
 //   __device__ void init_keys(int* keymeta, int j0) const
+//   __device__ bool tile_live(const int* rowmeta, const int* keymeta) const
+//       -- called by every warp after init_keys; false skips the key tile
+//          before its K/V are loaded (must be uniform across the CTA)
 //   __device__ bool live(const int* rowmeta, const int* keymeta, int r, int jj, int j) const
 //   __device__ bf16* out_row(const int* rowmeta, int r) const       (nullptr: skip)
+//   __device__ float* lse_row(const int* rowmeta, int r) const
+//       -- where row r's log-sum-exp goes (nullptr: skip); -1e30 for a row
+//          with no live key
 template <int DP, typename Policy>
 __global__ void __launch_bounds__(NTHREADS)
 attention_tile_kernel(Policy pol, int S, int D, float sm_scale) {
@@ -152,17 +139,11 @@ attention_tile_kernel(Policy pol, int S, int D, float sm_scale) {
   for (int t = t_begin; t < t_end; ++t) {
     const int j0 = t * BN;
     __syncthreads();  // previous tile fully consumed (and sQ written)
-    if constexpr (has_tile_live<Policy>::value) {
-      pol.init_keys(keymeta, j0);
-      __syncthreads();
-      if (!pol.tile_live(rowmeta, keymeta)) continue;
-      load_tile<DP>(sK, BN, D, [&](int jj) { return j0 + jj < S ? pol.k_row(j0 + jj) : nullptr; });
-      load_tile<DP>(sV, BN, D, [&](int jj) { return j0 + jj < S ? pol.v_row(j0 + jj) : nullptr; });
-    } else {
-      load_tile<DP>(sK, BN, D, [&](int jj) { return j0 + jj < S ? pol.k_row(j0 + jj) : nullptr; });
-      load_tile<DP>(sV, BN, D, [&](int jj) { return j0 + jj < S ? pol.v_row(j0 + jj) : nullptr; });
-      pol.init_keys(keymeta, j0);
-    }
+    pol.init_keys(keymeta, j0);
+    __syncthreads();
+    if (!pol.tile_live(rowmeta, keymeta)) continue;
+    load_tile<DP>(sK, BN, D, [&](int jj) { return j0 + jj < S ? pol.k_row(j0 + jj) : nullptr; });
+    load_tile<DP>(sV, BN, D, [&](int jj) { return j0 + jj < S ? pol.v_row(j0 + jj) : nullptr; });
     __syncthreads();
 
     // ---- S_w = Q_w K^T (16 x 64 per warp) ----
@@ -234,7 +215,7 @@ attention_tile_kernel(Policy pol, int S, int D, float sm_scale) {
   }
   __syncthreads();
 
-  // ---- epilogue: O / l, zeros for rows with no live key ----
+  // ---- epilogue: O / l, zeros for rows with no live key; the LSE ----
   constexpr int CH = DP / 8;
   for (int idx = threadIdx.x; idx < BM * CH; idx += NTHREADS) {
     const int r = idx / CH;
@@ -248,11 +229,9 @@ attention_tile_kernel(Policy pol, int S, int D, float sm_scale) {
     for (int e = 0; e < 8; ++e) vals[e] = __float2bfloat16(sO[r * LDO + c + e] * inv);
     *reinterpret_cast<uint4*>(dst + c) = *reinterpret_cast<const uint4*>(vals);
   }
-  if constexpr (has_lse_row<Policy>::value) {
-    for (int r = threadIdx.x; r < BM; r += NTHREADS) {
-      float* dst = pol.lse_row(rowmeta, r);
-      if (dst != nullptr) *dst = sL[r] > 0.f ? sM[r] + logf(sL[r]) : -1e30f;
-    }
+  for (int r = threadIdx.x; r < BM; r += NTHREADS) {
+    float* dst = pol.lse_row(rowmeta, r);
+    if (dst != nullptr) *dst = sL[r] > 0.f ? sM[r] + logf(sL[r]) : -1e30f;
   }
 }
 
@@ -264,16 +243,6 @@ cudaError_t launch_tile(Policy pol, dim3 grid, int S, int D, float sm_scale, cud
   if (err != cudaSuccess) return err;
   kern<<<grid, NTHREADS, Smem<DP>::bytes, stream>>>(pol, S, D, sm_scale);
   return cudaGetLastError();
-}
-
-// Dispatch a runtime head dim (D % 8 == 0) to a padded tile width: 128
-// for Llama, 80 for a head dim of at most 80 (which pads into it).
-template <template <int> class Launch, typename... Args>
-cudaError_t dispatch_dp(int D, Args... args) {
-  if (D % 8 != 0 || D <= 0) return cudaErrorInvalidValue;
-  if (D <= 80) return Launch<80>::run(args...);
-  if (D <= 128) return Launch<128>::run(args...);
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace srgpt

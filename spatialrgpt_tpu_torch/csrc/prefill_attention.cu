@@ -3,95 +3,30 @@
 // Replaces the Pallas kernel
 // spatialrgpt_tpu/ops/prefill_attention.py::onepass_attention (_onepass / _kernel).
 //
-// Bound on the H100: at the llama3-8b prefill shape (B = 8, S = 320,
-// Hq = 32, Hk = 8, D = 128) a call does ~6.7 GFLOP of causal products
-// (7 us at 989 TFLOP/s) and moves ~52 MB of q/k/v/out (16 us at
-// 3.35 TB/s): both floors are far below what a simple kernel reaches, and
-// the part that scales with S is the tensor-core work, which is why the
-// products run on the tensor cores and K/V are read once per kv head.
+// Bound on the H100: device-memory bytes.  At the llama3-8b prefill shape
+// (B = 8, S = 320, Hq = 32, Hk = 8, D = 128, right-padded rows) a call does
+// ~5.7 GFLOP of live causal products (6 us at 989 TFLOP/s) and moves ~50 MB
+// of q/k/v/out (15 us at 3.35 TB/s).  With 2.5 key tiles per row the work
+// per CTA is small, so what counts is how few bytes each CTA loads and how
+// soon its products start.
 //
-// Design: one CTA per (q tile, kv head, batch) serves the G = Hq / Hk query
-// heads that share that kv head (the Pallas kernel's fold_g): its 64 rows
-// are G heads x 64/G positions, so K and V are read once at kv-head width.
-// The causal x segment x window mask is built in the kernel from the
-// segment ids (no (B, S, S) bias is streamed): key j is live for query i
-// iff seg[j] == seg[i] != 0, j <= i and (window <= 0 or i - j < window).
-// Key tiles wholly above the diagonal or outside the window are skipped.
-// A row with no live key (segment 0) writes zeros.  Any S is taken.
+// Design: the Hopper main loop of attention_sm90.cuh at a head-dim width of
+// 128, mode PREFILL.  One CTA per (q tile, kv head, batch) serves the G =
+// Hq / Hk query heads that share the kv head (the Pallas kernel's fold_g):
+// one 4-D TMA box {64, G, 128 / G, 1} of q puts G heads x 128 / G positions
+// in the 128 rows of the Q tile, so K and V are read once per kv head (at
+// llama3-8b's G = 4, 32 positions per CTA and a grid of 10 x 8 x 8).  The
+// mask is built in the kernel from the (B, S) segment ids, which the
+// producer's warp copies into each K/V stage: key j is live for query i iff
+// seg[j] == seg[i] != 0, j <= i and (window <= 0 or i - j < window).  Key
+// tiles outside the CTA's live queries' [first - window + 1, last] are
+// never loaded; tiles in which no row of a thread meets the diagonal, the
+// window or a segment edge are maskless.  Keys >= S are TMA's zero fill
+// with segment id 0.  Rows of segment 0 store zeros.
+// q/k/v/out go through the caller's (B, S, H, D) strides; any S, D <= 128
+// with D % 8 == 0 (TMA zero-fills the head dim to 128).
 
-#include "attention_tile.cuh"
-
-namespace srgpt {
-
-struct PrefillPolicy {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const int* seg;  // (B, S) int32, contiguous
-  bf16* out;
-  Strides sq, sk, sv, so;
-  int S;
-  int G;       // query heads per kv head; divides BM
-  int window;  // <= 0: none
-
-  __device__ int b() const { return blockIdx.z; }
-  __device__ int hk() const { return blockIdx.y; }
-  __device__ int bq() const { return BM / G; }
-  __device__ int q_lo() const { return blockIdx.x * bq(); }
-  __device__ int row_pos(int r) const { return q_lo() + r % bq(); }
-  __device__ int row_head(int r) const { return hk() * G + r / bq(); }
-
-  // rowmeta[2r] = query position (or -1 past S), rowmeta[2r+1] = its segment
-  __device__ void init_rows(int* rowmeta) const {
-    for (int r = threadIdx.x; r < BM; r += NTHREADS) {
-      const int i = row_pos(r);
-      rowmeta[2 * r] = i < S ? i : -1;
-      rowmeta[2 * r + 1] = i < S ? seg[b() * S + i] : 0;
-    }
-  }
-  __device__ const bf16* q_row(const int* rowmeta, int r) const {
-    const int i = rowmeta[2 * r];
-    return i >= 0 ? q + b() * sq.b + i * sq.s + row_head(r) * sq.h : nullptr;
-  }
-  __device__ int key_tile_begin() const {
-    if (window <= 0) return 0;
-    const int lo = q_lo() - window + 1;
-    return lo > 0 ? lo / BN : 0;
-  }
-  __device__ int key_tile_end() const {
-    int hi = q_lo() + bq();  // exclusive bound on live keys (causal)
-    if (hi > S) hi = S;
-    return (hi + BN - 1) / BN;
-  }
-  __device__ const bf16* k_row(int j) const { return k + b() * sk.b + j * sk.s + hk() * sk.h; }
-  __device__ const bf16* v_row(int j) const { return v + b() * sv.b + j * sv.s + hk() * sv.h; }
-  __device__ void init_keys(int* keymeta, int j0) const {
-    for (int jj = threadIdx.x; jj < BN; jj += NTHREADS) {
-      const int j = j0 + jj;
-      keymeta[jj] = j < S ? seg[b() * S + j] : 0;
-    }
-  }
-  __device__ bool live(const int* rowmeta, const int* keymeta, int r, int jj, int j) const {
-    const int i = rowmeta[2 * r];
-    const int si = rowmeta[2 * r + 1];
-    return i >= 0 && si != 0 && j <= i && keymeta[jj] == si && (window <= 0 || i - j < window);
-  }
-  __device__ bf16* out_row(const int* rowmeta, int r) const {
-    const int i = rowmeta[2 * r];
-    return i >= 0 ? out + b() * so.b + i * so.s + row_head(r) * so.h : nullptr;
-  }
-};
-
-template <int DP>
-struct PrefillLaunch {
-  static cudaError_t run(PrefillPolicy pol, int B, int Hk, int D, float sm_scale, cudaStream_t stream) {
-    const int bq = BM / pol.G;
-    dim3 grid((pol.S + bq - 1) / bq, Hk, B);
-    return launch_tile<DP>(pol, grid, pol.S, D, sm_scale, stream);
-  }
-};
-
-}  // namespace srgpt
+#include "attention_sm90.cuh"
 
 extern "C" int srgpt_prefill_attention(
     const void* q, const void* k, const void* v, const void* seg, void* out,
@@ -101,21 +36,28 @@ extern "C" int srgpt_prefill_attention(
     long long svb, long long svs, long long svh,
     long long sob, long long sos, long long soh,
     int window, float sm_scale, void* stream) {
-  using namespace srgpt;
-  if (Hk <= 0 || Hq % Hk != 0 || BM % (Hq / Hk) != 0) return static_cast<int>(cudaErrorInvalidValue);
-  PrefillPolicy pol;
-  pol.q = static_cast<const bf16*>(q);
-  pol.k = static_cast<const bf16*>(k);
-  pol.v = static_cast<const bf16*>(v);
-  pol.seg = static_cast<const int*>(seg);
-  pol.out = static_cast<bf16*>(out);
-  pol.sq = {sqb, sqs, sqh};
-  pol.sk = {skb, sks, skh};
-  pol.sv = {svb, svs, svh};
-  pol.so = {sob, sos, soh};
-  pol.S = S;
-  pol.G = Hq / Hk;
-  pol.window = window;
-  return static_cast<int>(dispatch_dp<PrefillLaunch>(D, pol, B, Hk, D, sm_scale,
-                                                     static_cast<cudaStream_t>(stream)));
+  using namespace srgpt::sm90;
+  if (B <= 0 || S <= 0 || Hk <= 0 || Hq % Hk != 0 || BM % (Hq / Hk) != 0 || D <= 0 || D % 8 != 0 || D > WIDE)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int G = Hq / Hk;
+  Params p{};
+  p.out = static_cast<bf16*>(out);
+  p.sob = sob;
+  p.sos = sos;
+  p.soh = soh;
+  p.S = S;
+  p.H = Hq;
+  p.D = D;
+  p.kv_len = S;
+  p.scale_log2 = sm_scale * LOG2E;
+  p.seg = static_cast<const int*>(seg);
+  p.G = G;
+  p.window = window;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = make_map(&tq, q, B, S, Hq, D, sqb, sqs, sqh, G, BM / G);
+  if (err == cudaSuccess) err = make_map(&tk, k, B, S, Hk, D, skb, sks, skh);
+  if (err == cudaSuccess) err = make_map(&tv, v, B, S, Hk, D, svb, svs, svh);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((S + BM / G - 1) / (BM / G), Hk, B);
+  return static_cast<int>(launch_kernel<WIDE, PREFILL>(tq, tk, tv, p, grid, static_cast<cudaStream_t>(stream)));
 }

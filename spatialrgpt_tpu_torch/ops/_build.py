@@ -45,7 +45,7 @@ _SIGNATURES = {
     "srgpt_flash_bwd_dkv": [_P] * 9 + [_I] * 5 + [_LL] * 12 + [_F, _P],
     "srgpt_flash_bwd_dq": [_P] * 8 + [_I] * 5 + [_LL] * 12 + [_F, _P],
     "srgpt_grid_bias_attention": [_P] * 6 + [_I] * 6 + [_LL] * 12 + [_F, _P],
-    "srgpt_layer_norm": [_P] * 4 + [_LL, _I, _F, _P],
+    "srgpt_layer_norm": [_P] * 4 + [_LL, _I, _F, _I, _P],
 }
 
 _lib = None

@@ -11,8 +11,8 @@ import torch
 # ``bf16_err_over_bound``'s floor for attention gradients: 1/256 of one
 # bf16 ulp of the tensor's largest value
 GRAD_FLOOR = 2.0**-16
-# the widest head dim of the Hopper main loop that K1 and K5 run on
-# (csrc/attention_sm90.cuh::DMAX)
+# the widest head dim of K1 and K5 on the Hopper main loop
+# (csrc/attention_sm90.cuh::NARROW; K2 runs it at WIDE = 128)
 SM90_MAX_HEAD_DIM = 80
 
 

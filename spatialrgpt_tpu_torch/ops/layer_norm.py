@@ -6,8 +6,10 @@ for CUDA tensors and takes the plain version ``fused_layer_norm_plain``
 only for tensors on the CPU.  ``launches`` counts kernel launches.  The
 kernel route is differentiable: its backward differentiates the recomputed
 plain version (``ops/_autograd.py``), so a trained LayerNorm loses no
-gradient.  ``ops/layers.py::layer_norm`` routes here under
-``SRGPT_FUSED_LN=1``, with the reference's gate.
+gradient.  The kernel takes ``weight`` and ``bias`` in the dtype the model
+holds them in (bf16, or float32) and widens them in registers: one
+LayerNorm is one launch, with no cast kernels.  ``ops/layers.py::layer_norm``
+routes here under ``SRGPT_FUSED_LN=1``, with the reference's gate.
 """
 
 from __future__ import annotations
@@ -42,6 +44,8 @@ def fused_layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, 
     if C == 0 or x.numel() == 0 or weight.shape != (C,) or bias.shape != (C,):
         raise ValueError(f"{name}: x {tuple(x.shape)} needs weight and bias of shape ({C},), "
                          f"got {tuple(weight.shape)} / {tuple(bias.shape)}")
+    if weight.dtype != bias.dtype or weight.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: weight and bias must both be bf16 or both float32, got {weight.dtype} / {bias.dtype}")
     check_on_cuda(name, x, weight, bias)
     return KernelForwardPlainGrad.apply(
         lambda x, w, b: _launch(x, w, b, eps), lambda x, w, b: fused_layer_norm_plain(x, w, b, eps), x, weight, bias
@@ -51,11 +55,11 @@ def fused_layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, 
 def _launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
     C = x.shape[-1]
     x2 = x.reshape(-1, C).contiguous()
-    w = weight.detach().to(torch.float32).contiguous()
-    b = bias.detach().to(torch.float32).contiguous()
+    w, b = weight.detach().contiguous(), bias.detach().contiguous()  # no-ops for a model's parameters
     out = torch.empty_like(x2)
     err = _build.lib().srgpt_layer_norm(
-        x2.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), x2.shape[0], C, float(eps), _build.stream_ptr(x)
+        x2.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), x2.shape[0], C, float(eps),
+        int(w.dtype == torch.float32), _build.stream_ptr(x),
     )
     _build.check(err, "fused_layer_norm")
     global launches

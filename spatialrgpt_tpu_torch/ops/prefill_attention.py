@@ -2,7 +2,8 @@
 
 Port of the Pallas kernel
 ``spatialrgpt_tpu/ops/prefill_attention.py::onepass_attention``; the CUDA
-kernel is ``csrc/prefill_attention.cu``.  ``onepass_attention`` launches it
+kernel is ``csrc/prefill_attention.cu`` on the Hopper main loop of
+``csrc/attention_sm90.cuh`` (TMA + wgmma).  ``onepass_attention`` launches it
 for CUDA tensors and takes the plain version ``onepass_attention_plain``
 (the twin of the reference's ``_xla_reference``) only for CPU tensors.
 ``launches`` counts kernel launches.  The kernel route is differentiable:
@@ -21,6 +22,9 @@ from spatialrgpt_tpu_torch.ops._autograd import KernelForwardPlainGrad
 from spatialrgpt_tpu_torch.ops._checks import check_bshd
 
 NEG_INF = -1e30
+# query rows of one CTA of the kernel: G = Hq / Hk heads x FOLD_ROWS / G
+# positions (csrc/attention_sm90.cuh::BM), so G must divide it
+FOLD_ROWS = 128
 
 launches = 0  # kernel launches since the last reset (plain-path calls do not count)
 
@@ -66,8 +70,9 @@ def onepass_attention(
     (B, S, Hq, D).  A row with no live key (segment 0) is zeros."""
     if q.device.type == "cpu":
         return onepass_attention_plain(q, k, v, segment_ids, window)
-    if q.dim() != 4 or k.dim() != 4 or q.shape[2] % k.shape[2] or 64 % (q.shape[2] // k.shape[2]):
-        raise ValueError(f"onepass_attention: q {tuple(q.shape)} / k {tuple(k.shape)}: Hq/Hk must be an integer dividing 64")
+    if q.dim() != 4 or k.dim() != 4 or q.shape[2] % k.shape[2] or FOLD_ROWS % (q.shape[2] // k.shape[2]):
+        raise ValueError(f"onepass_attention: q {tuple(q.shape)} / k {tuple(k.shape)}: "
+                         f"Hq/Hk must be an integer dividing {FOLD_ROWS}")
     B, S, Hq, D = q.shape
     if segment_ids is None:
         segment_ids = torch.ones((B, S), dtype=torch.int32, device=q.device)

@@ -34,6 +34,7 @@ from spatialrgpt_tpu_torch.ops import flash_attention as K5
 from spatialrgpt_tpu_torch.ops import layer_norm as K6
 from spatialrgpt_tpu_torch.ops import layers
 from spatialrgpt_tpu_torch.utils.weights import init_random_depth_anything, init_random_sam_hq, load_from_jax
+from test_torch_gpu import layer_norm_rows
 
 
 
@@ -101,8 +102,11 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(monkeypatch):
         K6.fused_layer_norm(_meta(4096, 128, dtype=f32), _meta(128), _meta(128))
     with pytest.raises(ValueError, match="weight"):
         K6.fused_layer_norm(_meta(4096, 128), _meta(64), _meta(128))
-    with pytest.raises(ValueError, match="CUDA"):
-        K6.fused_layer_norm(_meta(4096, 128), _meta(128), _meta(128))
+    with pytest.raises(TypeError, match="bf16 or both float32"):
+        K6.fused_layer_norm(_meta(4096, 128), _meta(128), _meta(128, dtype=f32))
+    for wdtype in (torch.bfloat16, f32):  # the kernel takes the weights as the model holds them
+        with pytest.raises(ValueError, match="CUDA"):
+            K6.fused_layer_norm(_meta(4096, 128), _meta(128, dtype=wdtype), _meta(128, dtype=wdtype))
     monkeypatch.setattr(K5, "grid_bias_launches", 0)
     monkeypatch.setattr(K6, "launches", 0)
     monkeypatch.setattr(layers, "FUSED_LN", True)
@@ -133,6 +137,58 @@ def test_fused_layer_norm_plain_matches_pallas(shape, dtype):
     got = K6.fused_layer_norm(torch.tensor(x).to(dtype), torch.tensor(scale), torch.tensor(bias), eps=1e-6)
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-6
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), rtol=tol, atol=tol)
+
+
+def _short_variance(x, w, b, eps):
+    """A LayerNorm that computes the variance as E[x^2] - mean^2."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf * xf).mean(-1, keepdim=True) - mean * mean
+    return ((xf - mean) * torch.rsqrt(var + eps) * w.float() + b.float()).to(x.dtype)
+
+
+def _no_eps(x, w, b, eps):
+    """A LayerNorm that drops eps."""
+    d = x.float() - x.float().mean(-1, keepdim=True)
+    return (d * torch.rsqrt((d * d).mean(-1, keepdim=True)) * w.float() + b.float()).to(x.dtype)
+
+
+def _cancelling_rows(kind, C):
+    rng = np.random.default_rng(C)
+    x = torch.tensor(layer_norm_rows(rng, kind, 512, C)).to(torch.bfloat16)
+    w, b = (torch.tensor(rng.standard_normal(C).astype(np.float32)).to(torch.bfloat16) for _ in range(2))
+    return x, w, b
+
+
+@pytest.mark.parametrize("kind,C", [("large_mean", 1280), ("near_constant", 1024)])
+def test_fused_layer_norm_plain_matches_pallas_on_cancelling_rows(kind, C):
+    """On the rows where the short variance or a dropped eps show (see the
+    next test), the plain version and the Pallas kernel in interpret mode
+    agree within the per-element bf16 bound that the card's tests use."""
+    from spatialrgpt_tpu_torch.ops._checks import bf16_err_over_bound
+
+    x, w, b = _cancelling_rows(kind, C)
+    want = j_fused_ln(jnp.asarray(x.float().numpy(), jnp.bfloat16), jnp.asarray(w.float().numpy()),
+                      jnp.asarray(b.float().numpy()), eps=1e-6, block_rows=64, interpret=True)
+    want = torch.tensor(np.asarray(want, np.float32)).to(torch.bfloat16)
+    assert bf16_err_over_bound(K6.fused_layer_norm_plain(x, w, b, 1e-6), want) <= 1.0
+
+
+@pytest.mark.parametrize(
+    "kind,C,fault",
+    [("large_mean", 1280, _short_variance), ("large_mean", 1024, _short_variance), ("near_constant", 1024, _no_eps),
+     ("near_constant", 1280, _no_eps)],
+)
+def test_layer_norm_rows_separate_a_short_variance_and_a_dropped_eps(kind, C, fault):
+    """tests/test_torch_gpu.py holds K6 to its plain version on these rows:
+    at a large mean with a spread of one bf16 ulp in 2% of the entries,
+    E[x^2] - mean^2 in f32 leaves the per-element bound; on near-constant
+    rows (some exactly constant) so does a LayerNorm without eps."""
+    from spatialrgpt_tpu_torch.ops._checks import bf16_err_over_bound
+
+    x, w, b = _cancelling_rows(kind, C)
+    ref = K6.fused_layer_norm_plain(x, w, b, 1e-6)
+    assert bf16_err_over_bound(fault(x, w, b, 1e-6), ref) > 1.0
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
-version in bf16, gradients through K1, K2, K4 and K6, a tiny region-QA
+version in bf16 (K2 and K6 also against planted faults), gradients through K1, K2, K4 and K6, a tiny region-QA
 ``generate`` through K1-K3, a tiny align step through K1 and K4, and a
 narrow demo pipeline (Depth-Anything -> SAM-HQ -> region QA) through K5
 and K6.
@@ -111,20 +111,85 @@ def test_vit_bound_separates_a_skipped_key_tile(cuda):
     assert bf16_err_over_bound(K1.vit_attention(q, moved(k), moved(v), valid_len=S - 128), ref) > 1.0
 
 
-def test_onepass_kernel_matches_plain(cuda):
-    rng = np.random.default_rng(2)
-    for hq, hk, S, window in ((32, 8, 320, None), (4, 4, 100, None), (8, 2, 200, 37), (8, 1, 70, None)):
-        q = _rand(rng, 3, S, hq, 128, device=cuda)
-        k, v = (_rand(rng, 3, S, hk, 128, device=cuda) for _ in range(2))
-        seg = torch.ones(3, S, dtype=torch.int32, device=cuda)
-        seg[1, S // 2 :] = 0  # right padding
-        seg[2, S // 3 :] = 2  # two packed segments
+def _causal_segment_live(seg):
+    """(B, S, S) bool: key j is live for query i iff both lie in one nonzero
+    segment and j <= i (K2's rule without a window)."""
+    i = torch.arange(seg.shape[1], device=seg.device)
+    return (seg[:, :, None] == seg[:, None, :]) & (seg[:, :, None] != 0) & (i[:, None] >= i[None, :])
+
+
+def _masked_attention(q, k, v, live):
+    """The plain version's arithmetic (f32 scores, P rounded to bf16) over
+    the (query, key) pairs that ``live`` allows; rows with none are zeros."""
+    B, S, Hq, D = q.shape
+    Hk = k.shape[2]
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q.reshape(B, S, Hk, Hq // Hk, D).float(), k.float()) * D**-0.5
+    p = torch.softmax(s.masked_fill(~live[:, None, None], float("-inf")), dim=-1).nan_to_num(0.0)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(torch.bfloat16).float(), v.float())
+    return out.reshape(B, S, Hq, D).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("S", [1, 70, 129, 320, 1000])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", [1, 4, 8])
+def test_onepass_kernel_matches_plain(cuda, G, D, S):
+    """K2 on the Hopper main loop against its plain version: G = Hq / Hk of
+    1 (sheared-3b's MHA), 4 (llama3-8b's GQA) and 8, folded into the CTA's
+    128 query rows; D 64 (TMA's zero fill pads it to 128) and 128; S from
+    one token to 1000 (ragged last query and key tiles).  Rows: one
+    segment, right padding, two packed segments, all padding.  Once with no
+    window on q/k/v as strided views of one fused projection, once with a
+    window of 37 on contiguous tensors."""
+    rng = np.random.default_rng(G * 10000 + D * 10 + S)
+    Hk = 2
+    Hq = G * Hk
+    q, k, v = _rand(rng, 4, S, Hq + 2 * Hk, D, device=cuda).split([Hq, Hk, Hk], dim=2)
+    assert not q.is_contiguous()
+    seg = torch.ones(4, S, dtype=torch.int32, device=cuda)
+    seg[1, S // 2 + 1 :] = 0  # right padding
+    seg[2, S // 3 :] = 2  # two packed segments
+    seg[3] = 0  # all padding
+    for (qq, kk, vv), window in (((q, k, v), None), ((q.contiguous(), k.contiguous(), v.contiguous()), 37)):
         before = K2.launches
-        out = K2.onepass_attention(q, k, v, seg, window=window)
+        out = K2.onepass_attention(qq, kk, vv, seg, window=window)
         torch.cuda.synchronize()
         assert K2.launches == before + 1
-        assert torch.all(out[1, S // 2 :] == 0)
-        _bf16_close(out, K2.onepass_attention_plain(q, k, v, seg, window=window))
+        assert torch.all(out[seg == 0] == 0)
+        _bf16_close(out, K2.onepass_attention_plain(qq, kk, vv, seg, window=window))
+
+
+@pytest.mark.parametrize("fault", ["diagonal_tile", "segment_tiles"])
+def test_onepass_bound_separates_a_skipped_key_tile(cuda, fault):
+    """At the serving shape (S 320, Hq 32 over Hk 8, D 128) on rows of two
+    packed segments and padding, a K2 that leaves out key tiles fails the
+    bound that the sound kernel meets.  "diagonal_tile": every query loses
+    the keys of its own 128-key tile (the plain arithmetic with those pairs
+    masked).  "segment_tiles": the queries of segment 2 (positions 100-299)
+    in the last tile lose the segment's keys in the two tiles before it;
+    that output is the kernel's own, run with positions 100-255 given
+    another segment id (only rows >= 256 are compared: their queries and
+    live keys are the sound run's)."""
+    rng = np.random.default_rng(11)
+    B, S, Hq, Hk, D = 2, 320, 32, 8, 128
+    q = _rand(rng, B, S, Hq, D, device=cuda)
+    k, v = (_rand(rng, B, S, Hk, D, device=cuda) for _ in range(2))
+    seg = torch.zeros(B, S, dtype=torch.int32, device=cuda)
+    seg[:, :100] = 1
+    seg[:, 100:300] = 2
+    ref = K2.onepass_attention_plain(q, k, v, seg)
+    out = K2.onepass_attention(q, k, v, seg)
+    if fault == "diagonal_tile":
+        tile = torch.arange(S, device=cuda) // 128
+        fault_out = _masked_attention(q, k, v, _causal_segment_live(seg) & (tile[:, None] != tile[None, :]))
+        rows = slice(None)
+        assert bf16_err_over_bound(_masked_attention(q, k, v, _causal_segment_live(seg)), ref) <= 1.0
+    else:
+        cut = seg.clone()
+        cut[:, 100:256] = 3
+        fault_out = K2.onepass_attention(q, k, v, cut)
+        rows = slice(256, S)
+    assert bf16_err_over_bound(out[:, rows], ref[:, rows]) <= 1.0
+    assert bf16_err_over_bound(fault_out[:, rows], ref[:, rows]) > 1.0
 
 
 def test_decode_kernel_matches_plain(cuda):
@@ -349,22 +414,66 @@ def test_grid_bias_wrapper_raises_past_its_grid(cuda):
     assert K5.grid_bias_launches == before
 
 
-@pytest.mark.parametrize("rows,C,offset", [(4099, 1280, 0), (37, 200, 0), (5, 77, 0), (3, 4100, 0), (70, 256, 3)])
-def test_layer_norm_kernel_matches_plain(cuda, rows, C, offset):
+def layer_norm_rows(rng, kind: str, rows: int, C: int) -> np.ndarray:
+    """f32 rows for K6's tests, exact in bf16.  "normal": N(1, 3^2).
+    "large_mean": 4096 with 2% of the entries one bf16 ulp off (4080 or
+    4128): E[x^2] - mean^2 cancels ~20 of f32's 24 bits.  "near_constant":
+    a value in [0.5, 2) per row with 1% of the entries one ulp above it,
+    and every 8th row constant: the variance is at most ~eps (1e-6) and 0
+    in the constant rows, so eps decides the result."""
+    if kind == "normal":
+        return (rng.standard_normal((rows, C)) * 3 + 1).astype(np.float32)
+    r = rng.random((rows, C))
+    if kind == "large_mean":
+        x = np.full((rows, C), 4096.0)
+        x[r < 0.01] = 4080.0
+        x[(r >= 0.01) & (r < 0.02)] = 4128.0
+        return x.astype(np.float32)
+    base = torch.tensor(rng.uniform(0.5, 2.0, (rows, 1)).astype(np.float32)).to(torch.bfloat16)
+    up = (base.float() * (1 + 2.0**-7)).to(torch.bfloat16)  # one ulp above
+    x = torch.where(torch.tensor(r < 0.01), up, base).float()
+    x[::8] = base[::8].float()
+    return x.numpy()
+
+
+_LN_CASES = [(4099, 1280, 0, "normal"), (37, 200, 0, "normal"), (5, 77, 0, "normal"), (3, 4100, 0, "normal"),
+             (70, 256, 3, "normal"), (4099, 1280, 0, "large_mean"), (4096, 1024, 0, "near_constant")]
+
+
+@pytest.mark.parametrize("weight_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,C,offset,kind", _LN_CASES)
+def test_layer_norm_kernel_matches_plain(cuda, rows, C, offset, kind, weight_dtype):
     """K6 against its plain version: a ragged row count at SAM's width, a C
     that is a multiple of 8 but not of 128, a C that is not a multiple of 8
     (one element per lane), C > 2048 (the row read once per pass) and a row
-    start that is not 16-byte aligned (the scalar route); bf16 weights as
-    the models hold them.  Gradients flow through the kernel route."""
-    rng = np.random.default_rng(rows)
-    base = torch.tensor((rng.standard_normal(rows * C + offset) * 3 + 1).astype(np.float32), device=cuda)
-    x = base.to(torch.bfloat16)[offset:].view(rows, C)
-    w, b = _rand(rng, C, device=cuda), _rand(rng, C, device=cuda)
+    start that is not 16-byte aligned (the scalar route); weights in bf16,
+    as the models hold them, and in f32.  Two kinds of rows that the other
+    checks cannot tell apart from a faulty kernel: "large_mean" rows, where
+    a kernel that computes the variance as E[x^2] - mean^2 fails the bound,
+    and "near_constant" rows, where one that drops eps fails it; the case
+    asserts that both faults, computed on the card, do.  Each call is one
+    launch (no cast kernels), and gradients flow through the kernel route."""
+    rng = np.random.default_rng(rows + C)
+    flat = np.concatenate([np.zeros(offset, np.float32), layer_norm_rows(rng, kind, rows, C).reshape(-1)])
+    x = torch.tensor(flat, device=cuda).to(torch.bfloat16)[offset:].view(rows, C)
+    w, b = (torch.tensor(rng.standard_normal(C).astype(np.float32), device=cuda).to(weight_dtype) for _ in range(2))
     before = K6.launches
-    out = K6.fused_layer_norm(x, w, b, 1e-6)
-    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = K6.fused_layer_norm(x, w, b, 1e-6)
+        torch.cuda.synchronize()
     assert K6.launches == before + 1
-    _bf16_close(out, K6.fused_layer_norm_plain(x, w, b, 1e-6))
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "layer_norm" in kernels[0], kernels
+    ref = K6.fused_layer_norm_plain(x, w, b, 1e-6)
+    _bf16_close(out, ref)
+    if kind != "normal":
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        short_var = (xf * xf).mean(-1, keepdim=True) - mean * mean
+        d = xf - mean
+        faults = {"short_variance": d * torch.rsqrt(short_var + 1e-6), "no_eps": d * torch.rsqrt((d * d).mean(-1, keepdim=True))}
+        fault = faults["short_variance" if kind == "large_mean" else "no_eps"]
+        assert bf16_err_over_bound((fault * w.float() + b.float()).to(torch.bfloat16), ref) > 1.0
     g = _rand(rng, rows, C, device=cuda)
     grads = []
     for fn in (K6.fused_layer_norm, K6.fused_layer_norm_plain):

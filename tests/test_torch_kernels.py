@@ -359,12 +359,6 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         K1.vit_attention(*(_meta(1, 8, 2, 12),) * 3)
     with pytest.raises(ValueError, match="CUDA"):
         K1.vit_attention(*(_meta(1, 8, 2, 72),) * 3)
-    with pytest.raises(ValueError, match="dividing 64"):
-        K2.onepass_attention(_meta(1, 8, 6, 64), _meta(1, 8, 4, 64), _meta(1, 8, 4, 64))
-    with pytest.raises(ValueError, match="at most 128|<= 128"):
-        K2.onepass_attention(_meta(1, 8, 4, 256), _meta(1, 8, 2, 256), _meta(1, 8, 2, 256))
-    with pytest.raises(ValueError, match="CUDA"):
-        K2.onepass_attention(_meta(1, 8, 4, 128), _meta(1, 8, 2, 128), _meta(1, 8, 2, 128))
     B, C, Hk, D = 2, 16, 2, 128
     good = dict(
         q=_meta(B, 8, D), k_q=_meta(B, C, Hk * D, dtype=torch.int8), k_s=_meta(B, C, Hk, dtype=torch.float32),
@@ -395,6 +389,29 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
             fn(q, k, k, seg, lse, delta, _meta(B, S, Hq, D, dtype=torch.float32))
         with pytest.raises(ValueError, match="CUDA"):
             fn(q, k, k, seg, lse, delta, q.transpose(1, 2).contiguous().transpose(1, 2))
+
+
+@pytest.mark.parametrize(
+    "hq,hk,D,match",
+    [
+        (6, 4, 64, "dividing 128"),  # Hq / Hk not an integer
+        (12, 4, 64, "dividing 128"),  # G = 3
+        (256, 1, 64, "dividing 128"),  # G = 256: more heads than the CTA's 128 rows
+        (4, 2, 256, "<= 128"),
+        (4, 2, 12, "multiple of 8"),
+        (4, 2, 128, "CUDA"),
+        (32, 8, 128, "CUDA"),  # llama3-8b
+        (128, 1, 128, "CUDA"),  # G = 128: one position per CTA
+    ],
+)
+def test_onepass_wrapper_follows_the_fold_rule(hq, hk, D, match):
+    """K2 folds G = Hq / Hk query heads x 128 / G positions into one CTA's
+    128 rows on the Hopper main loop (head dim <= 128, a multiple of 8): a
+    G that does not divide 128 raises before any pointer reaches C, and a
+    call that the kernel takes fails on meta tensors only for not being on
+    a CUDA card."""
+    with pytest.raises(ValueError, match=match):
+        K2.onepass_attention(_meta(1, 8, hq, D), _meta(1, 8, hk, D), _meta(1, 8, hk, D))
 
 
 def test_hopper_wrappers_reject_wide_heads_and_grids():
