@@ -18,15 +18,20 @@ Phases, each printed as one JSON line:
    kernels at the align step's (B4 S4096 Hq32 Hk8 D128, 4 packed samples
    per row and a padded tail), K5 at SAM vit_h's global layers (B4 S4096
    on a 64 x 64 grid, H16 D80, f32 rel-pos bias) and K6 at SAM's and
-   Depth-Anything's LayerNorm rows.  K1, K2 and K5 run on the TMA + wgmma
-   main loop of ``csrc/attention_sm90.cuh`` (K2 with G = 4 query heads x
-   32 positions per CTA and its causal x segment mask built in the
-   kernel); K6 is a streaming kernel that takes the models' bf16 weights
-   as they are (one launch per LayerNorm).  Per row: the device time of the
-   kernel (``ms``), of its plain version (``plain_ms``) and of one PyTorch
-   call of the same function (``library_ms``, with ``library`` naming it
-   and its pinned SDPA backend; null for K3, which no single call
-   computes), all by CUDA events: around one replay of a CUDA graph of
+   Depth-Anything's LayerNorm rows.  K1, K2, K5 and K4's forward and dQ run
+   on the TMA + wgmma main loop of ``csrc/attention_sm90.cuh`` (K2 and K4
+   with G = 4 query heads x 32 positions per CTA and the causal x segment
+   mask built in the kernel; K4 walks only the key tiles of its queries'
+   segments); K4's dK/dV is WMMA; K6 is a streaming kernel that takes the
+   models' bf16 weights as they are (one launch per LayerNorm).  Per row:
+   the device time of the kernel (``ms``), of its plain version
+   (``plain_ms``) and of one PyTorch call of the same function
+   (``library_ms``, with ``library`` naming it and its pinned SDPA
+   backend; null for K3, which no single call computes); for K4 also
+   ``library_per_sample_ms``, SDPA's flash backend with ``is_causal`` over
+   the per-sample view of the same q/k/v (4 equal samples per row, checked),
+   which computes only the live pairs, as K4 does.  All by CUDA events:
+   around one replay of a CUDA graph of
    many calls where a call is shorter than its launch on the host (K1-K3,
    K6), around many back-to-back calls for the kernels of milliseconds
    (K4, K5); and ``bound_ms`` / ``bound_by``, the larger of the live
@@ -341,7 +346,22 @@ def live_pairs(torch, seg) -> int:
     return n
 
 
-def sdpa_library(torch, backend: str, q, k, v, mask=None):
+def per_sample_length(seg, samples: int) -> int:
+    """L, after checking that every row of ``seg`` holds ``samples``
+    segments of L positions each, contiguous from position 0 with distinct
+    nonzero ids, then only padding (bench_train.py's packing of equal
+    samples): then causal attention over each sample as a row of its own
+    is K4's function on the live rows."""
+    L = int((seg[0] != 0).sum()) // samples
+    for row in seg.tolist():
+        ids = [row[i * L] for i in range(samples)]
+        runs = all(row[i * L : (i + 1) * L] == [ids[i]] * L for i in range(samples))
+        check(L > 0 and runs and 0 not in ids and len(set(ids)) == samples and not any(row[samples * L :]),
+              f"the packed rows are not {samples} equal contiguous samples of {L} positions")
+    return L
+
+
+def sdpa_library(torch, backend: str, q, k, v, mask=None, is_causal=False):
     """One call of F.scaled_dot_product_attention on (B, H, S, D) copies of
     (B, S, H, D) inputs (k and v expanded to q's heads), made here, outside
     any timed window; pinned to ``backend``."""
@@ -354,7 +374,7 @@ def sdpa_library(torch, backend: str, q, k, v, mask=None):
 
     def call(*ins):
         with sdpa_kernel(pinned):
-            return F.scaled_dot_product_attention(*ins, attn_mask=mask)
+            return F.scaled_dot_product_attention(*ins, attn_mask=mask, is_causal=is_causal)
 
     return (qt, kt, vt), call
 
@@ -437,6 +457,7 @@ def phase_kernels(torch):
     # K4: the align step's attention, segment ids of bench_train.py's packing
     B, S, Hq, Hk, D = TRAIN_ROWS, TRAIN_SEQ, 32, 8, 128
     seg4 = torch.as_tensor(train_spliced(llama3_8b_cfg(), np.random.default_rng(0), B).segment_ids, device=dev)
+    L4 = per_sample_length(seg4, TRAIN_SAMPLES_PER_ROW)
     q4, k4, v4, do4 = rn(B, S, Hq, D), rn(B, S, Hk, D), rn(B, S, Hk, D), rn(B, S, Hq, D)
     out4, lse4 = K4.flash_attention_fwd(q4, k4, v4, seg4)
     delta4 = K4.attention_delta(out4, do4)
@@ -444,7 +465,7 @@ def phase_kernels(torch):
     bwd_per_position = (q4, k4, v4, lse4, delta4, do4)
     shape4 = {"B": B, "S": S, "Hq": Hq, "Hk": Hk, "D": D, "samples_per_row": TRAIN_SAMPLES_PER_ROW,
               "padded_tail": int((seg4 == 0).sum(dim=1).min())}
-    src4, fa = "spatialrgpt_tpu_torch/csrc/flash_attention.cu", "spatialrgpt_tpu/ops/flash_attention.py"
+    src4, fa = "spatialrgpt_tpu_torch/csrc/flash_attention_sm90.cu", "spatialrgpt_tpu/ops/flash_attention.py"
     pairs4 = live_pairs(torch, seg4)
     lib4_in, lib4_call = sdpa_library(torch, "EFFICIENT_ATTENTION", q4, k4, v4, causal_segment_mask(seg4))
     lib4_in = tuple(t.requires_grad_() for t in lib4_in)
@@ -459,6 +480,29 @@ def phase_kernels(torch):
 
     lib4_name = ("the backward of F.scaled_dot_product_attention (k/v expanded to Hq, (B, 1, S, S) causal x segment "
                  "mask, SDPBackend.EFFICIENT_ATTENTION): forward + backward minus forward, one figure for dK/dV + dQ")
+    # the yardstick that computes only K4's live pairs: the samples of each
+    # row as rows of their own, causal, SDPA's flash backend
+    ps_in = tuple(t[:, : TRAIN_SAMPLES_PER_ROW * L4].reshape(B * TRAIN_SAMPLES_PER_ROW, L4, *t.shape[2:])
+                  for t in (q4, k4, v4, do4))
+    (psq, psk, psv), ps_call = sdpa_library(torch, "FLASH_ATTENTION", *ps_in[:3], is_causal=True)
+    ps_grad_in = tuple(t.detach().clone().requires_grad_() for t in (psq, psk, psv))
+    ps_do = ps_in[3].transpose(1, 2).contiguous()
+
+    def ps_fwd():
+        with torch.no_grad():
+            return ps_call(psq, psk, psv)
+
+    def ps_fwd_bwd():
+        return torch.autograd.grad(ps_call(*ps_grad_in), ps_grad_in, ps_do)
+
+    ps_name = (f"F.scaled_dot_product_attention over the per-sample view ({B * TRAIN_SAMPLES_PER_ROW}, Hq, {L4}, D), "
+               "k/v expanded to Hq, is_causal, SDPBackend.FLASH_ATTENTION")
+    per_sample = {
+        "flash_attention_fwd": (ps_name, ps_fwd),
+        "flash_attention_bwd_dkv": (f"the backward of {ps_name}: forward + backward minus forward, one figure for "
+                                    "dK/dV + dQ", "backward"),
+    }
+    per_sample["flash_attention_bwd_dq"] = per_sample["flash_attention_bwd_dkv"]
     cases += [
         ("flash_attention_fwd", src4, f"{fa}:226", shape4,
          lambda: K4.flash_attention_fwd(q4, k4, v4, seg4),
@@ -466,7 +510,7 @@ def phase_kernels(torch):
          bound(4 * D * Hq * pairs4, live_bytes(seg4, q4, k4, v4) + nbytes(seg4, q4, lse4)),
          ("F.scaled_dot_product_attention, k/v expanded to Hq, (B, 1, S, S) causal x segment mask, "
           "SDPBackend.EFFICIENT_ATTENTION", lib4_fwd)),
-        ("flash_attention_bwd_dkv", src4, f"{fa}:716", shape4,
+        ("flash_attention_bwd_dkv", "spatialrgpt_tpu_torch/csrc/flash_attention.cu", f"{fa}:716", shape4,
          lambda: K4.flash_attention_bwd_dkv(*bwd),
          lambda: per_row(torch, K4.flash_attention_bwd_dkv_plain, *bwd), (10, 1, "events"),
          bound(8 * D * Hq * pairs4, live_bytes(seg4, *bwd_per_position) + nbytes(seg4, k4, v4)),
@@ -513,7 +557,7 @@ def phase_kernels(torch):
         ))
 
     rows = []
-    library_bwd_ms = None
+    library_bwd_ms = ps_bwd_ms = None
     for name, source, replaces, shape, kernel, plain, (iters, plain_iters, how), work, (library, lib_fn) in cases:
         out = kernel()
         torch.cuda.synchronize()
@@ -537,19 +581,28 @@ def phase_kernels(torch):
             library_ms = library_bwd_ms
         else:
             library_ms = timer(torch, lib_fn, iters) if lib_fn is not None else None
+        ps_label, ps_fn = per_sample.get(name, (None, None))
+        if ps_fn == "backward":
+            if ps_bwd_ms is None:
+                ps_bwd_ms = timer(torch, ps_fwd_bwd, iters) - timer(torch, ps_fwd, iters)
+            ps_ms = ps_bwd_ms
+        else:
+            ps_ms = timer(torch, ps_fn, iters) if ps_fn is not None else None
         row = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "max_abs_err": err, "err_over_bound": ratio, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": work["bound_ms"], "bound_by": work["bound_by"], "library_ms": library_ms, "library": library,
             "share_of_bound": work["bound_ms"] / ms,
             "library_over_kernel": library_ms / ms if library_ms is not None else None,
+            "library_per_sample_ms": ps_ms, "library_per_sample": ps_label,
+            "per_sample_library_over_kernel": ps_ms / ms if ps_ms is not None else None,
             "flops": work["flops"], "bytes": work["bytes"],
             "timing": timing.format(n=iters) + f" ({plain_iters} calls for the plain version)",
         }
         emit({"phase": "kernel", "ok": ratio <= 1.0, "shape": shape, **row})
         check(ratio <= 1.0, f"{name}: error {ratio} x the per-element bound (max abs err {err})")
         rows.append(row)
-    del bias5, lib_in, lib2_in, lib4_in, lib5_in
+    del bias5, lib_in, lib2_in, lib4_in, lib5_in, ps_in, ps_grad_in
     torch.cuda.empty_cache()
     # one row per kernel in the kernels line: K6's at its first (SAM) shape
     first = {}

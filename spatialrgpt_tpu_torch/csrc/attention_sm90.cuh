@@ -1,7 +1,10 @@
 // Hopper (sm_90a) main loop of the attention kernels: K1 (vit_attention.cu,
 // SigLIP's D = 72) and K5 (grid_bias_attention.cu, SAM vit_h's D = 80 and
 // vit_b's 64) at a head-dim width DMAX of 80, and K2 (prefill_attention.cu,
-// llama's D = 128: causal x packed segment x window, GQA) at DMAX = 128.
+// llama's D = 128: causal x packed segment x window, GQA) and K4's forward
+// (flash_attention_sm90.cu: K2's function plus the LSE) at DMAX = 128; then
+// K4's dQ kernel (flash_dq_sm90_kernel, end of the file), the same loop
+// with one product more.
 //
 // One CTA owns BM = 128 query rows and walks its key tiles of BN = 128:
 //   - warpgroup 0 is the producer: one thread issues TMA loads of the Q
@@ -22,26 +25,31 @@
 //
 // K1 and K5 (modes NO_BIAS, GRID, GRID64): a CTA is 128 positions of one
 // (image, head) and walks every key tile; only the last one masks keys >=
-// kv_len.  K2 (mode PREFILL): a CTA is the G = Hq / Hk query heads of one kv
-// head x 128 / G positions (the Pallas kernel's fold_g): one 4-D TMA box
-// {64, G, 128 / G, 1} puts position q0 + r / G, head hk * G + r % G in smem
-// row r, and K and V are read once per kv head.  Key j is live for query i
-// iff seg[j] == seg[i] != 0, j <= i and (no window or i - j < window).  Both
-// sides walk the key tiles from the window's first to the causal last of
-// the CTA's live queries (rows of segment 0 need none); the producer's warp
-// copies each tile's 128 segment ids into its stage beside the TMA loads.
-// A tile is masked per score only where a thread's rows meet the diagonal,
+// kv_len.  K2 (mode PREFILL) and K4's forward (mode FLASH_FWD): a CTA is the
+// G = Hq / Hk query heads of one kv head x 128 / G positions (the Pallas
+// kernel's fold_g): one 4-D TMA box {64, G, 128 / G, 1} puts position q0 +
+// r / G, head hk * G + r % G in smem row r, and K and V are read once per kv
+// head.  Key j is live for query i iff seg[j] == seg[i] != 0, j <= i and
+// (no window or i - j < window).  Both sides walk the key tiles from the
+// window's first to the causal last of the CTA's live queries (rows of
+// segment 0 need none); FLASH_FWD walks only the tiles of that range that
+// hold a key of the live queries' segment ids (list_live_tiles: in rows
+// of 4 packed samples most causal tiles hold none).  The producer's warp
+// copies each tile's segment ids into its stage beside the TMA loads.  A
+// tile is masked per score only where a thread's rows meet the diagonal,
 // the window edge or another segment; interior tiles are maskless.  Rows
-// of segment 0 store zeros, rows >= S nothing.
+// of segment 0 store zeros, rows >= S nothing; FLASH_FWD also stores each
+// row's log-sum-exp, (m + log2 l) ln 2, and -1e30 for a row of segment 0.
 //
 // Shared-memory layout of a 128-row operand tile: two 64-column atoms of
 // 128 rows x 128 bytes, each 1024-byte aligned and 128B-swizzled as TMA
 // writes them (at DMAX = 80 columns 80-127 are TMA's zero fill past D, so
 // one N = 80 product spans both atoms).  Q 32 KB + 2 stages x (K 32 KB + V
 // 32 KB) = 160 KB; K5 adds its rel-pos bias rows, 64 KB, for 224 KB of the
-// 227 KB a CTA may use; K2 adds 2 x 512 bytes of segment ids.  Ragged S,
-// valid_len and D < DMAX need no masked loads: the tensor maps are 4-D {D,
-// H, S, B} over the caller's strides and TMA fills zeros past each edge.
+// 227 KB a CTA may use; K2 adds 2 x 512 bytes of segment ids, FLASH_FWD
+// those and 3 KB of tile list.  Ragged S, valid_len and D < DMAX need no
+// masked loads: the tensor maps are 4-D {D, H, S, B} over the caller's
+// strides and TMA fills zeros past each edge.
 
 #pragma once
 
@@ -79,20 +87,33 @@ enum Mode : int {
                 // thread's rel_w terms are the same in every tile (32 registers) and its
                 // rel_h terms are 2 per row and tile
   PREFILL = 3,  // K2: causal x packed segment x window, G query heads per kv head
+  FLASH_FWD = 4,  // K4's forward: PREFILL over the listed live tiles, plus the LSE
 };
+
+__host__ __device__ constexpr bool segmented(int mode) { return mode == PREFILL || mode == FLASH_FWD; }
+
+// K4: a CTA lists at most MAX_TILES key tiles (S <= MAX_TILES x the tile
+// width): a byte flag per tile, then the listed tiles' indices as int16
+constexpr int MAX_TILES = 1024;
+constexpr int TILE_LIST_BYTES = MAX_TILES + MAX_TILES * 2;
+constexpr float NEG_INF = -1e30f;  // K4's LSE of a row with no live key
+constexpr float LN2 = 0.6931471805599453f;
 
 // byte offsets from the 1024-aligned base of dynamic shared memory
 constexpr int OFF_Q = 0;
 constexpr int OFF_K = OFF_Q + OPERAND_BYTES;            // + stage * OPERAND_BYTES
 constexpr int OFF_V = OFF_K + NSTAGES * OPERAND_BYTES;  // + stage * OPERAND_BYTES
-constexpr int OFF_EXTRA = OFF_V + NSTAGES * OPERAND_BYTES;  // K5's bias rows or K2's segment ids
+constexpr int OFF_EXTRA = OFF_V + NSTAGES * OPERAND_BYTES;  // K5's bias rows or K2's / K4's segment ids
 constexpr int BIAS_BYTES = 2 * BM * BIAS_LD * 4;        // rel_h rows, then rel_w rows
 __host__ __device__ constexpr int extra_bytes(int mode) {
-  return mode == GRID || mode == GRID64 ? BIAS_BYTES : mode == PREFILL ? NSTAGES * SEG_BYTES : 0;
+  return mode == GRID || mode == GRID64 ? BIAS_BYTES
+         : mode == PREFILL              ? NSTAGES * SEG_BYTES
+         : mode == FLASH_FWD            ? NSTAGES * SEG_BYTES + TILE_LIST_BYTES
+                                        : 0;
 }
 __host__ __device__ constexpr int off_bars(int mode) { return OFF_EXTRA + extra_bytes(mode); }
-// barriers (q_full, full[2], empty[2]), K2's live-query range (2 ints) and
-// 1024 bytes to align the base
+// barriers (q_full, full[2], empty[2]), K2's live-query range (2 ints; K4's
+// list_live_tiles: 5) and 1024 bytes to align the base
 __host__ __device__ constexpr int smem_bytes(int mode) { return off_bars(mode) + 64 + 1024; }
 
 struct Params {
@@ -104,9 +125,12 @@ struct Params {
   const float* rel_h;       // K5: (B, H, S, gh) f32, contiguous
   const float* rel_w;       // K5: (B, H, S, gw) f32, contiguous
   int gh, gw;
-  const int* seg;           // K2: (B, S) int32 segment ids, contiguous; 0 = padding
-  int G;                    // K2: query heads per kv head (divides BM)
-  int window;               // K2: <= 0: none
+  const int* seg;           // K2, K4: (B, S) int32 segment ids, contiguous; 0 = padding
+  int G;                    // K2, K4: query heads per kv head (divides BM)
+  int window;               // K2, K4: <= 0: none
+  float* lse;               // K4: (B, Hq, S) f32, contiguous: the forward's output, dQ's input
+  const float* delta;       // K4 dQ: (B, S, Hq) f32 rowsum(dO * O), contiguous
+  float scale;              // K4 dQ: sm_scale
 };
 
 // ---------------------------------------------------------------------------
@@ -192,6 +216,20 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t des
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// D (64 x 64, f32, registers) (+)= A (64 x 16, shared, K-major) * B (16 x 64, shared, K-major)
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // D (64 x 80, f32, registers) += A (64 x 16, bf16 registers) * B (16 x 80, shared, MN-major)
 __device__ __forceinline__ void wgmma_m64n80k16_rs(float (&d)[40], const uint32_t (&a)[4], uint64_t desc_b) {
   asm volatile(
@@ -240,6 +278,61 @@ __device__ __forceinline__ float quad_sum(float x) {
 __device__ __forceinline__ int rel_h_at(int r, int kh) { return r * BIAS_LD + (kh ^ (r & 7)); }
 __device__ __forceinline__ int rel_w_at(int r, int kw) { return r * BIAS_LD + (kw ^ ((r & 7) << 3)); }
 
+// K4 (forward and dQ): lists at `list`, in ascending order, the key tiles
+// of T keys that the CTA's live queries (positions q0 .. q0 + BQ - 1 before
+// S in a nonzero segment of the row's ids `seg`) need, and returns how many
+// (the same in every thread; called by all of them).  A tile is listed if it lies between the
+// window's first and the causal last of the live queries and holds such a
+// key whose segment id lies in the live queries' id range.  That is exact
+// for any id layout, since a live pair has equal ids: the reference's
+// cross-segment tile skip (flash_attention.py:133-145), judged on the ids
+// themselves.  `scratch`: 5 ints of shared memory that thread 0 set to
+// INT_MAX, -1, INT_MAX, INT_MIN before the last __syncthreads.
+template <int T>
+__device__ __forceinline__ int list_live_tiles(const int* seg, int S, int window, int q0, int BQ, int* scratch,
+                                               unsigned char* flags, short* list) {
+  for (int w = threadIdx.x; w < MAX_TILES / 4; w += NTHREADS) reinterpret_cast<int*>(flags)[w] = 0;
+  if (threadIdx.x < BQ) {
+    const int i = q0 + threadIdx.x;
+    const int id = i < S ? seg[i] : 0;
+    if (id != 0) {
+      atomicMin(&scratch[0], i);
+      atomicMax(&scratch[1], i);
+      atomicMin(&scratch[2], id);
+      atomicMax(&scratch[3], id);
+    }
+  }
+  __syncthreads();
+  const int first = scratch[0], last = scratch[1], id_lo = scratch[2], id_hi = scratch[3];
+  if (last < 0) return 0;  // no live query: uniform over the CTA
+  const int lo = window > 0 ? max(first - window + 1, 0) : 0;
+  const int t_begin = lo / T;
+  // 8 loads in flight per thread: one pass over a 4096-key row
+  constexpr int U = 8;
+  for (int j0 = lo + threadIdx.x; j0 <= last; j0 += U * NTHREADS) {
+    int ids[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) ids[u] = j0 + u * NTHREADS <= last ? seg[j0 + u * NTHREADS] : 0;
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (ids[u] != 0 && id_lo <= ids[u] && ids[u] <= id_hi) flags[(j0 + u * NTHREADS) / T - t_begin] = 1;
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x, n = last / T + 1 - t_begin;
+    int count = 0;
+    for (int c = 0; c < n; c += 32) {
+      const bool f = c + lane < n && flags[c + lane];
+      const unsigned m = __ballot_sync(0xffffffffu, f);
+      if (f) list[count + __popc(m & ((1u << lane) - 1))] = static_cast<short>(t_begin + c + lane);
+      count += __popc(m);
+    }
+    if (lane == 0) scratch[4] = count;
+  }
+  __syncthreads();
+  return scratch[4];
+}
+
 // ---------------------------------------------------------------------------
 // the kernel
 // ---------------------------------------------------------------------------
@@ -254,11 +347,15 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
                                                          ~static_cast<uintptr_t>(1023));
   const uint32_t base = smem_u32(smem);
   constexpr bool HAS_BIAS = MODE == GRID || MODE == GRID64;
-  constexpr bool SEGMENTS = MODE == PREFILL;
+  constexpr bool SEGMENTS = segmented(MODE);
+  constexpr bool LISTED = MODE == FLASH_FWD;  // walks list_live_tiles' tiles and stores the LSE
   const uint32_t bar_q = base + off_bars(MODE);
   const uint32_t bar_full = bar_q + 8;    // + 8 * stage
   const uint32_t bar_empty = bar_q + 24;  // + 8 * stage
-  int* live_range = reinterpret_cast<int*>(smem + off_bars(MODE) + 40);  // K2: first, last live query
+  // K2: first, last live query; K4: list_live_tiles' scratch
+  int* live_range = reinterpret_cast<int*>(smem + off_bars(MODE) + 40);
+  unsigned char* tile_flags = smem + OFF_EXTRA + NSTAGES * SEG_BYTES;  // K4
+  const short* tile_list = reinterpret_cast<const short*>(tile_flags + MAX_TILES);
 
   // h: the head (K1, K5) or the kv head (K2); q0: the CTA's first position
   const int b = blockIdx.z, h = blockIdx.y;
@@ -276,10 +373,22 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
       live_range[0] = INT_MAX;
       live_range[1] = -1;
     }
+    if constexpr (LISTED) {
+      live_range[2] = INT_MAX;
+      live_range[3] = INT_MIN;
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  if constexpr (SEGMENTS) {
+  if constexpr (LISTED) {
+    // the Q tile loads while the CTA lists its key tiles
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_q, OPERAND_BYTES);
+      for (int a = 0; a < 2; ++a) tma_load_4d(base + OFF_Q + a * ATOM_BYTES, &tm_q, bar_q, a * ATOM, h * p.G, q0, b);
+    }
+    n_tiles = list_live_tiles<BN>(p.seg + static_cast<long long>(b) * p.S, p.S, p.window, q0, BQ, live_range,
+                                  tile_flags, const_cast<short*>(tile_list));
+  } else if constexpr (SEGMENTS) {
     // the key tiles the CTA's live queries need: [first - window + 1, last]
     if (threadIdx.x < BQ) {
       const int i = q0 + threadIdx.x;
@@ -304,14 +413,14 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
       // on the stage's full barrier once more for them
       const int lane = threadIdx.x;
       if (lane < 32) {
-        if (lane == 0) {
+        if (!LISTED && lane == 0) {
           mbar_expect_tx(bar_q, OPERAND_BYTES);
           for (int a = 0; a < 2; ++a)
             tma_load_4d(base + OFF_Q + a * ATOM_BYTES, &tm_q, bar_q, a * ATOM, h * p.G, q0, b);
         }
         for (int n = 0; n < n_tiles; ++n) {
           const int st = n % NSTAGES;
-          const int j0 = (t_begin + n) * BN;
+          const int j0 = (LISTED ? tile_list[n] : t_begin + n) * BN;
           mbar_wait(bar_empty + 8 * st, ((n / NSTAGES) & 1) ^ 1);  // the first round passes at once
           if (lane == 0) {
             mbar_expect_tx(bar_full + 8 * st, 2 * OPERAND_BYTES);
@@ -385,7 +494,7 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
 #pragma unroll
           for (int e = 0; e < 2; ++e) rw[hr][jj][e] = s_rel_w[rel_w_at(r_lo + 8 * hr, 8 * jj + cq + e)];
     }
-    // PREFILL: position and segment of this thread's two rows; -1 for a
+    // PREFILL, FLASH_FWD: position and segment of this thread's two rows; -1 for a
     // row of segment 0 or past S (it needs no key and stores zeros)
     int pos[2] = {-1, -1}, sid[2] = {0, 0};
     if constexpr (SEGMENTS) {
@@ -408,7 +517,7 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
 
     for (int n = 0; n < n_tiles; ++n) {
       const int st = n % NSTAGES;
-      const int t = t_begin + n;
+      const int t = LISTED ? tile_list[n] : t_begin + n;
       mbar_wait(bar_full + 8 * st, (n / NSTAGES) & 1);
       const uint32_t k_tile = base + OFF_K + st * OPERAND_BYTES;
       const uint32_t v_tile = base + OFF_V + st * OPERAND_BYTES;
@@ -538,6 +647,12 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
         head = h * p.G + r % p.G;
       }
       const bool dead = SEGMENTS && pos[hr] < 0;  // a row of segment 0 stores zeros
+      if constexpr (LISTED) {
+        // the quad's rows share m and l: its first thread stores the LSE
+        if (row < p.S && cq == 0)
+          p.lse[(static_cast<long long>(b) * p.H + head) * p.S + row] =
+              dead || l <= 0.f ? NEG_INF : (m_run[hr] + log2f(l)) * LN2;
+      }
       if (row < p.S) {
         bf16* dst = p.out + b * p.sob + row * p.sos + head * p.soh;
 #pragma unroll
@@ -547,6 +662,236 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
             *reinterpret_cast<__nv_bfloat162*>(dst + col) =
                 dead ? __floats2bfloat162_rn(0.f, 0.f)
                      : __floats2bfloat162_rn(o[4 * j + 2 * hr] * inv, o[4 * j + 2 * hr + 1] * inv);
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K4's dQ kernel: the same query-stationary loop with one product more
+// ---------------------------------------------------------------------------
+//
+// A CTA is FLASH_FWD's fold (G heads x 128 / G positions of one kv head); it
+// loads its Q and dO tiles once by the same 4-D box (dO has q's layout) and
+// walks list_live_tiles' key tiles of DQ_BN = 64 keys.  Per tile, each
+// consumer warpgroup (64 rows):
+//   S = Q K^T and dP = dO V^T: 2 x 8 wgmma m64n64k16 from shared memory (K
+//   and V K-major), one commit;
+//   P = exp2(S scale log2(e) - lse log2(e)) on the live pairs, 0 elsewhere
+//   (not rounded, as _bwd_dq_kernel); dS = P (dP - delta) scale, rounded to
+//   bf16 in registers (S's accumulator layout is the A-operand layout);
+//   dQ += dS K: 4 wgmma m64n128k16, A from registers, K read MN-major as V
+//   is in P V.
+// dQ (64 f32), S and dP (32 each) and packed dS (16) fit the consumers' 232
+// registers at 64-key tiles; at 128 S and dP alone would take 128.  Shared
+// memory: Q 32 KB + dO 32 KB + 4 stages x (K 16 KB + V 16 KB) + ids and the
+// tile list, 197 KB.  Rows of segment 0 store zeros (their lse reads as
+// +inf in log2 units, so P is 0), rows >= S nothing.  No atomics: dQ is
+// apart from dK/dV, so the result is deterministic.
+
+constexpr int DQ_BN = 64;                                  // keys per dQ tile
+constexpr int DQ_STAGES = 4;                               // K/V ring depth
+constexpr int ATOM64_BYTES = DQ_BN * 128;                  // 64 rows of one atom: 8 KB
+constexpr int KV64_BYTES = 2 * ATOM64_BYTES;               // a 64-row operand tile: 16 KB
+constexpr int DQ_OFF_Q = 0;
+constexpr int DQ_OFF_DO = OPERAND_BYTES;
+constexpr int DQ_OFF_K = 2 * OPERAND_BYTES;                // + stage * KV64_BYTES
+constexpr int DQ_OFF_V = DQ_OFF_K + DQ_STAGES * KV64_BYTES;  // + stage * KV64_BYTES
+constexpr int DQ_OFF_SEG = DQ_OFF_V + DQ_STAGES * KV64_BYTES;  // + stage * DQ_BN * 4
+constexpr int DQ_OFF_LIST = DQ_OFF_SEG + DQ_STAGES * DQ_BN * 4;
+constexpr int DQ_OFF_BARS = DQ_OFF_LIST + TILE_LIST_BYTES;
+// barriers (q_full, full[4], empty[4]), list_live_tiles' 5 ints, alignment
+constexpr int DQ_SMEM_BYTES = DQ_OFF_BARS + 128 + 1024;
+
+template <int DMAX>  // 128: instantiated only where it is launched (flash_attention_sm90.cu)
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
+                     const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+                     const Params p) {
+  static_assert(DMAX == WIDE, "dQ runs at the head-dim width 128");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                                         ~static_cast<uintptr_t>(1023));
+  const uint32_t base = smem_u32(smem);
+  const uint32_t bar_q = base + DQ_OFF_BARS;
+  const uint32_t bar_full = bar_q + 8;                   // + 8 * stage
+  const uint32_t bar_empty = bar_q + 8 + 8 * DQ_STAGES;  // + 8 * stage
+  int* scratch = reinterpret_cast<int*>(smem + DQ_OFF_BARS + 8 + 16 * DQ_STAGES);
+  unsigned char* tile_flags = smem + DQ_OFF_LIST;
+  short* tile_list = reinterpret_cast<short*>(tile_flags + MAX_TILES);
+
+  const int b = blockIdx.z, h = blockIdx.y;  // h: the kv head
+  const int BQ = BM / p.G;
+  const int q0 = blockIdx.x * BQ;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 2);  // the TMA bytes and the segment ids
+      mbar_init(bar_empty + 8 * s, NCONSUMER);
+    }
+    scratch[0] = INT_MAX;
+    scratch[1] = -1;
+    scratch[2] = INT_MAX;
+    scratch[3] = INT_MIN;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {  // Q and dO load while the CTA lists its key tiles
+    mbar_expect_tx(bar_q, 2 * OPERAND_BYTES);
+    for (int a = 0; a < 2; ++a) {
+      tma_load_4d(base + DQ_OFF_Q + a * ATOM_BYTES, &tm_q, bar_q, a * ATOM, h * p.G, q0, b);
+      tma_load_4d(base + DQ_OFF_DO + a * ATOM_BYTES, &tm_do, bar_q, a * ATOM, h * p.G, q0, b);
+    }
+  }
+  const int n_tiles = list_live_tiles<DQ_BN>(p.seg + static_cast<long long>(b) * p.S, p.S, p.window, q0, BQ,
+                                             scratch, tile_flags, tile_list);
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---------------- producer ----------------
+    // lane 0 issues the TMA loads, the warp copies each tile's ids (2 a lane)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    const int lane = threadIdx.x;
+    if (lane < 32) {
+      for (int n = 0; n < n_tiles; ++n) {
+        const int st = n % DQ_STAGES;
+        const int j0 = tile_list[n] * DQ_BN;
+        mbar_wait(bar_empty + 8 * st, ((n / DQ_STAGES) & 1) ^ 1);  // the first round passes at once
+        if (lane == 0) {
+          mbar_expect_tx(bar_full + 8 * st, 2 * KV64_BYTES);
+          for (int a = 0; a < 2; ++a) {
+            tma_load_4d(base + DQ_OFF_K + st * KV64_BYTES + a * ATOM64_BYTES, &tm_k, bar_full + 8 * st, a * ATOM,
+                        h, j0, b);
+            tma_load_4d(base + DQ_OFF_V + st * KV64_BYTES + a * ATOM64_BYTES, &tm_v, bar_full + 8 * st, a * ATOM,
+                        h, j0, b);
+          }
+        }
+        int ids[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int j = j0 + 2 * lane + u;
+          ids[u] = j < p.S ? p.seg[static_cast<long long>(b) * p.S + j] : 0;
+        }
+        *reinterpret_cast<int2*>(smem + DQ_OFF_SEG + st * DQ_BN * 4 + 8 * lane) = make_int2(ids[0], ids[1]);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bar_full + 8 * st);
+      }
+    }
+  } else {
+    // ---------------- consumers ----------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int cw = wg - 1;  // query rows [64 cw, 64 cw + 64) of the tile
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int r_lo = 64 * cw + 16 * warp + lane / 4;  // this thread's rows: r_lo and r_lo + 8
+    const int cq = 2 * (lane % 4);                    // its first column in each group of 8
+
+    // position, segment, lse (log2 units) and delta of this thread's two
+    // rows; a row of segment 0 or past S has position -1 and lse +inf
+    int pos[2], sid[2];
+    float lse2[2], dlt[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = r_lo + 8 * hr;
+      const int i = q0 + r / p.G, head = h * p.G + r % p.G;
+      sid[hr] = i < p.S ? p.seg[static_cast<long long>(b) * p.S + i] : 0;
+      pos[hr] = sid[hr] != 0 ? i : -1;
+      lse2[hr] = pos[hr] >= 0 ? p.lse[(static_cast<long long>(b) * p.H + head) * p.S + i] * LOG2E : INFINITY;
+      dlt[hr] = pos[hr] >= 0 ? p.delta[(static_cast<long long>(b) * p.S + i) * p.H + head] : 0.f;
+    }
+
+    float dq[WIDE / 2];
+#pragma unroll
+    for (int i = 0; i < WIDE / 2; ++i) dq[i] = 0.f;
+
+    mbar_wait(bar_q, 0);
+    const uint32_t q_tile = base + DQ_OFF_Q + cw * 64 * 128;  // 64 rows x 128 bytes into each atom
+    const uint32_t do_tile = base + DQ_OFF_DO + cw * 64 * 128;
+
+    for (int n = 0; n < n_tiles; ++n) {
+      const int st = n % DQ_STAGES;
+      const int j0 = tile_list[n] * DQ_BN;
+      mbar_wait(bar_full + 8 * st, (n / DQ_STAGES) & 1);
+      const uint32_t k_tile = base + DQ_OFF_K + st * KV64_BYTES;
+      const uint32_t v_tile = base + DQ_OFF_V + st * KV64_BYTES;
+
+      // ---- S = Q K^T and dP = dO V^T: 8 k-steps of 16 columns each ----
+      float s[DQ_BN / 2], dp[DQ_BN / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < WIDE / 16; ++kk) {
+        const uint32_t oq = (kk / 4) * ATOM_BYTES + (kk % 4) * 32, okv = (kk / 4) * ATOM64_BYTES + (kk % 4) * 32;
+        wgmma_m64n64k16_ss(s, sw128_desc(q_tile + oq, 1, 64), sw128_desc(k_tile + okv, 1, 64), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < WIDE / 16; ++kk) {
+        const uint32_t oq = (kk / 4) * ATOM_BYTES + (kk % 4) * 32, okv = (kk / 4) * ATOM64_BYTES + (kk % 4) * 32;
+        wgmma_m64n64k16_ss(dp, sw128_desc(do_tile + oq, 1, 64), sw128_desc(v_tile + okv, 1, 64), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+      fence_regs(dp);
+
+      // ---- is the tile interior for this thread's live rows? (FLASH_FWD's test at 64 keys) ----
+      const int* kseg = reinterpret_cast<const int*>(smem + DQ_OFF_SEG + st * DQ_BN * 4);
+      const int2 ids = *reinterpret_cast<const int2*>(kseg + 2 * lane);
+      const int kmin = __reduce_min_sync(0xffffffffu, min(ids.x, ids.y));
+      const int kmax = __reduce_max_sync(0xffffffffu, max(ids.x, ids.y));
+      bool interior = true;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+        if (pos[hr] >= 0)
+          interior = interior && kmin == sid[hr] && kmax == sid[hr] && j0 + DQ_BN - 1 <= pos[hr] &&
+                     (p.window <= 0 || pos[hr] - j0 < p.window);
+
+      // ---- dS = P (dP - delta) scale, P = 0 off the live pairs ----
+#pragma unroll
+      for (int i = 0; i < DQ_BN / 2; ++i) {
+        const int hr = (i >> 1) & 1;
+        float pr = exp2f(s[i] * p.scale_log2 - lse2[hr]);
+        if (!interior) {
+          const int c = 8 * (i / 4) + cq + (i & 1), j = j0 + c;
+          const bool live = kseg[c] == sid[hr] && j <= pos[hr] && (p.window <= 0 || pos[hr] - j < p.window);
+          if (!live) pr = 0.f;
+        }
+        s[i] = pr * (dp[i] - dlt[hr]) * p.scale;
+      }
+
+      // ---- dQ += dS K: 4 k-steps of 16 keys, dS from registers ----
+      uint32_t da[DQ_BN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < DQ_BN / 16; ++kk)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) da[kk][c] = pack_bf16(s[8 * kk + 2 * c], s[8 * kk + 2 * c + 1]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DQ_BN / 16; ++kk)
+        // K MN-major: 8-key groups 1024 bytes apart (SBO), its two 64-column
+        // atoms ATOM64_BYTES apart (LBO)
+        wgmma_m64n128k16_rs(dq, da[kk], sw128_desc(k_tile + kk * 16 * 128, ATOM64_BYTES / 16, 64));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dq);
+      mbar_arrive(bar_empty + 8 * st);
+    }
+
+    // ---- epilogue: dQ through the caller's strides ----
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = r_lo + 8 * hr;
+      const int row = q0 + r / p.G, head = h * p.G + r % p.G;
+      if (row < p.S) {
+        bf16* dst = p.out + b * p.sob + row * p.sos + head * p.soh;
+#pragma unroll
+        for (int j = 0; j < WIDE / 8; ++j) {
+          const int col = 8 * j + cq;
+          if (col < p.D)
+            *reinterpret_cast<__nv_bfloat162*>(dst + col) =
+                pos[hr] < 0 ? __floats2bfloat162_rn(0.f, 0.f)
+                            : __floats2bfloat162_rn(dq[4 * j + 2 * hr], dq[4 * j + 2 * hr + 1]);
         }
       }
     }

@@ -1,49 +1,41 @@
-// K4: FlashAttention-2 forward and backward for packed-segment causal GQA
-// (the training step's attention at S = 4096).
+// K4: the dK/dV kernel of FlashAttention-2's backward for packed-segment
+// causal GQA with an optional sliding window (the training step's attention
+// at S = 4096).  K4's forward and dQ kernels are flash_attention_sm90.cu.
 //
-// Replaces the Pallas kernels of
-// spatialrgpt_tpu/ops/flash_attention.py::flash_attention: the forward
-// (_fwd / _fwd_kernel) and the two backward kernels of _flash_bwd
-// (_bwd_dkv_kernel, _bwd_dq_kernel).
+// Replaces the Pallas kernel
+// spatialrgpt_tpu/ops/flash_attention.py::_flash_bwd / _bwd_dkv_kernel.
 //
 // Bound on the H100: tensor-core FLOPs.  At the align step's shape (B = 4,
-// S = 4096, Hq = 32, Hk = 8, D = 128, 4 packed samples of ~1024 tokens per
-// row) the live causal x segment area is ~4 x 1024^2 / 2 per (b, head): the
-// forward does ~137 GFLOP (0.14 ms at 989 TFLOP/s), the backward ~2.5x that,
-// against ~0.5 GB of q/k/v/o/dO traffic per pass; at ~250 FLOP per byte the
-// work sits near the bf16 ridge, so the products run on the tensor cores
-// and whole tiles that the mask kills are never loaded.
+// S = 4096, Hq = 32, Hk = 8, D = 128, 4 packed samples of ~1000 tokens per
+// row) the live causal x segment area is ~4 x 1000^2 / 2 per (b, head): dK/dV
+// does ~2x the forward's ~136 GFLOP (0.27 ms at 989 TFLOP/s) against ~0.3
+// GB of q/k/v/dO/lse/delta traffic, so its products belong on the tensor
+// cores and whole tiles that the mask kills are never loaded.
 //
-// Design.  Masks are built in the kernels from the (B, S) segment ids: key j
-// is live for query i iff seg[i] == seg[j] != 0 and j <= i.  A pair of
-// 64-row tiles whose segment-id ranges do not overlap is skipped before its
-// operands are loaded (the Pallas cross-segment skip, flash_attention.py
-// :133-145), and tiles above the diagonal are never visited.
-//  - forward: a third policy of attention_tile.cuh (K2's GQA fold: a CTA
-//    holds G query heads x 64/G positions of one kv head) plus the LSE
-//    epilogue; lse is (B, Hq, S) f32, -1e30 for a row with no live key.
-//  - dK/dV: one CTA per (64 keys, kv head, row).  It walks the live q tiles
-//    and, inside each, the G query heads of its kv head, accumulating dK and
-//    dV for all G heads in f32 shared memory, so the GQA group sum happens
-//    in the kernel (the Pallas version wrote (B, Hq, S, D) per-head buffers
-//    and summed them in XLA).  Each warp owns 16 keys:
-//      S^T = K Q^T, P^T = exp(S^T * scale - lse) masked,
-//      dV += bf16(P^T) dO, dP^T = V dO^T,
-//      dS^T = P^T (dP^T - delta) * scale,  dK += bf16(dS^T) Q.
-//  - dQ: one CTA per (64 queries, q head, row) walks the live kv tiles:
-//      dQ += bf16(P (dP - delta) * scale) K.
-//    Keeping dQ apart from dK/dV needs no atomics: the result is
-//    deterministic.
+// Design.  Masks are built in the kernel from the (B, S) segment ids: key j
+// is live for query i iff seg[i] == seg[j] != 0, j <= i and (window <= 0 or
+// i - j < window).  A pair of 64-row tiles whose segment-id ranges do not
+// overlap is skipped before its operands are loaded (the Pallas
+// cross-segment skip, flash_attention.py:133-145), tiles above the diagonal
+// are never visited, and with a window the walk ends at the first q tile
+// past the key tile's band (the band test of _interior_predicate, :66-80).
+// One CTA per (64 keys, kv head, row) walks the live q tiles and, inside
+// each, the G query heads of its kv head, accumulating dK and dV for all G
+// heads in f32 shared memory, so the GQA group sum happens in the kernel
+// (the Pallas version wrote (B, Hq, S, D) per-head buffers and summed them
+// in XLA).  Each warp owns 16 keys:
+//   S^T = K Q^T, P^T = exp(S^T * scale - lse) masked,
+//   dV += bf16(P^T) dO, dP^T = V dO^T,
+//   dS^T = P^T (dP^T - delta) * scale,  dK += bf16(dS^T) Q.
 // delta = rowsum(dO * O) is a plain torch reduction in the wrapper.  P and
 // dS are rounded to bf16 before their products, as in the Pallas kernels.
-// Products are WMMA 16x16x16 bf16 with f32 accumulation; the head dim is
-// padded to 128 in shared memory (D <= 128, D % 8 == 0).  Any S is taken.
+// Products are WMMA 16x16x16 bf16 with f32 accumulation (attention_tile.cuh);
+// the head dim is padded to 128 in shared memory (D <= 128, D % 8 == 0).
+// Any S is taken.
 
 #include "attention_tile.cuh"
 
 namespace srgpt {
-
-constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ void warp_range(int lo, int hi, int& out_lo, int& out_hi) {
 #pragma unroll
@@ -68,83 +60,7 @@ __device__ __forceinline__ bool ranges_meet(int qlo, int qhi, int klo, int khi) 
   return qlo <= khi && klo <= qhi && qhi > 0;
 }
 
-// ---------------------------------------------------------------------------
-// forward: attention_tile.cuh with K2's fold, the segment skip and the LSE
-// ---------------------------------------------------------------------------
-
-struct FlashFwdPolicy {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const int* seg;  // (B, S) int32, contiguous
-  bf16* out;
-  float* lse;  // (B, Hq, S) f32, contiguous
-  Strides sq, sk, sv, so;
-  int S;
-  int Hq;
-  int G;  // query heads per kv head; divides BM
-
-  __device__ int b() const { return blockIdx.z; }
-  __device__ int hk() const { return blockIdx.y; }
-  __device__ int bq() const { return BM / G; }
-  __device__ int q_lo() const { return blockIdx.x * bq(); }
-  __device__ int row_pos(int r) const { return q_lo() + r % bq(); }
-  __device__ int row_head(int r) const { return hk() * G + r / bq(); }
-
-  // rowmeta[2r] = query position (or -1 past S), rowmeta[2r+1] = its segment
-  __device__ void init_rows(int* rowmeta) const {
-    for (int r = threadIdx.x; r < BM; r += NTHREADS) {
-      const int i = row_pos(r);
-      rowmeta[2 * r] = i < S ? i : -1;
-      rowmeta[2 * r + 1] = i < S ? seg[static_cast<long long>(b()) * S + i] : 0;
-    }
-  }
-  __device__ const bf16* q_row(const int* rowmeta, int r) const {
-    const int i = rowmeta[2 * r];
-    return i >= 0 ? q + b() * sq.b + i * sq.s + row_head(r) * sq.h : nullptr;
-  }
-  __device__ int key_tile_begin() const { return 0; }
-  __device__ int key_tile_end() const {
-    int hi = q_lo() + bq();  // exclusive bound on live keys (causal)
-    if (hi > S) hi = S;
-    return (hi + BN - 1) / BN;
-  }
-  __device__ const bf16* k_row(int j) const { return k + b() * sk.b + j * sk.s + hk() * sk.h; }
-  __device__ const bf16* v_row(int j) const { return v + b() * sv.b + j * sv.s + hk() * sv.h; }
-  __device__ void init_keys(int* keymeta, int j0) const {
-    for (int jj = threadIdx.x; jj < BN; jj += NTHREADS) {
-      const int j = j0 + jj;
-      keymeta[jj] = j < S ? seg[static_cast<long long>(b()) * S + j] : 0;
-    }
-  }
-  __device__ bool tile_live(const int* rowmeta, const int* keymeta) const {
-    const int lane = threadIdx.x % 32;
-    int qlo, qhi, klo, khi;
-    const int s0 = rowmeta[2 * lane + 1], s1 = rowmeta[2 * (lane + 32) + 1];
-    warp_range(min(s0, s1), max(s0, s1), qlo, qhi);
-    seg_range64(keymeta, klo, khi);
-    return ranges_meet(qlo, qhi, klo, khi);
-  }
-  __device__ bool live(const int* rowmeta, const int* keymeta, int r, int jj, int j) const {
-    const int i = rowmeta[2 * r];
-    const int si = rowmeta[2 * r + 1];
-    return i >= 0 && si != 0 && j <= i && keymeta[jj] == si;
-  }
-  __device__ bf16* out_row(const int* rowmeta, int r) const {
-    const int i = rowmeta[2 * r];
-    return i >= 0 ? out + b() * so.b + i * so.s + row_head(r) * so.h : nullptr;
-  }
-  __device__ float* lse_row(const int* rowmeta, int r) const {
-    const int i = rowmeta[2 * r];
-    return i >= 0 ? lse + (static_cast<long long>(b()) * Hq + row_head(r)) * S + i : nullptr;
-  }
-};
-
-// ---------------------------------------------------------------------------
-// backward
-// ---------------------------------------------------------------------------
-
-constexpr int DPB = 128;  // padded head dim of the backward kernels
+constexpr int DPB = 128;  // padded head dim
 constexpr int LDQB = DPB + 8;  // bf16 operand row stride
 constexpr int LDOB = DPB + 4;  // f32 accumulator row stride
 
@@ -156,15 +72,15 @@ struct BwdArgs {
   const float* lse;    // (B, Hq, S)
   const float* delta;  // (B, S, Hq)
   const int* seg;      // (B, S)
-  bf16* dq;            // (B, S, Hq, D) contiguous
   bf16* dk;            // (B, S, Hk, D) contiguous
   bf16* dv;
   Strides sq, sk, sv, sdo;
   int S, Hq, Hk, D;
+  int window;          // <= 0: none
   float scale;
 };
 
-// Shared memory of both backward kernels: four bf16 operand tiles, two f32
+// Shared memory of the dK/dV kernel: four bf16 operand tiles, two f32
 // score tiles, two bf16 tiles of P / dS, two f32 accumulators, and 64-entry
 // vectors of lse, delta and the two tiles' segment ids.
 struct BwdSmem {
@@ -289,9 +205,11 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_kernel(BwdArgs a) {
   seg_range64(sKseg, klo, khi);
 
   const int n_tiles = (S + BM - 1) / BM;
-  // causal: only q tiles at or after this key tile hold live pairs
+  // causal: only q tiles at or after this key tile hold live pairs; with a
+  // window, only those whose first query lies within it of the tile's last key
   for (int t = blockIdx.x; t < n_tiles; ++t) {
     const int i0 = t * BM;
+    if (a.window > 0 && i0 - (j0 + BN - 1) >= a.window) break;
     __syncthreads();  // the previous q tile is fully consumed
     load_ids(sQseg, a.seg, seg_base, i0, S);
     __syncthreads();
@@ -321,7 +239,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_kernel(BwdArgs a) {
         for (int half = 0; half < 2; ++half) {
           const int c = lane + 32 * half;
           const int si = sQseg[c];
-          const bool live = si != 0 && si == sj && j <= i0 + c;
+          const bool live = si != 0 && si == sj && j <= i0 + c && (a.window <= 0 || i0 + c - j < a.window);
           const float p = live ? expf(sS[jj * LDS + c] * a.scale - sLse[c]) : 0.f;
           sS[jj * LDS + c] = p;
           sP[jj * LDP + c] = __float2bfloat16(p);
@@ -349,154 +267,11 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_kernel(BwdArgs a) {
   store_rows(a.dv, sdV, b, j0, hk, a.Hk, S, a.D);
 }
 
-__global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_kernel(BwdArgs a) {
-  using L = BwdSmem;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::op0);
-  bf16* sdO = reinterpret_cast<bf16*>(smem + L::op1);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::op2);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L::op3);
-  float* sS = reinterpret_cast<float*>(smem + L::s);
-  float* sDP = reinterpret_cast<float*>(smem + L::dp);
-  bf16* sDS = reinterpret_cast<bf16*>(smem + L::ds);
-  float* sdQ = reinterpret_cast<float*>(smem + L::acc0);
-  float* sLse = reinterpret_cast<float*>(smem + L::lse);
-  float* sDelta = reinterpret_cast<float*>(smem + L::delta);
-  int* sQseg = reinterpret_cast<int*>(smem + L::qseg);
-  int* sKseg = reinterpret_cast<int*>(smem + L::kseg);
-
-  const int S = a.S;
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int hk = h / (a.Hq / a.Hk);
-  const int i0 = blockIdx.x * BM;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int r0 = warp * 16;  // this warp's 16 queries
-  const long long seg_base = static_cast<long long>(b) * S;
-
-  for (int idx = threadIdx.x; idx < BM * LDOB; idx += NTHREADS) sdQ[idx] = 0.f;
-  load_ids(sQseg, a.seg, seg_base, i0, S);
-  load_rows(sQ, a.q, a.sq, b, i0, h, S, a.D);
-  load_rows(sdO, a.dout, a.sdo, b, i0, h, S, a.D);
-  for (int r = threadIdx.x; r < BM; r += NTHREADS) {
-    const int i = i0 + r;
-    sLse[r] = i < S ? a.lse[(static_cast<long long>(b) * a.Hq + h) * S + i] : 0.f;
-    sDelta[r] = i < S ? a.delta[(seg_base + i) * a.Hq + h] : 0.f;
-  }
-  __syncthreads();
-  int qlo, qhi;
-  seg_range64(sQseg, qlo, qhi);
-
-  // causal: key tiles up to and including this q tile
-  for (int t = 0; t <= static_cast<int>(blockIdx.x); ++t) {
-    const int j0 = t * BN;
-    __syncthreads();  // the previous key tile is fully consumed
-    load_ids(sKseg, a.seg, seg_base, j0, S);
-    __syncthreads();
-    int klo, khi;
-    seg_range64(sKseg, klo, khi);
-    if (!ranges_meet(qlo, qhi, klo, khi)) continue;
-    load_rows(sK, a.k, a.sk, b, j0, hk, S, a.D);
-    load_rows(sV, a.v, a.sv, b, j0, hk, S, a.D);
-    __syncthreads();
-
-    mma_abt(sQ + r0 * LDQB, sK, sS + r0 * LDS);  // S = Q K^T
-    __syncwarp();
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = r0 + rr;
-      const int si = sQseg[r];
-      const float lse = sLse[r];
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int c = lane + 32 * half;
-        const bool live = si != 0 && si == sKseg[c] && j0 + c <= i0 + r;
-        sS[r * LDS + c] = live ? expf(sS[r * LDS + c] * a.scale - lse) : 0.f;
-      }
-    }
-    mma_abt(sdO + r0 * LDQB, sV, sDP + r0 * LDS);  // dP = dO V^T
-    __syncwarp();
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = r0 + rr;
-      const float delta = sDelta[r];
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int c = lane + 32 * half;
-        sDS[r * LDP + c] = __float2bfloat16(sS[r * LDS + c] * (sDP[r * LDS + c] - delta) * a.scale);
-      }
-    }
-    __syncwarp();
-    mma_acc(sDS + r0 * LDP, sK, sdQ + r0 * LDOB);  // dQ += dS K
-  }
-  __syncthreads();
-  store_rows(a.dq, sdQ, b, i0, h, a.Hq, S, a.D);
-}
-
-template <typename Kernel>
-cudaError_t launch_bwd(Kernel kern, dim3 grid, const BwdArgs& args, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, BwdSmem::bytes);
-  if (err != cudaSuccess) return err;
-  kern<<<grid, NTHREADS, BwdSmem::bytes, stream>>>(args);
-  return cudaGetLastError();
-}
-
-BwdArgs bwd_args(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-                 const void* delta, const void* seg, int S, int Hq, int Hk, int D, const long long* st,
-                 float scale) {
-  BwdArgs a{};
-  a.q = static_cast<const bf16*>(q);
-  a.k = static_cast<const bf16*>(k);
-  a.v = static_cast<const bf16*>(v);
-  a.dout = static_cast<const bf16*>(dout);
-  a.lse = static_cast<const float*>(lse);
-  a.delta = static_cast<const float*>(delta);
-  a.seg = static_cast<const int*>(seg);
-  a.sq = {st[0], st[1], st[2]};
-  a.sk = {st[3], st[4], st[5]};
-  a.sv = {st[6], st[7], st[8]};
-  a.sdo = {st[9], st[10], st[11]};
-  a.S = S;
-  a.Hq = Hq;
-  a.Hk = Hk;
-  a.D = D;
-  a.scale = scale;
-  return a;
-}
-
 bool shape_ok(int Hq, int Hk, int D) {
   return Hk > 0 && Hq % Hk == 0 && D > 0 && D % 8 == 0 && D <= DPB;
 }
 
 }  // namespace srgpt
-
-extern "C" int srgpt_flash_fwd(
-    const void* q, const void* k, const void* v, const void* seg, void* out, void* lse,
-    int B, int S, int Hq, int Hk, int D,
-    long long sqb, long long sqs, long long sqh,
-    long long skb, long long sks, long long skh,
-    long long svb, long long svs, long long svh,
-    long long sob, long long sos, long long soh,
-    float sm_scale, void* stream) {
-  using namespace srgpt;
-  if (!shape_ok(Hq, Hk, D) || BM % (Hq / Hk) != 0) return static_cast<int>(cudaErrorInvalidValue);
-  FlashFwdPolicy pol;
-  pol.q = static_cast<const bf16*>(q);
-  pol.k = static_cast<const bf16*>(k);
-  pol.v = static_cast<const bf16*>(v);
-  pol.seg = static_cast<const int*>(seg);
-  pol.out = static_cast<bf16*>(out);
-  pol.lse = static_cast<float*>(lse);
-  pol.sq = {sqb, sqs, sqh};
-  pol.sk = {skb, sks, skh};
-  pol.sv = {svb, svs, svh};
-  pol.so = {sob, sos, soh};
-  pol.S = S;
-  pol.Hq = Hq;
-  pol.G = Hq / Hk;
-  const int bq = BM / pol.G;
-  dim3 grid((S + bq - 1) / bq, Hk, B);
-  return static_cast<int>(launch_tile<DPB>(pol, grid, S, D, sm_scale, static_cast<cudaStream_t>(stream)));
-}
 
 extern "C" int srgpt_flash_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* delta,
@@ -506,31 +281,33 @@ extern "C" int srgpt_flash_bwd_dkv(
     long long skb, long long sks, long long skh,
     long long svb, long long svs, long long svh,
     long long sdb, long long sds, long long sdh,
-    float sm_scale, void* stream) {
+    int window, float sm_scale, void* stream) {
   using namespace srgpt;
   if (!shape_ok(Hq, Hk, D)) return static_cast<int>(cudaErrorInvalidValue);
-  const long long st[12] = {sqb, sqs, sqh, skb, sks, skh, svb, svs, svh, sdb, sds, sdh};
-  BwdArgs a = bwd_args(q, k, v, dout, lse, delta, seg, S, Hq, Hk, D, st, sm_scale);
+  BwdArgs a{};
+  a.q = static_cast<const bf16*>(q);
+  a.k = static_cast<const bf16*>(k);
+  a.v = static_cast<const bf16*>(v);
+  a.dout = static_cast<const bf16*>(dout);
+  a.lse = static_cast<const float*>(lse);
+  a.delta = static_cast<const float*>(delta);
+  a.seg = static_cast<const int*>(seg);
   a.dk = static_cast<bf16*>(dk);
   a.dv = static_cast<bf16*>(dv);
-  dim3 grid((S + BN - 1) / BN, Hk, B);
-  return static_cast<int>(launch_bwd(flash_bwd_dkv_kernel, grid, a, static_cast<cudaStream_t>(stream)));
-}
-
-extern "C" int srgpt_flash_bwd_dq(
-    const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* delta,
-    const void* seg, void* dq,
-    int B, int S, int Hq, int Hk, int D,
-    long long sqb, long long sqs, long long sqh,
-    long long skb, long long sks, long long skh,
-    long long svb, long long svs, long long svh,
-    long long sdb, long long sds, long long sdh,
-    float sm_scale, void* stream) {
-  using namespace srgpt;
-  if (!shape_ok(Hq, Hk, D)) return static_cast<int>(cudaErrorInvalidValue);
-  const long long st[12] = {sqb, sqs, sqh, skb, sks, skh, svb, svs, svh, sdb, sds, sdh};
-  BwdArgs a = bwd_args(q, k, v, dout, lse, delta, seg, S, Hq, Hk, D, st, sm_scale);
-  a.dq = static_cast<bf16*>(dq);
-  dim3 grid((S + BM - 1) / BM, Hq, B);
-  return static_cast<int>(launch_bwd(flash_bwd_dq_kernel, grid, a, static_cast<cudaStream_t>(stream)));
+  a.sq = {sqb, sqs, sqh};
+  a.sk = {skb, sks, skh};
+  a.sv = {svb, svs, svh};
+  a.sdo = {sdb, sds, sdh};
+  a.S = S;
+  a.Hq = Hq;
+  a.Hk = Hk;
+  a.D = D;
+  a.window = window;
+  a.scale = sm_scale;
+  cudaError_t err =
+      cudaFuncSetAttribute(flash_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BwdSmem::bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((S + BN - 1) / BN, Hk, B);
+  flash_bwd_dkv_kernel<<<grid, NTHREADS, BwdSmem::bytes, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }

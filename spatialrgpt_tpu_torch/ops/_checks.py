@@ -12,8 +12,12 @@ import torch
 # bf16 ulp of the tensor's largest value
 GRAD_FLOOR = 2.0**-16
 # the widest head dim of K1 and K5 on the Hopper main loop
-# (csrc/attention_sm90.cuh::NARROW; K2 runs it at WIDE = 128)
+# (csrc/attention_sm90.cuh::NARROW; K2 and K4 run it at WIDE = 128)
 SM90_MAX_HEAD_DIM = 80
+# query rows of one CTA of the main loop (csrc/attention_sm90.cuh::BM): K2
+# and K4's forward and dQ fold G = Hq / Hk heads x FOLD_ROWS / G positions
+# into them, so G must divide it
+FOLD_ROWS = 128
 
 
 def check_dtype(name: str, dtype: torch.dtype, *tensors: torch.Tensor) -> None:

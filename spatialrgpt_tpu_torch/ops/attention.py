@@ -9,8 +9,8 @@ tensors, as the reference runs its Pallas kernel on a TPU and XLA
 elsewhere.  ``impl="pallas"`` (the training path, the name
 ``train/args.py`` uses) runs kernel K4 (``ops/flash_attention.py``,
 differentiable) on CUDA tensors and K4's plain versions on CPU tensors.
-Any other ``impl`` raises.  The sliding window waits with
-the decoders that use it (K2 already takes one).
+Any other ``impl`` raises.  ``window`` (key j is live for query i only if
+i - j < window) goes to every route, as in the reference.
 """
 
 from __future__ import annotations
@@ -29,11 +29,12 @@ def causal_attention(
     v: torch.Tensor,
     segment_ids: Optional[torch.Tensor] = None,  # (B, S), 0 = padding
     impl: str = "xla",
+    window: Optional[int] = None,  # sliding-window attention (mistral)
 ) -> torch.Tensor:
     if impl == "pallas":
-        return flash_attention(q, k, v, segment_ids=segment_ids)
+        return flash_attention(q, k, v, segment_ids=segment_ids, window=window)
     if impl == "onepass":
-        return onepass_attention(q, k, v, segment_ids=segment_ids)
+        return onepass_attention(q, k, v, segment_ids=segment_ids, window=window)
     if impl == "xla":
-        return onepass_attention_plain(q, k, v, segment_ids=segment_ids)
+        return onepass_attention_plain(q, k, v, segment_ids=segment_ids, window=window)
     raise ValueError(f"unknown attention impl: {impl}")

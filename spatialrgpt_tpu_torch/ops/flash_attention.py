@@ -1,12 +1,15 @@
 """K4: FlashAttention-2 forward and backward for packed-segment causal GQA
-(the training step's attention), and K5: SAM's grid-bias attention (end of
-the file).
+with an optional sliding window (the training step's attention), and K5:
+SAM's grid-bias attention (end of the file).
 
 Port of the Pallas kernels of
 ``spatialrgpt_tpu/ops/flash_attention.py::flash_attention`` (``_fwd`` and
 the two backward kernels of ``_flash_bwd``); the CUDA kernels are
-``csrc/flash_attention.cu``.  Layout (B, S, H, D), causal within packed
-segments (``segment_ids`` (B, S), 0 = padding), GQA, scale D^-0.5.
+``csrc/flash_attention_sm90.cu`` (the forward and dQ, on the Hopper main
+loop of ``csrc/attention_sm90.cuh``) and ``csrc/flash_attention.cu``
+(dK/dV).  Layout (B, S, H, D), causal within packed segments
+(``segment_ids`` (B, S), 0 = padding), GQA, scale D^-0.5; with ``window``,
+key j is live for query i only if i - j < window (the reference's meaning).
 
 ``flash_attention`` is differentiable through ``FlashAttention``, an
 ``autograd.Function`` whose forward saves ``(q, k, v, out, lse)`` as
@@ -25,9 +28,12 @@ from typing import Optional, Tuple
 import torch
 
 from spatialrgpt_tpu_torch.ops import _build
-from spatialrgpt_tpu_torch.ops._checks import SM90_MAX_HEAD_DIM, check_bshd, check_dtype
+from spatialrgpt_tpu_torch.ops._checks import FOLD_ROWS, SM90_MAX_HEAD_DIM, check_bshd, check_dtype
 
 NEG_INF = -1e30
+# the forward's and dQ's CTAs list at most 1024 key tiles of 64
+# (csrc/attention_sm90.cuh::MAX_TILES, DQ_BN)
+MAX_SEQ = 1024 * 64
 
 # kernel launches since the last reset (plain-path calls do not count)
 launches = {"flash_attention_fwd": 0, "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0}
@@ -38,13 +44,22 @@ launches = {"flash_attention_fwd": 0, "flash_attention_bwd_dkv": 0, "flash_atten
 # ---------------------------------------------------------------------------
 
 
-def _live(segment_ids: torch.Tensor) -> torch.Tensor:
+def _check_window(name: str, window: Optional[int]) -> None:
+    if window is not None and window < 1:
+        raise ValueError(f"{name}: window {window} < 1")
+
+
+def _live(segment_ids: torch.Tensor, window: Optional[int] = None) -> torch.Tensor:
     """(B, 1, 1, S, S) bool: key j is live for query i iff both lie in the
-    same nonzero segment and j <= i."""
+    same nonzero segment, j <= i and (no window or i - j < window)."""
+    _check_window("flash_attention", window)
     s = segment_ids.shape[1]
     same = (segment_ids[:, :, None] == segment_ids[:, None, :]) & (segment_ids[:, :, None] != 0)
     i = torch.arange(s, device=segment_ids.device)
-    return (same & (i[:, None] >= i[None, :]))[:, None, None]
+    ok = i[:, None] >= i[None, :]
+    if window is not None:
+        ok &= (i[:, None] - i[None, :]) < window
+    return (same & ok)[:, None, None]
 
 
 def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -55,13 +70,13 @@ def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention_fwd_plain(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, segment_ids: torch.Tensor
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, segment_ids: torch.Tensor, window: Optional[int] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out (B, S, Hq, D) in q's dtype, lse (B, Hq, S) f32): softmax over the
     live keys with P rounded to the value dtype before PV; a row with no
     live key gives zeros and lse = NEG_INF (flash_attention.py:216-223)."""
     b, s, hq, d = q.shape
-    live = _live(segment_ids)
+    live = _live(segment_ids, window)
     scores = torch.where(live, _scores(q, k), NEG_INF)
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.where(live, torch.exp(scores - m), 0.0)
@@ -77,13 +92,13 @@ def attention_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
     return (dout.float() * out.float()).sum(dim=-1)
 
 
-def _probs_and_ds(q, k, v, segment_ids, lse, delta, dout):
+def _probs_and_ds(q, k, v, segment_ids, lse, delta, dout, window=None):
     """P = exp(S - lse) on live pairs and dS = P (dP - delta) scale, both
     f32 (B, Hk, G, S, S)."""
     b, s, hq, d = q.shape
     hk = k.shape[2]
     g = hq // hk
-    live = _live(segment_ids)
+    live = _live(segment_ids, window)
     lse_g = lse.reshape(b, hk, g, s)[..., None]
     p = torch.exp(torch.where(live, _scores(q, k) - lse_g, -torch.inf))
     dp = torch.einsum("bqhgd,bkhd->bhgqk", dout.reshape(b, s, hk, g, d).float(), v.float())
@@ -98,30 +113,32 @@ def _group_sum(per_head: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return per_head.to(dtype).float().sum(dim=3).to(dtype)
 
 
-def flash_attention_bwd_dkv_plain(q, k, v, segment_ids, lse, delta, dout) -> Tuple[torch.Tensor, torch.Tensor]:
+def flash_attention_bwd_dkv_plain(
+    q, k, v, segment_ids, lse, delta, dout, window: Optional[int] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dK, dV) (B, S, Hk, D): dV = P^T dO and dK = dS^T Q per query head,
     P and dS rounded to the input dtype first, summed over the group."""
     b, s, hq, d = q.shape
     hk = k.shape[2]
-    p, ds = _probs_and_ds(q, k, v, segment_ids, lse, delta, dout)
+    p, ds = _probs_and_ds(q, k, v, segment_ids, lse, delta, dout, window)
     dv = torch.einsum("bhgqk,bqhgd->bkhgd", p.to(q.dtype).float(), dout.reshape(b, s, hk, hq // hk, d).float())
     dk = torch.einsum("bhgqk,bqhgd->bkhgd", ds.to(q.dtype).float(), q.reshape(b, s, hk, hq // hk, d).float())
     return _group_sum(dk, k.dtype), _group_sum(dv, v.dtype)
 
 
-def flash_attention_bwd_dq_plain(q, k, v, segment_ids, lse, delta, dout) -> torch.Tensor:
+def flash_attention_bwd_dq_plain(q, k, v, segment_ids, lse, delta, dout, window: Optional[int] = None) -> torch.Tensor:
     """dQ (B, S, Hq, D) = dS K, dS rounded to the input dtype first."""
     b, s, hq, d = q.shape
-    _, ds = _probs_and_ds(q, k, v, segment_ids, lse, delta, dout)
+    _, ds = _probs_and_ds(q, k, v, segment_ids, lse, delta, dout, window)
     dq = torch.einsum("bhgqk,bkhd->bqhgd", ds.to(q.dtype).float(), k.float())
     return dq.reshape(b, s, hq, d).to(q.dtype)
 
 
-def flash_attention_bwd_plain(q, k, v, segment_ids, out, lse, dout):
+def flash_attention_bwd_plain(q, k, v, segment_ids, out, lse, dout, window: Optional[int] = None):
     """(dq, dk, dv): the two backward kernels' plain versions."""
     delta = attention_delta(out, dout)
-    dk, dv = flash_attention_bwd_dkv_plain(q, k, v, segment_ids, lse, delta, dout)
-    return flash_attention_bwd_dq_plain(q, k, v, segment_ids, lse, delta, dout), dk, dv
+    dk, dv = flash_attention_bwd_dkv_plain(q, k, v, segment_ids, lse, delta, dout, window)
+    return flash_attention_bwd_dq_plain(q, k, v, segment_ids, lse, delta, dout, window), dk, dv
 
 
 # ---------------------------------------------------------------------------
@@ -129,15 +146,19 @@ def flash_attention_bwd_plain(q, k, v, segment_ids, out, lse, dout):
 # ---------------------------------------------------------------------------
 
 
-def _check(name: str, q, k, v, segment_ids, extra=(), fold: bool = False) -> None:
+def _check(name: str, q, k, v, segment_ids, window, extra=(), fold: bool = False) -> None:
     """What the kernels take: bf16 (B, S, H, D) q/k/v read through strides,
-    Hk dividing Hq (and, for the forward's head fold, Hq/Hk dividing 64),
-    D <= 128; int32 (B, S) segment ids and the f32 side tensors contiguous;
-    all on one CUDA card (checked last)."""
+    Hk dividing Hq (and, for the forward's and dQ's head fold, Hq/Hk
+    dividing 128 and S <= MAX_SEQ), D <= 128, a window >= 1 or none; int32
+    (B, S) segment ids and the f32 side tensors contiguous; all on one CUDA
+    card (checked last)."""
     if q.dim() != 4 or k.dim() != 4 or k.shape[2] == 0 or q.shape[2] % k.shape[2]:
         raise ValueError(f"{name}: q {tuple(q.shape)} / k {tuple(k.shape)}: Hk must divide Hq")
-    if fold and 64 % (q.shape[2] // k.shape[2]):
-        raise ValueError(f"{name}: Hq/Hk = {q.shape[2] // k.shape[2]} must divide 64")
+    if fold and FOLD_ROWS % (q.shape[2] // k.shape[2]):
+        raise ValueError(f"{name}: Hq/Hk = {q.shape[2] // k.shape[2]} must divide {FOLD_ROWS}")
+    if fold and q.shape[1] > MAX_SEQ:
+        raise ValueError(f"{name}: S = {q.shape[1]} > {MAX_SEQ}, the most key tiles a CTA lists")
+    _check_window(name, window)
     check_dtype(name, torch.int32, segment_ids)
     B, S, Hq, _ = q.shape
     if segment_ids.shape != (B, S) or not segment_ids.is_contiguous():
@@ -151,13 +172,17 @@ def _check(name: str, q, k, v, segment_ids, extra=(), fold: bool = False) -> Non
         raise ValueError(f"{name}: all tensors must be on {q.device}")
 
 
+def _window_arg(window: Optional[int]) -> int:
+    return 0 if window is None else int(window)
+
+
 def flash_attention_fwd(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, segment_ids: torch.Tensor
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, segment_ids: torch.Tensor, window: Optional[int] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out (B, S, Hq, D), lse (B, Hq, S) f32); K4's forward kernel on the card."""
     if q.device.type == "cpu":
-        return flash_attention_fwd_plain(q, k, v, segment_ids)
-    _check("flash_attention_fwd", q, k, v, segment_ids, fold=True)
+        return flash_attention_fwd_plain(q, k, v, segment_ids, window)
+    _check("flash_attention_fwd", q, k, v, segment_ids, window, fold=True)
     B, S, Hq, D = q.shape
     out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
@@ -165,52 +190,53 @@ def flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), segment_ids.data_ptr(), out.data_ptr(), lse.data_ptr(),
         B, S, Hq, k.shape[2], D,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        D**-0.5, _build.stream_ptr(q),
+        _window_arg(window), D**-0.5, _build.stream_ptr(q),
     )
     _build.check(err, "flash_attention_fwd")
     launches["flash_attention_fwd"] += 1
     return out, lse
 
 
-def _bwd_args(name, q, k, v, segment_ids, lse, delta, dout):
+def _bwd_args(name, q, k, v, segment_ids, lse, delta, dout, window, fold):
     B, S, Hq, D = q.shape
     if dout.stride(3) != 1 or any(s % 8 for s in dout.stride()[:3]):
         dout = dout.contiguous()
     check_dtype(name, q.dtype, dout)
     if dout.shape != q.shape:
         raise ValueError(f"{name}: dout {tuple(dout.shape)} must match q {tuple(q.shape)}")
-    _check(name, q, k, v, segment_ids, extra=((lse, torch.float32, (B, Hq, S)), (delta, torch.float32, (B, S, Hq))))
+    _check(name, q, k, v, segment_ids, window, fold=fold,
+           extra=((lse, torch.float32, (B, Hq, S)), (delta, torch.float32, (B, S, Hq))))
     if dout.device != q.device or dout.data_ptr() % 16:
         raise ValueError(f"{name}: dout must lie 16-byte aligned on {q.device}")
     ptrs = [t.data_ptr() for t in (q, k, v, dout, lse, delta, segment_ids)]
     dims = [B, S, Hq, k.shape[2], D]
     strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *dout.stride()[:3]]
-    return ptrs, dims, strides
+    return ptrs, dims, strides + [_window_arg(window), D**-0.5, _build.stream_ptr(q)]
 
 
-def flash_attention_bwd_dkv(q, k, v, segment_ids, lse, delta, dout) -> Tuple[torch.Tensor, torch.Tensor]:
+def flash_attention_bwd_dkv(
+    q, k, v, segment_ids, lse, delta, dout, window: Optional[int] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dK, dV) (B, S, Hk, D); K4's dK/dV kernel on the card."""
     if q.device.type == "cpu":
-        return flash_attention_bwd_dkv_plain(q, k, v, segment_ids, lse, delta, dout)
+        return flash_attention_bwd_dkv_plain(q, k, v, segment_ids, lse, delta, dout, window)
     name = "flash_attention_bwd_dkv"
-    ptrs, dims, strides = _bwd_args(name, q, k, v, segment_ids, lse, delta, dout)
+    ptrs, dims, rest = _bwd_args(name, q, k, v, segment_ids, lse, delta, dout, window, fold=False)
     dk, dv = torch.empty_like(k, memory_format=torch.contiguous_format), torch.empty_like(v, memory_format=torch.contiguous_format)
-    err = _build.lib().srgpt_flash_bwd_dkv(
-        *ptrs, dk.data_ptr(), dv.data_ptr(), *dims, *strides, q.shape[3] ** -0.5, _build.stream_ptr(q)
-    )
+    err = _build.lib().srgpt_flash_bwd_dkv(*ptrs, dk.data_ptr(), dv.data_ptr(), *dims, *rest)
     _build.check(err, name)
     launches[name] += 1
     return dk, dv
 
 
-def flash_attention_bwd_dq(q, k, v, segment_ids, lse, delta, dout) -> torch.Tensor:
+def flash_attention_bwd_dq(q, k, v, segment_ids, lse, delta, dout, window: Optional[int] = None) -> torch.Tensor:
     """dQ (B, S, Hq, D); K4's dQ kernel on the card."""
     if q.device.type == "cpu":
-        return flash_attention_bwd_dq_plain(q, k, v, segment_ids, lse, delta, dout)
+        return flash_attention_bwd_dq_plain(q, k, v, segment_ids, lse, delta, dout, window)
     name = "flash_attention_bwd_dq"
-    ptrs, dims, strides = _bwd_args(name, q, k, v, segment_ids, lse, delta, dout)
+    ptrs, dims, rest = _bwd_args(name, q, k, v, segment_ids, lse, delta, dout, window, fold=True)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
-    err = _build.lib().srgpt_flash_bwd_dq(*ptrs, dq.data_ptr(), *dims, *strides, q.shape[3] ** -0.5, _build.stream_ptr(q))
+    err = _build.lib().srgpt_flash_bwd_dq(*ptrs, dq.data_ptr(), *dims, *rest)
     _build.check(err, name)
     launches[name] += 1
     return dq
@@ -221,18 +247,19 @@ class FlashAttention(torch.autograd.Function):
     backward runs delta, then the dK/dV and the dQ kernels."""
 
     @staticmethod
-    def forward(ctx, q, k, v, segment_ids):
-        out, lse = flash_attention_fwd(q, k, v, segment_ids)
+    def forward(ctx, q, k, v, segment_ids, window):
+        out, lse = flash_attention_fwd(q, k, v, segment_ids, window)
         ctx.save_for_backward(q, k, v, segment_ids, out, lse)
+        ctx.window = window
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, segment_ids, out, lse = ctx.saved_tensors
         delta = attention_delta(out, dout)
-        dk, dv = flash_attention_bwd_dkv(q, k, v, segment_ids, lse, delta, dout)
-        dq = flash_attention_bwd_dq(q, k, v, segment_ids, lse, delta, dout)
-        return dq, dk, dv, None
+        dk, dv = flash_attention_bwd_dkv(q, k, v, segment_ids, lse, delta, dout, ctx.window)
+        dq = flash_attention_bwd_dq(q, k, v, segment_ids, lse, delta, dout, ctx.window)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(
@@ -240,12 +267,13 @@ def flash_attention(
     k: torch.Tensor,  # (B, S, Hk, D)
     v: torch.Tensor,
     segment_ids: Optional[torch.Tensor] = None,  # (B, S); 0 = padding
+    window: Optional[int] = None,  # sliding window: key j is live for query i only if i - j < window
 ) -> torch.Tensor:
     """Causal flash attention within packed segments; differentiable.
     Padding rows (segment id 0) return zeros."""
     if segment_ids is None:
         segment_ids = torch.ones(q.shape[:2], dtype=torch.int32, device=q.device)
-    out = FlashAttention.apply(q, k, v, segment_ids.to(torch.int32).contiguous())
+    out = FlashAttention.apply(q, k, v, segment_ids.to(torch.int32).contiguous(), window)
     return out * (segment_ids != 0)[:, :, None, None].to(out.dtype)
 
 

@@ -19,12 +19,9 @@ import torch
 
 from spatialrgpt_tpu_torch.ops import _build
 from spatialrgpt_tpu_torch.ops._autograd import KernelForwardPlainGrad
-from spatialrgpt_tpu_torch.ops._checks import check_bshd
+from spatialrgpt_tpu_torch.ops._checks import FOLD_ROWS, check_bshd
 
 NEG_INF = -1e30
-# query rows of one CTA of the kernel: G = Hq / Hk heads x FOLD_ROWS / G
-# positions (csrc/attention_sm90.cuh::BM), so G must divide it
-FOLD_ROWS = 128
 
 launches = 0  # kernel launches since the last reset (plain-path calls do not count)
 

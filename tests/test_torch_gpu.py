@@ -219,38 +219,80 @@ def _packed(B, S, device):
     return seg
 
 
-@pytest.mark.parametrize("B,S,Hq,Hk", [(2, 1024, 8, 2), (3, 300, 4, 4), (2, 257, 8, 1)])
-def test_flash_kernels_match_plain(cuda, B, S, Hq, Hk):
-    """K4's forward (out and lse), dK/dV and dQ kernels against their plain
-    versions in bf16: GQA 4:1, MHA and 8:1, packed segments, padding, and
-    an S that is not a multiple of 64."""
-    rng = np.random.default_rng(5)
-    q, dout = _rand(rng, B, S, Hq, 128, device=cuda), _rand(rng, B, S, Hq, 128, device=cuda)
-    k, v = (_rand(rng, B, S, Hk, 128, device=cuda) for _ in range(2))
-    seg = _packed(B, S, cuda)
+def _check_flash_kernels(q, k, v, dout, seg, window):
+    """K4's three kernels once each on these inputs against their plain
+    versions (out and dK/dV/dQ within the bf16 bound, lse within 1e-4 on
+    the rows with a live key and NEG_INF on the others, zeros on padding),
+    then autograd through ``flash_attention``: the same kernels on the same
+    inputs (padding rows of dO add nothing), so bit-equal gradients."""
     before = dict(K4.launches)
-    out, lse = K4.flash_attention_fwd(q, k, v, seg)
+    out, lse = K4.flash_attention_fwd(q, k, v, seg, window)
     delta = K4.attention_delta(out, dout)
-    dk, dv = K4.flash_attention_bwd_dkv(q, k, v, seg, lse, delta, dout)
-    dq = K4.flash_attention_bwd_dq(q, k, v, seg, lse, delta, dout)
+    dk, dv = K4.flash_attention_bwd_dkv(q, k, v, seg, lse, delta, dout, window)
+    dq = K4.flash_attention_bwd_dq(q, k, v, seg, lse, delta, dout, window)
     torch.cuda.synchronize()
     assert {n: K4.launches[n] - before[n] for n in before} == dict.fromkeys(before, 1)
-    ref, ref_lse = K4.flash_attention_fwd_plain(q, k, v, seg)
+    ref, ref_lse = K4.flash_attention_fwd_plain(q, k, v, seg, window)
     _bf16_close(out, ref)
     live = lse > K4.NEG_INF / 2
     assert torch.equal(live, ref_lse > K4.NEG_INF / 2)
     torch.testing.assert_close(lse[live], ref_lse[live], rtol=0, atol=1e-4)
-    rdk, rdv = K4.flash_attention_bwd_dkv_plain(q, k, v, seg, lse, delta, dout)
-    for got, want in ((dk, rdk), (dv, rdv), (dq, K4.flash_attention_bwd_dq_plain(q, k, v, seg, lse, delta, dout))):
+    assert torch.all(lse[~live] == K4.NEG_INF)
+    rdk, rdv = K4.flash_attention_bwd_dkv_plain(q, k, v, seg, lse, delta, dout, window)
+    rdq = K4.flash_attention_bwd_dq_plain(q, k, v, seg, lse, delta, dout, window)
+    for got, want in ((dk, rdk), (dv, rdv), (dq, rdq)):
         _bf16_close(got, want, GRAD_FLOOR)
     pad = seg == 0
-    assert torch.all(out[pad] == 0) and torch.all(dq[pad] == 0) and torch.all(dk[pad] == 0)
-    # autograd through flash_attention runs the same kernels on the same
-    # inputs (padding rows of dO add nothing): bit-equal gradients
+    assert torch.all(out[pad] == 0) and torch.all(dq[pad] == 0) and torch.all(dk[pad] == 0) and torch.all(dv[pad] == 0)
     ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-    K4.flash_attention(*ins, seg).backward(dout)
+    K4.flash_attention(*ins, seg, window=window).backward(dout)
     for t, want in zip(ins, (dq, dk, dv)):
         assert torch.equal(t.grad, want)
+    return lse
+
+
+@pytest.mark.parametrize(
+    "B,S,Hq,Hk,D,window",
+    [(2, 1024, 8, 2, 128, None), (3, 300, 4, 4, 128, None), (2, 257, 8, 1, 128, None), (2, 1024, 8, 2, 128, 200),
+     (3, 300, 8, 2, 64, None), (3, 257, 8, 1, 64, 200)],
+)
+def test_flash_kernels_match_plain(cuda, B, S, Hq, Hk, D, window):
+    """K4's forward (out and lse), dK/dV and dQ kernels against their plain
+    versions in bf16: GQA 4:1, MHA and 8:1, packed segments, padding, an S
+    that is not a multiple of 64, a sliding window of 200 (it cuts inside
+    the segments of S 1024), D 64 (TMA's zero fill pads the forward's and
+    dQ's tiles to 128), and with B 3 a row of padding only (no live key:
+    lse NEG_INF, zeros in out and dq)."""
+    rng = np.random.default_rng(5)
+    q, dout = _rand(rng, B, S, Hq, D, device=cuda), _rand(rng, B, S, Hq, D, device=cuda)
+    k, v = (_rand(rng, B, S, Hk, D, device=cuda) for _ in range(2))
+    seg = _packed(B, S, cuda)
+    if B > 2:
+        seg[2] = 0
+    lse = _check_flash_kernels(q, k, v, dout, seg, window)
+    if B > 2:
+        assert torch.all(lse[2] == K4.NEG_INF)
+
+
+@pytest.mark.parametrize("window", [None, 50])
+def test_flash_kernels_take_any_segment_layout(cuda, window):
+    """The forward and dQ list only the key tiles that hold a key of their
+    queries' segment ids; the rule holds for any id layout, not only for
+    packed samples: a segment that comes back after another (ids 1, 2, 1),
+    padding between segments, and a segment id that is not the row's
+    largest after a larger one (3 then 2)."""
+    rng = np.random.default_rng(7)
+    B, S, Hq, Hk, D = 2, 700, 8, 2, 128
+    q, dout = _rand(rng, B, S, Hq, D, device=cuda), _rand(rng, B, S, Hq, D, device=cuda)
+    k, v = (_rand(rng, B, S, Hk, D, device=cuda) for _ in range(2))
+    seg = torch.zeros(B, S, dtype=torch.int32, device=cuda)
+    for b, runs in enumerate(([(1, 150), (2, 100), (1, 200), (0, 50), (3, 100), (2, 100)],
+                              [(4, 64), (0, 128), (4, 300), (1, 208)])):
+        start = 0
+        for sid, n in runs:
+            seg[b, start : start + n] = sid
+            start += n
+    _check_flash_kernels(q, k, v, dout, seg, window)
 
 
 def test_kernel_gradients_match_plain(cuda):

@@ -184,6 +184,79 @@ def test_flash_plain_backward_matches_jax_grad():
     assert K4.launches == {"flash_attention_fwd": 0, "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0}
 
 
+@pytest.mark.parametrize("window", [16, 37])
+def test_flash_plain_windowed_forward_matches_pallas(window):
+    """The sliding window (key j live for query i only if i - j < window):
+    out and lse of the plain forward against the Pallas ``_fwd`` with the
+    same window in interpret mode, B2 S128 Hq8 Hk2 D32 with 64-blocks, where
+    both windows cut inside each segment (50, 60 and 88 positions long) and
+    37 straddles the 64-blocks' band edge (atol 2e-5 / rtol 2e-4, as the
+    unwindowed test)."""
+    B, S, Hq, Hk, D = 2, 128, 8, 2, 32
+    q, k, v = _qkv(np.random.default_rng(23), B, S, Hq, Hk, D)
+    seg = _packed_seg(B, S)
+    tr = lambda a: jnp.transpose(jnp.asarray(a), (0, 2, 1, 3))  # noqa: E731
+    jseg = jnp.asarray(seg)
+    jout, jlse = jflash._fwd(tr(q), tr(k), tr(v), jseg, jseg, causal=True, sm_scale=D**-0.5,
+                             block_q=64, block_k=64, interpret=True, window=window)
+    out, lse = K4.flash_attention_fwd_plain(*_t(q, k, v), torch.tensor(seg), window=window)
+    np.testing.assert_allclose(out.numpy(), np.transpose(np.asarray(jout), (0, 2, 1, 3)), atol=2e-5, rtol=2e-4)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), atol=2e-5, rtol=2e-4)
+    # the window changes the answer: rows past it differ from the unwindowed ones
+    full, _ = K4.flash_attention_fwd_plain(*_t(q, k, v), torch.tensor(seg))
+    assert not torch.allclose(out[0, window + 5], full[0, window + 5])
+
+
+def test_flash_windowed_backward_matches_jax_grad():
+    """dq, dk, dv through ``flash_attention(..., window=37)`` (its Function
+    runs the plain forward and backward on the CPU) against ``jax.grad`` of
+    the reference's ``flash_attention(..., window=37)`` in interpret mode
+    (the Pallas backward kernels), B2 S128 Hq8 Hk2 D32, 64-blocks; atol
+    5e-5 / rtol 5e-4, as the unwindowed backward test."""
+    B, S, Hq, Hk, D, window = 2, 128, 8, 2, 32, 37
+    q, k, v = _qkv(np.random.default_rng(24), B, S, Hq, Hk, D)
+    seg = _packed_seg(B, S)
+
+    def loss_ref(q, k, v):
+        o = jflash.flash_attention(q, k, v, segment_ids=jnp.asarray(seg), block_q=64, block_k=64, interpret=True,
+                                   window=window)
+        return jnp.sum(o * jnp.cos(o))
+
+    want = jax.grad(loss_ref, argnums=(0, 1, 2))(*_j(q, k, v))
+    tq, tk, tv = (t.requires_grad_() for t in _t(q, k, v))
+    o = K4.flash_attention(tq, tk, tv, torch.tensor(seg), window=window)
+    (o * torch.cos(o)).sum().backward()
+    for got, w, name in zip((tq.grad, tk.grad, tv.grad), want, "qkv"):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), atol=5e-5, rtol=5e-4, err_msg=f"d{name}")
+    assert np.all(tq.grad.numpy()[seg == 0] == 0)
+
+
+def test_window_reaches_every_causal_attention_route():
+    """ops/attention.py passes ``window`` to the "xla", "onepass" and
+    "pallas" routes (each the plain path on a CPU tensor), as the
+    reference's ``causal_attention`` does: all three equal its XLA path
+    with the same window; a window below 1 raises on every K4 entry
+    point."""
+    from spatialrgpt_tpu_torch.ops.attention import causal_attention
+
+    q, k, v = _qkv(np.random.default_rng(12), 2, 40, 4, 2, 16)
+    seg = np.ones((2, 40), np.int32)
+    seg[1, 25:] = 0
+    want = np.asarray(j_causal(*_j(q, k, v), segment_ids=jnp.asarray(seg), impl="xla", window=9))
+    for impl in ("xla", "onepass", "pallas"):
+        got = causal_attention(*_t(q, k, v), segment_ids=torch.tensor(seg), impl=impl, window=9).detach().numpy()
+        np.testing.assert_allclose(got, want, atol=ATOL, rtol=1e-4)
+    tq, tk, tv = _t(q, k, v)
+    ts = torch.tensor(seg)
+    lse, delta = torch.zeros(2, 4, 40), torch.zeros(2, 40, 4)
+    for call in (lambda: K4.flash_attention(tq, tk, tv, ts, window=0),
+                 lambda: K4.flash_attention_fwd(tq, tk, tv, ts, window=-3),
+                 lambda: K4.flash_attention_bwd_dkv(tq, tk, tv, ts, lse, delta, tq, window=0),
+                 lambda: K4.flash_attention_bwd_dq(tq, tk, tv, ts, lse, delta, tq, window=0)):
+        with pytest.raises(ValueError, match="window"):
+            call()
+
+
 @pytest.mark.parametrize("kernel", ["vit_attention", "onepass_attention"])
 def test_kernel_function_backward_matches_jax_grad(kernel):
     """K1 and K2 on the card run through ``KernelForwardPlainGrad``; here its
@@ -375,7 +448,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     q, k, seg = _meta(B, S, Hq, D), _meta(B, S, Hk, D), _meta(B, S, dtype=torch.int32)
     with pytest.raises(TypeError):
         K4.flash_attention_fwd(q, k, k, _meta(B, S, dtype=torch.int64))
-    with pytest.raises(ValueError, match="must divide 64"):
+    with pytest.raises(ValueError, match="must divide 128"):
         K4.flash_attention_fwd(_meta(B, S, 3 * 128, D), _meta(B, S, 1, D), _meta(B, S, 1, D), seg)
     with pytest.raises(ValueError, match="at most 128|<= 128"):
         K4.flash_attention_fwd(_meta(B, S, Hq, 256), _meta(B, S, Hk, 256), _meta(B, S, Hk, 256), seg)
