@@ -18,11 +18,13 @@ Phases, each printed as one JSON line:
    kernels at the align step's (B4 S4096 Hq32 Hk8 D128, 4 packed samples
    per row and a padded tail), K5 at SAM vit_h's global layers (B4 S4096
    on a 64 x 64 grid, H16 D80, f32 rel-pos bias) and K6 at SAM's and
-   Depth-Anything's LayerNorm rows.  K1, K2, K5 and K4's forward and dQ run
-   on the TMA + wgmma main loop of ``csrc/attention_sm90.cuh`` (K2 and K4
-   with G = 4 query heads x 32 positions per CTA and the causal x segment
-   mask built in the kernel; K4 walks only the key tiles of its queries'
-   segments); K4's dK/dV is WMMA; K6 is a streaming kernel that takes the
+   Depth-Anything's LayerNorm rows.  K1, K2, K5 and K4's three kernels run
+   on the TMA + wgmma loops of ``csrc/attention_sm90.cuh`` (K2 and K4's
+   forward and dQ with G = 4 query heads x 32 positions per CTA and the
+   causal x segment mask built in the kernel; K4 walks only the tiles of
+   its rows' segments, dK/dV key-stationary: 128 keys per CTA, the G heads'
+   dK and dV summed in registers); K3 is one launch of a thread-block
+   cluster per (row, kv head); K6 is a streaming kernel that takes the
    models' bf16 weights as they are (one launch per LayerNorm).  Per row:
    the device time of the kernel (``ms``), of its plain version
    (``plain_ms``) and of one PyTorch call of the same function
@@ -510,7 +512,7 @@ def phase_kernels(torch):
          bound(4 * D * Hq * pairs4, live_bytes(seg4, q4, k4, v4) + nbytes(seg4, q4, lse4)),
          ("F.scaled_dot_product_attention, k/v expanded to Hq, (B, 1, S, S) causal x segment mask, "
           "SDPBackend.EFFICIENT_ATTENTION", lib4_fwd)),
-        ("flash_attention_bwd_dkv", "spatialrgpt_tpu_torch/csrc/flash_attention.cu", f"{fa}:716", shape4,
+        ("flash_attention_bwd_dkv", src4, f"{fa}:716", shape4,
          lambda: K4.flash_attention_bwd_dkv(*bwd),
          lambda: per_row(torch, K4.flash_attention_bwd_dkv_plain, *bwd), (10, 1, "events"),
          bound(8 * D * Hq * pairs4, live_bytes(seg4, *bwd_per_position) + nbytes(seg4, k4, v4)),

@@ -3,8 +3,9 @@
 // vit_b's 64) at a head-dim width DMAX of 80, and K2 (prefill_attention.cu,
 // llama's D = 128: causal x packed segment x window, GQA) and K4's forward
 // (flash_attention_sm90.cu: K2's function plus the LSE) at DMAX = 128; then
-// K4's dQ kernel (flash_dq_sm90_kernel, end of the file), the same loop
-// with one product more.
+// K4's dQ kernel (flash_dq_sm90_kernel), the same loop with one product
+// more, and K4's dK/dV kernel (flash_dkv_sm90_kernel, end of the file), its
+// key-stationary mirror.
 //
 // One CTA owns BM = 128 query rows and walks its key tiles of BN = 128:
 //   - warpgroup 0 is the producer: one thread issues TMA loads of the Q
@@ -129,8 +130,8 @@ struct Params {
   int G;                    // K2, K4: query heads per kv head (divides BM)
   int window;               // K2, K4: <= 0: none
   float* lse;               // K4: (B, Hq, S) f32, contiguous: the forward's output, dQ's input
-  const float* delta;       // K4 dQ: (B, S, Hq) f32 rowsum(dO * O), contiguous
-  float scale;              // K4 dQ: sm_scale
+  const float* delta;       // K4 dQ, dK/dV: (B, S, Hq) f32 rowsum(dO * O), contiguous
+  float scale;              // K4 dQ, dK/dV: sm_scale
 };
 
 // ---------------------------------------------------------------------------
@@ -278,17 +279,21 @@ __device__ __forceinline__ float quad_sum(float x) {
 __device__ __forceinline__ int rel_h_at(int r, int kh) { return r * BIAS_LD + (kh ^ (r & 7)); }
 __device__ __forceinline__ int rel_w_at(int r, int kw) { return r * BIAS_LD + (kw ^ ((r & 7) << 3)); }
 
-// K4 (forward and dQ): lists at `list`, in ascending order, the key tiles
-// of T keys that the CTA's live queries (positions q0 .. q0 + BQ - 1 before
-// S in a nonzero segment of the row's ids `seg`) need, and returns how many
-// (the same in every thread; called by all of them).  A tile is listed if it lies between the
-// window's first and the causal last of the live queries and holds such a
-// key whose segment id lies in the live queries' id range.  That is exact
+// K4: lists at `list`, in ascending order, the tiles of T positions that
+// the CTA's live rows (positions q0 .. q0 + BQ - 1 before S in a nonzero
+// segment of the row's ids `seg`) meet, and returns how many (the same in
+// every thread; called by all of them).  Forward and dQ (KEYS false): the
+// rows are queries and a key tile is listed if it lies between the
+// window's first and the causal last of the live queries.  dK/dV (KEYS
+// true): the rows are keys and a query tile is listed if it lies between
+// the first live key and the last query within the window of the last live
+// key (the row's end without a window).  Either way the tile must hold a
+// position whose segment id lies in the live rows' id range.  That is exact
 // for any id layout, since a live pair has equal ids: the reference's
 // cross-segment tile skip (flash_attention.py:133-145), judged on the ids
 // themselves.  `scratch`: 5 ints of shared memory that thread 0 set to
 // INT_MAX, -1, INT_MAX, INT_MIN before the last __syncthreads.
-template <int T>
+template <int T, bool KEYS = false>
 __device__ __forceinline__ int list_live_tiles(const int* seg, int S, int window, int q0, int BQ, int* scratch,
                                                unsigned char* flags, short* list) {
   for (int w = threadIdx.x; w < MAX_TILES / 4; w += NTHREADS) reinterpret_cast<int*>(flags)[w] = 0;
@@ -304,22 +309,29 @@ __device__ __forceinline__ int list_live_tiles(const int* seg, int S, int window
   }
   __syncthreads();
   const int first = scratch[0], last = scratch[1], id_lo = scratch[2], id_hi = scratch[3];
-  if (last < 0) return 0;  // no live query: uniform over the CTA
-  const int lo = window > 0 ? max(first - window + 1, 0) : 0;
+  if (last < 0) return 0;  // no live row: uniform over the CTA
+  int lo, hi;
+  if constexpr (KEYS) {
+    lo = first;
+    hi = window > 0 && window < S - last ? last + window - 1 : S - 1;
+  } else {
+    lo = window > 0 ? max(first - window + 1, 0) : 0;
+    hi = last;
+  }
   const int t_begin = lo / T;
-  // 8 loads in flight per thread: one pass over a 4096-key row
+  // 8 loads in flight per thread: one pass over a 4096-position row
   constexpr int U = 8;
-  for (int j0 = lo + threadIdx.x; j0 <= last; j0 += U * NTHREADS) {
+  for (int j0 = lo + threadIdx.x; j0 <= hi; j0 += U * NTHREADS) {
     int ids[U];
 #pragma unroll
-    for (int u = 0; u < U; ++u) ids[u] = j0 + u * NTHREADS <= last ? seg[j0 + u * NTHREADS] : 0;
+    for (int u = 0; u < U; ++u) ids[u] = j0 + u * NTHREADS <= hi ? seg[j0 + u * NTHREADS] : 0;
 #pragma unroll
     for (int u = 0; u < U; ++u)
       if (ids[u] != 0 && id_lo <= ids[u] && ids[u] <= id_hi) flags[(j0 + u * NTHREADS) / T - t_begin] = 1;
   }
   __syncthreads();
   if (threadIdx.x < 32) {
-    const int lane = threadIdx.x, n = last / T + 1 - t_begin;
+    const int lane = threadIdx.x, n = hi / T + 1 - t_begin;
     int count = 0;
     for (int c = 0; c < n; c += 32) {
       const bool f = c + lane < n && flags[c + lane];
@@ -892,6 +904,292 @@ flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
             *reinterpret_cast<__nv_bfloat162*>(dst + col) =
                 pos[hr] < 0 ? __floats2bfloat162_rn(0.f, 0.f)
                             : __floats2bfloat162_rn(dq[4 * j + 2 * hr], dq[4 * j + 2 * hr + 1]);
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K4's dK/dV kernel: the key-stationary mirror of dQ
+// ---------------------------------------------------------------------------
+//
+// A CTA owns BM = 128 keys of one kv head of one row; each consumer
+// warpgroup owns 64 of them.  K and V load once by TMA (a 128-row box, as
+// the main loop's Q) and stay.  The CTA lists the 64-position query tiles
+// its live keys meet (list_live_tiles<DKV_BQ, true>); the producer warp
+// walks that list and, per tile, the G query heads of the kv head: lane 0
+// loads the Q and dO tiles (64 rows, 128B-swizzled, as dQ's K and V tiles)
+// into a ring of DKV_STAGES stages, and the warp copies the tile's segment
+// ids, lse (in log2 units; +inf for a query of segment 0 or past S, so its
+// P is 0) and delta = rowsum(dO * O) (gathered from its (B, S, Hq) layout)
+// beside them.  Per stage, each consumer warpgroup:
+//   S^T = K Q^T and dP^T = V dO^T: 2 x 8 wgmma m64n64k16 from shared memory
+//   (K and V as the A operand, K-major; Q and dO as B), one commit;
+//   P^T = exp2(S^T scale log2(e) - lse log2(e)) on the live pairs, else 0,
+//   and dS^T = P^T (dP^T - delta) scale, with dQ's interior test (only a
+//   tile that meets the diagonal, the window edge or another segment masks
+//   per score);
+//   dV += bf16(P^T) dO and dK += bf16(dS^T) Q: 2 x 4 wgmma m64n128k16, A from
+//   registers (S^T's accumulator layout is the A layout), dO and Q read
+//   MN-major as dQ reads K.  P and dS are rounded to bf16 before their
+//   products, dS from the unrounded P, as _bwd_dkv_kernel (:525, :535).
+// dK and dV of all G heads accumulate in registers (64 + 64 f32 a consumer
+// thread; setmaxnreg 40 / 232 as dQ: with 24 / 240 or 32 / 240 ptxas spills),
+// so the GQA group sum stays in the kernel, in f32, rounded once.
+// The plain version rounds each head first, as the reference sums its
+// per-head outputs (flash_attention.py:738-741): GRAD_FLOOR covers the
+// difference.  Shared memory: K 32 KB + V 32 KB + 4 stages x (Q 16 KB + dO
+// 16 KB + 768 bytes of ids, lse, delta) + the tile list, 199 KB.  Keys of
+// segment 0 store zeros, keys >= S nothing.  No atomics: every output row
+// has one writer, so the result is deterministic.
+
+constexpr int DKV_BQ = 64;                                     // queries per stage
+constexpr int DKV_STAGES = 4;                                  // Q/dO ring depth
+constexpr int DKV_SIDE_BYTES = 3 * DKV_BQ * 4;                 // a stage's ids, lse, delta
+constexpr int DKV_OFF_K = 0;
+constexpr int DKV_OFF_V = OPERAND_BYTES;
+constexpr int DKV_OFF_Q = 2 * OPERAND_BYTES;                   // + stage * KV64_BYTES
+constexpr int DKV_OFF_DO = DKV_OFF_Q + DKV_STAGES * KV64_BYTES;  // + stage * KV64_BYTES
+constexpr int DKV_OFF_SIDE = DKV_OFF_DO + DKV_STAGES * KV64_BYTES;  // + stage * DKV_SIDE_BYTES
+constexpr int DKV_OFF_LIST = DKV_OFF_SIDE + DKV_STAGES * DKV_SIDE_BYTES;
+constexpr int DKV_OFF_BARS = DKV_OFF_LIST + TILE_LIST_BYTES;
+// barriers (kv_full, full[4], empty[4]), list_live_tiles' 5 ints, alignment
+constexpr int DKV_SMEM_BYTES = DKV_OFF_BARS + 128 + 1024;
+
+template <int DMAX>  // 128: instantiated only where it is launched (flash_attention_sm90.cu)
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
+                      const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+                      const Params p, bf16* dv_out) {
+  static_assert(DMAX == WIDE, "dK/dV runs at the head-dim width 128");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                                         ~static_cast<uintptr_t>(1023));
+  const uint32_t base = smem_u32(smem);
+  const uint32_t bar_kv = base + DKV_OFF_BARS;
+  const uint32_t bar_full = bar_kv + 8;                    // + 8 * stage
+  const uint32_t bar_empty = bar_kv + 8 + 8 * DKV_STAGES;  // + 8 * stage
+  int* scratch = reinterpret_cast<int*>(smem + DKV_OFF_BARS + 8 + 16 * DKV_STAGES);
+  unsigned char* tile_flags = smem + DKV_OFF_LIST;
+  short* tile_list = reinterpret_cast<short*>(tile_flags + MAX_TILES);
+
+  const int b = blockIdx.z, h = blockIdx.y;  // h: the kv head
+  const int j0 = blockIdx.x * BM;            // the CTA's first key
+  const int G = p.G;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < DKV_STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 2);  // the TMA bytes and the side values
+      mbar_init(bar_empty + 8 * s, NCONSUMER);
+    }
+    scratch[0] = INT_MAX;
+    scratch[1] = -1;
+    scratch[2] = INT_MAX;
+    scratch[3] = INT_MIN;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {  // K and V load while the CTA lists its query tiles
+    mbar_expect_tx(bar_kv, 2 * OPERAND_BYTES);
+    for (int a = 0; a < 2; ++a) {
+      tma_load_4d(base + DKV_OFF_K + a * ATOM_BYTES, &tm_k, bar_kv, a * ATOM, h, j0, b);
+      tma_load_4d(base + DKV_OFF_V + a * ATOM_BYTES, &tm_v, bar_kv, a * ATOM, h, j0, b);
+    }
+  }
+  const int n_tiles = list_live_tiles<DKV_BQ, true>(p.seg + static_cast<long long>(b) * p.S, p.S, p.window, j0, BM,
+                                                    scratch, tile_flags, tile_list);
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---------------- producer ----------------
+    // lane 0 issues the TMA loads, the warp copies each stage's ids, lse
+    // and delta (2 a lane)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    const int lane = threadIdx.x;
+    if (lane < 32) {
+      const int* seg_row = p.seg + static_cast<long long>(b) * p.S;
+      const float* lse_h = p.lse + (static_cast<long long>(b) * p.H + h * G) * p.S;  // + g * S + i
+      const float* dlt_h = p.delta + static_cast<long long>(b) * p.S * p.H + h * G;  // + i * H + g
+      int st = 0;
+      uint32_t ph = 1;  // the first round passes at once
+      for (int t = 0; t < n_tiles; ++t) {
+        const int i0 = tile_list[t] * DKV_BQ;
+        int ids[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int i = i0 + 2 * lane + u;
+          ids[u] = i < p.S ? seg_row[i] : 0;
+        }
+        for (int g = 0; g < G; ++g) {
+          const int hq = h * G + g;
+          mbar_wait(bar_empty + 8 * st, ph);
+          if (lane == 0) {
+            mbar_expect_tx(bar_full + 8 * st, 2 * KV64_BYTES);
+            for (int a = 0; a < 2; ++a) {
+              tma_load_4d(base + DKV_OFF_Q + st * KV64_BYTES + a * ATOM64_BYTES, &tm_q, bar_full + 8 * st,
+                          a * ATOM, hq, i0, b);
+              tma_load_4d(base + DKV_OFF_DO + st * KV64_BYTES + a * ATOM64_BYTES, &tm_do, bar_full + 8 * st,
+                          a * ATOM, hq, i0, b);
+            }
+          }
+          float lse2[2], dlt[2];
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int i = i0 + 2 * lane + u;
+            lse2[u] = ids[u] != 0 ? lse_h[g * p.S + i] * LOG2E : INFINITY;
+            dlt[u] = ids[u] != 0 ? dlt_h[static_cast<long long>(i) * p.H + g] : 0.f;
+          }
+          unsigned char* side = smem + DKV_OFF_SIDE + st * DKV_SIDE_BYTES;
+          reinterpret_cast<int2*>(side)[lane] = make_int2(ids[0], ids[1]);
+          reinterpret_cast<float2*>(side + DKV_BQ * 4)[lane] = make_float2(lse2[0], lse2[1]);
+          reinterpret_cast<float2*>(side + 2 * DKV_BQ * 4)[lane] = make_float2(dlt[0], dlt[1]);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(bar_full + 8 * st);
+          if (++st == DKV_STAGES) {
+            st = 0;
+            ph ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // ---------------- consumers ----------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int cw = wg - 1;  // keys [64 cw, 64 cw + 64) of the CTA's 128
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int r_lo = 64 * cw + 16 * warp + lane / 4;  // this thread's keys: r_lo and r_lo + 8
+    const int cq = 2 * (lane % 4);                    // its first query column in each group of 8
+
+    // position and segment of this thread's two keys; a key of segment 0 or
+    // past S has position INT_MAX (no query is live for it) and stores zeros
+    int kpos[2], ksid[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int j = j0 + r_lo + 8 * hr;
+      ksid[hr] = j < p.S ? p.seg[static_cast<long long>(b) * p.S + j] : 0;
+      kpos[hr] = ksid[hr] != 0 ? j : INT_MAX;
+    }
+
+    float dk[WIDE / 2], dv[WIDE / 2];
+#pragma unroll
+    for (int i = 0; i < WIDE / 2; ++i) {
+      dk[i] = 0.f;
+      dv[i] = 0.f;
+    }
+
+    mbar_wait(bar_kv, 0);
+    const uint32_t k_tile = base + DKV_OFF_K + cw * 64 * 128;  // 64 rows x 128 bytes into each atom
+    const uint32_t v_tile = base + DKV_OFF_V + cw * 64 * 128;
+
+    int st = 0;
+    uint32_t ph = 0;
+    for (int n = 0, t = 0, g = 0; n < n_tiles * G; ++n) {
+      const int i0 = tile_list[t] * DKV_BQ;
+      mbar_wait(bar_full + 8 * st, ph);
+      const uint32_t q_tile = base + DKV_OFF_Q + st * KV64_BYTES;
+      const uint32_t do_tile = base + DKV_OFF_DO + st * KV64_BYTES;
+
+      // ---- S^T = K Q^T and dP^T = V dO^T: 8 k-steps of 16 columns each ----
+      float s[DKV_BQ / 2], dp[DKV_BQ / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < WIDE / 16; ++kk) {
+        const uint32_t ok = (kk / 4) * ATOM_BYTES + (kk % 4) * 32, oq = (kk / 4) * ATOM64_BYTES + (kk % 4) * 32;
+        wgmma_m64n64k16_ss(s, sw128_desc(k_tile + ok, 1, 64), sw128_desc(q_tile + oq, 1, 64), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < WIDE / 16; ++kk) {
+        const uint32_t ok = (kk / 4) * ATOM_BYTES + (kk % 4) * 32, oq = (kk / 4) * ATOM64_BYTES + (kk % 4) * 32;
+        wgmma_m64n64k16_ss(dp, sw128_desc(v_tile + ok, 1, 64), sw128_desc(do_tile + oq, 1, 64), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+      fence_regs(dp);
+
+      // ---- is the tile interior for this thread's live keys? ----
+      const unsigned char* side = smem + DKV_OFF_SIDE + st * DKV_SIDE_BYTES;
+      const int* qseg = reinterpret_cast<const int*>(side);
+      const float* lse2 = reinterpret_cast<const float*>(side + DKV_BQ * 4);
+      const float* dlt = reinterpret_cast<const float*>(side + 2 * DKV_BQ * 4);
+      const int2 ids = reinterpret_cast<const int2*>(qseg)[lane];
+      const int qmin = __reduce_min_sync(0xffffffffu, min(ids.x, ids.y));
+      const int qmax = __reduce_max_sync(0xffffffffu, max(ids.x, ids.y));
+      bool interior = true;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+        if (kpos[hr] != INT_MAX)
+          interior = interior && qmin == ksid[hr] && qmax == ksid[hr] && i0 >= kpos[hr] &&
+                     (p.window <= 0 || i0 + DKV_BQ - 1 - kpos[hr] < p.window);
+
+      // ---- P^T on the live pairs, dS^T = P^T (dP^T - delta) scale ----
+#pragma unroll
+      for (int i = 0; i < DKV_BQ / 2; ++i) {
+        const int hr = (i >> 1) & 1, c = 8 * (i / 4) + cq + (i & 1);
+        float pr = exp2f(s[i] * p.scale_log2 - lse2[c]);
+        if (!interior) {
+          const int qi = i0 + c;
+          const bool live = qseg[c] == ksid[hr] && kpos[hr] <= qi && (p.window <= 0 || qi - kpos[hr] < p.window);
+          if (!live) pr = 0.f;
+        }
+        dp[i] = pr * (dp[i] - dlt[c]) * p.scale;
+        s[i] = pr;
+      }
+
+      // ---- dV += P^T dO, dK += dS^T Q: 4 k-steps of 16 queries each ----
+      uint32_t pa[DKV_BQ / 16][4], da[DKV_BQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < DKV_BQ / 16; ++kk)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          pa[kk][c] = pack_bf16(s[8 * kk + 2 * c], s[8 * kk + 2 * c + 1]);
+          da[kk][c] = pack_bf16(dp[8 * kk + 2 * c], dp[8 * kk + 2 * c + 1]);
+        }
+      wgmma_fence();
+      // dO and Q MN-major: 8-query groups 1024 bytes apart (SBO), their two
+      // 64-column atoms ATOM64_BYTES apart (LBO)
+#pragma unroll
+      for (int kk = 0; kk < DKV_BQ / 16; ++kk)
+        wgmma_m64n128k16_rs(dv, pa[kk], sw128_desc(do_tile + kk * 16 * 128, ATOM64_BYTES / 16, 64));
+#pragma unroll
+      for (int kk = 0; kk < DKV_BQ / 16; ++kk)
+        wgmma_m64n128k16_rs(dk, da[kk], sw128_desc(q_tile + kk * 16 * 128, ATOM64_BYTES / 16, 64));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dv);
+      fence_regs(dk);
+      mbar_arrive(bar_empty + 8 * st);
+      if (++st == DKV_STAGES) {
+        st = 0;
+        ph ^= 1;
+      }
+      if (++g == G) {  // the next query tile
+        g = 0;
+        ++t;
+      }
+    }
+
+    // ---- epilogue: bf16 dK and dV into the contiguous (B, S, Hk, D) outputs ----
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int key = j0 + r_lo + 8 * hr;
+      if (key < p.S) {
+        const long long at = b * p.sob + key * p.sos + h * p.soh;
+        const bool dead = kpos[hr] == INT_MAX;
+#pragma unroll
+        for (int j = 0; j < WIDE / 8; ++j) {
+          const int col = 8 * j + cq;
+          if (col < p.D) {
+            *reinterpret_cast<__nv_bfloat162*>(p.out + at + col) =
+                dead ? __floats2bfloat162_rn(0.f, 0.f)
+                     : __floats2bfloat162_rn(dk[4 * j + 2 * hr], dk[4 * j + 2 * hr + 1]);
+            *reinterpret_cast<__nv_bfloat162*>(dv_out + at + col) =
+                dead ? __floats2bfloat162_rn(0.f, 0.f)
+                     : __floats2bfloat162_rn(dv[4 * j + 2 * hr], dv[4 * j + 2 * hr + 1]);
+          }
         }
       }
     }

@@ -1,17 +1,18 @@
-// K4: FlashAttention-2 forward and dQ for packed-segment causal GQA with an
-// optional sliding window (the training step's attention at S = 4096).
+// K4: FlashAttention-2 forward, dQ and dK/dV for packed-segment causal GQA
+// with an optional sliding window (the training step's attention at S =
+// 4096).
 //
 // Replaces the Pallas kernels of
 // spatialrgpt_tpu/ops/flash_attention.py::flash_attention: the forward
-// (_fwd / _fwd_kernel) and the dQ kernel of _flash_bwd (_bwd_dq_kernel).
-// The dK/dV kernel is flash_attention.cu.
+// (_fwd / _fwd_kernel) and the two kernels of _flash_bwd (_bwd_dkv_kernel,
+// _bwd_dq_kernel).
 //
 // Bound on the H100: tensor-core FLOPs.  At the align step's shape (B = 4,
 // S = 4096, Hq = 32, Hk = 8, D = 128, 4 packed samples of ~1000 tokens per
 // row) the live causal x segment pairs are ~4 x 1000^2 / 2 per (row, head):
-// the forward does ~136 GFLOP (0.14 ms at 989 TFLOP/s), dQ 1.5x that,
-// against ~0.2-0.3 GB of q/k/v/o/dO traffic per call.  So the products run
-// on wgmma, and key tiles that hold no live key are never loaded.
+// the forward does ~136 GFLOP (0.14 ms at 989 TFLOP/s), dQ 1.5x that and
+// dK/dV 2x, against ~0.2-0.3 GB of q/k/v/o/dO traffic per call.  So the
+// products run on wgmma, and tiles that hold no live pair are never loaded.
 //
 // Design: the Hopper main loop of attention_sm90.cuh at a head-dim width of
 // 128, with K2's GQA fold (G = Hq / Hk query heads x 128 / G positions of
@@ -28,8 +29,13 @@
 //    rounded to bf16 in registers, dQ += dS K.  delta = rowsum(dO * O) is a
 //    plain torch reduction in the wrapper, as the reference computes it in
 //    XLA.
+//  - dK/dV: flash_dkv_sm90_kernel, the key-stationary mirror of dQ: 128
+//    keys of one kv head per CTA (64 per consumer warpgroup) stay in
+//    shared memory while the producer walks the listed 64-query tiles x
+//    the G query heads; dK and dV of the whole group accumulate in
+//    registers.  No fold, so any G = Hq / Hk.
 // q/k/v/dO/out go through the caller's (B, S, H, D) strides; any S up to
-// 65,536 (MAX_TILES key tiles of 64), D <= 128 with D % 8 == 0 (TMA
+// 65,536 (MAX_TILES tiles of 64), D <= 128 with D % 8 == 0 (TMA
 // zero-fills the head dim to 128).
 
 #include "attention_sm90.cuh"
@@ -112,5 +118,35 @@ extern "C" int srgpt_flash_bwd_dq(
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + BM / G - 1) / (BM / G), Hk, B);
   kern<<<grid, NTHREADS, DQ_SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(tq, tdo, tk, tv, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dk, dv: (B, S, Hk, D) bf16, contiguous
+extern "C" int srgpt_flash_bwd_dkv(
+    const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* delta,
+    const void* seg, void* dk, void* dv,
+    int B, int S, int Hq, int Hk, int D,
+    long long sqb, long long sqs, long long sqh,
+    long long skb, long long sks, long long skh,
+    long long svb, long long svs, long long svh,
+    long long sdb, long long sds, long long sdh,
+    int window, float sm_scale, void* stream) {
+  if (!(B > 0 && S > 0 && S <= MAX_TILES * DKV_BQ && Hk > 0 && Hq % Hk == 0 && D > 0 && D % 8 == 0 && D <= WIDE))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p = fold_params(dk, static_cast<long long>(S) * Hk * D, static_cast<long long>(Hk) * D, D, seg, S, Hq, Hk,
+                         D, window, sm_scale);
+  p.lse = const_cast<float*>(static_cast<const float*>(lse));
+  p.delta = static_cast<const float*>(delta);
+  CUtensorMap tq, tdo, tk, tv;
+  cudaError_t err = make_map(&tq, q, B, S, Hq, D, sqb, sqs, sqh, 1, DKV_BQ);
+  if (err == cudaSuccess) err = make_map(&tdo, dout, B, S, Hq, D, sdb, sds, sdh, 1, DKV_BQ);
+  if (err == cudaSuccess) err = make_map(&tk, k, B, S, Hk, D, skb, sks, skh);
+  if (err == cudaSuccess) err = make_map(&tv, v, B, S, Hk, D, svb, svs, svh);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto kern = flash_dkv_sm90_kernel<WIDE>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, DKV_SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((S + BM - 1) / BM, Hk, B);
+  kern<<<grid, NTHREADS, DKV_SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(tq, tdo, tk, tv, p, static_cast<bf16*>(dv));
   return static_cast<int>(cudaGetLastError());
 }

@@ -39,8 +39,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "srgpt_vit_attention": [_P, _P, _P, _P, _I, _I, _I, _I] + [_LL] * 12 + [_I, _F, _P],
     "srgpt_prefill_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I] + [_LL] * 12 + [_I, _F, _P],
-    "srgpt_decode_attention": [_P] * 10 + [_I] * 5 + [_F, _P],
-    "srgpt_decode_num_splits": [_I],
+    "srgpt_decode_attention": [_P] * 7 + [_I] * 6 + [_F, _P],
     "srgpt_flash_fwd": [_P] * 6 + [_I] * 5 + [_LL] * 12 + [_I, _F, _P],
     "srgpt_flash_bwd_dkv": [_P] * 9 + [_I] * 5 + [_LL] * 12 + [_I, _F, _P],
     "srgpt_flash_bwd_dq": [_P] * 8 + [_I] * 5 + [_LL] * 12 + [_I, _F, _P],

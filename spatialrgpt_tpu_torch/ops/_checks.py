@@ -61,7 +61,7 @@ def bf16_err_over_bound(out: torch.Tensor, ref: torch.Tensor, floor: float = 0.0
     The bound is 4 bf16 ulps (2^-8 each) of |ref| plus of the largest |ref|
     in the element's row (the last axis: one head's output vector).  The
     kernels round P to bf16 at other running maxima than the plain versions
-    (K3 keeps it in fp32) and sum in another order, so a sound error scales
+    and sum in another order, so a sound error scales
     with the row it is in; a bound at the tensor's largest value would let
     a wrong row of small outputs through.
 

@@ -2,10 +2,12 @@
 
 Port of the Pallas kernel
 ``spatialrgpt_tpu/ops/decode_attention.py::decode_attention_int8_flat``; the
-CUDA kernel is ``csrc/decode_attention.cu`` (split-C flash-decoding plus a
-combine pass).  ``decode_attention_int8_flat`` launches it for CUDA tensors
-and takes the plain version ``decode_attention_int8_flat_plain`` only for
-CPU tensors.  ``launches`` counts wrapper calls that launched the kernels.
+CUDA kernel is ``csrc/decode_attention.cu``: one launch, a thread-block
+cluster of ``decode_cluster_size(C)`` CTAs per (row, kv head) that share the
+row's softmax max and sum their partials through distributed shared memory.
+``decode_attention_int8_flat`` launches it for CUDA tensors and takes the
+plain version ``decode_attention_int8_flat_plain`` only for CPU tensors.
+``launches`` counts wrapper calls that launched the kernel.
 
 Cache layout: ``k_q, v_q`` (B, C, Hk*D) int8 and ``k_s, v_s`` (B, C, Hk)
 f32; positions ``<= lengths[b]`` are live.
@@ -22,6 +24,20 @@ NEG_INF = -1e30
 
 launches = 0  # kernel launches since the last reset (plain-path calls do not count)
 
+# csrc/decode_attention.cu: at most 8 CTAs per cluster (the portable size),
+# ~256 cache positions a CTA, and each CTA's f32 scores (its positions x
+# n_rep) within 16384 entries of shared memory
+DECODE_MAX_CLUSTER = 8
+DECODE_POSITIONS_PER_CTA = 256
+DECODE_MAX_SCORES = 16384
+
+
+def decode_cluster_size(C: int) -> int:
+    """CTAs per (row, kv head) for a cache of C positions: enough that each
+    takes ~256 (at the serve cache's 352, 2 x 8 kv heads x 8 rows = 128
+    CTAs on 132 SMs), at most 8."""
+    return min(DECODE_MAX_CLUSTER, max(1, -(-C // DECODE_POSITIONS_PER_CTA)))
+
 
 def decode_attention_int8_flat_plain(
     q: torch.Tensor,  # (B, Hq, D)
@@ -34,8 +50,9 @@ def decode_attention_int8_flat_plain(
 ) -> torch.Tensor:
     """The Pallas kernel's function in plain PyTorch: scores from the int8
     keys in the query dtype times the K scale and D^-0.5, positions past
-    lengths[b] masked, V scales folded into P (cast to the query dtype),
-    f32 PV, divided by the row sum."""
+    lengths[b] masked, V scales folded into P relative to the row's max and
+    rounded to the query dtype (decode_attention.py:124), f32 PV, divided by
+    the f32 sum of the unrounded P."""
     B, Hq, D = q.shape
     C = k_q.shape[1]
     Hk = n_heads
@@ -65,7 +82,8 @@ def decode_attention_int8_flat(
     lengths: torch.Tensor,
     n_heads: int,
 ) -> torch.Tensor:
-    """(B, Hq, D) attention output of one new token per row."""
+    """(B, Hq, D) attention output of one new token per row; positions
+    <= lengths[b] (>= 0) are live."""
     if q.device.type == "cpu":
         return decode_attention_int8_flat_plain(q, k_q, k_s, v_q, v_s, lengths, n_heads)
     name = "decode_attention_int8_flat"
@@ -88,20 +106,22 @@ def decode_attention_int8_flat(
         )
     if Hq % Hk or Hq // Hk > 8 or D % 4 or D > 256:
         raise ValueError(f"decode_attention_int8_flat: Hq={Hq} Hk={Hk} D={D} not supported")
+    cluster = decode_cluster_size(C)
+    if -(-C // cluster) * (Hq // Hk) > DECODE_MAX_SCORES:
+        raise ValueError(
+            f"decode_attention_int8_flat: C={C} over {cluster} CTAs with {Hq // Hk} query heads per kv head "
+            f"needs more than the {DECODE_MAX_SCORES} scores a CTA holds in shared memory"
+        )
     for t in (q, k_q, k_s, v_q, v_s, lengths):
         if not t.is_contiguous():
             raise ValueError("decode_attention_int8_flat: inputs must be contiguous")
     check_on_cuda(name, q, k_q, k_s, v_q, v_s, lengths)
-    lib = _build.lib()
-    nsplit = lib.srgpt_decode_num_splits(C)
-    part_m = torch.empty((B, Hq, nsplit), dtype=torch.float32, device=q.device)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((B, Hq, nsplit, D), dtype=torch.float32, device=q.device)
+    if q.data_ptr() % 8 or k_q.data_ptr() % 4 or v_q.data_ptr() % 4:
+        raise ValueError(f"{name}: q must be 8-byte aligned and the int8 caches 4-byte aligned")
     out = torch.empty((B, Hq, D), dtype=q.dtype, device=q.device)
-    err = lib.srgpt_decode_attention(
-        q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(), v_s.data_ptr(),
-        lengths.data_ptr(), part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-        out.data_ptr(), B, C, Hq, Hk, D, D**-0.5, _build.stream_ptr(q),
+    err = _build.lib().srgpt_decode_attention(
+        q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(), v_s.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), B, C, Hq, Hk, D, cluster, D**-0.5, _build.stream_ptr(q),
     )
     _build.check(err, "decode_attention_int8_flat")
     global launches

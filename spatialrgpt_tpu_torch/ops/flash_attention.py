@@ -4,10 +4,10 @@ SAM's grid-bias attention (end of the file).
 
 Port of the Pallas kernels of
 ``spatialrgpt_tpu/ops/flash_attention.py::flash_attention`` (``_fwd`` and
-the two backward kernels of ``_flash_bwd``); the CUDA kernels are
-``csrc/flash_attention_sm90.cu`` (the forward and dQ, on the Hopper main
-loop of ``csrc/attention_sm90.cuh``) and ``csrc/flash_attention.cu``
-(dK/dV).  Layout (B, S, H, D), causal within packed segments
+the two backward kernels of ``_flash_bwd``); the CUDA kernels are launched
+from ``csrc/flash_attention_sm90.cu``: the forward on the Hopper main loop
+of ``csrc/attention_sm90.cuh``, dQ and dK/dV on its query- and
+key-stationary loops.  Layout (B, S, H, D), causal within packed segments
 (``segment_ids`` (B, S), 0 = padding), GQA, scale D^-0.5; with ``window``,
 key j is live for query i only if i - j < window (the reference's meaning).
 
@@ -31,8 +31,9 @@ from spatialrgpt_tpu_torch.ops import _build
 from spatialrgpt_tpu_torch.ops._checks import FOLD_ROWS, SM90_MAX_HEAD_DIM, check_bshd, check_dtype
 
 NEG_INF = -1e30
-# the forward's and dQ's CTAs list at most 1024 key tiles of 64
-# (csrc/attention_sm90.cuh::MAX_TILES, DQ_BN)
+# each of K4's CTAs lists at most 1024 tiles of 64 positions (key tiles for
+# the forward and dQ, query tiles for dK/dV: csrc/attention_sm90.cuh::
+# MAX_TILES, DQ_BN, DKV_BQ)
 MAX_SEQ = 1024 * 64
 
 # kernel launches since the last reset (plain-path calls do not count)
@@ -149,15 +150,15 @@ def flash_attention_bwd_plain(q, k, v, segment_ids, out, lse, dout, window: Opti
 def _check(name: str, q, k, v, segment_ids, window, extra=(), fold: bool = False) -> None:
     """What the kernels take: bf16 (B, S, H, D) q/k/v read through strides,
     Hk dividing Hq (and, for the forward's and dQ's head fold, Hq/Hk
-    dividing 128 and S <= MAX_SEQ), D <= 128, a window >= 1 or none; int32
+    dividing 128), S <= MAX_SEQ, D <= 128, a window >= 1 or none; int32
     (B, S) segment ids and the f32 side tensors contiguous; all on one CUDA
     card (checked last)."""
     if q.dim() != 4 or k.dim() != 4 or k.shape[2] == 0 or q.shape[2] % k.shape[2]:
         raise ValueError(f"{name}: q {tuple(q.shape)} / k {tuple(k.shape)}: Hk must divide Hq")
     if fold and FOLD_ROWS % (q.shape[2] // k.shape[2]):
         raise ValueError(f"{name}: Hq/Hk = {q.shape[2] // k.shape[2]} must divide {FOLD_ROWS}")
-    if fold and q.shape[1] > MAX_SEQ:
-        raise ValueError(f"{name}: S = {q.shape[1]} > {MAX_SEQ}, the most key tiles a CTA lists")
+    if q.shape[1] > MAX_SEQ:
+        raise ValueError(f"{name}: S = {q.shape[1]} > {MAX_SEQ}, the most tiles a CTA lists")
     _check_window(name, window)
     check_dtype(name, torch.int32, segment_ids)
     B, S, Hq, _ = q.shape

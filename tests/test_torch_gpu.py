@@ -53,8 +53,8 @@ def _rand(rng, *shape, device):
 
 
 def _bf16_close(out, ref, floor=0.0):
-    # the kernel rounds P to bf16 at other running maxima (K3 keeps it in
-    # fp32) and sums in another order: 4 bf16 ulps of each element plus of
+    # the kernel rounds P to bf16 at other running maxima and sums in
+    # another order: 4 bf16 ulps of each element plus of
     # its row's largest value (tests/test_torch_kernels.py shows that this
     # bound rejects a kernel that skips one key tile); gradients add
     # GRAD_FLOOR for the rows that cancel to 0
@@ -192,20 +192,93 @@ def test_onepass_bound_separates_a_skipped_key_tile(cuda, fault):
     assert bf16_err_over_bound(fault_out[:, rows], ref[:, rows]) > 1.0
 
 
-def test_decode_kernel_matches_plain(cuda):
-    rng = np.random.default_rng(3)
-    for B, C, Hq, Hk, D in ((4, 352, 32, 8, 128), (3, 17, 4, 2, 8), (2, 1000, 8, 8, 64)):
-        q = _rand(rng, B, Hq, D, device=cuda)
-        kq = torch.tensor(rng.integers(-127, 128, (B, C, Hk * D)).astype(np.int8), device=cuda)
-        vq = torch.tensor(rng.integers(-127, 128, (B, C, Hk * D)).astype(np.int8), device=cuda)
-        ks = torch.tensor(rng.uniform(0.002, 0.03, (B, C, Hk)).astype(np.float32), device=cuda)
-        vs = torch.tensor(rng.uniform(0.002, 0.03, (B, C, Hk)).astype(np.float32), device=cuda)
-        lengths = torch.tensor(([0, C - 1] + list(rng.integers(0, C, B)))[:B], dtype=torch.int32, device=cuda)
-        before = K3.launches
-        out = K3.decode_attention_int8_flat(q, kq, ks, vq, vs, lengths, Hk)
-        torch.cuda.synchronize()
-        assert K3.launches == before + 1
-        _bf16_close(out, K3.decode_attention_int8_flat_plain(q, kq, ks, vq, vs, lengths, Hk))
+_DECODE_CASES = [
+    (4, 352, 32, 8, 128),  # the serve cache: n_rep 4, a cluster of 2
+    (3, 17, 4, 2, 8),  # D 8: 4-byte copies, one CTA
+    (2, 1000, 8, 8, 64),  # n_rep 1, D 64, a cluster of 4
+    (3, 352, 8, 8, 256),  # n_rep 1, D 256
+    (3, 4096, 32, 4, 128),  # n_rep 8, the engine's long capacity, a cluster of 8
+    (2, 4096, 8, 1, 64),  # n_rep 8, D 64
+    (3, 2000, 16, 2, 256),  # n_rep 8, D 256: 250 positions a CTA, more than one slab of 240
+    (2, 300, 6, 2, 12),  # n_rep 3, D 12
+]
+
+
+@pytest.mark.parametrize("B,C,Hq,Hk,D", _DECODE_CASES)
+def test_decode_kernel_matches_plain(cuda, B, C, Hq, Hk, D):
+    """K3, one launch of a cluster of K3.decode_cluster_size(C) CTAs per
+    (row, kv head), against its plain version: n_rep 1-8, D 8-256 (4- and
+    16-byte copies), C from 17 to 4096 (clusters of 1, 2, 4 and 8; a CTA
+    share longer than one shared-memory slab), rows with lengths 0 (one
+    live position) and C - 1 (all live)."""
+    rng = np.random.default_rng(C + D)
+    q = _rand(rng, B, Hq, D, device=cuda)
+    kq = torch.tensor(rng.integers(-127, 128, (B, C, Hk * D)).astype(np.int8), device=cuda)
+    vq = torch.tensor(rng.integers(-127, 128, (B, C, Hk * D)).astype(np.int8), device=cuda)
+    ks = torch.tensor(rng.uniform(0.002, 0.03, (B, C, Hk)).astype(np.float32), device=cuda)
+    vs = torch.tensor(rng.uniform(0.002, 0.03, (B, C, Hk)).astype(np.float32), device=cuda)
+    lengths = torch.tensor(([0, C - 1] + list(rng.integers(0, C, B)))[:B], dtype=torch.int32, device=cuda)
+    before = K3.launches
+    out = K3.decode_attention_int8_flat(q, kq, ks, vq, vs, lengths, Hk)
+    torch.cuda.synchronize()
+    assert K3.launches == before + 1
+    _bf16_close(out, K3.decode_attention_int8_flat_plain(q, kq, ks, vq, vs, lengths, Hk))
+
+
+# the serve cache's shape; scores spread over a few units (k_scale 0.03:
+# std ~2.2), v scales of 2^e (1 + 0.45 * 2^-7), which bf16 rounds down by
+# 0.35%, so the rounding of P * v_scale moves the outputs (most in the row
+# with one live position, where P = 1)
+DECODE_ROUNDING_SHAPE = (4, 352, 32, 8, 128)
+DECODE_ROUNDING_LENGTHS = (0, 3, 100, 351)
+# kernel against plain version, relative L2 over the output: only f32
+# summation order differs (the score dot products and the PV sums), which
+# moves P by ~1e-7 and flips a bf16 rounding of P or of the output rarely;
+# a change of where P is rounded moves each term by up to 2^-8
+DECODE_ROUNDING_REL = 1e-3
+
+
+def decode_rounding_case(rng, device):
+    """(q, k_q, k_s, v_q, v_s, lengths, Hk) where rounding P * v_scale to
+    bf16 changes K3's output."""
+    B, C, Hq, Hk, D = DECODE_ROUNDING_SHAPE
+    q = torch.tensor(rng.standard_normal((B, Hq, D)).astype(np.float32)).to(device, torch.bfloat16)
+    kq, vq = (torch.tensor(rng.integers(-127, 128, (B, C, Hk * D)).astype(np.int8), device=device) for _ in range(2))
+    ks = torch.tensor(rng.uniform(0.027, 0.033, (B, C, Hk)).astype(np.float32), device=device)
+    vs = torch.tensor((2.0 ** rng.integers(0, 4, (B, C, Hk)) * (1 + 0.45 * 2**-7)).astype(np.float32), device=device)
+    lengths = torch.tensor(DECODE_ROUNDING_LENGTHS, dtype=torch.int32, device=device)
+    return q, kq, ks, vq, vs, lengths, Hk
+
+
+def decode_f32_p(q, k_q, k_s, v_q, v_s, lengths, n_heads):
+    """K3's plain version with P * v_scale kept in f32: the rounding of the
+    kernel before it was made one launch."""
+    B, Hq, D = q.shape
+    C, Hk = k_q.shape[1], n_heads
+    kf = k_q.reshape(B, C, Hk, D).float()
+    s = torch.einsum("bhgd,bchd->bhgc", q.reshape(B, Hk, Hq // Hk, D).float(), kf)
+    s = s * (k_s.float().permute(0, 2, 1)[:, :, None, :] * D**-0.5)
+    live = torch.arange(C, device=q.device)[None, :] <= lengths[:, None]
+    s = torch.where(live[:, None, None, :], s, torch.full_like(s, K3.NEG_INF))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    pv = p * v_s.float().permute(0, 2, 1)[:, :, None, :]
+    o = torch.einsum("bhgc,bchd->bhgd", pv, v_q.reshape(B, C, Hk, D).float()) / p.sum(dim=-1, keepdim=True)
+    return o.reshape(B, Hq, D).to(q.dtype)
+
+
+def test_decode_kernel_rounds_p_as_the_reference(cuda):
+    """K3 rounds P * v_scale to bf16 relative to the row's max, as the
+    Pallas kernel (decode_attention.py:124) and the plain version do: on
+    inputs where that rounding shows, the kernel is within a relative L2 of
+    1e-3 of the plain version, and an f32 P is not."""
+    args = decode_rounding_case(np.random.default_rng(21), cuda)
+    ref = K3.decode_attention_int8_flat_plain(*args)
+    out = K3.decode_attention_int8_flat(*args)
+    torch.cuda.synchronize()
+    rel = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+    rel_f32 = ((decode_f32_p(*args).float() - ref.float()).norm() / ref.float().norm()).item()
+    assert rel <= DECODE_ROUNDING_REL < rel_f32, (rel, rel_f32)
+    _bf16_close(out, ref)
 
 
 def _packed(B, S, device):
@@ -254,15 +327,16 @@ def _check_flash_kernels(q, k, v, dout, seg, window):
 @pytest.mark.parametrize(
     "B,S,Hq,Hk,D,window",
     [(2, 1024, 8, 2, 128, None), (3, 300, 4, 4, 128, None), (2, 257, 8, 1, 128, None), (2, 1024, 8, 2, 128, 200),
-     (3, 300, 8, 2, 64, None), (3, 257, 8, 1, 64, 200)],
+     (3, 300, 8, 2, 64, None), (3, 257, 8, 1, 64, 200), (2, 1000, 8, 2, 128, 50), (3, 700, 8, 1, 128, 200),
+     (2, 300, 16, 2, 64, 50), (2, 129, 4, 4, 128, None)],
 )
 def test_flash_kernels_match_plain(cuda, B, S, Hq, Hk, D, window):
     """K4's forward (out and lse), dK/dV and dQ kernels against their plain
-    versions in bf16: GQA 4:1, MHA and 8:1, packed segments, padding, an S
-    that is not a multiple of 64, a sliding window of 200 (it cuts inside
-    the segments of S 1024), D 64 (TMA's zero fill pads the forward's and
-    dQ's tiles to 128), and with B 3 a row of padding only (no live key:
-    lse NEG_INF, zeros in out and dq)."""
+    versions in bf16: GQA 4:1, MHA and 8:1, packed segments, padding, S
+    not a multiple of 64 or of dK/dV's 128 keys a CTA, sliding windows of
+    50 and 200 (they cut inside the segments), D 64 (TMA's zero fill pads
+    the tiles to 128), and with B 3 a row of padding only (no live key:
+    lse NEG_INF, zeros in out, dq, dk and dv)."""
     rng = np.random.default_rng(5)
     q, dout = _rand(rng, B, S, Hq, D, device=cuda), _rand(rng, B, S, Hq, D, device=cuda)
     k, v = (_rand(rng, B, S, Hk, D, device=cuda) for _ in range(2))
@@ -274,20 +348,37 @@ def test_flash_kernels_match_plain(cuda, B, S, Hq, Hk, D, window):
         assert torch.all(lse[2] == K4.NEG_INF)
 
 
-@pytest.mark.parametrize("window", [None, 50])
-def test_flash_kernels_take_any_segment_layout(cuda, window):
+_SEGMENT_LAYOUTS = {
+    # a segment that comes back after another (ids 1, 2, 1), padding between
+    # segments, a segment id that is not the row's largest after a larger one
+    "returning": ([(1, 150), (2, 100), (1, 200), (0, 50), (3, 100), (2, 100)], [(4, 64), (0, 128), (4, 300), (1, 208)]),
+    # a 128-key tile of padding only (dK/dV's CTA with no live key), and
+    # a tail tile of padding
+    "padding_tile": ([(1, 128), (0, 128), (2, 200), (3, 244)], [(1, 300), (0, 212), (2, 188)]),
+    # segments that start inside a tile of 64 and of 128
+    "mid_tile": ([(0, 37), (5, 300), (6, 363)], [(1, 70), (2, 130), (3, 171), (0, 329)]),
+}
+
+
+@pytest.mark.parametrize(
+    "layout,window,G,D",
+    [("returning", None, 4, 128), ("returning", 50, 4, 128), ("padding_tile", 200, 1, 64),
+     ("padding_tile", None, 8, 128), ("mid_tile", 50, 8, 128), ("mid_tile", 200, 4, 64)],
+)
+def test_flash_kernels_take_any_segment_layout(cuda, layout, window, G, D):
     """The forward and dQ list only the key tiles that hold a key of their
-    queries' segment ids; the rule holds for any id layout, not only for
-    packed samples: a segment that comes back after another (ids 1, 2, 1),
-    padding between segments, and a segment id that is not the row's
-    largest after a larger one (3 then 2)."""
+    queries' segment ids, dK/dV only the query tiles that hold a query of
+    its keys' ids; the rule holds for any id layout, not only for packed
+    samples (``_SEGMENT_LAYOUTS``), with G 1, 4 and 8, D 64 and 128 and
+    windows of 50 and 200."""
     rng = np.random.default_rng(7)
-    B, S, Hq, Hk, D = 2, 700, 8, 2, 128
+    B, S, Hk = 2, 700, 2
+    Hq = G * Hk
     q, dout = _rand(rng, B, S, Hq, D, device=cuda), _rand(rng, B, S, Hq, D, device=cuda)
     k, v = (_rand(rng, B, S, Hk, D, device=cuda) for _ in range(2))
     seg = torch.zeros(B, S, dtype=torch.int32, device=cuda)
-    for b, runs in enumerate(([(1, 150), (2, 100), (1, 200), (0, 50), (3, 100), (2, 100)],
-                              [(4, 64), (0, 128), (4, 300), (1, 208)])):
+    for b, runs in enumerate(_SEGMENT_LAYOUTS[layout]):
+        assert sum(n for _, n in runs) == S
         start = 0
         for sid, n in runs:
             seg[b, start : start + n] = sid

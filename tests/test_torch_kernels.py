@@ -28,6 +28,7 @@ from spatialrgpt_tpu_torch.ops import flash_attention as K4
 from spatialrgpt_tpu_torch.ops import prefill_attention as K2
 from spatialrgpt_tpu_torch.ops import vit_attention as K1
 from spatialrgpt_tpu_torch.ops._autograd import KernelForwardPlainGrad
+from test_torch_gpu import DECODE_ROUNDING_REL, decode_f32_p, decode_rounding_case
 
 ATOL = 2e-5  # fp32 on both sides: summation order only
 
@@ -99,6 +100,24 @@ def test_decode_plain_matches_pallas(hq, hk):
     want = np.asarray(j_decode(*_j(q, kq, ks, vq, vs, lengths), n_heads=hk, interpret=True, block_c=8))
     got = K3.decode_attention_int8_flat_plain(*_t(q, kq, ks, vq, vs, lengths), hk).numpy()
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=1e-4)
+
+
+def test_decode_plain_rounds_p_as_pallas():
+    """On the inputs of the card's K3 rounding test (the serve cache's
+    shape, one Pallas block), the plain version rounds P * v_scale to bf16
+    where the Pallas kernel does (decode_attention.py:124): within the
+    test's relative L2 of the reference, while an f32 P lies outside it, so
+    that test tells the two roundings apart."""
+    q, kq, ks, vq, vs, lengths, hk = decode_rounding_case(np.random.default_rng(21), "cpu")
+    jin = _j(q.float().numpy(), kq.numpy(), ks.numpy(), vq.numpy(), vs.numpy(), lengths.numpy())
+    jin[0] = jin[0].astype(jnp.bfloat16)
+    want = torch.tensor(np.asarray(j_decode(*jin, n_heads=hk, interpret=True).astype(jnp.float32)))
+
+    def rel(out):
+        return float((out.float() - want).norm() / want.norm())
+
+    assert rel(K3.decode_attention_int8_flat_plain(q, kq, ks, vq, vs, lengths, hk)) <= DECODE_ROUNDING_REL / 10
+    assert rel(decode_f32_p(q, kq, ks, vq, vs, lengths, hk)) > DECODE_ROUNDING_REL
 
 
 def test_causal_attention_routes_match_jax_xla():
@@ -444,6 +463,15 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         K3.decode_attention_int8_flat(**{**good, "k_q": _meta(B, C + 1, Hk * D, dtype=torch.int8)})
     with pytest.raises(ValueError, match="CUDA"):
         K3.decode_attention_int8_flat(**good)
+    # one cluster of at most 8 CTAs per (row, kv head), each holding its
+    # positions' scores for n_rep heads in shared memory: 16384 entries
+    assert [K3.decode_cluster_size(c) for c in (1, 17, 256, 257, 352, 1000, 2048, 4096, 65536)] == [
+        1, 1, 1, 2, 2, 4, 8, 8, 8]
+    for C, n_rep, match in ((16384, 8, "CUDA"), (16385, 8, "scores"), (32768, 4, "CUDA"), (32769, 4, "scores")):
+        cache = dict(k_q=_meta(1, C, D, dtype=torch.int8), k_s=_meta(1, C, 1, dtype=torch.float32),
+                     v_q=_meta(1, C, D, dtype=torch.int8), v_s=_meta(1, C, 1, dtype=torch.float32))
+        with pytest.raises(ValueError, match=match):
+            K3.decode_attention_int8_flat(_meta(1, n_rep, D), **cache, lengths=_meta(1, dtype=torch.int32), n_heads=1)
     B, S, Hq, Hk, D = 1, 64, 8, 2, 128
     q, k, seg = _meta(B, S, Hq, D), _meta(B, S, Hk, D), _meta(B, S, dtype=torch.int32)
     with pytest.raises(TypeError):
@@ -462,6 +490,24 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
             fn(q, k, k, seg, lse, delta, _meta(B, S, Hq, D, dtype=torch.float32))
         with pytest.raises(ValueError, match="CUDA"):
             fn(q, k, k, seg, lse, delta, q.transpose(1, 2).contiguous().transpose(1, 2))
+    # every K4 kernel lists at most 1024 tiles of 64 positions per CTA; only
+    # the forward and dQ fold G = Hq / Hk heads into 128 rows, so dK/dV takes
+    # a G that does not divide 128
+    for S, match in ((K4.MAX_SEQ, "CUDA"), (K4.MAX_SEQ + 1, "most tiles")):
+        q, k, seg = _meta(B, S, Hq, D), _meta(B, S, Hk, D), _meta(B, S, dtype=torch.int32)
+        lse, delta = _meta(B, Hq, S, dtype=torch.float32), _meta(B, S, Hq, dtype=torch.float32)
+        for fn in (K4.flash_attention_bwd_dkv, K4.flash_attention_bwd_dq):
+            with pytest.raises(ValueError, match=match):
+                fn(q, k, k, seg, lse, delta, q)
+        with pytest.raises(ValueError, match=match):
+            K4.flash_attention_fwd(q, k, k, seg)
+    S = 64
+    q, k, seg = _meta(B, S, 6, D), _meta(B, S, 2, D), _meta(B, S, dtype=torch.int32)
+    lse, delta = _meta(B, 6, S, dtype=torch.float32), _meta(B, S, 6, dtype=torch.float32)
+    with pytest.raises(ValueError, match="must divide 128"):
+        K4.flash_attention_bwd_dq(q, k, k, seg, lse, delta, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        K4.flash_attention_bwd_dkv(q, k, k, seg, lse, delta, q)
 
 
 @pytest.mark.parametrize(
