@@ -6,7 +6,11 @@ RMSNorm, untied LM head.
 Parameters live in ``LlamaForCausalLM`` under the HF names that
 ``spatialrgpt_tpu/utils/export.py::export_llama`` writes
 (``model.layers.{i}.self_attn.q_proj.weight``, ...).  The embedding table
-includes the extra ``<mask>``/``<depth>`` rows past ``vocab_size``.
+includes the extra ``<mask>``/``<depth>`` rows past ``vocab_size``.  A
+quantized model (``ops/layers.py::quantize_model``,
+``utils/weights.py::init_random_quantized``) holds ``QuantLinear``s in
+place of the projections and ``lm_head``; the blocks hand each module to
+``linear`` as it is.
 
 MoE, the sliding window, the Gemma knobs and MPT are not ported yet: a
 config that asks for them raises ``NotImplementedError``.
@@ -23,7 +27,7 @@ from torch.utils.checkpoint import checkpoint
 
 from spatialrgpt_tpu_torch.config import LlamaConfig
 from spatialrgpt_tpu_torch.ops.attention import causal_attention
-from spatialrgpt_tpu_torch.ops.layers import linear, qkv_proj, rms_norm, silu
+from spatialrgpt_tpu_torch.ops.layers import linear, qkv_proj, quantized_input, rms_norm, silu
 from spatialrgpt_tpu_torch.ops.quant import quantize_kv
 
 
@@ -142,12 +146,14 @@ def attention_block(
     q, k, v = qkv_proj(x, attn, Hq, Hk, D)
     q, k = apply_rope(q, k, position_ids, cfg)
     out = causal_attention(q, k, v, segment_ids=segment_ids, impl=impl)
-    return linear(out.reshape(B, S, Hq * D), attn.o_proj.weight), (k, v)
+    return linear(out.reshape(B, S, Hq * D), attn.o_proj), (k, v)
 
 
 def mlp_block(x: torch.Tensor, mlp: LlamaMLP) -> torch.Tensor:
-    gate = silu(linear(x, mlp.gate_proj.weight))
-    return linear(gate * linear(x, mlp.up_proj.weight), mlp.down_proj.weight)
+    """SiLU MLP; gate and up share x's int8 rows where they take W8A8."""
+    xq = quantized_input(x, mlp.gate_proj, mlp.up_proj)
+    gate = silu(linear(x, mlp.gate_proj, xq=xq))
+    return linear(gate * linear(x, mlp.up_proj, xq=xq), mlp.down_proj)
 
 
 def embed_tokens(model: LlamaForCausalLM, input_ids: torch.Tensor) -> torch.Tensor:
@@ -213,4 +219,4 @@ def forward(
 
 def logits(model: LlamaForCausalLM, hidden: torch.Tensor) -> torch.Tensor:
     """LM head in the hidden dtype, returned as fp32 (as the reference)."""
-    return linear(hidden, model.lm_head.weight).float()
+    return linear(hidden, model.lm_head).float()

@@ -90,7 +90,7 @@ def _attention(x: torch.Tensor, attn: SiglipAttention, num_heads: int, attn_impl
         out = vit_attention_plain(q, k, v)
     else:
         raise ValueError(f"unknown attention impl: {attn_impl}")
-    return linear(out.reshape(B, S, C), attn.out_proj.weight, attn.out_proj.bias)
+    return linear(out.reshape(B, S, C), attn.out_proj)
 
 
 def _encoder_layer(x: torch.Tensor, layer: SiglipEncoderLayer, cfg: SiglipVisionConfig, attn_impl: str = "onepass") -> torch.Tensor:
@@ -98,9 +98,9 @@ def _encoder_layer(x: torch.Tensor, layer: SiglipEncoderLayer, cfg: SiglipVision
     h = layer_norm(x, layer.layer_norm1.weight, layer.layer_norm1.bias, eps)
     x = x + _attention(h, layer.self_attn, cfg.num_attention_heads, attn_impl)
     h = layer_norm(x, layer.layer_norm2.weight, layer.layer_norm2.bias, eps)
-    h = linear(h, layer.mlp.fc1.weight, layer.mlp.fc1.bias)
+    h = linear(h, layer.mlp.fc1)
     h = gelu_tanh(h)
-    h = linear(h, layer.mlp.fc2.weight, layer.mlp.fc2.bias)
+    h = linear(h, layer.mlp.fc2)
     return x + h
 
 

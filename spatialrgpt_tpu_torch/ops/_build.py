@@ -45,6 +45,10 @@ _SIGNATURES = {
     "srgpt_flash_bwd_dq": [_P] * 8 + [_I] * 5 + [_LL] * 12 + [_I, _F, _P],
     "srgpt_grid_bias_attention": [_P] * 6 + [_I] * 6 + [_LL] * 12 + [_F, _P],
     "srgpt_layer_norm": [_P] * 4 + [_LL, _I, _F, _I, _P],
+    "srgpt_act_quant": [_P, _P, _P, _LL, _I, _P],
+    "srgpt_quant_gemm_splits": [_I] * 3,  # returns a count, launches nothing
+    "srgpt_w8a8_gemm": [_P] * 5 + [_I, _P] + [_I] * 3 + [_P] * 3,
+    "srgpt_w8_gemm": [_P] * 4 + [_I, _P] + [_I] * 3 + [_P] * 3,
 }
 
 _lib = None

@@ -126,7 +126,7 @@ def _decode_step(model, cfg: SpatialRGPTConfig, x, lengths, cache: QuantKVCache,
         cache.v_q[li, rows, lengths] = nv_q.reshape(B, Hk * D)
         cache.v_s[li, rows, lengths] = nv_s
         out = attend(q[:, 0], cache.k_q[li], cache.k_s[li], cache.v_q[li], cache.v_s[li], lengths32, Hk)
-        h = h + linear(out.reshape(B, 1, Hq * D), layer.self_attn.o_proj.weight)
+        h = h + linear(out.reshape(B, 1, Hq * D), layer.self_attn.o_proj)
         h = h + llama.mlp_block(llama.norm(h, layer.post_attention_layernorm), layer.mlp)
     return llama.norm(h, model.llm.model.norm)
 

@@ -11,8 +11,9 @@ projector and the region extractor).
 ``donate`` has no counterpart: PyTorch updates the parameters and the
 optimizer state in place, so no second copy of either exists to give
 back.  The LoRA and frozen-base steps (``make_lora_train_step``,
-``make_frozen_base_train_step``) wait for the int8 / LoRA branches of
-``ops/layers.py::linear``.
+``make_frozen_base_train_step``) wait for the LoRA branch and the W8A8
+straight-through backward of ``ops/layers.py::linear``: a quantized model
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 
 from spatialrgpt_tpu_torch.config import SpatialRGPTConfig
 from spatialrgpt_tpu_torch.models import vlm
+from spatialrgpt_tpu_torch.ops.layers import is_quantized
 from spatialrgpt_tpu_torch.train.optimizer import MODULES, AdamW
 
 
@@ -33,6 +35,8 @@ class TrainState(NamedTuple):
 
 
 def create_train_state(model: vlm.SpatialRGPT, optimizer: AdamW) -> TrainState:
+    if is_quantized(model):
+        raise NotImplementedError("training a quantized model (the frozen-base W8A8 align step) is not ported yet")
     return TrainState(step=0, model=model, optimizer=optimizer)
 
 

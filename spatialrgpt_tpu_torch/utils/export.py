@@ -4,8 +4,10 @@ The port's copy of the four name maps of ``spatialrgpt_tpu/utils/export.py``
 (``export_siglip``, ``export_projector``, ``export_region_extractor``,
 ``export_llama``): each takes a numpy pytree of the JAX package's
 parameters and returns the HF-named state dict that
-``utils/weights.py::load_from_jax`` loads.  Writing checkpoints to disk is
-not part of the port.
+``utils/weights.py::load_from_jax`` loads.  A dense entry quantized by
+``quantize_llm`` (``kernel_q``) comes across as the ``QuantLinear``
+buffers of its module (``_dense``).  Writing checkpoints to disk is not
+part of the port.
 """
 
 from __future__ import annotations
@@ -29,6 +31,29 @@ def _np32(x) -> np.ndarray:
     return a
 
 
+# the markers of a ``kernel_q`` entry, carried under its module's name
+QUANT_MARKERS = ("a8", "orig_dim0")
+
+
+def _dense(sd: Dict[str, np.ndarray], name: str, p: Dict, bias: bool = False) -> None:
+    """A dense entry under its HF module name: ``kernel`` (din, dout) as the
+    (out, in) ``.weight``; a ``kernel_q`` as ``.q`` (its (din, dout) int8,
+    or int4 nibble pairs packed along din, transposed to (out, in) or (out,
+    ceil(in / 2))) and ``.scale`` ((1, dout) as (out,)), with its
+    ``.a8`` / ``.orig_dim0`` markers."""
+    if "kernel_q" in p:
+        kq = p["kernel_q"]
+        sd[name + ".q"] = np.asarray(kq["q"]).T
+        sd[name + ".scale"] = np.asarray(kq["scale"], np.float32).reshape(-1)
+        for marker in QUANT_MARKERS:
+            if marker in kq:
+                sd[f"{name}.{marker}"] = np.asarray(kq[marker])
+    else:
+        sd[name + ".weight"] = _np32(p["kernel"]).T
+    if bias:
+        sd[name + ".bias"] = _np32(p["bias"])
+
+
 def export_siglip(params: Dict) -> Dict[str, np.ndarray]:
     sd = {}
     pe = params["patch_embed"]
@@ -42,12 +67,9 @@ def export_siglip(params: Dict) -> Dict[str, np.ndarray]:
         sd[p + "layer_norm2.weight"] = _np32(lp["ln2"]["scale"])
         sd[p + "layer_norm2.bias"] = _np32(lp["ln2"]["bias"])
         for ours, theirs in (("wq", "q_proj"), ("wk", "k_proj"), ("wv", "v_proj"), ("wo", "out_proj")):
-            sd[p + f"self_attn.{theirs}.weight"] = _np32(lp["attn"][ours]["kernel"]).T
-            sd[p + f"self_attn.{theirs}.bias"] = _np32(lp["attn"][ours]["bias"])
-        sd[p + "mlp.fc1.weight"] = _np32(lp["mlp"]["fc1"]["kernel"]).T
-        sd[p + "mlp.fc1.bias"] = _np32(lp["mlp"]["fc1"]["bias"])
-        sd[p + "mlp.fc2.weight"] = _np32(lp["mlp"]["fc2"]["kernel"]).T
-        sd[p + "mlp.fc2.bias"] = _np32(lp["mlp"]["fc2"]["bias"])
+            _dense(sd, p + f"self_attn.{theirs}", lp["attn"][ours], bias=True)
+        _dense(sd, p + "mlp.fc1", lp["mlp"]["fc1"], bias=True)
+        _dense(sd, p + "mlp.fc2", lp["mlp"]["fc2"], bias=True)
     sd["vision_model.post_layernorm.weight"] = _np32(params["post_ln"]["scale"])
     sd["vision_model.post_layernorm.bias"] = _np32(params["post_ln"]["bias"])
     return sd
@@ -94,10 +116,10 @@ def export_llama(params: Dict) -> Dict[str, np.ndarray]:
         sd[p + "input_layernorm.weight"] = _np32(lp["input_ln"])
         sd[p + "post_attention_layernorm.weight"] = _np32(lp["post_ln"])
         for ours, theirs in (("wq", "q_proj"), ("wk", "k_proj"), ("wv", "v_proj"), ("wo", "o_proj")):
-            sd[p + f"self_attn.{theirs}.weight"] = _np32(lp["attn"][ours]["kernel"]).T
+            _dense(sd, p + f"self_attn.{theirs}", lp["attn"][ours])
         for ours, theirs in (("gate", "gate_proj"), ("up", "up_proj"), ("down", "down_proj")):
-            sd[p + f"mlp.{theirs}.weight"] = _np32(lp["mlp"][ours]["kernel"]).T
+            _dense(sd, p + f"mlp.{theirs}", lp["mlp"][ours])
     sd["model.norm.weight"] = _np32(params["final_ln"])
     if "lm_head" in params:
-        sd["lm_head.weight"] = _np32(params["lm_head"]["kernel"]).T
+        _dense(sd, "lm_head", params["lm_head"])
     return sd

@@ -3,9 +3,13 @@
 ``load_from_jax`` carries a JAX parameter pytree (numpy arrays) across
 through the HF-named state dicts of ``utils/export.py`` (the port's copy
 of the JAX package's name maps), so the port loads exactly the tensor
-names of the reference checkpoint layout.  ``init_random`` makes a
+names of the reference checkpoint layout; a tree quantized by
+``quantize_llm`` loads into ``QuantLinear``s.  ``init_random`` makes a
 model directly on the device from a seeded ``torch.Generator``, with the
-standard deviations of the JAX package's ``init_params``.
+standard deviations of the JAX package's ``init_params``, and
+``init_random_quantized`` (the twin of ``utils/fast_init.py::
+fast_init_quantized``) makes its projections directly in the int8
+layout.
 ``save_composite`` writes a model back in the reference's split layout.
 The demo's models: ``init_random_sam_hq`` and ``init_random_depth_anything``
 on the device, and ``load_depth_anything_from_jax`` through the HF names
@@ -16,6 +20,7 @@ HF-named ``state_dict()`` through the JAX ``convert_sam_hq``).
 from __future__ import annotations
 
 import os
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,18 +31,33 @@ from spatialrgpt_tpu_torch.utils import export
 from spatialrgpt_tpu_torch.models.depth_anything import DepthAnythingConfig, DepthAnythingModel, LayerScale
 from spatialrgpt_tpu_torch.models.sam import SamConfig, SamHQModel
 from spatialrgpt_tpu_torch.models.vlm import SpatialRGPT
+from spatialrgpt_tpu_torch.ops.layers import QuantLinear
+
+# a linear's module name -> (bits, a8) where the model holds it quantized, else None
+QuantLayout = Callable[[str], Optional[Tuple[int, bool]]]
 
 
-def _empty_model(cls, cfg, device, dtype):
+def _empty_model(cls, cfg, device, dtype, quant: Optional[QuantLayout] = None):
     """``cls(cfg, dtype)`` with uninitialised storage on ``device`` (nothing
-    is initialised twice)."""
+    is initialised twice); the linears that ``quant`` names become
+    ``QuantLinear``s first, so no float copy of their weights is ever
+    allocated."""
     with torch.device("meta"):
         model = cls(cfg, dtype)
+        for name, lin in list(model.named_modules()):
+            layout = quant(name) if quant is not None and isinstance(lin, nn.Linear) else None
+            if layout is not None:
+                parent, _, attr = name.rpartition(".")
+                setattr(model.get_submodule(parent), attr, QuantLinear(
+                    lin.in_features, lin.out_features, *layout, bias=lin.bias is not None, dtype=dtype))
     return model.to_empty(device=device).requires_grad_(False).eval()
 
 
 def load_from_jax(np_params, cfg: SpatialRGPTConfig, device, dtype=torch.float32) -> SpatialRGPT:
-    """JAX ``vlm.init_params``-layout pytree -> ``SpatialRGPT`` on ``device``."""
+    """JAX ``vlm.init_params``-layout pytree -> ``SpatialRGPT`` on ``device``.
+    Entries quantized by ``quantize_llm`` (``kernel_q``) load into
+    ``QuantLinear``s: int8 (or packed int4) ``q`` and f32 ``scale`` as they
+    are, the W8A8 marker as ``a8``."""
     parts = {
         "vision_tower.": export.export_siglip(np_params["vision"]),
         "mm_projector.": export.export_projector(np_params["projector"], cfg.projector.projector_type),
@@ -45,25 +65,36 @@ def load_from_jax(np_params, cfg: SpatialRGPTConfig, device, dtype=torch.float32
     }
     if cfg.enable_region:
         parts["region_extractor."] = export.export_region_extractor(np_params["region"])
-    state = {
-        prefix + name: torch.tensor(np.asarray(a)).to(device=device, dtype=dtype)
-        for prefix, sd in parts.items()
-        for name, a in sd.items()
-    }
-    model = _empty_model(SpatialRGPT, cfg, device, dtype)
+    flat = {prefix + name: a for prefix, sd in parts.items() for name, a in sd.items()}
+    quant = {name[: -len(".q")]: None for name in flat if name.endswith(".q")}
+    for mod in quant:
+        quant[mod] = (4 if f"{mod}.orig_dim0" in flat else 8, f"{mod}.a8" in flat)
+    state = {}
+    for name, a in flat.items():
+        mod, _, leaf = name.rpartition(".")
+        if mod in quant and leaf in export.QUANT_MARKERS:
+            continue
+        t = torch.tensor(np.asarray(a))
+        if mod in quant and leaf == "q":
+            state[name] = t.to(device=device, dtype=torch.int8)
+        elif mod in quant and leaf == "scale":
+            state[name] = t.to(device=device, dtype=torch.float32)
+        else:
+            state[name] = t.to(device=device, dtype=dtype)
+    model = _empty_model(SpatialRGPT, cfg, device, dtype, quant.get)
     model.load_state_dict(state, strict=True)
     return model
 
 
-@torch.no_grad()
-def init_random(cfg: SpatialRGPTConfig, device, dtype=torch.bfloat16, seed: int = 0) -> SpatialRGPT:
-    """Random weights made on ``device`` from ``seed``: dense and deconv
-    kernels N(0, fan_in^-1/2), patch kernel and embedding tables N(0, 0.02),
-    norm scales 1, biases 0 (the JAX ``init_params`` recipe)."""
-    g = torch.Generator(device=device).manual_seed(seed)
-    model = _empty_model(SpatialRGPT, cfg, device, dtype)
+def _init_random_modules(model: nn.Module, g: torch.Generator) -> None:
+    """``init_random``'s recipe over ``model``'s modules, in order; a
+    ``QuantLinear`` draws its int8 ``q`` uniformly from [-127, 127] and
+    takes ``scale`` = in^-1/2 * 3 / 127 (``fast_init.py:57-64``)."""
     for mod in model.modules():
-        if isinstance(mod, nn.Linear):
+        if isinstance(mod, QuantLinear):
+            mod.q.random_(-127, 128, generator=g)
+            mod.scale.fill_(mod.in_features**-0.5 * 3.0 / 127.0)
+        elif isinstance(mod, nn.Linear):
             mod.weight.normal_(0.0, mod.weight.shape[1] ** -0.5, generator=g)
         elif isinstance(mod, nn.ConvTranspose2d):  # (C_in, C_out, 2, 2)
             mod.weight.normal_(0.0, mod.weight.shape[0] ** -0.5, generator=g)
@@ -73,6 +104,33 @@ def init_random(cfg: SpatialRGPTConfig, device, dtype=torch.bfloat16, seed: int 
             mod.weight.fill_(1.0)
         if getattr(mod, "bias", None) is not None:
             mod.bias.zero_()
+
+
+@torch.no_grad()
+def init_random(cfg: SpatialRGPTConfig, device, dtype=torch.bfloat16, seed: int = 0) -> SpatialRGPT:
+    """Random weights made on ``device`` from ``seed``: dense and deconv
+    kernels N(0, fan_in^-1/2), patch kernel and embedding tables N(0, 0.02),
+    norm scales 1, biases 0 (the JAX ``init_params`` recipe)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    model = _empty_model(SpatialRGPT, cfg, device, dtype)
+    _init_random_modules(model, g)
+    return model
+
+
+@torch.no_grad()
+def init_random_quantized(cfg: SpatialRGPTConfig, device, w8a8: bool, seed: int = 0,
+                          vision_quant: Optional[bool] = None, dtype=torch.bfloat16) -> SpatialRGPT:
+    """The twin of ``utils/fast_init.py::fast_init_quantized``: every linear
+    of the llm (``lm_head`` included) and, with ``vision_quant`` (default:
+    ``w8a8``), of the vision tower is a ``QuantLinear`` made directly in the
+    int8 layout on ``device`` (marked W8A8 with ``w8a8``); everything else
+    follows ``init_random``.  No float copy of a quantized weight is ever
+    allocated."""
+    vq = w8a8 if vision_quant is None else vision_quant
+    roots = ("llm.",) + (("vision_tower.",) if vq else ())
+    g = torch.Generator(device=device).manual_seed(seed)
+    model = _empty_model(SpatialRGPT, cfg, device, dtype, lambda name: (8, w8a8) if name.startswith(roots) else None)
+    _init_random_modules(model, g)
     return model
 
 

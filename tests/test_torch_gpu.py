@@ -1,8 +1,10 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
 version in bf16 (K2 and K6 also against planted faults), gradients through K1, K2, K4 and K6, a tiny region-QA
-``generate`` through K1-K3, a tiny align step through K1 and K4, and a
+``generate`` through K1-K3, a tiny align step through K1 and K4, a
 narrow demo pipeline (Depth-Anything -> SAM-HQ -> region QA) through K5
-and K6.
+and K6, and the quantized projections: K7 and K8 bit-equal to their plain
+versions, K9 within the bf16 bound, and a tiny W8A8 ``generate`` through
+K1-K3 and K7-K9.
 
 Every test here is marked ``gpu`` and skips where there is no CUDA card
 (the kernels are CUDA C++ for sm_90a and have no CPU mode).  The file
@@ -29,12 +31,13 @@ from spatialrgpt_tpu_torch.models.vlm import VLMInputs
 from spatialrgpt_tpu_torch.ops import decode_attention as K3
 from spatialrgpt_tpu_torch.ops import flash_attention as K4
 from spatialrgpt_tpu_torch.ops import flash_attention as K5
+from spatialrgpt_tpu_torch.ops import int8_linear as K789
 from spatialrgpt_tpu_torch.ops import layer_norm as K6
 from spatialrgpt_tpu_torch.ops import prefill_attention as K2
 from spatialrgpt_tpu_torch.ops import vit_attention as K1
 from spatialrgpt_tpu_torch.ops._checks import GRAD_FLOOR, bf16_err_over_bound
 from spatialrgpt_tpu_torch.serving.generate import generate
-from spatialrgpt_tpu_torch.utils.weights import init_random
+from spatialrgpt_tpu_torch.utils.weights import init_random, init_random_quantized
 
 pytestmark = pytest.mark.gpu
 
@@ -675,3 +678,164 @@ def test_narrow_demo_pipeline_runs_k5_and_k6(cuda, monkeypatch):
     assert float(plain_depth.float().std()) > 0 and rel(depth, plain_depth) < 0.05
     assert rel(fast.mask_logits, plain.mask_logits) < 0.05
     assert rel(fast.result.first_logits, plain.result.first_logits) < 0.05
+
+
+# ---------------------------------------------------------------------------
+# K7-K9: the quantized projections
+# ---------------------------------------------------------------------------
+
+
+def _quant_rows(rng, M, K, device):
+    """bf16 rows of x: normal rows, a row of zeros (padding: ascale 1e-12,
+    xq 0), a row whose max is 127 so that ascale is 1 and its .5 values are
+    ties (round half to even), and rows of a large and a tiny scale."""
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    if M >= 5:
+        x[1] = 0.0
+        x[2] = rng.integers(-126, 126, K) + 0.5
+        x[2, 0] = 127.0
+        x[3] *= 1e4
+        x[4] *= 1e-6
+    return torch.tensor(x).to(device, torch.bfloat16)
+
+
+@pytest.mark.parametrize("M", [1, 37])
+@pytest.mark.parametrize("K", [1152, 4304, 14336])
+def test_act_quant_kernel_bit_equal(cuda, K, M):
+    """K7 equals its plain version bit for bit: ties at .5, a zero row,
+    SigLIP's 1152 and 4304 and Llama's 14,336."""
+    x = _quant_rows(np.random.default_rng(K + M), M, K, cuda)
+    before = K789.launches["act_quant_int8"]
+    xq, s = K789.act_quant_int8(x)
+    assert K789.launches["act_quant_int8"] == before + 1
+    pq, ps = K789.act_quant_int8_plain(x)
+    assert torch.equal(s, ps) and torch.equal(xq, pq)
+    if M >= 5:
+        assert float(s[2]) == 1.0 and float(s[1]) == np.float32(1e-12) and not xq[1].any()
+        assert torch.equal(xq[2, 1:].float(), torch.round(x[2, 1:].float()))  # half to even
+
+
+def _int8(rng, *shape, device):
+    return torch.tensor(rng.integers(-127, 128, shape), dtype=torch.int8, device=device)
+
+
+@pytest.mark.parametrize("bias", [None, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("K", [64, 1152, 4304])
+@pytest.mark.parametrize("M", [1, 8, 64, 2048, 20480])
+def test_w8a8_kernel_bit_equal(cuda, M, K, bias):
+    """K8 equals its plain version bit for bit over decode, tower and
+    prefill row counts, a K tail (4304 % 64 = 16) and an odd N (ragged
+    last column tile, scalar stores)."""
+    rng = np.random.default_rng(M + K)
+    N = 333
+    xq, q = _int8(rng, M, K, device=cuda), _int8(rng, N, K, device=cuda)
+    ascale = torch.tensor(rng.random(M) * 0.1 + 1e-3, dtype=torch.float32, device=cuda)
+    scale = torch.tensor(rng.random(N) * 0.01 + 1e-4, dtype=torch.float32, device=cuda)
+    b = None if bias is None else torch.tensor(rng.standard_normal(N), device=cuda).to(bias)
+    before = K789.launches["w8a8_gemm"]
+    out = K789.w8a8_gemm(xq, ascale, q, scale, b)
+    assert K789.launches["w8a8_gemm"] == before + 1
+    ref = K789.w8a8_gemm_plain(xq, ascale, q, scale, b)
+    assert out.dtype == torch.bfloat16 and out.shape == (M, N)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("M", [1, 8, 64])
+def test_w8_kernel_within_bound(cuda, M):
+    """K9 at the decode down projection's K = 14,336 (odd N, bf16 bias)
+    within the bf16 bound of its plain version: the f32 sums run in another
+    order."""
+    rng = np.random.default_rng(M)
+    N, K = 1001, 14336
+    x = _rand(rng, M, K, device=cuda)
+    q = _int8(rng, N, K, device=cuda)
+    scale = torch.full((N,), K**-0.5 * 3 / 127, dtype=torch.float32, device=cuda)
+    b = _rand(rng, N, device=cuda)
+    before = K789.launches["w8_gemm"]
+    out = K789.w8_gemm(x, q, scale, b)
+    assert K789.launches["w8_gemm"] == before + 1
+    _bf16_close(out, K789.w8_gemm_plain(x, q, scale, b))
+
+
+def test_quant_wrappers_raise_on_what_they_do_not_take(cuda):
+    """K7-K9's wrappers on the card: a CPU tensor among CUDA ones, wrong
+    dtypes, a K the kernels do not take, a misaligned row, a bad shape."""
+    rng = np.random.default_rng(0)
+    x = _rand(rng, 4, 64, device=cuda)
+    xq, q = _int8(rng, 4, 64, device=cuda), _int8(rng, 32, 64, device=cuda)
+    s4, s32 = torch.ones(4, device=cuda), torch.ones(32, device=cuda)
+    with pytest.raises(ValueError, match="CUDA device"):
+        K789.w8a8_gemm(xq, s4, q.cpu(), s32)
+    with pytest.raises(ValueError, match="CUDA device"):
+        K789.w8_gemm(x, q, s32.cpu())
+    with pytest.raises(TypeError):
+        K789.act_quant_int8(x.float())
+    with pytest.raises(TypeError):
+        K789.w8a8_gemm(xq, s4, q.float(), s32)
+    with pytest.raises(TypeError):
+        K789.w8_gemm(x.half(), q, s32)
+    with pytest.raises(TypeError):
+        K789.w8a8_gemm(xq, s4, q, s32, out_dtype=torch.float32)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        K789.act_quant_int8(x[:, :12].contiguous())
+    with pytest.raises(ValueError, match="multiple of 16"):
+        K789.w8_gemm(x[:, :24].contiguous(), q[:, :24].contiguous(), s32)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K789.w8a8_gemm(torch.empty(4 * 64 + 1, dtype=torch.int8, device=cuda)[1:].view(4, 64), s4, q, s32)
+    with pytest.raises(ValueError, match="do not fit"):
+        K789.w8_gemm(x, q[:, :48].contiguous(), s32)
+
+
+def _tiny_quant_cfg():
+    return SpatialRGPTConfig(
+        llm=LlamaConfig(vocab_size=64, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+                        num_attention_heads=4, num_key_value_heads=2, eos_token_id=63),
+        vision=SiglipVisionConfig(hidden_size=32, intermediate_size=64, num_hidden_layers=3,
+                                  num_attention_heads=2, image_size=56, patch_size=14),
+        projector=ProjectorConfig(mm_hidden_size=32, hidden_size=64),
+        region=RegionExtractorConfig(mm_hidden_size=32, hidden_size=64, ada_pool_size=4),
+        mask_token_id=60, depth_token_id=61,
+    )
+
+
+def test_tiny_w8a8_generate_runs_k7_to_k9(cuda, monkeypatch):
+    """A tiny W8A8 (llm + vision) region-QA batch on the card: K7-K9
+    launch where the reference's rule sends each projection (a contracting
+    one below 2048 rows: K9; everything else W8A8: K7 once per group of
+    siblings, K8 per projection), and the tokens equal those of the plain
+    route (K7-K9's plain versions on the card, the same K1-K3)."""
+    from spatialrgpt_tpu_torch.ops import layers
+
+    cfg = _tiny_quant_cfg()
+    sb = expand_rows(
+        [np.array([5, IMAGE_TOKEN_INDEX, 60, 61, 8], np.int64), np.array([IMAGE_TOKEN_INDEX, 7], np.int64)],
+        None, max_len=64, tokens_per_image=4, mask_token_id=60, depth_token_id=61, regions_per_image=2, pad_to=12,
+    )
+    rng = np.random.default_rng(4)
+    inputs = VLMInputs.from_spliced(
+        sb, rng.standard_normal((2, 56, 56, 3)), rng.standard_normal((2, 56, 56, 3)),
+        (rng.random((2, 2, 56, 56)) > 0.5).astype(np.float32), np.ones((2, 2), bool),
+        device=cuda, dtype=torch.bfloat16,
+    )
+    plens = torch.as_tensor(sb.segment_ids.sum(axis=1), device=cuda)
+    model = init_random_quantized(cfg, cuda, w8a8=True, seed=0)
+    steps = 4
+    for name in K789.launches:
+        K789.launches[name] = 0
+    fast = generate(model, cfg, inputs, plens, max_new_tokens=steps + 1, eos_token_id=-1, attn_impl="onepass")
+    # tower, 2 layers at 4 x 16 rows: qkv (one K7), out, fc1 W8A8, fc2
+    # contracts (K9); each decoder layer at 24 prefill rows and at 2 decode
+    # rows: qkv (one K7, q on K8, k/v contract: K9), o, gate/up (one K7),
+    # down (K9); lm_head W8A8 at 2 rows
+    tower = 2
+    per_layer = {"act_quant_int8": 3, "w8a8_gemm": 4, "w8_gemm": 3}
+    want = {name: tower * {"act_quant_int8": 3, "w8a8_gemm": 5, "w8_gemm": 1}[name]
+            + (1 + steps) * (2 * per_layer[name] + (name != "w8_gemm")) for name in per_layer}
+    assert K789.launches == want
+    monkeypatch.setattr(layers, "QUANT_KERNELS", False)
+    plain = generate(model, cfg, inputs, plens, max_new_tokens=steps + 1, eos_token_id=-1, attn_impl="onepass")
+    assert K789.launches == want
+    assert fast.tokens.shape == (2, steps + 1) and ((fast.tokens >= 0) & (fast.tokens < 64)).all()
+    assert torch.equal(fast.tokens, plain.tokens)
+    rel = (fast.first_logits - plain.first_logits).norm() / plain.first_logits.norm()
+    assert float(rel) < 0.05
