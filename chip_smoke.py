@@ -20,9 +20,10 @@ Phases, each printed as one JSON line:
    on a 64 x 64 grid, H16 D80, f32 rel-pos bias) and K6 at SAM's and
    Depth-Anything's LayerNorm rows, K7-K9 (the quantized projections) at
    the W8A8 serve's shapes: K7 over the prefill's 20,480 rows, K8 at the
-   prefill's gate and the decode's lm_head, K9 at the decode's down and
-   k/v projections (K7 and K8 must equal their plain versions bit for
-   bit).  K1, K2, K5 and K4's three kernels run
+   prefill's gate and SigLIP's fc1 over the tower's 93,312 rows (ragged N
+   4304 and K 1152; its large form) and at the decode's lm_head and gate
+   (its decode form), K9 at the decode's down and k/v projections (K7 and
+   K8 must equal their plain versions bit for bit).  K1, K2, K5 and K4's three kernels run
    on the TMA + wgmma loops of ``csrc/attention_sm90.cuh`` (K2 and K4's
    forward and dQ with G = 4 query heads x 32 positions per CTA and the
    causal x segment mask built in the kernel; K4 walks only the tiles of
@@ -42,7 +43,7 @@ Phases, each printed as one JSON line:
    around one replay of a CUDA graph of
    many calls where a call is shorter than its launch on the host (K1-K3,
    K6, K7, K9, K8 at decode), around many back-to-back calls for the
-   kernels of milliseconds (K4, K5, K8 at prefill); and ``bound_ms`` /
+   kernels of milliseconds (K4, K5, K8 at prefill and tower rows); and ``bound_ms`` /
    ``bound_by``, the larger of the live work's operations over the peak of
    their type (bf16 989 TFLOP/s, int8 1,979 TOP/s, K7's elementwise f32
    67 TFLOP/s) and its bytes over 3.35 TB/s (causal and segment pairs only
@@ -624,8 +625,13 @@ def phase_kernels(torch):
         (50, 5, "graph"), bound(6 * m_pf * Hd, nbytes(x7) + m_pf * Hd + 4 * m_pf, PEAK_F32_FLOPS),
         ("no single call quantizes rows to int8 with a scale per row", None),
     ))
+    vcfg = lcfg.vision
+    m_tower = SERVE_ROWS * 2 * (vcfg.image_size // vcfg.patch_size) ** 2  # RGB + depth images of 729 patches
     for label, M, N, K, (iters, plain_iters, how) in (("prefill gate", m_pf, Id, Hd, (20, 2, "events")),
-                                                     ("decode lm_head", SERVE_ROWS, Vd, Hd, (20, 2, "graph"))):
+                                                     ("decode lm_head", SERVE_ROWS, Vd, Hd, (20, 2, "graph")),
+                                                     ("decode gate", SERVE_ROWS, Id, Hd, (100, 10, "graph")),
+                                                     ("siglip fc1", m_tower, vcfg.intermediate_size,
+                                                      vcfg.hidden_size, (20, 2, "events"))):
         xq8, q8 = i8(M, K), i8(N, K)
         as8 = torch.rand(M, generator=g, device=dev) * 0.05 + 1e-3
         s8 = scales(N, K)

@@ -10,10 +10,13 @@ weight at every call.
 - K7 ``act_quant_int8`` (``csrc/act_quant.cu``): per-token int8
   quantization of the activations, ``_w8a8_dot``'s prologue.
 - K8 ``w8a8_gemm`` (``csrc/int8_gemm.cu``): int8 x int8 -> int32, then
-  ``f32(acc) * (ascale * scale)``, the f32 bias and one cast.
+  ``f32(acc) * (ascale * scale)``, the f32 bias and one cast.  At most
+  ``DECODE_MAX_M`` rows it runs the decode form (the weight as wgmma's A,
+  k split over a thread-block cluster where the weight has few channel
+  tiles), above it the large form (a persistent TMA + wgmma main loop).
 - K9 ``w8_gemm`` (``csrc/int8_gemm.cu``): bf16 activations x int8 weights
-  converted in registers, f32 sums, then ``* scale``, the f32 bias and
-  one cast.
+  converted to bf16 in registers, f32 sums, then ``* scale``, the f32 bias
+  and one cast; always the decode form (in 64-row tiles past 64 rows).
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
 version only for tensors on the CPU.  ``launches`` counts kernel launches
@@ -36,10 +39,15 @@ launches = {"act_quant_int8": 0, "w8a8_gemm": 0, "w8_gemm": 0}
 # the plain int8 product sums chunks of this many k in f32: each partial sum
 # is an integer of at most 1024 * 127^2 < 2^24, so f32 holds it exactly
 EXACT_K_CHUNK = 1024
-# csrc/int8_gemm.cu::QG_MAX_TILES: the tiles of a k-split product, one
-# zeroed int32 counter each (the kernel leaves them zeroed)
-SPLIT_COUNTERS = 1024
-_counters: dict = {}  # device -> the counters of k-split products on it
+# K8's forms (csrc/int8_gemm.cu::Form): the decode form up to DECODE_MAX_M
+# rows (two 64-row tiles past 64: measured faster than the large form over a
+# decode step's projections at 96 and 128 rows, csrc/int8_gemm.cu's note),
+# the large form above
+FORM_DECODE, FORM_LARGE = 0, 1
+DECODE_MAX_M = 128
+# the decode form's grid: 128-channel tiles in y and 64-row tiles in z, at
+# most 65,535 of each
+DECODE_MAX_N, DECODE_MAX_ROWS = 65535 * 128, 65535 * 64
 
 
 # ---------------------------------------------------------------------------
@@ -147,21 +155,6 @@ def act_quant_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return xq, ascale
 
 
-def _split_buffers(M: int, N: int, K: int, device) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
-    """Workspace and counter pointers of one K8 / K9 launch: a k-split
-    product (decode's few column tiles; ``srgpt_quant_gemm_splits``) sums
-    its splits' partials through ``splits * M * N`` 4-byte entries and a
-    counter per tile; otherwise neither."""
-    splits = _build.lib().srgpt_quant_gemm_splits(M, N, K)
-    if splits <= 1:
-        return None, None
-    counters = _counters.get(device)
-    if counters is None:
-        counters = _counters[device] = torch.zeros(SPLIT_COUNTERS, dtype=torch.int32, device=device)
-    work = torch.empty(splits * M * N, dtype=torch.int32, device=device)
-    return work, counters
-
-
 def _check_gemm(name: str, a: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> Tuple[int, int, int]:
     check_dtype(name, torch.int8, q)
     check_dtype(name, torch.float32, scale)
@@ -176,13 +169,20 @@ def _check_gemm(name: str, a: torch.Tensor, q: torch.Tensor, scale: torch.Tensor
     return M, N, K
 
 
+def _check_decode(name: str, M: int, N: int) -> None:
+    if N > DECODE_MAX_N or M > DECODE_MAX_ROWS:
+        raise ValueError(f"{name}: the decode form takes at most {DECODE_MAX_N} columns and {DECODE_MAX_ROWS} rows, "
+                         f"got N = {N}, M = {M}")
+
+
 def w8a8_gemm(
     xq: torch.Tensor, ascale: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     bias: Optional[torch.Tensor] = None, out_dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
     """K8: int8 xq (M, K) with f32 ascale (M,) against int8 q (N, K) with
     f32 scale (N,) on the card -> bf16 (M, N), bit-equal to
-    ``w8a8_gemm_plain``.  K % 16 == 0."""
+    ``w8a8_gemm_plain``.  K % 16 == 0; the decode form (M <=
+    ``DECODE_MAX_M``) takes N <= ``DECODE_MAX_N``."""
     if xq.device.type == "cpu":
         return w8a8_gemm_plain(xq, ascale, q, scale, bias, out_dtype)
     name = "w8a8_gemm"
@@ -193,14 +193,16 @@ def w8a8_gemm(
     M, N, K = _check_gemm(name, xq, q, scale)
     if ascale.shape != (M,) or not ascale.is_contiguous():
         raise ValueError(f"{name}: ascale must be contiguous of shape ({M},), got {tuple(ascale.shape)}")
+    form = FORM_DECODE if M <= DECODE_MAX_M else FORM_LARGE
+    if form == FORM_DECODE:
+        _check_decode(name, M, N)
     kind = _bias_kind(name, bias, N)
     check_on_cuda(name, xq, ascale, q, scale, *(() if bias is None else (bias,)))
     _check_aligned(name, xq, q)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=xq.device)
-    work, counters = _split_buffers(M, N, K, xq.device)
     err = _build.lib().srgpt_w8a8_gemm(
-        xq.data_ptr(), q.data_ptr(), ascale.data_ptr(), scale.data_ptr(), 0 if bias is None else bias.data_ptr(),
-        kind, out.data_ptr(), M, N, K, _ptr(work), _ptr(counters), _build.stream_ptr(xq),
+        xq.data_ptr(), q.data_ptr(), ascale.data_ptr(), scale.data_ptr(), _ptr(bias), kind, out.data_ptr(),
+        M, N, K, form, _build.stream_ptr(xq),
     )
     _build.check(err, name)
     launches[name] += 1
@@ -210,20 +212,21 @@ def w8a8_gemm(
 def w8_gemm(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K9: bf16 x (M, K) against int8 q (N, K) with f32 scale (N,) on the
     card -> bf16 (M, N), within bf16 rounding of ``w8_gemm_plain`` (the f32
-    sums run in another order).  K % 16 == 0."""
+    sums run in another order, the same in every run).  K % 16 == 0,
+    N <= ``DECODE_MAX_N``, M <= ``DECODE_MAX_ROWS``."""
     if x.device.type == "cpu":
         return w8_gemm_plain(x, q, scale, bias)
     name = "w8_gemm"
     check_dtype(name, torch.bfloat16, x)
     M, N, K = _check_gemm(name, x, q, scale)
+    _check_decode(name, M, N)
     kind = _bias_kind(name, bias, N)
     check_on_cuda(name, x, q, scale, *(() if bias is None else (bias,)))
     _check_aligned(name, x, q)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-    work, counters = _split_buffers(M, N, K, x.device)
     err = _build.lib().srgpt_w8_gemm(
-        x.data_ptr(), q.data_ptr(), scale.data_ptr(), 0 if bias is None else bias.data_ptr(), kind,
-        out.data_ptr(), M, N, K, _ptr(work), _ptr(counters), _build.stream_ptr(x),
+        x.data_ptr(), q.data_ptr(), scale.data_ptr(), _ptr(bias), kind, out.data_ptr(), M, N, K,
+        _build.stream_ptr(x),
     )
     _build.check(err, name)
     launches[name] += 1

@@ -719,42 +719,118 @@ def _int8(rng, *shape, device):
     return torch.tensor(rng.integers(-127, 128, shape), dtype=torch.int8, device=device)
 
 
-@pytest.mark.parametrize("bias", [None, torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("K", [64, 1152, 4304])
-@pytest.mark.parametrize("M", [1, 8, 64, 2048, 20480])
+# rows across K8's form boundary (DECODE_MAX_M = 128), the decode form's
+# widths (8, 16, 32, 64 columns) and its 64-row tiles, the prefill's
+# 2048-row W8A8 gate and its 20,480 rows; K from SigLIP's 1152 and 4304 (a
+# k tail of 80 past 128-wide tiles) to Llama's 14,336 (a k split over a
+# cluster at few channel tiles)
+_QGEMM_M = [1, 8, 9, 63, 64, 65, 96, 129, 2048, 20480]
+_QGEMM_K = [64, 1152, 4304, 14336]
+_BIAS = [None, torch.bfloat16, torch.float32]
+
+
+def _w8a8_case(rng, M, N, K, bias, device):
+    xq, q = _int8(rng, M, K, device=device), _int8(rng, N, K, device=device)
+    ascale = torch.tensor(rng.random(M) * 0.1 + 1e-3, dtype=torch.float32, device=device)
+    scale = torch.tensor(rng.random(N) * 0.01 + 1e-4, dtype=torch.float32, device=device)
+    b = None if bias is None else torch.tensor(rng.standard_normal(N), device=device).to(bias)
+    return xq, ascale, q, scale, b
+
+
+def _w8_case(rng, M, N, K, bias, device):
+    x = _rand(rng, M, K, device=device)
+    q = _int8(rng, N, K, device=device)
+    scale = torch.full((N,), K**-0.5 * 3 / 127, dtype=torch.float32, device=device)
+    b = None if bias is None else _rand(rng, N, device=device).to(bias)
+    return x, q, scale, b
+
+
+def _launched(name, fn, *args):
+    before = K789.launches[name]
+    out = fn(*args)
+    assert K789.launches[name] == before + 1
+    return out
+
+
+@pytest.mark.parametrize("bias", _BIAS)
+@pytest.mark.parametrize("K", _QGEMM_K)
+@pytest.mark.parametrize("M", _QGEMM_M)
 def test_w8a8_kernel_bit_equal(cuda, M, K, bias):
-    """K8 equals its plain version bit for bit over decode, tower and
-    prefill row counts, a K tail (4304 % 64 = 16) and an odd N (ragged
-    last column tile, scalar stores)."""
+    """K8 equals its plain version bit for bit on both forms, over decode,
+    tower and prefill row counts, K tails and an odd N (a ragged last
+    channel tile, scalar stores)."""
     rng = np.random.default_rng(M + K)
     N = 333
-    xq, q = _int8(rng, M, K, device=cuda), _int8(rng, N, K, device=cuda)
-    ascale = torch.tensor(rng.random(M) * 0.1 + 1e-3, dtype=torch.float32, device=cuda)
-    scale = torch.tensor(rng.random(N) * 0.01 + 1e-4, dtype=torch.float32, device=cuda)
-    b = None if bias is None else torch.tensor(rng.standard_normal(N), device=cuda).to(bias)
-    before = K789.launches["w8a8_gemm"]
-    out = K789.w8a8_gemm(xq, ascale, q, scale, b)
-    assert K789.launches["w8a8_gemm"] == before + 1
+    xq, ascale, q, scale, b = _w8a8_case(rng, M, N, K, bias, cuda)
+    out = _launched("w8a8_gemm", K789.w8a8_gemm, xq, ascale, q, scale, b)
     ref = K789.w8a8_gemm_plain(xq, ascale, q, scale, b)
     assert out.dtype == torch.bfloat16 and out.shape == (M, N)
     assert torch.equal(out, ref)
 
 
-@pytest.mark.parametrize("M", [1, 8, 64])
-def test_w8_kernel_within_bound(cuda, M):
-    """K9 at the decode down projection's K = 14,336 (odd N, bf16 bias)
-    within the bf16 bound of its plain version: the f32 sums run in another
-    order."""
+@pytest.mark.parametrize("M", [1, 64, 65, 96, 128, 129, 200])
+@pytest.mark.parametrize("form", ["decode", "large"])
+def test_w8a8_both_forms_around_the_boundary(cuda, monkeypatch, form, M):
+    """K8's decode form (64-row tiles past 64 rows) and its large form, each
+    forced on either side of ``DECODE_MAX_M``, equal the plain version (the
+    form boundary's measurement runs both)."""
+    monkeypatch.setattr(K789, "DECODE_MAX_M", 1 << 30 if form == "decode" else 0)
     rng = np.random.default_rng(M)
-    N, K = 1001, 14336
-    x = _rand(rng, M, K, device=cuda)
-    q = _int8(rng, N, K, device=cuda)
-    scale = torch.full((N,), K**-0.5 * 3 / 127, dtype=torch.float32, device=cuda)
-    b = _rand(rng, N, device=cuda)
-    before = K789.launches["w8_gemm"]
-    out = K789.w8_gemm(x, q, scale, b)
-    assert K789.launches["w8_gemm"] == before + 1
+    xq, ascale, q, scale, b = _w8a8_case(rng, M, 1001, 4304, torch.float32, cuda)
+    out = _launched("w8a8_gemm", K789.w8a8_gemm, xq, ascale, q, scale, b)
+    assert torch.equal(out, K789.w8a8_gemm_plain(xq, ascale, q, scale, b))
+
+
+@pytest.mark.parametrize("bias", _BIAS)
+@pytest.mark.parametrize("K", _QGEMM_K)
+@pytest.mark.parametrize("M", _QGEMM_M)
+def test_w8_kernel_within_bound(cuda, M, K, bias):
+    """K9 within the bf16 bound of its plain version (the f32 sums run in
+    another order) over the same rows and K, an odd N and each bias kind."""
+    rng = np.random.default_rng(M + K)
+    N = 1001
+    x, q, scale, b = _w8_case(rng, M, N, K, bias, cuda)
+    out = _launched("w8_gemm", K789.w8_gemm, x, q, scale, b)
+    assert out.dtype == torch.bfloat16 and out.shape == (M, N)
     _bf16_close(out, K789.w8_gemm_plain(x, q, scale, b))
+
+
+@pytest.mark.parametrize("which", ["w8a8_gemm", "w8_gemm"])
+def test_cluster_split_leaves_nothing_behind(cuda, which):
+    """Decode shapes whose k is split over a cluster (k/v: 8 channel tiles;
+    down: 32): launches back to back, with another input in between, give
+    the same bits each time (no state between launches, a fixed order of
+    K9's f32 sums)."""
+    rng = np.random.default_rng(7)
+    for M, N, K in ((64, 1024, 4096), (64, 4096, 14336), (8, 1024, 4096)):
+        if which == "w8a8_gemm":
+            args = _w8a8_case(rng, M, N, K, None, cuda)
+            other = (torch.flip(args[0], (0,)),) + args[1:]
+        else:
+            args = _w8_case(rng, M, N, K, torch.bfloat16, cuda)
+            other = (-args[0],) + args[1:]
+        fn = getattr(K789, which)
+        first = _launched(which, fn, *args)
+        second = _launched(which, fn, *args)
+        _launched(which, fn, *other)
+        third = _launched(which, fn, *args)
+        assert torch.equal(first, second) and torch.equal(first, third)
+        if which == "w8a8_gemm":
+            assert torch.equal(first, K789.w8a8_gemm_plain(*args))
+        else:
+            _bf16_close(first, K789.w8_gemm_plain(*args))
+
+
+def test_w8a8_persistent_grid_walks_many_tiles(cuda):
+    """The large form's persistent grid (one CTA per SM) walks more tiles
+    than it has CTAs: SigLIP fc1's ragged N = 4304 and K = 1152 at the
+    prefill's 20,480 rows, 160 x 17 tiles of 128 x 256."""
+    M, N, K = 20480, 4304, 1152
+    assert (M // 128) * -(-N // 256) > 2 * torch.cuda.get_device_properties(0).multi_processor_count
+    rng = np.random.default_rng(11)
+    xq, ascale, q, scale, b = _w8a8_case(rng, M, N, K, torch.bfloat16, cuda)
+    out = _launched("w8a8_gemm", K789.w8a8_gemm, xq, ascale, q, scale, b)
+    assert torch.equal(out, K789.w8a8_gemm_plain(xq, ascale, q, scale, b))
 
 
 def test_quant_wrappers_raise_on_what_they_do_not_take(cuda):

@@ -152,6 +152,17 @@ _REFUSALS = {
                        ValueError, "do not fit"),
     "w8_device": (lambda: int8_linear.w8_gemm(_meta(4, 64), _meta(8, 64, dtype=_I8), _meta(8, dtype=_F32)),
                   ValueError, "CUDA device"),
+    # the decode form's grid: 128-channel tiles in y, 64-row tiles in z
+    "w8_rows_past_the_grid": (lambda: int8_linear.w8_gemm(_meta(int8_linear.DECODE_MAX_ROWS + 1, 64),
+                                                          _meta(8, 64, dtype=_I8), _meta(8, dtype=_F32)),
+                              ValueError, "decode form"),
+    "w8_columns_past_the_grid": (lambda: int8_linear.w8_gemm(_meta(4, 64), _meta(int8_linear.DECODE_MAX_N + 1, 64, dtype=_I8),
+                                                             _meta(int8_linear.DECODE_MAX_N + 1, dtype=_F32)),
+                                 ValueError, "decode form"),
+    "w8a8_decode_columns_past_the_grid": (
+        lambda: int8_linear.w8a8_gemm(_meta(4, 64, dtype=_I8), _meta(4, dtype=_F32),
+                                      _meta(int8_linear.DECODE_MAX_N + 1, 64, dtype=_I8),
+                                      _meta(int8_linear.DECODE_MAX_N + 1, dtype=_F32)), ValueError, "decode form"),
 }
 
 
@@ -175,6 +186,12 @@ _LINEAR_CASES = {
     "w8a8_contracting_2048_rows": ((2, 1024, 48), 48, 32, 8, True, True, True),
     "int8_weight_only": ((4, 3, 32), 32, 48, 8, False, True, False),
     "int4_odd_din": ((3, 33), 33, 20, 4, False, True, False),
+    # the main path's ragged widths, at the K tails the kernels' 128-wide k
+    # tiles meet (4304 = 33 x 128 + 80): SigLIP's fc2 contracting at 2048
+    # rows, its fc1 expanding at 8 rows, fc2 at 8 rows (weight-only)
+    "w8a8_din_4304_contracting_2048_rows": ((2048, 4304), 4304, 24, 8, True, True, True),
+    "w8a8_din_1152_to_4304_8_rows": ((8, 1152), 1152, 4304, 8, True, True, True),
+    "w8a8_din_4304_to_1152_8_rows_weight_only": ((8, 4304), 4304, 1152, 8, True, True, False),
 }
 
 
