@@ -65,6 +65,20 @@ Phases, each printed as one JSON line:
    equal to the same run on K7-K9's plain versions, and the attention
    kernels at 64 rows (``phase_serve_w8a8`` says why the plain route is
    held in two halves).
+   engine -- the continuous-batching ``ServingEngine``: (a) on phase
+   main's model, 16 requests through 8 slots in two waves of one
+   admission each, every wave's greedy tokens equal to ``generate`` on its
+   rows with the int8 cache (K3) and with the bf16 cache, the int8 run's
+   first-token logits against the engine on the plain route; (b)
+   bench_engine.py's configuration on serve_w8a8's W8A8 model: 32 slots,
+   64 requests of 48-127 text tokens in the 384 bucket, 64 greedy tokens,
+   windows of 8, admission width 8, all submitted at once after a warm-up;
+   every request's 64 tokens, the launch counts of K1-K3 and K7-K9 worked
+   out from the admissions and windows that ran (an admission of n
+   requests prefills n x 384 rows: W8A8 throughout from n = 8, K9 for the
+   contracting projections below), the cache's and the run's peak GB, and
+   bench_engine.py's figures (tokens/s, wall, latency p50 / p95, scheduler
+   syncs).
 6. train   -- the stage-1 align step at the full width of llama3-8b and
    SigLIP-so400m (frozen decoder and tower, tuned projector and region
    extractor, lr 1e-3, remat, chunked CE over 1024 positions,
@@ -92,7 +106,8 @@ benchmark.  Then the ``kernels`` line and, last, ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero before that line; so does a machine
 without a CUDA card, and a directory without the port's package.
 ``--profile DIR`` also profiles the W8A8 serve's first token and its
-whole ``generate``, one align step and one demo pipeline run with
+whole ``generate``, one wave of the engine's phase (b) (32 requests
+through the 32 slots), one align step and one demo pipeline run with
 ``torch.profiler`` and writes their operator tables to DIR.
 """
 
@@ -120,6 +135,10 @@ N_REGIONS = 2
 PROMPT_TEXT_TOKENS = 96
 PAD_BUCKET = 320
 MAX_NEW = 32
+# the engine phase: (b) is bench_engine.py's default configuration
+# (bench_engine.py:31-38); (a) takes its windows of 8 and admission width 8
+ENGINE_SLOTS, ENGINE_REQS, ENGINE_BUCKET, ENGINE_MAX_NEW, ENGINE_MULTI, ENGINE_ADMIT = 32, 64, 384, 64, 8, 8
+ENGINE_TEXT_TOKENS = (48, 128)  # rng.integers' range of text tokens per request
 # relative L2 distance allowed between the logits of the kernel path and of
 # the plain path (first token, and last of the 32 steps): both run bf16
 # through 26 ViT and 32 decoder layers, and each of the ~60 layers may round
@@ -746,15 +765,13 @@ def phase_grads(torch):
         check(present and ratio <= 1.0, f"{name}: gradients missing or off ({ratio} x the bound)")
 
 
-def build_batch(torch, cfg, rng, n_rows: int = N_ROWS):
-    """bench.py::build_batch for the port: ``n_rows`` rows of bos + 8 text
-    tokens + the image + 2 x (<mask>, <depth>) + the 96-token question,
-    padded to the 320 bucket; random pixels, depths and region masks at the
-    tower resolution, drawn as bench.py draws them."""
+def draw_rows(cfg, rng, n_rows: int):
+    """bench.py::build_batch's draws: ``n_rows`` prompts of bos + 8 text
+    tokens + the image + 2 x (<mask>, <depth>) + the 96-token question, then
+    random pixels, depths and region masks at the tower resolution."""
     import numpy as np
 
-    from spatialrgpt_tpu_torch import IMAGE_TOKEN_INDEX, NUM_TOKENS_PER_IMAGE, expand_rows
-    from spatialrgpt_tpu_torch.models.vlm import VLMInputs
+    from spatialrgpt_tpu_torch import IMAGE_TOKEN_INDEX
 
     rows = []
     for _ in range(n_rows):
@@ -764,21 +781,40 @@ def build_batch(torch, cfg, rng, n_rows: int = N_ROWS):
             + list(rng.integers(10, 1000, PROMPT_TEXT_TOKENS))
         )
         rows.append(np.asarray(ids, np.int64))
-    sb = expand_rows(
-        rows, None, max_len=cfg.model_max_length, tokens_per_image=NUM_TOKENS_PER_IMAGE,
-        mask_token_id=cfg.mask_token_id, depth_token_id=cfg.depth_token_id,
-        regions_per_image=N_REGIONS, pad_to=PAD_BUCKET,
-    )
     size = cfg.vision.image_size
-    inputs = VLMInputs.from_spliced(
-        sb,
+    pixels = (
         rng.standard_normal((n_rows, size, size, 3)).astype(np.float32),
         rng.standard_normal((n_rows, size, size, 3)).astype(np.float32),
         (rng.random((n_rows, N_REGIONS, size, size)) > 0.5).astype(np.float32),
         np.ones((n_rows, N_REGIONS), bool),
-        device=DEVICE, dtype=torch.bfloat16,
     )
+    return rows, pixels
+
+
+def splice(torch, cfg, rows, pixels, bucket: int = PAD_BUCKET, host_index_fields: bool = False):
+    """Prompts spliced and padded to ``bucket`` with their pixels on the
+    card in bf16: (VLMInputs, prompt lengths).  With ``host_index_fields``
+    the token and index fields stay numpy arrays on the host, as a queued
+    engine request holds them (bench_engine.py::make_request)."""
+    from spatialrgpt_tpu_torch import NUM_TOKENS_PER_IMAGE, expand_rows
+    from spatialrgpt_tpu_torch.models.vlm import VLMInputs
+
+    sb = expand_rows(
+        rows, None, max_len=cfg.model_max_length, tokens_per_image=NUM_TOKENS_PER_IMAGE,
+        mask_token_id=cfg.mask_token_id, depth_token_id=cfg.depth_token_id,
+        regions_per_image=N_REGIONS, pad_to=bucket,
+    )
+    inputs = VLMInputs.from_spliced(sb, *pixels, device=DEVICE, dtype=torch.bfloat16)
+    if host_index_fields:
+        inputs = inputs._replace(**{f: getattr(sb, f) for f in sb.__dataclass_fields__ if f != "labels"},
+                                 labels=None, mask_valid=pixels[3])
     return inputs, torch.as_tensor(sb.segment_ids.sum(axis=1), device=DEVICE)
+
+
+def build_batch(torch, cfg, rng, n_rows: int = N_ROWS):
+    """bench.py::build_batch for the port: ``draw_rows`` padded to the 320
+    bucket, pixels on the card."""
+    return splice(torch, cfg, *draw_rows(cfg, rng, n_rows))
 
 
 def reset_counts():
@@ -814,24 +850,36 @@ def read_counts() -> dict:
 NO_QUANT = {"act_quant_int8": 0, "w8a8_gemm": 0, "w8_gemm": 0}
 
 
+def add_counts(*parts) -> dict:
+    return {k: sum(p[k] for p in parts) for k in parts[0]}
+
+
+def times(n: int, part: dict) -> dict:
+    return {k: n * v for k, v in part.items()}
+
+
 def quant_expected_counts(cfg, rows: int, bucket: int, max_new: int) -> dict:
     """K7-K9 launches of one W8A8 ``generate`` (llm and vision tower
-    quantized) from the config, by the reference's per-call-site rule
-    (spatialrgpt_tpu/ops/layers.py:114-120): a weight takes int8
-    activations when it expands (in <= out) or at 2048 rows and more, else
-    the int8 weight-only product (K9).  Sibling projections that read one
-    x (q/k/v; gate/up) quantize it once (K7)."""
+    quantized): the prefill of ``rows`` rows, then ``max_new - 1`` decode
+    steps of ``rows`` rows (``quant_phase_counts``)."""
+    prefill, step = quant_phase_counts(cfg, rows, bucket, rows)
+    return add_counts(prefill, times(max_new - 1, step))
+
+
+def quant_phase_counts(cfg, rows: int, bucket: int, decode_rows: int) -> tuple:
+    """(K7-K9 launches of the prefill of ``rows`` rows of ``bucket``
+    positions with their tower and lm_head, of one decode step of
+    ``decode_rows`` rows), from the config, by the reference's
+    per-call-site rule (spatialrgpt_tpu/ops/layers.py:114-120): a weight
+    takes int8 activations when it expands (in <= out) or at 2048 rows and
+    more, else the int8 weight-only product (K9).  Sibling projections that
+    read one x (q/k/v; gate/up) quantize it once (K7)."""
 
     def group(m: int, *shapes) -> dict:
         a8 = [din <= dout or m >= 2048 for din, dout in shapes]
         return {"act_quant_int8": int(any(a8)), "w8a8_gemm": sum(a8), "w8_gemm": len(a8) - sum(a8)}
 
-    def add(*parts) -> dict:
-        return {k: sum(p[k] for p in parts) for k in NO_QUANT}
-
-    def times(n: int, part: dict) -> dict:
-        return {k: n * v for k, v in part.items()}
-
+    add = add_counts
     v, lc = cfg.vision, cfg.llm
     C, Iv = v.hidden_size, v.intermediate_size
     tower_rows = 2 * rows * (v.image_size // v.patch_size) ** 2  # [images; depths]
@@ -848,9 +896,10 @@ def quant_expected_counts(cfg, rows: int, bucket: int, max_new: int) -> dict:
                    group(m, (H, I), (H, I)), group(m, (I, H)))
 
     lm_head = group(rows, (H, vocab))  # the last position of every row
-    step = add(times(lc.num_hidden_layers, decoder_layer(rows)), lm_head)
-    return add(times(tower_layers, tower_layer(tower_rows)), times(lc.num_hidden_layers, decoder_layer(rows * bucket)),
-               lm_head, times(max_new - 1, step))
+    step = add(times(lc.num_hidden_layers, decoder_layer(decode_rows)), group(decode_rows, (H, vocab)))
+    prefill = add(times(tower_layers, tower_layer(tower_rows)), times(lc.num_hidden_layers, decoder_layer(rows * bucket)),
+                  lm_head)
+    return prefill, step
 
 
 @contextlib.contextmanager
@@ -879,7 +928,7 @@ def serve_runner(torch, cfg, model, n_rows: int):
 
     def run(max_new, impl="onepass"):
         out = generate(model, cfg, inputs, plens, max_new_tokens=max_new, temperature=0.0,
-                       eos_token_id=-1, attn_impl=impl)
+                       eos_token_id=-1, attn_impl=impl, kv_quant=True)  # bench.py's SRGPT_BENCH_KV_INT8=1
         torch.cuda.synchronize()
         return out
 
@@ -1085,6 +1134,234 @@ def phase_serve_w8a8(torch, nvidia_smi: str, profile_dir=None) -> dict:
           "smoke_figures_not_a_benchmark": {**figures, "init_s": init_s, "card": nvidia_smi},
           "first_tokens_row0": res.tokens[0, :8].tolist()})
     check(all(checks.values()), f"serve_w8a8 checks failed: {checks}")
+    return counts
+
+
+def engine_request(torch, cfg, rng, n_text: int):
+    """bench_engine.py::make_request for the port: bos + the image + 2 x
+    (<mask>, <depth>) + ``n_text`` text tokens padded to the 384 bucket,
+    pixels drawn as it draws them and staged on the card in bf16, the
+    token and index fields on the host.  Returns (inputs, prompt length)."""
+    import numpy as np
+
+    from spatialrgpt_tpu_torch import IMAGE_TOKEN_INDEX
+
+    ids = [1, IMAGE_TOKEN_INDEX] + [cfg.mask_token_id, cfg.depth_token_id] * N_REGIONS
+    ids += list(rng.integers(10, 1000, n_text))
+    size = cfg.vision.image_size
+    pixels = (rng.standard_normal((1, size, size, 3)).astype(np.float32),
+              rng.standard_normal((1, size, size, 3)).astype(np.float32),
+              (rng.random((1, N_REGIONS, size, size)) > 0.5).astype(np.float32), np.ones((1, N_REGIONS), bool))
+    inputs, plens = splice(torch, cfg, [np.asarray(ids, np.int64)], pixels, ENGINE_BUCKET, host_index_fields=True)
+    return inputs, int(plens[0])
+
+
+def record_engine(eng) -> dict:
+    """Wrap an engine's admission prefill and decode window to record each
+    admission's width and first-token logits and each window's steps."""
+    log = {"admissions": [], "windows": [], "first_logits": []}
+    prefill, window = eng._prefill_batch, eng._decode_window
+
+    def prefill_recorded(inputs, *args):
+        kv, toks, logits = prefill(inputs, *args)
+        log["admissions"].append(int(inputs.input_ids.shape[0]))
+        log["first_logits"].append(logits)
+        return kv, toks, logits
+
+    def window_recorded(k, *args):
+        log["windows"].append(k)
+        return window(k, *args)
+
+    eng._prefill_batch, eng._decode_window = prefill_recorded, window_recorded
+    return log
+
+
+def engine_counts(cfg, log: dict, slots: int, bucket: int, quantized: bool, kv_quant: bool = True) -> dict:
+    """The launches of an engine run from the admissions and windows it ran:
+    K1 per tower layer and K2 per decoder layer at each admission, K3 per
+    decoder layer and decode step, K7-K9 per admission prefill (its width x
+    bucket rows) and per decode step of all the slots."""
+    L, T = cfg.llm.num_hidden_layers, cfg.vision.num_hidden_layers + 1 + cfg.vision.select_layer
+    n_adm, steps = len(log["admissions"]), sum(log["windows"])
+    quant = NO_QUANT
+    if quantized:
+        step = quant_phase_counts(cfg, 1, bucket, slots)[1]
+        prefills = [quant_phase_counts(cfg, n, bucket, slots)[0] for n in log["admissions"]]
+        quant = add_counts(*prefills, times(steps, step))
+    return {"vit_attention": T * n_adm, "onepass_attention": L * n_adm,
+            "decode_attention_int8_flat": L * steps if kv_quant else 0,
+            "flash_attention_fwd": 0, "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
+            "grid_bias_attention": 0, "fused_layer_norm": 0, **quant}
+
+
+def engine_vs_lockstep(torch, cfg) -> dict:
+    """(a) The engine against lockstep ``generate`` on phase main's model
+    (bf16 weights, seed 0): 16 requests, phase main's rows of seeds 0 and 1,
+    through N_ROWS slots (bucket 320, MAX_NEW tokens, windows of 8,
+    admission width 8), all submitted at once: each wave of 8 is one
+    admission and decodes in lockstep, the second in recycled slots.  Each
+    wave's greedy tokens must equal ``generate`` on its 8 rows with the same
+    kernels and capacity, with the int8 cache (K3) and with the bf16 cache
+    (plain decode attention); the int8 run's first-token logits must lie
+    within LOGITS_REL_BOUND of the same engine on K1-K3's plain versions."""
+    import numpy as np
+
+    from spatialrgpt_tpu_torch.serving.engine import ServingEngine
+    from spatialrgpt_tpu_torch.serving.generate import generate
+    from spatialrgpt_tpu_torch.utils.weights import init_random
+
+    model = init_random(cfg, torch.device(DEVICE), torch.bfloat16, seed=0)
+    waves = [draw_rows(cfg, np.random.default_rng(seed), N_ROWS) for seed in (0, 1)]
+    requests = [splice(torch, cfg, [rows[i]], tuple(a[i : i + 1] for a in pixels), host_index_fields=True)
+                for rows, pixels in waves for i in range(N_ROWS)]
+
+    def engine_run(kv_quant: bool, impl: str):
+        eng = ServingEngine(model, cfg, num_slots=N_ROWS, prompt_bucket=PAD_BUCKET, max_new_tokens=MAX_NEW,
+                            attn_impl=impl, kv_quant=kv_quant, admit_width=N_ROWS)
+        log = record_engine(eng)
+        reset_counts()
+        ids = [eng.submit(x, int(p[0]), max_new_tokens=MAX_NEW) for x, p in requests]
+        done = {r.request_id: r.tokens for r in eng.run_until_drained(num_steps=ENGINE_MULTI)}
+        torch.cuda.synchronize()
+        counts = read_counts()
+        return [done.get(i) for i in ids], log, counts, eng.capacity
+
+    out, checks, logs = {}, {}, {}
+    for kv_quant in (True, False):
+        toks, log, counts, capacity = engine_run(kv_quant, "onepass")
+        logs[kv_quant] = log
+        want = engine_counts(cfg, log, N_ROWS, PAD_BUCKET, quantized=False, kv_quant=kv_quant)
+        cache = "int8" if kv_quant else "bf16"
+        equal_rows = 0
+        for w, (rows, pixels) in enumerate(waves):
+            inputs, plens = splice(torch, cfg, rows, pixels)
+            ref = generate(model, cfg, inputs, plens, max_new_tokens=MAX_NEW, eos_token_id=-1, kv_quant=kv_quant)
+            ref_toks = ref.tokens.tolist()
+            equal_rows += sum(toks[w * N_ROWS + b] == ref_toks[b] for b in range(N_ROWS))
+        checks[f"{cache}_tokens_equal_lockstep"] = equal_rows == 2 * N_ROWS
+        checks[f"{cache}_one_admission_per_wave"] = log["admissions"] == [N_ROWS, N_ROWS]
+        checks[f"{cache}_launch_counts"] = counts == want
+        out[cache] = {"rows_equal_to_lockstep": equal_rows, "admissions": log["admissions"],
+                      "windows": log["windows"], "capacity": capacity, "launches": counts,
+                      "launches_expected": want, "first_tokens_request0": toks[0][:8] if toks[0] else None}
+    _, plain_log, _, _ = engine_run(True, "xla")
+    first = torch.cat(logs[True]["first_logits"])
+    rel = rel_l2(first, torch.cat(plain_log["first_logits"]))
+    checks["int8_first_logits_vs_plain"] = rel <= LOGITS_REL_BOUND
+    out["int8_first_logits_rel_l2_vs_plain"] = rel
+    out["int8_first_logits_finite"] = bool(torch.isfinite(first).all())
+    checks["int8_first_logits_finite"] = out["int8_first_logits_finite"]
+    del model
+    torch.cuda.empty_cache()
+    return checks, out
+
+
+def engine_bench(torch, cfg, nvidia_smi: str, profile_dir=None) -> tuple:
+    """(b) bench_engine.py's configuration on the main path's model:
+    llama3-8b W8A8 llm and tower (``init_random_quantized``, as
+    serve_w8a8), int8 KV, ``attn_impl="onepass"``; 32 slots, 64 requests
+    of ``make_request``'s recipe (48-127 text tokens, ``default_rng(0)``),
+    bucket 384, 64 greedy tokens, windows of 8, admission width 8, inputs
+    staged on the card; one warm-up pass (bench_engine.py's: 15 requests of
+    4 tokens, which admits at widths 8, 4, 2 and 1), then all 64 submitted
+    at t0 and ``step(8)`` until they are done."""
+    import numpy as np
+
+    from spatialrgpt_tpu_torch.serving.engine import ServingEngine
+    from spatialrgpt_tpu_torch.utils.weights import init_random_quantized
+
+    t0 = time.perf_counter()
+    model = init_random_quantized(cfg, torch.device(DEVICE), w8a8=True, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    reqs = [engine_request(torch, cfg, rng, int(rng.integers(*ENGINE_TEXT_TOKENS))) for _ in range(ENGINE_REQS)]
+    eng = ServingEngine(model, cfg, num_slots=ENGINE_SLOTS, prompt_bucket=ENGINE_BUCKET, max_new_tokens=ENGINE_MAX_NEW,
+                        kv_quant=True, admit_width=ENGINE_ADMIT, attn_impl="onepass")
+    warm_reqs = reqs[: min(15, ENGINE_REQS)]
+    for i, (x, plen) in enumerate(warm_reqs):
+        eng.submit(x, plen, max_new_tokens=4, seed=i)
+    warm = eng.run_until_drained(num_steps=ENGINE_MULTI)
+    torch.cuda.synchronize()
+    log = record_engine(eng)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    submit_t, finish_t = {}, {}
+    for i, (x, plen) in enumerate(reqs):
+        submit_t[eng.submit(x, plen, max_new_tokens=ENGINE_MAX_NEW, seed=i)] = time.perf_counter()
+    done, n_syncs = [], 0
+    while len(done) < ENGINE_REQS and n_syncs < 10 * ENGINE_REQS:
+        fin = eng.step(ENGINE_MULTI)
+        n_syncs += 1
+        now = time.perf_counter()
+        for r in fin:
+            finish_t[r.request_id] = now
+        done.extend(fin)
+        if not eng.queue and not eng.active.any():
+            break
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cache_gb = sum(t.numel() * t.element_size() for t in eng.cache) / 1e9
+    total_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    want = engine_counts(cfg, log, ENGINE_SLOTS, ENGINE_BUCKET, quantized=True)
+    vocab = cfg.llm.vocab_size + cfg.num_extra_tokens
+    lat = sorted(finish_t[r.request_id] - submit_t[r.request_id] for r in done)
+    total_tokens = sum(len(r.tokens) for r in done)
+    checks = {
+        "warm_up_drained": len(warm) == len(warm_reqs) and all(len(r.tokens) == 4 for r in warm),
+        "all_requests_64_tokens": len(done) == ENGINE_REQS and all(len(r.tokens) == ENGINE_MAX_NEW for r in done),
+        "tokens_in_vocab": all(0 <= t < vocab for r in done for t in r.tokens),
+        "launch_counts": counts == want,
+        "cache_fits": peak_gb < total_gb,
+    }
+    out = {
+        "model": "llama3-8b (32 layers, full width) + siglip-so400m (26 of 27 layers), W8A8 llm and vision tower, "
+                 "int8 KV, random from seed 0",
+        "config": {"slots": ENGINE_SLOTS, "requests": ENGINE_REQS, "prompt_bucket": ENGINE_BUCKET,
+                   "max_new_tokens": ENGINE_MAX_NEW, "num_steps": ENGINE_MULTI, "admit_width": ENGINE_ADMIT,
+                   "text_tokens": [ENGINE_TEXT_TOKENS[0], ENGINE_TEXT_TOKENS[1] - 1], "capacity": eng.capacity,
+                   "greedy": True, "prestaged_inputs": True},
+        "admissions": log["admissions"], "windows": log["windows"], "launches": counts, "launches_expected": want,
+        "cache_gb": cache_gb, "peak_mem_gb": peak_gb, "device_mem_gb": total_gb,
+        "smoke_figures_not_a_benchmark": {
+            "tok_s": total_tokens / wall, "wall_s": wall, "latency_p50_s": lat[len(lat) // 2] if lat else None,
+            "latency_p95_s": lat[int(len(lat) * 0.95)] if lat else None,
+            "n_scheduler_syncs": n_syncs + len(log["admissions"]), "total_tokens": total_tokens,
+            "init_s": init_s, "card": nvidia_smi,
+        },
+    }
+    if profile_dir:  # one wave: the first 32 requests through the 32 slots
+
+        def wave():
+            for i, (x, plen) in enumerate(reqs[:ENGINE_SLOTS]):
+                eng.submit(x, plen, max_new_tokens=ENGINE_MAX_NEW, seed=i)
+            eng.run_until_drained(num_steps=ENGINE_MULTI)
+            torch.cuda.synchronize()
+
+        profile_run(torch, wave, profile_dir, "engine_w8a8_wave")
+    return checks, out, counts
+
+
+def phase_engine(torch, nvidia_smi: str, profile_dir=None) -> dict:
+    """The continuous-batching ``ServingEngine`` at the full width of
+    llama3-8b: (a) ``engine_vs_lockstep``, (b) ``engine_bench``; eos at -1,
+    so every request runs its full budget.  Returns (b)'s launch counts."""
+    import dataclasses
+
+    cfg = llama3_8b_cfg()
+    cfg = cfg.replace(llm=dataclasses.replace(cfg.llm, eos_token_id=-1))
+    checks_a, out_a = engine_vs_lockstep(torch, cfg)
+    checks_b, out_b, counts = engine_bench(torch, cfg, nvidia_smi, profile_dir)
+    checks = {**{f"a_{k}": v for k, v in checks_a.items()}, **{f"b_{k}": v for k, v in checks_b.items()}}
+    emit({"phase": "engine", "ok": all(checks.values()), "checks": checks,
+          "a_engine_vs_lockstep": {"model": "llama3-8b + siglip-so400m, bf16 weights from seed 0 (phase main's)",
+                                   "slots": N_ROWS, "requests": 2 * N_ROWS, "prompt_bucket": PAD_BUCKET,
+                                   "max_new_tokens": MAX_NEW, "num_steps": ENGINE_MULTI, **out_a},
+          "b_bench_engine_config": out_b})
+    check(all(checks.values()), f"engine checks failed: {checks}")
     return counts
 
 
@@ -1443,8 +1720,8 @@ def profile_run(torch, fn, out_dir, name):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--profile", metavar="DIR", help="also profile a W8A8 serve TTFT and generate run, one align "
-                        "step and one demo pipeline run; write their tables to DIR")
+    parser.add_argument("--profile", metavar="DIR", help="also profile a W8A8 serve TTFT and generate run, one wave "
+                        "of the W8A8 engine, one align step and one demo pipeline run; write their tables to DIR")
     args = parser.parse_args()
     if not os.path.isdir(os.path.join(ROOT, "spatialrgpt_tpu_torch")):
         print("chip_smoke.py: run it from a checkout of the repository (spatialrgpt_tpu_torch/ is missing)",
@@ -1468,6 +1745,9 @@ def main() -> int:
         phase = "serve_w8a8"
         serve_w8a8 = phase_serve_w8a8(torch, smi, args.profile)
         torch.cuda.empty_cache()
+        phase = "engine"
+        engine = phase_engine(torch, smi, args.profile)
+        torch.cuda.empty_cache()
         phase = "train"
         train = phase_train(torch, args.profile)
         torch.cuda.empty_cache()
@@ -1478,8 +1758,8 @@ def main() -> int:
         emit({"phase": phase, "ok": False, "error": f"{type(e).__name__}: {e}"})
         return 1
     for row in rows:
-        by_path = {"serve": serve[row["name"]], "serve_w8a8": serve_w8a8[row["name"]], "train": train[row["name"]],
-                   "demo": demo[row["name"]]}
+        by_path = {"serve": serve[row["name"]], "serve_w8a8": serve_w8a8[row["name"]], "engine": engine[row["name"]],
+                   "train": train[row["name"]], "demo": demo[row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
     print(json.dumps({"kernels": rows}), flush=True)

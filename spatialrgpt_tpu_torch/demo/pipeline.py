@@ -136,7 +136,7 @@ def stage_vlm(model: SpatialRGPT, cfg: SpatialRGPTConfig, spliced, px, dx, mx, m
     )
     plens = torch.as_tensor(spliced.segment_ids.sum(axis=1), device=px.device)
     return generate(model, cfg, inputs, plens, max_new_tokens=max_new_tokens, temperature=0.0, eos_token_id=-1,
-                    attn_impl=attn_impl)
+                    attn_impl=attn_impl, kv_quant=True)  # bench_demo.py:326
 
 
 @dataclass

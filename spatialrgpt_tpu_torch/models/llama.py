@@ -12,13 +12,19 @@ quantized model (``ops/layers.py::quantize_model``,
 place of the projections and ``lm_head``; the blocks hand each module to
 ``linear`` as it is.
 
+``KVCache`` is the bf16 (activation-dtype) cache of the reference
+(``llama.py:135-147``), its layers stacked: k and v (L, B, C, Hk, D).
+``forward(cache=...)`` runs the new tokens against it, written in place at
+``[length, length + S)``: the reference's incremental prefill, which the
+serving engine's prefix path uses.
+
 MoE, the sliding window, the Gemma knobs and MPT are not ported yet: a
 config that asks for them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,7 +32,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from spatialrgpt_tpu_torch.config import LlamaConfig
-from spatialrgpt_tpu_torch.ops.attention import causal_attention
+from spatialrgpt_tpu_torch.ops.attention import causal_attention, decode_attention
 from spatialrgpt_tpu_torch.ops.layers import linear, qkv_proj, quantized_input, rms_norm, silu
 from spatialrgpt_tpu_torch.ops.quant import quantize_kv
 
@@ -92,6 +98,26 @@ class LlamaForCausalLM(nn.Module):
 
 
 # ---------------------------------------------------------------------------
+# KV cache
+# ---------------------------------------------------------------------------
+
+
+class KVCache(NamedTuple):
+    """Static-shape KV cache in the activation dtype, all layers stacked,
+    and the fill length its next tokens are written at."""
+
+    k: torch.Tensor  # (L, B, C, Hk, D)
+    v: torch.Tensor  # (L, B, C, Hk, D)
+    length: int
+
+    @staticmethod
+    def init(cfg: LlamaConfig, batch: int, capacity: int, dtype=torch.bfloat16, device=None) -> "KVCache":
+        shape = (cfg.num_hidden_layers, batch, capacity, cfg.num_key_value_heads, cfg.head_dim)
+        zeros = torch.zeros(shape, dtype=dtype, device=device)
+        return KVCache(zeros, torch.zeros_like(zeros), 0)
+
+
+# ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------
 
@@ -138,14 +164,24 @@ def attention_block(
     position_ids: torch.Tensor,
     segment_ids: Optional[torch.Tensor],
     impl: str,
+    cache: Optional[KVCache] = None,
+    layer_idx: int = 0,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Prefill attention over the whole (padded) prompt; returns the output
-    and this layer's rotated K and V (B, S, Hk, D)."""
+    and this layer's rotated K and V (B, S, Hk, D).  With ``cache`` the
+    new K/V go into layer ``layer_idx`` of the cache at ``[length, length
+    + S)`` and the tokens attend to the cache (``decode_attention``)."""
     B, S, _ = x.shape
     Hq, Hk, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     q, k, v = qkv_proj(x, attn, Hq, Hk, D)
     q, k = apply_rope(q, k, position_ids, cfg)
-    out = causal_attention(q, k, v, segment_ids=segment_ids, impl=impl)
+    if cache is not None:
+        end = cache.length + S
+        cache.k[layer_idx, :, cache.length : end] = k.to(cache.k.dtype)
+        cache.v[layer_idx, :, cache.length : end] = v.to(cache.v.dtype)
+        out = decode_attention(q, cache.k[layer_idx], cache.v[layer_idx], end)
+    else:
+        out = causal_attention(q, k, v, segment_ids=segment_ids, impl=impl)
     return linear(out.reshape(B, S, Hq * D), attn.o_proj), (k, v)
 
 
@@ -167,10 +203,12 @@ def decoder_layer(
     position_ids: torch.Tensor,
     segment_ids: Optional[torch.Tensor],
     attn_impl: str,
+    cache: Optional[KVCache] = None,
+    layer_idx: int = 0,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """One pre-norm decoder layer; returns (x, this layer's (k, v))."""
     h = norm(x, layer.input_layernorm)
-    attn_out, kv = attention_block(h, layer.self_attn, cfg, position_ids, segment_ids, attn_impl)
+    attn_out, kv = attention_block(h, layer.self_attn, cfg, position_ids, segment_ids, attn_impl, cache, layer_idx)
     x = x + attn_out
     return x + mlp_block(norm(x, layer.post_attention_layernorm), layer.mlp), kv
 
@@ -186,12 +224,17 @@ def forward(
     inputs_embeds: torch.Tensor,  # (B, S, H)
     position_ids: torch.Tensor,  # (B, S)
     segment_ids: Optional[torch.Tensor] = None,  # (B, S); 0 = padding
+    cache: Optional[KVCache] = None,
     attn_impl: str = "xla",
     collect_kv: bool = False,
     kv_quant: bool = False,
     remat: bool = False,
-) -> Tuple[torch.Tensor, Optional[List]]:
+):
     """Run the decoder stack; returns (final-normed hidden states, kv).
+
+    With ``cache`` the tokens are written into it in place and attend to
+    it (segment ids and ``attn_impl`` are not used); the second value is
+    then the cache with its length advanced by S.
 
     With ``collect_kv`` the per-layer K/V of this pass come back as a list
     of ``(k, v)``; with ``kv_quant`` too, each is quantized per layer as it
@@ -205,6 +248,10 @@ def forward(
     therefore launches twice per layer in a training step.
     """
     x = inputs_embeds
+    if cache is not None:
+        for li, layer in enumerate(model.model.layers):
+            x, _ = decoder_layer(x, layer, cfg, position_ids, None, attn_impl, cache, li)
+        return norm(x, model.model.norm), cache._replace(length=cache.length + x.shape[1])
     kv = [] if collect_kv else None
     for layer in model.model.layers:
         args = (layer, cfg, position_ids, segment_ids, attn_impl)

@@ -11,11 +11,17 @@ elsewhere.  ``impl="pallas"`` (the training path, the name
 differentiable) on CUDA tensors and K4's plain versions on CPU tensors.
 Any other ``impl`` raises.  ``window`` (key j is live for query i only if
 i - j < window) goes to every route, as in the reference.
+
+``decode_attention`` is the attention of new tokens against a KV cache in
+the activation dtype (``models/llama.py::forward(cache=...)``, the
+engine's prefix path; with one length per row, the decode step of
+``serving/generate.py`` and of the engine): plain PyTorch, as the
+reference runs it in XLA.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -38,3 +44,33 @@ def causal_attention(
     if impl == "xla":
         return onepass_attention_plain(q, k, v, segment_ids=segment_ids, window=window)
     raise ValueError(f"unknown attention impl: {impl}")
+
+
+NEG_INF = -1e30
+
+
+def decode_attention(
+    q: torch.Tensor,  # (B, S, Hq, D): S new tokens, usually 1
+    k_cache: torch.Tensor,  # (B, C, Hk, D), already holding the new tokens' keys
+    v_cache: torch.Tensor,  # (B, C, Hk, D)
+    kv_length: Union[int, torch.Tensor],  # live cache length, the new tokens included: () or (B,)
+) -> torch.Tensor:
+    """New token i (global position ``kv_length - S + i``, per row where
+    ``kv_length`` is (B,)) attends to the cache positions up to its own
+    (the reference's ``ops/attention.py::decode_attention``; per row, its
+    ``_cached_attention`` and engine ``_slot_attend``).  GQA in the grouped
+    form: the cache is read at Hk heads.  Scores and softmax in f32, the
+    probabilities cast to the cache dtype for the PV product."""
+    B, S, Hq, D = q.shape
+    C, Hk = k_cache.shape[1], k_cache.shape[2]
+    G = Hq // Hk
+    length = kv_length[..., None] if isinstance(kv_length, torch.Tensor) else kv_length
+    q_pos = torch.arange(S, device=q.device) - S + length  # (S,), or (B, S) per row
+    live = torch.arange(C, device=q.device) <= q_pos[..., None]  # (S, C), or (B, S, C)
+    if live.dim() == 3:
+        live = live[:, None, None]
+    qg = q.reshape(B, S, Hk, G, D).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_cache.float()) * D**-0.5
+    s = torch.where(live, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1).to(v_cache.dtype)
+    return torch.einsum("bhgqk,bkhd->bqhgd", p, v_cache).reshape(B, S, Hq, D)

@@ -39,6 +39,20 @@ def decode_cluster_size(C: int) -> int:
     return min(DECODE_MAX_CLUSTER, max(1, -(-C // DECODE_POSITIONS_PER_CTA)))
 
 
+def check_shape(C: int, Hq: int, Hk: int, D: int) -> None:
+    """Raise ``ValueError`` where the kernel does not take a cache of C
+    positions at these heads: Hq a multiple of Hk by at most 8, D a
+    multiple of 4 up to 256, and each CTA's scores within shared memory."""
+    if Hq % Hk or Hq // Hk > 8 or D % 4 or D > 256:
+        raise ValueError(f"decode_attention_int8_flat: Hq={Hq} Hk={Hk} D={D} not supported")
+    cluster = decode_cluster_size(C)
+    if -(-C // cluster) * (Hq // Hk) > DECODE_MAX_SCORES:
+        raise ValueError(
+            f"decode_attention_int8_flat: C={C} over {cluster} CTAs with {Hq // Hk} query heads per kv head "
+            f"needs more than the {DECODE_MAX_SCORES} scores a CTA holds in shared memory"
+        )
+
+
 def decode_attention_int8_flat_plain(
     q: torch.Tensor,  # (B, Hq, D)
     k_q: torch.Tensor,  # (B, C, Hk*D) int8
@@ -104,14 +118,8 @@ def decode_attention_int8_flat(
             f"decode_attention_int8_flat: q {tuple(q.shape)} k_q {tuple(k_q.shape)} "
             f"k_s {tuple(k_s.shape)} lengths {tuple(lengths.shape)} with Hk={Hk}"
         )
-    if Hq % Hk or Hq // Hk > 8 or D % 4 or D > 256:
-        raise ValueError(f"decode_attention_int8_flat: Hq={Hq} Hk={Hk} D={D} not supported")
+    check_shape(C, Hq, Hk, D)
     cluster = decode_cluster_size(C)
-    if -(-C // cluster) * (Hq // Hk) > DECODE_MAX_SCORES:
-        raise ValueError(
-            f"decode_attention_int8_flat: C={C} over {cluster} CTAs with {Hq // Hk} query heads per kv head "
-            f"needs more than the {DECODE_MAX_SCORES} scores a CTA holds in shared memory"
-        )
     for t in (q, k_q, k_s, v_q, v_s, lengths):
         if not t.is_contiguous():
             raise ValueError("decode_attention_int8_flat: inputs must be contiguous")

@@ -3,30 +3,40 @@
 prompt batch, the first token, then a Python decode loop in lockstep
 until every row stopped or ``max_new_tokens``.
 
-The KV cache is int8 in one layout, flat token-major per layer
-(``k_q, v_q`` (B, C, Hk*D) int8, ``k_s, v_s`` (B, C, Hk) f32, stored for
-all layers as one (L, ...) tensor each) -- the layout of the reference's
-serving engine and of kernel K3.  Prefill writes the padded prompt into
-slots [0, S); row b's t-th new token writes its K/V at its own position
-``prompt_lengths[b] + t - 1``, so the live keys of row b are exactly the
-slots ``<= lengths[b]``, K3's mask.  That is the key set and the RoPE
-positions of the reference's two-region mask.  The cache is updated in
-place.  A full-precision cache (the reference's ``kv_quant=False``) is
-not ported yet.
+Two KV caches, as the reference's ``kv_quant`` chooses:
+
+- ``kv_quant=False`` (the default, as in the reference): ``llama.KVCache``
+  in the activation dtype, (L, B, C, Hk, D); decode attends in plain
+  PyTorch (``ops/attention.py::decode_attention`` with a length per row,
+  the reference's ``_cached_attention``, which XLA runs there too);
+- ``kv_quant=True``: int8, flat token-major per layer (``k_q, v_q`` (B, C,
+  Hk*D) int8, ``k_s, v_s`` (B, C, Hk) f32, all layers stacked as one (L,
+  ...) tensor each), the layout of the reference's serving engine and of
+  kernel K3.
+
+Prefill writes the padded prompt into slots [0, S); row b's t-th new
+token writes its K/V at its own position ``prompt_lengths[b] + t - 1``, so
+the live keys of row b are exactly the slots ``<= lengths[b]``, K3's mask.
+That is the key set and the RoPE positions of the reference's two-region
+mask.  The cache is updated in place.  The per-row write and attention
+(``_per_slot_attention``, ``_per_slot_attention_quant``) are also the
+serving engine's decode step (``serving/engine.py``), where each row is a
+slot.
 
 ``attn_impl="onepass"`` runs the three kernels (K1 in the tower, K2 in
-prefill, K3 in decode) on CUDA tensors; ``attn_impl="xla"`` runs their
-plain versions.
+prefill, K3 in int8-cache decode) on CUDA tensors; ``attn_impl="xla"``
+runs their plain versions.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 
 from spatialrgpt_tpu_torch.config import SpatialRGPTConfig
 from spatialrgpt_tpu_torch.models import llama, vlm
+from spatialrgpt_tpu_torch.ops.attention import decode_attention
 from spatialrgpt_tpu_torch.ops.decode_attention import decode_attention_int8_flat, decode_attention_int8_flat_plain
 from spatialrgpt_tpu_torch.ops.layers import linear, qkv_proj
 from spatialrgpt_tpu_torch.ops.quant import quantize_kv
@@ -75,58 +85,102 @@ def _sample_token(
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
-def _prefill(model, cfg: SpatialRGPTConfig, inputs: vlm.VLMInputs, prompt_lengths, capacity: int, attn_impl: str):
+def new_quant_cache(cfg: SpatialRGPTConfig, batch: int, capacity: int, device) -> QuantKVCache:
+    """A zeroed int8 cache of ``batch`` rows and ``capacity`` positions."""
+    L, Hk, D = cfg.llm.num_hidden_layers, cfg.llm.num_key_value_heads, cfg.llm.head_dim
+    return QuantKVCache(
+        torch.zeros((L, batch, capacity, Hk * D), dtype=torch.int8, device=device),
+        torch.zeros((L, batch, capacity, Hk), dtype=torch.float32, device=device),
+        torch.zeros((L, batch, capacity, Hk * D), dtype=torch.int8, device=device),
+        torch.zeros((L, batch, capacity, Hk), dtype=torch.float32, device=device),
+    )
+
+
+def _prefill(model, cfg: SpatialRGPTConfig, inputs: vlm.VLMInputs, prompt_lengths, capacity: int, attn_impl: str,
+             kv_quant: bool):
     """Spliced embeddings -> decoder over the padded prompt; returns the
-    first-token logits (B, V) and the int8 cache with the prompt in slots
-    [0, S)."""
+    first-token logits (B, V) and the cache (int8 with ``kv_quant``, else
+    in the activation dtype) with the prompt in slots [0, S)."""
     embeds = vlm.prepare_embeds(model, cfg, inputs, attn_impl)
     h, kv = llama.forward(
         model.llm, cfg.llm, inputs_embeds=embeds, position_ids=inputs.position_ids,
-        segment_ids=inputs.segment_ids, attn_impl=attn_impl, collect_kv=True, kv_quant=True,
+        segment_ids=inputs.segment_ids, attn_impl=attn_impl, collect_kv=True, kv_quant=kv_quant,
     )
     B, S = inputs.input_ids.shape
-    L, Hk, D = cfg.llm.num_hidden_layers, cfg.llm.num_key_value_heads, cfg.llm.head_dim
     dev = h.device
-    cache = QuantKVCache(
-        torch.zeros((L, B, capacity, Hk * D), dtype=torch.int8, device=dev),
-        torch.zeros((L, B, capacity, Hk), dtype=torch.float32, device=dev),
-        torch.zeros((L, B, capacity, Hk * D), dtype=torch.int8, device=dev),
-        torch.zeros((L, B, capacity, Hk), dtype=torch.float32, device=dev),
-    )
-    for li, ((kq, ks), (vq, vs)) in enumerate(kv):
-        cache.k_q[li, :, :S] = kq.reshape(B, S, Hk * D)
-        cache.k_s[li, :, :S] = ks
-        cache.v_q[li, :, :S] = vq.reshape(B, S, Hk * D)
-        cache.v_s[li, :, :S] = vs
+    if kv_quant:
+        cache = new_quant_cache(cfg, B, capacity, dev)
+        for li, ((kq, ks), (vq, vs)) in enumerate(kv):
+            cache.k_q[li, :, :S] = kq.reshape(B, S, -1)
+            cache.k_s[li, :, :S] = ks
+            cache.v_q[li, :, :S] = vq.reshape(B, S, -1)
+            cache.v_s[li, :, :S] = vs
+    else:
+        cache = llama.KVCache.init(cfg.llm, B, capacity, kv[0][0].dtype, dev)
+        for li, (k, v) in enumerate(kv):
+            cache.k[li, :, :S] = k
+            cache.v[li, :, :S] = v
     last = (prompt_lengths - 1).clamp(min=0)
     last_h = h[torch.arange(B, device=dev), last]
     return llama.logits(model.llm, last_h[:, None])[:, 0], cache
 
 
-def _decode_step(model, cfg: SpatialRGPTConfig, x, lengths, cache: QuantKVCache, attn_impl: str):
+def _per_slot_attention(x, attn, lc, rows, pos, cache: llama.KVCache, li: int) -> torch.Tensor:
+    """Decode attention of one new token per row, x (B, 1, H) at positions
+    ``pos`` (B,) int64, against layer ``li`` of a cache in the activation
+    dtype: one K/V row written per row b at ``pos[b]`` (an indexed store,
+    not a pass over the cache; ``rows`` is ``arange(B)``), then
+    ``decode_attention`` over the positions ``<= pos[b]``."""
+    Hq, Hk, D = lc.num_attention_heads, lc.num_key_value_heads, lc.head_dim
+    B = x.shape[0]
+    q, k, v = qkv_proj(x, attn, Hq, Hk, D)
+    q, k = llama.apply_rope(q, k, pos[:, None], lc)
+    cache.k[li, rows, pos] = k[:, 0].to(cache.k.dtype)
+    cache.v[li, rows, pos] = v[:, 0].to(cache.v.dtype)
+    out = decode_attention(q, cache.k[li], cache.v[li], pos + 1)
+    return linear(out.reshape(B, 1, Hq * D), attn.o_proj)
+
+
+def _per_slot_attention_quant(x, attn, lc, rows, pos, lengths32, cache: QuantKVCache, li: int,
+                              attn_impl: str) -> torch.Tensor:
+    """The same against layer ``li`` of the int8 cache: the new K/V
+    quantized per (row, head), written at ``pos[b]``, then K3 over the
+    positions ``<= lengths32[b]`` (the same positions as int32; in [0, C)):
+    the kernel with ``attn_impl="onepass"`` (its plain version on a CPU
+    tensor), its plain version with ``"xla"``."""
+    Hq, Hk, D = lc.num_attention_heads, lc.num_key_value_heads, lc.head_dim
+    B = x.shape[0]
+    q, k, v = qkv_proj(x, attn, Hq, Hk, D)
+    q, k = llama.apply_rope(q, k, pos[:, None], lc)
+    nk_q, nk_s = quantize_kv(k[:, 0])  # (B, Hk, D), (B, Hk)
+    nv_q, nv_s = quantize_kv(v[:, 0])
+    cache.k_q[li, rows, pos] = nk_q.reshape(B, Hk * D)
+    cache.k_s[li, rows, pos] = nk_s
+    cache.v_q[li, rows, pos] = nv_q.reshape(B, Hk * D)
+    cache.v_s[li, rows, pos] = nv_s
+    attend = decode_attention_int8_flat if attn_impl == "onepass" else decode_attention_int8_flat_plain
+    out = attend(q[:, 0], cache.k_q[li], cache.k_s[li], cache.v_q[li], cache.v_s[li], lengths32, Hk)
+    return linear(out.reshape(B, 1, Hq * D), attn.o_proj)
+
+
+def _decode_step(model, cfg: SpatialRGPTConfig, x, lengths, cache: Union[QuantKVCache, llama.KVCache],
+                 attn_impl: str):
     """One new token per row: x (B, 1, H) embeddings at positions
-    ``lengths`` (B,) int64; writes each row's K/V at slot ``lengths[b]`` and
+    ``lengths`` (B,); writes each row's K/V at slot ``lengths[b]`` and
     attends to slots ``<= lengths[b]``.  Returns the final-normed hidden
     (B, 1, H)."""
     lc = cfg.llm
-    Hq, Hk, D = lc.num_attention_heads, lc.num_key_value_heads, lc.head_dim
-    B = x.shape[0]
-    rows = torch.arange(B, device=x.device)
+    rows = torch.arange(x.shape[0], device=x.device)
+    pos = lengths.long()
     lengths32 = lengths.to(torch.int32)
-    attend = decode_attention_int8_flat if attn_impl == "onepass" else decode_attention_int8_flat_plain
+    quant = isinstance(cache, QuantKVCache)
     h = x
     for li, layer in enumerate(model.llm.model.layers):
         hn = llama.norm(h, layer.input_layernorm)
-        q, k, v = qkv_proj(hn, layer.self_attn, Hq, Hk, D)
-        q, k = llama.apply_rope(q, k, lengths[:, None], lc)
-        nk_q, nk_s = quantize_kv(k[:, 0])  # (B, Hk, D), (B, Hk)
-        nv_q, nv_s = quantize_kv(v[:, 0])
-        cache.k_q[li, rows, lengths] = nk_q.reshape(B, Hk * D)
-        cache.k_s[li, rows, lengths] = nk_s
-        cache.v_q[li, rows, lengths] = nv_q.reshape(B, Hk * D)
-        cache.v_s[li, rows, lengths] = nv_s
-        out = attend(q[:, 0], cache.k_q[li], cache.k_s[li], cache.v_q[li], cache.v_s[li], lengths32, Hk)
-        h = h + linear(out.reshape(B, 1, Hq * D), layer.self_attn.o_proj)
+        if quant:
+            h = h + _per_slot_attention_quant(hn, layer.self_attn, lc, rows, pos, lengths32, cache, li, attn_impl)
+        else:
+            h = h + _per_slot_attention(hn, layer.self_attn, lc, rows, pos, cache, li)
         h = h + llama.mlp_block(llama.norm(h, layer.post_attention_layernorm), layer.mlp)
     return llama.norm(h, model.llm.model.norm)
 
@@ -146,6 +200,7 @@ def generate(
     stop_sequences: tuple = (),  # tuple of tuples: multi-token stop sequences
     generator: Optional[torch.Generator] = None,
     attn_impl: str = "onepass",
+    kv_quant: bool = False,  # the int8 KV cache (K3) instead of the activation-dtype cache
 ) -> GenerateResult:
     """Multimodal generate over a right-padded prompt batch.  A row stops
     after emitting eos, a stop id, or the last token of a stop sequence;
@@ -163,7 +218,7 @@ def generate(
     def is_stop(tok):
         return (tok[:, None] == stops[None, :]).any(dim=-1)
 
-    first_logits, cache = _prefill(model, cfg, inputs, prompt_lengths, S + max_new_tokens, attn_impl)
+    first_logits, cache = _prefill(model, cfg, inputs, prompt_lengths, S + max_new_tokens, attn_impl, kv_quant)
     logits = first_logits
     tok = _sample_token(logits, generator, temperature, top_p)
     tokens = torch.full((B, max_new_tokens), eos, dtype=torch.int64, device=dev)

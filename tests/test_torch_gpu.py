@@ -2,9 +2,11 @@
 version in bf16 (K2 and K6 also against planted faults), gradients through K1, K2, K4 and K6, a tiny region-QA
 ``generate`` through K1-K3, a tiny align step through K1 and K4, a
 narrow demo pipeline (Depth-Anything -> SAM-HQ -> region QA) through K5
-and K6, and the quantized projections: K7 and K8 bit-equal to their plain
+and K6, the quantized projections: K7 and K8 bit-equal to their plain
 versions, K9 within the bf16 bound, and a tiny W8A8 ``generate`` through
-K1-K3 and K7-K9.
+K1-K3 and K7-K9, and a tiny serving engine: its waves equal to lockstep
+``generate`` on both caches, K3 against its plain version under slot
+churn, and a row driven past the cache inside a window.
 
 Every test here is marked ``gpu`` and skips where there is no CUDA card
 (the kernels are CUDA C++ for sm_90a and have no CPU mode).  The file
@@ -13,6 +15,8 @@ cannot load:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py -q
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -36,6 +40,8 @@ from spatialrgpt_tpu_torch.ops import layer_norm as K6
 from spatialrgpt_tpu_torch.ops import prefill_attention as K2
 from spatialrgpt_tpu_torch.ops import vit_attention as K1
 from spatialrgpt_tpu_torch.ops._checks import GRAD_FLOOR, bf16_err_over_bound
+from spatialrgpt_tpu_torch.serving import generate as generate_mod
+from spatialrgpt_tpu_torch.serving.engine import ServingEngine
 from spatialrgpt_tpu_torch.serving.generate import generate
 from spatialrgpt_tpu_torch.utils.weights import init_random, init_random_quantized
 
@@ -443,9 +449,11 @@ def test_tiny_generate_runs_the_three_kernels(cuda):
     model = init_random(cfg, cuda, torch.bfloat16, seed=0)
     for m in (K1, K2, K3):
         m.launches = 0
-    fast = generate(model, cfg, inputs, plens, max_new_tokens=5, eos_token_id=-1, attn_impl="onepass")
+    fast = generate(model, cfg, inputs, plens, max_new_tokens=5, eos_token_id=-1, attn_impl="onepass",
+                    kv_quant=True)
     assert (K1.launches, K2.launches, K3.launches) == (2, 2, 2 * 4)
-    plain = generate(model, cfg, inputs, plens, max_new_tokens=5, eos_token_id=-1, attn_impl="xla")
+    plain = generate(model, cfg, inputs, plens, max_new_tokens=5, eos_token_id=-1, attn_impl="xla",
+                     kv_quant=True)
     assert (K1.launches, K2.launches, K3.launches) == (2, 2, 2 * 4)
     assert fast.tokens.shape == (2, 5) and ((fast.tokens >= 0) & (fast.tokens < 64)).all()
     rel = (fast.first_logits - plain.first_logits).norm() / plain.first_logits.norm()
@@ -898,7 +906,8 @@ def test_tiny_w8a8_generate_runs_k7_to_k9(cuda, monkeypatch):
     steps = 4
     for name in K789.launches:
         K789.launches[name] = 0
-    fast = generate(model, cfg, inputs, plens, max_new_tokens=steps + 1, eos_token_id=-1, attn_impl="onepass")
+    fast = generate(model, cfg, inputs, plens, max_new_tokens=steps + 1, eos_token_id=-1, attn_impl="onepass",
+                    kv_quant=True)
     # tower, 2 layers at 4 x 16 rows: qkv (one K7), out, fc1 W8A8, fc2
     # contracts (K9); each decoder layer at 24 prefill rows and at 2 decode
     # rows: qkv (one K7, q on K8, k/v contract: K9), o, gate/up (one K7),
@@ -909,9 +918,125 @@ def test_tiny_w8a8_generate_runs_k7_to_k9(cuda, monkeypatch):
             + (1 + steps) * (2 * per_layer[name] + (name != "w8_gemm")) for name in per_layer}
     assert K789.launches == want
     monkeypatch.setattr(layers, "QUANT_KERNELS", False)
-    plain = generate(model, cfg, inputs, plens, max_new_tokens=steps + 1, eos_token_id=-1, attn_impl="onepass")
+    plain = generate(model, cfg, inputs, plens, max_new_tokens=steps + 1, eos_token_id=-1, attn_impl="onepass",
+                     kv_quant=True)
     assert K789.launches == want
     assert fast.tokens.shape == (2, steps + 1) and ((fast.tokens >= 0) & (fast.tokens < 64)).all()
     assert torch.equal(fast.tokens, plain.tokens)
     rel = (fast.first_logits - plain.first_logits).norm() / plain.first_logits.norm()
     assert float(rel) < 0.05
+
+
+# ---------------------------------------------------------------------------
+# the serving engine
+# ---------------------------------------------------------------------------
+
+
+def _engine_requests(prompts, seed=4, pad_to=16):
+    """One batch-1 request per prompt (RGB + depth + 2 masks, pixels on the
+    card in bf16), and ``batch(i, j)``: prompts i..j-1 spliced as one batch
+    with the same pixels."""
+    rng = np.random.default_rng(seed)
+    n = len(prompts)
+    pix = (rng.standard_normal((n, 56, 56, 3)), rng.standard_normal((n, 56, 56, 3)),
+           (rng.random((n, 2, 56, 56)) > 0.5).astype(np.float32), np.ones((n, 2), bool))
+
+    def batch(i, j):
+        sb = expand_rows([np.asarray(p, np.int64) for p in prompts[i:j]], None, max_len=64, tokens_per_image=4,
+                         mask_token_id=60, depth_token_id=61, regions_per_image=2, pad_to=pad_to)
+        inputs = VLMInputs.from_spliced(sb, *(a[i:j] for a in pix), device="cuda", dtype=torch.bfloat16)
+        return inputs, sb.segment_ids.sum(axis=1)
+
+    rows = [batch(i, i + 1) for i in range(n)]
+    return [r for r, _ in rows], batch, [int(p[0]) for _, p in rows]
+
+
+def _engine_cfg():
+    """The tiny config with eos at -1: every request runs its whole budget."""
+    cfg = _tiny_quant_cfg()
+    return cfg.replace(llm=dataclasses.replace(cfg.llm, eos_token_id=-1))
+
+
+_ENGINE_PROMPTS = [[5, IMAGE_TOKEN_INDEX, 60, 61, 8], [IMAGE_TOKEN_INDEX, 7], [1, IMAGE_TOKEN_INDEX, 60, 9, 10],
+                   [IMAGE_TOKEN_INDEX, 61, 11, 12, 13, 14], [3, IMAGE_TOKEN_INDEX, 15]]
+
+
+@pytest.mark.parametrize("kv_quant", [True, False])
+def test_tiny_engine_waves_equal_lockstep(cuda, kv_quant):
+    """4 requests through 2 slots in two waves of 2 (the second in recycled
+    slots), windows of 3 steps: each wave's tokens equal ``generate`` on
+    its 2 rows with the same kernels and capacity, bit for bit; K1 and K2
+    launch per admission and layer, K3 (int8 cache) per decode step and
+    layer, never with the bf16 cache."""
+    cfg = _engine_cfg()
+    model = init_random(cfg, cuda, torch.bfloat16, seed=0)
+    rows, batch, plens = _engine_requests(_ENGINE_PROMPTS[:4])
+    max_new, k = 6, 3
+    eng = ServingEngine(model, cfg, num_slots=2, prompt_bucket=16, max_new_tokens=max_new, kv_quant=kv_quant,
+                        admit_width=2)
+    for m in (K1, K2, K3):
+        m.launches = 0
+    ids = [eng.submit(r, p, max_new_tokens=max_new) for r, p in zip(rows, plens)]
+    done = {r.request_id: r.tokens for r in eng.run_until_drained(num_steps=k)}
+    windows = 2 * -(-(max_new - 1) // k)  # two waves
+    # per admission 2 tower layers (3, select_layer -2) and 2 decoder layers
+    assert (K1.launches, K2.launches, K3.launches) == (2 * 2, 2 * 2, 2 * windows * k if kv_quant else 0)
+    for w in (0, 2):
+        inputs, wave_plens = batch(w, w + 2)
+        want = generate(model, cfg, inputs, torch.as_tensor(wave_plens, device=cuda), max_new_tokens=max_new,
+                        eos_token_id=-1, kv_quant=kv_quant)
+        assert [done[ids[w]], done[ids[w + 1]]] == want.tokens.tolist()
+
+
+def test_tiny_engine_k3_against_plain_under_churn(cuda, monkeypatch):
+    """5 requests of 3-7 tokens through 2 slots, windows of 2, async
+    readback: the engine on K3 gives the tokens of the same engine with
+    K3's plain version in its place (K1, K2 and the projections the same),
+    and every length stays in [0, C)."""
+    cfg = _engine_cfg()
+    model = init_random(cfg, cuda, torch.bfloat16, seed=0)
+    rows, _, plens = _engine_requests(_ENGINE_PROMPTS)
+
+    def run():
+        eng = ServingEngine(model, cfg, num_slots=2, prompt_bucket=16, max_new_tokens=7, kv_quant=True,
+                            async_readback=True)
+        ids = [eng.submit(r, p, max_new_tokens=3 + i) for i, (r, p) in enumerate(zip(rows, plens))]
+        done = {r.request_id: r.tokens for r in eng.run_until_drained(num_steps=2)}
+        assert 0 <= int(eng.lengths.min()) and int(eng.lengths.max()) < eng.capacity
+        return [done[i] for i in ids]
+
+    K3.launches = 0
+    fast = run()
+    assert K3.launches > 0
+    monkeypatch.setattr(generate_mod, "decode_attention_int8_flat", K3.decode_attention_int8_flat_plain)
+    K3.launches = 0
+    plain = run()
+    assert K3.launches == 0
+    assert [len(t) for t in fast] == [3, 4, 5, 6, 7]
+    assert fast == plain
+
+
+def test_tiny_engine_row_past_the_cache_inside_a_window(cuda):
+    """Request A fills the cache (prompt + budget = capacity) and ends
+    mid-window; the window's later steps clamp its writes and K3's lengths
+    to C - 1, so no device assert: the card synchronizes cleanly, and B,
+    decoding beside it through those steps, gets the tokens it gets when A
+    takes a single token."""
+    cfg = _engine_cfg()
+    model = init_random(cfg, cuda, torch.bfloat16, seed=0)
+    rows, _, plens = _engine_requests([_ENGINE_PROMPTS[3], _ENGINE_PROMPTS[1]])
+    pa, pb = plens
+
+    def run(na):
+        eng = ServingEngine(model, cfg, num_slots=2, prompt_bucket=16, max_new_tokens=8, kv_quant=True)
+        C = eng.capacity
+        ids = [eng.submit(rows[0], pa, max_new_tokens=na(C)), eng.submit(rows[1], pb, max_new_tokens=C - pb)]
+        done = {r.request_id: r.tokens for r in eng.run_until_drained(num_steps=8)}
+        torch.cuda.synchronize()
+        assert int(eng.lengths.max()) == C - 1
+        return done[ids[0]], done[ids[1]], C
+
+    a_toks, b_toks, C = run(lambda C: C - pa)
+    assert (C - pa - 1) % 8 and C - pb - 1 >= -(-(C - pa - 1) // 8) * 8  # A runs past C while B decodes
+    assert len(a_toks) == C - pa and len(b_toks) == C - pb
+    assert run(lambda C: 1)[1] == b_toks

@@ -241,7 +241,7 @@ def _both(slice_pair, max_new=8, **kw):
     j = jgen.generate(params, TINY, jin, jnp.asarray(plens, jnp.int32), max_new_tokens=max_new,
                       temperature=0.0, kv_quant=True, attn_impl="onepass", **kw)
     t = tgen.generate(model, TINY_T, inputs, torch.as_tensor(plens), max_new_tokens=max_new,
-                      temperature=0.0, attn_impl="onepass", **kw)
+                      temperature=0.0, attn_impl="onepass", kv_quant=True, **kw)
     return j, t
 
 

@@ -319,7 +319,7 @@ def test_quantized_generate_matches_jax(params, bits, act_quant):
     want = jgen.generate(qtree, TINY, jin, jnp.asarray(plens, jnp.int32), max_new_tokens=8, temperature=0.0,
                          eos_token_id=-1, kv_quant=True, attn_impl="onepass")
     got = tgen.generate(model, TINY_T, inputs, torch.as_tensor(plens), max_new_tokens=8, temperature=0.0,
-                        eos_token_id=-1, attn_impl="onepass")
+                        eos_token_id=-1, attn_impl="onepass", kv_quant=True)
     np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want.tokens))
     np.testing.assert_array_equal(got.num_generated.numpy(), np.asarray(want.num_generated))
 
