@@ -22,8 +22,12 @@ Phases, each printed as one JSON line:
    the W8A8 serve's shapes: K7 over the prefill's 20,480 rows, K8 at the
    prefill's gate and SigLIP's fc1 over the tower's 93,312 rows (ragged N
    4304 and K 1152; its large form) and at the decode's lm_head and gate
-   (its decode form), K9 at the decode's down and k/v projections (K7 and
-   K8 must equal their plain versions bit for bit).  K1, K2, K5 and K4's three kernels run
+   (its decode form), K9 at the decode's down and k/v projections and at
+   the QLoRA step's gate over 16,384 rows with the LoRA side branch's f32
+   addend, K10 over the W8A8 align step's
+   gate / up output gradient (16,384 x 14,336) and K11 at its gate / up
+   and down dx (K7, K8, K10 and K11 must equal their plain versions bit
+   for bit).  K1, K2, K5 and K4's three kernels run
    on the TMA + wgmma loops of ``csrc/attention_sm90.cuh`` (K2 and K4's
    forward and dQ with G = 4 query heads x 32 positions per CTA and the
    causal x segment mask built in the kernel; K4 walks only the tiles of
@@ -35,8 +39,10 @@ Phases, each printed as one JSON line:
    (``plain_ms``) and of one PyTorch call of the same function
    (``library_ms``, with ``library`` naming it and its pinned SDPA
    backend; null for K3 and K7, which no single call computes; for K8
-   ``torch._int_mm``'s int32 product alone, for K9 ``F.linear`` on a bf16
-   copy of the weight); for K4 also
+   ``torch._int_mm``'s int32 product alone, for K11 the same in the
+   faster of two layouts of the weight (as stored, and a column-major copy
+   made beforehand; each layout's time in ``library_each_layout_ms``), for
+   K9 ``F.linear`` on a bf16 copy of the weight); for K4 also
    ``library_per_sample_ms``, SDPA's flash backend with ``is_causal`` over
    the per-sample view of the same q/k/v (4 equal samples per row, checked),
    which computes only the live pairs, as K4 does.  All by CUDA events:
@@ -88,6 +94,30 @@ Phases, each printed as one JSON line:
    three ``Trainer`` steps with a checkpoint.  Checks the launch counts
    of every step, the first loss, that the frozen modules stay
    bit-unchanged and that the tuned ones move once the lr is above 0.
+   align_w8a8 -- bench_train.py's SRGPT_TRAIN_BENCH_QUANT=1, then =2, on one
+   model: the same align step over a W8A8 decoder and tower (quantized
+   from init_random's bf16 weights), the bf16 straight-through dx, then
+   the int8 dx on K10 + K11.  Per setting: the quantized route (K7, K8,
+   K10, K11) against its plain versions on one row (loss bit-equal,
+   gradients bit-equal where the route is deterministic), the cosine of
+   the tuned gradients against the bf16 align step's (reported); under
+   both, on the same W8A8 forward, the int8 dx against the bf16 STE's by
+   depth (the cosine at the lm_head's input and at each decoder layer's
+   input, with the int8 dx everywhere, in the decoder alone, in the
+   lm_head alone; reported); three
+   steps with the launch counts of K1, K4 and K7-K11 from the shapes, the
+   frozen base bit-unchanged, the tuned modules moving; the median of
+   steps 2-3, tokens/s and the steps' peak GB.
+   qlora -- bench_train.py's qlora stage: int8 weight-only decoder and
+   lm_head made in the int8 layout, bf16 tower, LoRA r 64 / alpha 16 on
+   the seven projections (bf16 adapters, the side branch), projector and
+   region extractor co-trained at lr 2e-5; the K9 route against its plain
+   version on one row with every b drawn nonzero (so the side branch's
+   addend is live), and two wrong routes (K9's sums in bf16, the addend
+   dropped) that must fail the same comparison; three steps with the
+   launch counts, the base
+   bit-unchanged and the adapters, projector and region extractor moving;
+   the same figures.
 7. demo    -- bench_demo.py's pipeline (``demo/pipeline.py``) on 8
    synthetic photos of 768 x 1024: Depth-Anything ViT-L colorized depth,
    SAM-HQ vit_h masks for 2 boxes per image in chunks of 4, device
@@ -107,7 +137,8 @@ benchmark.  Then the ``kernels`` line and, last, ``{"ok": true, "device":
 without a CUDA card, and a directory without the port's package.
 ``--profile DIR`` also profiles the W8A8 serve's first token and its
 whole ``generate``, one wave of the engine's phase (b) (32 requests
-through the 32 slots), one align step and one demo pipeline run with
+through the 32 slots), one align step, one W8A8 align step under each
+backward, one QLoRA step and one demo pipeline run with
 ``torch.profiler`` and writes their operator tables to DIR.
 """
 
@@ -115,6 +146,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import os
@@ -175,7 +207,7 @@ DEMO_MASK_MARGIN = 0.5
 
 # kernels held bit-equal to their plain versions (the others within
 # bf16_err_over_bound)
-BIT_EQUAL = {"act_quant_int8", "w8a8_gemm"}
+BIT_EQUAL = {"act_quant_int8", "w8a8_gemm", "act_quant_dy_int8", "int8_dx_gemm"}
 
 
 class SmokeFailure(Exception):
@@ -445,6 +477,32 @@ def int_mm_library(torch, xq, q):
     return label, lambda: torch._int_mm(xq, qt)
 
 
+def per_rows(torch, fn, a, q, s, rows: int = 4096):
+    """K11's plain version over slices of ``rows`` rows: its f32 product
+    chunks stay a few hundred MB."""
+    return torch.cat([fn(a[i:i + rows], q, s[i:i + rows]) for i in range(0, a.shape[0], rows)])
+
+
+def dx_int_mm_library(torch, dyq, q):
+    """K11's yardstick: ``torch._int_mm``'s int32 product dyq @ q alone (no
+    gscale, no bf16 cast) in each layout of q that cuBLASLt takes: q as
+    stored (row-major), and a column-major copy of q made here, outside the
+    timing.  The loop times every layout and keeps the fastest."""
+    label = "torch._int_mm(dyq, q): the int32 product alone, without K11's gscale and bf16 cast, the faster layout of q"
+    layouts, refused = {}, []
+    for name, b in (("q as stored", q), ("a column-major copy of q made beforehand", q.t().contiguous().t())):
+        try:
+            torch._int_mm(dyq, b)
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            refused.append(f"{name}: {e}"[:150])
+            continue
+        layouts[name] = lambda b=b: torch._int_mm(dyq, b)
+    if not layouts:
+        return f"{label}; refused at this shape: {refused}"[:300], None
+    return label, layouts
+
+
 def phase_kernels(torch):
     import numpy as np
     import torch.nn.functional as F
@@ -662,15 +720,48 @@ def phase_kernels(torch):
             bound(2 * M * N * K, nbytes(xq8, q8, as8, s8) + 2 * M * N, PEAK_INT8_OPS),
             int_mm_library(torch, xq8, q8),
         ))
-    for label, M, N, K in (("decode down", SERVE_ROWS, Hd, Id), ("decode k / v", SERVE_ROWS, kvd, Hd)):
+    # K9 also at the QLoRA step's largest shape (the gate over 4 x 4096
+    # rows: the decode form's 64-row tiles read the weight 256 times), with
+    # the f32 addend that the LoRA side branch hands its epilogue there
+    m_train = TRAIN_ROWS * TRAIN_SEQ
+    for label, M, N, K, timing in (("decode down", SERVE_ROWS, Hd, Id, (100, 10, "graph")),
+                                   ("decode k / v", SERVE_ROWS, kvd, Hd, (100, 10, "graph")),
+                                   ("qlora train gate + LoRA addend", m_train, Id, Hd, (5, 1, "events"))):
         x9, q9, s9 = rn(M, K), i8(N, K), scales(N, K)
+        add9 = torch.randn(M, N, generator=g, device=dev) * 0.25 if M == m_train else None
         w9 = dequantize(q9, s9)  # bf16, made here for the library yardstick only
         cases.append((
             "w8_gemm", "spatialrgpt_tpu_torch/csrc/int8_gemm.cu", "spatialrgpt_tpu/ops/layers.py:123 (XLA)",
-            {"projection": label, "M": M, "N": N, "K": K},
-            lambda x=x9, q=q9, s=s9: K789.w8_gemm(x, q, s), lambda x=x9, q=q9, s=s9: K789.w8_gemm_plain(x, q, s),
-            (100, 10, "graph"), bound(2 * M * N * K, nbytes(x9, q9, s9) + 2 * M * N),
-            ("F.linear on the weight dequantized to bf16 beforehand", lambda x=x9, w=w9: F.linear(x, w)),
+            {"projection": label, "M": M, "N": N, "K": K, "f32_addend": add9 is not None},
+            lambda x=x9, q=q9, s=s9, a=add9: K789.w8_gemm(x, q, s, add=a),
+            lambda x=x9, q=q9, s=s9, a=add9: K789.w8_gemm_plain(x, q, s, add=a),
+            timing, bound(2 * M * N * K, nbytes(x9, q9, s9) + 2 * M * N + (0 if add9 is None else nbytes(add9))),
+            ("F.linear on the weight dequantized to bf16 beforehand" + ("" if add9 is None else ", without the addend"),
+             lambda x=x9, w=w9: F.linear(x, w)),
+        ))
+    # K10-K11: the int8 backward of the W8A8 align step (bench_train.py's
+    # SRGPT_TRAIN_BENCH_QUANT=2) over its 4 x 4096 rows: K10 over the gate /
+    # up output gradient (the widest), K11 for gate / up (14,336 -> 4096) and
+    # for down (4096 -> 14,336)
+    dy10 = (torch.randn(m_train, Id, generator=g, device=dev) * 1e-3).to(torch.bfloat16)
+    s10 = scales(Id, Hd)
+    cases.append((
+        "act_quant_dy_int8", "spatialrgpt_tpu_torch/csrc/act_quant.cu", "spatialrgpt_tpu/ops/layers.py:70 (XLA)",
+        {"M": m_train, "N": Id}, lambda: K789.act_quant_dy_int8(dy10, s10),
+        lambda: K789.act_quant_dy_int8_plain(dy10, s10), (20, 2, "events"),
+        bound(8 * m_train * Id, nbytes(dy10, s10) + m_train * Id + 4 * m_train, PEAK_F32_FLOPS),
+        ("no single call quantizes rows to int8 with a scale per row", None),
+    ))
+    for label, N, K in (("gate / up dx", Id, Hd), ("down dx", Hd, Id)):
+        dyq11, q11 = i8(m_train, N), i8(N, K)
+        gs11 = torch.rand(m_train, generator=g, device=dev) * 1e-4 + 1e-6
+        cases.append((
+            "int8_dx_gemm", "spatialrgpt_tpu_torch/csrc/int8_dx_gemm.cu", "spatialrgpt_tpu/ops/layers.py:74 (XLA)",
+            {"projection": label, "M": m_train, "N": N, "K": K},
+            lambda a=dyq11, q=q11, s=gs11: K789.int8_dx_gemm(a, q, s),
+            lambda a=dyq11, q=q11, s=gs11: per_rows(torch, K789.int8_dx_gemm_plain, a, q, s), (5, 1, "events"),
+            bound(2 * m_train * N * K, nbytes(dyq11, q11, gs11) + 2 * m_train * K, PEAK_INT8_OPS),
+            dx_int_mm_library(torch, dyq11, q11),
         ))
 
     rows = []
@@ -691,12 +782,16 @@ def phase_kernels(torch):
         ratio = max(bf16_err_over_bound(o, r, floor) for o, r in zip(outs, refs))
         del out, ref, outs, refs
         timer, timing = TIMERS[how]
+        library_each_ms = None
         plain_ms = timer(torch, plain, plain_iters)
         ms = timer(torch, kernel, iters)
         if lib_fn == "backward":  # K4's dK/dV and dQ share one figure
             if library_bwd_ms is None:
                 library_bwd_ms = timer(torch, lib4_fwd_bwd, iters) - timer(torch, lib4_fwd, iters)
             library_ms = library_bwd_ms
+        elif isinstance(lib_fn, dict):  # one call in several layouts: the fastest is the yardstick
+            library_each_ms = {layout: timer(torch, fn, iters) for layout, fn in lib_fn.items()}
+            library_ms = min(library_each_ms.values())
         else:
             library_ms = timer(torch, lib_fn, iters) if lib_fn is not None else None
         ps_label, ps_fn = per_sample.get(name, (None, None))
@@ -710,6 +805,7 @@ def phase_kernels(torch):
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "max_abs_err": err, "err_over_bound": ratio, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": work["bound_ms"], "bound_by": work["bound_by"], "library_ms": library_ms, "library": library,
+            "library_each_layout_ms": library_each_ms,
             "share_of_bound": work["bound_ms"] / ms,
             "library_over_kernel": library_ms / ms if library_ms is not None else None,
             "library_per_sample_ms": ps_ms, "library_per_sample": ps_label,
@@ -846,8 +942,8 @@ def read_counts() -> dict:
             "grid_bias_attention": K4.grid_bias_launches, "fused_layer_norm": K6.launches, **K789.launches}
 
 
-# no projection is quantized: K7-K9 launch no time
-NO_QUANT = {"act_quant_int8": 0, "w8a8_gemm": 0, "w8_gemm": 0}
+# no projection is quantized: K7-K11 launch no time
+NO_QUANT = {"act_quant_int8": 0, "w8a8_gemm": 0, "w8_gemm": 0, "act_quant_dy_int8": 0, "int8_dx_gemm": 0}
 
 
 def add_counts(*parts) -> dict:
@@ -866,40 +962,89 @@ def quant_expected_counts(cfg, rows: int, bucket: int, max_new: int) -> dict:
     return add_counts(prefill, times(max_new - 1, step))
 
 
-def quant_phase_counts(cfg, rows: int, bucket: int, decode_rows: int) -> tuple:
-    """(K7-K9 launches of the prefill of ``rows`` rows of ``bucket``
-    positions with their tower and lm_head, of one decode step of
-    ``decode_rows`` rows), from the config, by the reference's
+def quant_group(m: int, *shapes) -> dict:
+    """K7-K11 launches of the forward of sibling projections of (din, dout)
+    ``shapes`` that read one x of ``m`` rows, by the reference's
     per-call-site rule (spatialrgpt_tpu/ops/layers.py:114-120): a weight
     takes int8 activations when it expands (in <= out) or at 2048 rows and
-    more, else the int8 weight-only product (K9).  Sibling projections that
-    read one x (q/k/v; gate/up) quantize it once (K7)."""
+    more, else the int8 weight-only product (K9); the siblings that take
+    W8A8 quantize x once (K7)."""
+    a8 = [din <= dout or m >= 2048 for din, dout in shapes]
+    return {**NO_QUANT, "act_quant_int8": int(any(a8)), "w8a8_gemm": sum(a8), "w8_gemm": len(a8) - sum(a8)}
 
-    def group(m: int, *shapes) -> dict:
-        a8 = [din <= dout or m >= 2048 for din, dout in shapes]
-        return {"act_quant_int8": int(any(a8)), "w8a8_gemm": sum(a8), "w8_gemm": len(a8) - sum(a8)}
 
-    add = add_counts
+def tower_layer_counts(cfg, m: int) -> dict:
+    C, Iv = cfg.vision.hidden_size, cfg.vision.intermediate_size
+    return add_counts(quant_group(m, (C, C), (C, C), (C, C)), quant_group(m, (C, C)), quant_group(m, (C, Iv)),
+                      quant_group(m, (Iv, C)))
+
+
+def decoder_layer_counts(cfg, m: int) -> dict:
+    lc = cfg.llm
+    H, I = lc.hidden_size, lc.intermediate_size
+    q_out, kv_out = lc.num_attention_heads * lc.head_dim, lc.num_key_value_heads * lc.head_dim
+    return add_counts(quant_group(m, (H, q_out), (H, kv_out), (H, kv_out)), quant_group(m, (q_out, H)),
+                      quant_group(m, (H, I), (H, I)), quant_group(m, (I, H)))
+
+
+def tower_layers(cfg) -> int:
+    """The tower layers that run: up to the selected layer (-2: 26 of 27)."""
+    return cfg.vision.num_hidden_layers + 1 + cfg.vision.select_layer
+
+
+def quant_phase_counts(cfg, rows: int, bucket: int, decode_rows: int) -> tuple:
+    """(K7-K11 launches of the prefill of ``rows`` rows of ``bucket``
+    positions with their tower and lm_head, of one decode step of
+    ``decode_rows`` rows), from the config (``quant_group``)."""
     v, lc = cfg.vision, cfg.llm
-    C, Iv = v.hidden_size, v.intermediate_size
     tower_rows = 2 * rows * (v.image_size // v.patch_size) ** 2  # [images; depths]
-    tower_layers = v.num_hidden_layers + 1 + v.select_layer
-    H, I, q_out, kv_out = lc.hidden_size, lc.intermediate_size, lc.num_attention_heads * lc.head_dim, \
-        lc.num_key_value_heads * lc.head_dim
     vocab = lc.vocab_size + cfg.num_extra_tokens
-
-    def tower_layer(m):
-        return add(group(m, (C, C), (C, C), (C, C)), group(m, (C, C)), group(m, (C, Iv)), group(m, (Iv, C)))
-
-    def decoder_layer(m):
-        return add(group(m, (H, q_out), (H, kv_out), (H, kv_out)), group(m, (q_out, H)),
-                   group(m, (H, I), (H, I)), group(m, (I, H)))
-
-    lm_head = group(rows, (H, vocab))  # the last position of every row
-    step = add(times(lc.num_hidden_layers, decoder_layer(decode_rows)), group(decode_rows, (H, vocab)))
-    prefill = add(times(tower_layers, tower_layer(tower_rows)), times(lc.num_hidden_layers, decoder_layer(rows * bucket)),
-                  lm_head)
+    lm_head = quant_group(rows, (lc.hidden_size, vocab))  # the last position of every row
+    step = add_counts(times(lc.num_hidden_layers, decoder_layer_counts(cfg, decode_rows)),
+                      quant_group(decode_rows, (lc.hidden_size, vocab)))
+    prefill = add_counts(times(tower_layers(cfg), tower_layer_counts(cfg, tower_rows)),
+                         times(lc.num_hidden_layers, decoder_layer_counts(cfg, rows * bucket)), lm_head)
     return prefill, step
+
+
+def recomputed_layer_counts(cfg, m: int) -> dict:
+    """A decoder layer's K7-K9 launches in remat's recompute: PyTorch's
+    non-reentrant checkpoint stops once the backward's saved tensors are
+    made again (its early stop), and the layer's tail, the down projection
+    (whose backward keeps no tensor) and the residual add, is not run."""
+    lc = cfg.llm
+    down = quant_group(m, (lc.intermediate_size, lc.hidden_size))
+    return {k: v - down[k] for k, v in decoder_layer_counts(cfg, m).items()}
+
+
+def align_quant_counts(cfg, rows: int, int8_backward: bool) -> dict:
+    """K7-K11 launches of one W8A8 align step (decoder and tower W8A8) over
+    ``rows`` packed rows of TRAIN_SEQ tokens, remat, CE chunks of CE_CHUNK
+    positions: the tower forward once; every decoder layer forward and
+    recomputed (``recomputed_layer_counts``); the lm_head forward twice per
+    chunk (the chunk's checkpoint); with ``int8_backward`` one K10 and one
+    K11 per W8A8 projection's dx (each decoder projection, the lm_head per
+    chunk)."""
+    v, lc = cfg.vision, cfg.llm
+    tower_rows = 2 * rows * TRAIN_SAMPLES_PER_ROW * (v.image_size // v.patch_size) ** 2
+    m, chunks = rows * TRAIN_SEQ, TRAIN_SEQ // CE_CHUNK
+    layer = decoder_layer_counts(cfg, m)
+    lm_head = quant_group(rows * CE_CHUNK, (lc.hidden_size, lc.vocab_size + cfg.num_extra_tokens))
+    fwd = add_counts(times(tower_layers(cfg), tower_layer_counts(cfg, tower_rows)),
+                     times(lc.num_hidden_layers, add_counts(layer, recomputed_layer_counts(cfg, m))),
+                     times(2 * chunks, lm_head))
+    dx = lc.num_hidden_layers * layer["w8a8_gemm"] + chunks * lm_head["w8a8_gemm"] if int8_backward else 0
+    return {**fwd, "act_quant_dy_int8": dx, "int8_dx_gemm": dx}
+
+
+def qlora_quant_counts(cfg, rows: int) -> dict:
+    """K7-K11 launches of one QLoRA step (int8 weight-only decoder and
+    lm_head, bf16 tower): K9 for every decoder projection in the forward
+    and all but the down projection in remat's recompute
+    (``recomputed_layer_counts``), the lm_head twice per CE chunk; the
+    weight-only dx is a plain product."""
+    chunks = TRAIN_SEQ // CE_CHUNK
+    return {**NO_QUANT, "w8_gemm": cfg.llm.num_hidden_layers * (7 + 6) + 2 * chunks}
 
 
 @contextlib.contextmanager
@@ -915,6 +1060,121 @@ def plain_projections():
         yield
     finally:
         layers.QUANT_KERNELS = before
+
+
+# the running sum of K9_PLAIN_VARIANTS["bf16_sums"] is rounded to bf16 after
+# every this many columns of k
+BF16_SUM_COLUMNS = 128
+
+
+@contextlib.contextmanager
+def k9_plain_variant(torch, variant: str):
+    """K9's plain version replaced inside the block by one of:
+    ``regrouped``, the same function with its f32 sums in another order
+    (the two halves of k summed apart, then added), as K9's own order
+    differs from its plain version's; and two wrong routes, the controls
+    that the QLoRA comparison must reject: ``bf16_sums``, the running sum
+    held in bf16 (rounded after every ``BF16_SUM_COLUMNS`` columns of k),
+    and ``no_addend``, the LoRA side branch's addend dropped from the
+    forward."""
+    from spatialrgpt_tpu_torch.ops import int8_linear
+
+    before = int8_linear.w8_gemm_plain
+
+    def regrouped(x, q, scale, bias=None, add=None):
+        h = x.shape[1] // 2
+        y = torch.matmul(x[:, :h].float(), q[:, :h].float().T) + torch.matmul(x[:, h:].float(), q[:, h:].float().T)
+        return int8_linear.finish(y * scale, add, bias, x.dtype)
+
+    def bf16_sums(x, q, scale, bias=None, add=None):
+        y = torch.zeros(x.shape[0], q.shape[0], dtype=torch.bfloat16, device=x.device)
+        for k0 in range(0, x.shape[1], BF16_SUM_COLUMNS):
+            k = slice(k0, k0 + BF16_SUM_COLUMNS)
+            y = (y.float() + torch.matmul(x[:, k].float(), q[:, k].float().T)).to(torch.bfloat16)
+        return int8_linear.finish(y.float() * scale, add, bias, x.dtype)
+
+    def no_addend(x, q, scale, bias=None, add=None):
+        return before(x, q, scale, bias)
+
+    int8_linear.w8_gemm_plain = {"regrouped": regrouped, "bf16_sums": bf16_sums, "no_addend": no_addend}[variant]
+    try:
+        yield
+    finally:
+        int8_linear.w8_gemm_plain = before
+
+
+@contextlib.contextmanager
+def dx_by_depth(torch, got: dict, lm_head_int8=None):
+    """Inside the block, the gradient that reaches the decoder's final
+    hidden states (``got["lm_head"]``, the lm_head's dx, chunks in order)
+    and each decoder layer's input (``got[i]`` for layer i: the dx after
+    L - i layers) is kept in ``got``.  With ``lm_head_int8`` set, the
+    lm_head's forward reads it as the int8-backward switch, so that its dx
+    alone takes that route.  Both checkpoints (llama.py's per layer,
+    vlm.py's per CE chunk) are wrapped: a hook on each one's input."""
+    from spatialrgpt_tpu_torch.models import llama, vlm
+    from spatialrgpt_tpu_torch.ops import layers
+
+    real_layer, real_chunk = llama.checkpoint, vlm.checkpoint
+    chunks, n_layers = [], [0]
+
+    def layer_checkpoint(fn, x, *args, **kw):
+        x.register_hook(lambda g, i=n_layers[0]: got.__setitem__(i, g))
+        n_layers[0] += 1
+        return real_layer(fn, x, *args, **kw)
+
+    def chunk_checkpoint(fn, h, *args, **kw):
+        chunks.append(None)
+        h.register_hook(lambda g, i=len(chunks) - 1: chunks.__setitem__(i, g))
+        before = layers.INT8_BACKWARD
+        layers.INT8_BACKWARD = before if lm_head_int8 is None else lm_head_int8
+        try:
+            return real_chunk(fn, h, *args, **kw)
+        finally:
+            layers.INT8_BACKWARD = before
+
+    llama.checkpoint, vlm.checkpoint = layer_checkpoint, chunk_checkpoint
+    try:
+        yield
+    finally:
+        llama.checkpoint, vlm.checkpoint = real_layer, real_chunk
+        got["lm_head"] = torch.cat(chunks, dim=1) if chunks and all(c is not None for c in chunks) else None
+
+
+def dx_depth_witness(torch, cfg, model, batch, params) -> dict:
+    """Where the int8 dx leaves the bf16 STE's direction, on the same W8A8
+    forward (one row): per depth, the cosine and the norm ratio of the
+    gradient at the lm_head's input and at each decoder layer's input,
+    int8 route against the STE's, for the int8 dx everywhere, in the
+    decoder with the lm_head's dx on the STE, and in the lm_head alone;
+    and the tuned gradients' cosine for each."""
+    from spatialrgpt_tpu_torch.ops import layers
+
+    L = cfg.llm.num_hidden_layers
+
+    def run(int8: bool, lm_head_int8=None):
+        got = {}
+        layers.enable_int8_backward(int8)
+        try:
+            with dx_by_depth(torch, got, lm_head_int8):
+                _, g = loss_and_grads(torch, cfg, model, batch, params)
+        finally:
+            layers.enable_int8_backward(False)
+        check(len(got) == L + 1 and got["lm_head"] is not None, "dx_by_depth: a hook did not fire")
+        return [got["lm_head"]] + [got[i] for i in reversed(range(L))], g
+
+    ref, g_ref = run(False)
+    out = {"depths": ["lm_head dx"] + [f"after {n} layers" for n in range(1, L + 1)]}
+    for name, route in (("int8_dx_everywhere", (True, None)), ("int8_dx_decoder_lm_head_ste", (True, False)),
+                        ("int8_dx_lm_head_only", (False, True))):
+        got, g = run(*route)
+        out[name] = {
+            "cosine_by_depth": [cosine(a.flatten(), b.flatten()) for a, b in zip(got, ref)],
+            "norm_ratio_by_depth": [float(a.float().norm() / b.float().norm()) for a, b in zip(got, ref)],
+            "tuned_grads_cosine": cosine(g, g_ref),
+        }
+        del got, g
+    return out
 
 
 def serve_runner(torch, cfg, model, n_rows: int):
@@ -1365,21 +1625,39 @@ def phase_engine(torch, nvidia_smi: str, profile_dir=None) -> dict:
     return counts
 
 
-def fingerprint(torch, module) -> list:
-    """Per parameter, the int64 sum of its 16-bit patterns: any change of a
-    single element changes it."""
-    return [int(p.detach().reshape(-1).view(torch.int16).sum(dtype=torch.int64)) for p in module.parameters()]
+def state_fingerprint(torch, module) -> list:
+    """Per tensor of the module's state (parameters and buffers: int8
+    weights and their scales too), the int64 sum of its bytes."""
+    return [int(t.detach().reshape(-1).view(torch.uint8).sum(dtype=torch.int64)) for t in module.state_dict().values()]
 
 
-def tuned_grads(torch, model):
-    return torch.cat([p.grad.float().flatten() for m in (model.mm_projector, model.region_extractor)
-                      for p in m.parameters()])
+def loss_and_grads(torch, cfg, model, batch, params, attn_impl: str = "pallas"):
+    """The align-style loss on ``batch`` (remat, chunked CE) and the
+    gradients of ``params`` concatenated in f32."""
+    from spatialrgpt_tpu_torch.models import vlm
+
+    for p in params:
+        p.grad = None
+    loss, _ = vlm.loss_fn(model, cfg, batch, attn_impl=attn_impl, remat=True, ce_chunk=CE_CHUNK)
+    loss.backward()
+    grads = torch.cat([p.grad.float().flatten() for p in params])
+    for p in params:
+        p.grad = None
+    return loss.detach(), grads
+
+
+def attention_train_counts(cfg) -> dict:
+    """K1-K6 launches of one align-style step (remat): the frozen tower's
+    forward, K4's forward twice per decoder layer and its backward once."""
+    L = cfg.llm.num_hidden_layers
+    return {"vit_attention": tower_layers(cfg), "onepass_attention": 0, "decode_attention_int8_flat": 0,
+            "flash_attention_fwd": 2 * L, "flash_attention_bwd_dkv": L, "flash_attention_bwd_dq": L,
+            "grid_bias_attention": 0, "fused_layer_norm": 0}
 
 
 def phase_train(torch, profile_dir):
     import numpy as np
 
-    from spatialrgpt_tpu_torch.models import vlm
     from spatialrgpt_tpu_torch.train.optimizer import OptimizerConfig, build_optimizer
     from spatialrgpt_tpu_torch.train.step import create_train_state, make_train_step
     from spatialrgpt_tpu_torch.train.trainer import Trainer, TrainerConfig
@@ -1402,20 +1680,15 @@ def phase_train(torch, profile_dir):
     # kernel path against the plain path (K1's and K4's plain versions) on
     # one row: the plain attention holds (1, 8, 4, 4096, 4096) f32 scores
     # per layer, which for 4 rows would not fit beside the model
-    compare = {}
-    for impl in ("pallas", "xla"):
-        model.zero_grad(set_to_none=True)
-        loss, _ = vlm.loss_fn(model, cfg, one_row, attn_impl=impl, remat=True, ce_chunk=CE_CHUNK)
-        loss.backward()
-        compare[impl] = (float(loss.detach()), tuned_grads(torch, model))
-    model.zero_grad(set_to_none=True)
-    loss_rel = abs(compare["pallas"][0] - compare["xla"][0]) / abs(compare["xla"][0])
+    tuned_params = [p for m in (model.mm_projector, model.region_extractor) for p in m.parameters()]
+    compare = {impl: loss_and_grads(torch, cfg, model, one_row, tuned_params, impl) for impl in ("pallas", "xla")}
+    loss_rel = abs(float(compare["pallas"][0]) - float(compare["xla"][0])) / abs(float(compare["xla"][0]))
     grad_rel = rel_l2(compare["pallas"][1], compare["xla"][1])
     del compare
     torch.cuda.empty_cache()
 
-    frozen_before = {name: fingerprint(torch, getattr(model, name)) for name in ("llm", "vision_tower")}
-    tuned = lambda: fingerprint(torch, model.mm_projector) + fingerprint(torch, model.region_extractor)  # noqa: E731
+    frozen_before = {name: state_fingerprint(torch, getattr(model, name)) for name in ("llm", "vision_tower")}
+    tuned = lambda: state_fingerprint(torch, model.mm_projector) + state_fingerprint(torch, model.region_extractor)  # noqa: E731
     tuned_before = tuned()
     step_fn = make_train_step(cfg, optimizer, attn_impl="pallas", remat=True, frozen=("llm", "vision"),
                               ce_chunk=CE_CHUNK)
@@ -1434,10 +1707,7 @@ def phase_train(torch, profile_dir):
                        "launches": {n: after[n] - before[n] for n in after}})
         return state, metrics
 
-    L, T = cfg.llm.num_hidden_layers, cfg.vision.num_hidden_layers + 1 + cfg.vision.select_layer
-    want_step = {"vit_attention": T, "onepass_attention": 0, "decode_attention_int8_flat": 0,
-                 "flash_attention_fwd": 2 * L, "flash_attention_bwd_dkv": L, "flash_attention_bwd_dq": L,
-                 "grid_bias_attention": 0, "fused_layer_norm": 0, **NO_QUANT}
+    want_step = {**attention_train_counts(cfg), **NO_QUANT}
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as out_dir:
         saved = []
@@ -1469,7 +1739,7 @@ def phase_train(torch, profile_dir):
         "launch_counts_every_step": len(record) == TRAIN_STEPS and all(r["launches"] == want_step for r in record),
         "first_loss_near_ln_vocab": math.isfinite(first_loss) and abs(first_loss - math.log(vocab)) < 1.0,
         "losses_finite": all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in record),
-        "frozen_bit_unchanged": all(fingerprint(torch, getattr(model, n)) == f for n, f in frozen_before.items()),
+        "frozen_bit_unchanged": all(state_fingerprint(torch, getattr(model, n)) == f for n, f in frozen_before.items()),
         "tuned_unchanged_at_lr_0": bool(record) and not record[0]["tuned_changed"],
         "tuned_moved_after": len(record) == TRAIN_STEPS and record[-1]["tuned_changed"],
         "loss_vs_plain": loss_rel <= TRAIN_LOSS_REL_BOUND,
@@ -1496,6 +1766,276 @@ def phase_train(torch, profile_dir):
     if profile_dir:
         state = create_train_state(model, optimizer)
         profile_run(torch, lambda: step_fn(state, batch), profile_dir, "train_step")
+    return counts
+
+
+def cosine(a, b) -> float:
+    return float((a.double() @ b.double()) / (a.double().norm() * b.double().norm()))
+
+
+def run_steps(torch, step_fn, state, batch, moved, want_step):
+    """TRAIN_STEPS steps of ``step_fn`` on ``batch``: per step the seconds
+    (host clock around a synchronised step), loss, grad norm, whether the
+    tuned modules have moved (``moved()``) and the kernels' launches."""
+    record = []
+    for _ in range(TRAIN_STEPS):
+        before = read_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        after = read_counts()
+        launches = {n: after[n] - before[n] for n in after}
+        record.append({"seconds": seconds, "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+                       "num_tokens": int(metrics["num_tokens"]), "tuned_moved": moved(),
+                       "launches_as_expected": launches == want_step, "launches": launches})
+    return state, record
+
+
+def step_figures(record, peak_gb) -> dict:
+    """The median of steps 2-3 (the first carries the first calls' set-up),
+    tokens/s at TRAIN_ROWS x TRAIN_SEQ tokens a step, the steps' peak."""
+    step_s = statistics.median(r["seconds"] for r in record[1:])
+    return {"step_s_median_of_steps_2_3": step_s, "tokens_per_s": TRAIN_ROWS * TRAIN_SEQ / step_s,
+            "peak_mem_gb_steps": peak_gb}
+
+
+# the int8 route's gradients against the plain route's on one row: the
+# forward is deterministic (K7, K8 exact), so the loss must be bit-equal;
+# the gradients too where the kernel route equals itself run twice, and
+# otherwise within this many times its own run-to-run distance
+RUN_TO_RUN_FACTOR = 2.0
+# QLoRA's K9 route against its plain route: at most this many times the
+# plain route's distance from itself with K9's sums regrouped
+SUM_ORDER_FACTOR = 2.0
+
+
+def phase_align_w8a8(torch, nvidia_smi: str, profile_dir=None) -> dict:
+    """bench_train.py with SRGPT_TRAIN_BENCH_QUANT=1, then =2, on one model:
+    the stage-1 align step over a W8A8 decoder and tower (``quantize_model``
+    of ``init_random``'s bf16 weights, as bench_train.py quantizes its
+    params), projector and region extractor trained at lr 1e-3, remat,
+    CE chunks of 1024, pallas attention, on phase train's batch.  Each
+    setting starts from the same projector and region extractor, as each
+    is a run of its own of bench_train.py.  For each:
+    (i) the quantized route (K7, K8; K10, K11 under =2) against its plain
+    versions, attention kernels on in both, on one row: the loss bit-equal
+    and the tuned gradients as ``RUN_TO_RUN_FACTOR`` says; (ii) reported
+    without a bound: the cosine of the tuned gradients against the bf16
+    align step's on the same row (the reference gates > 0.95 on
+    trained-scale weights, tests/test_misc.py:278-320; random weights may
+    be chaotic); (iii) reported without a bound: ``dx_depth_witness``, the
+    int8 dx against the bf16 STE's by depth on the same forward; then
+    three ``make_frozen_base_train_step`` steps with
+    their launch counts worked out from the shapes, the frozen base
+    bit-unchanged, the tuned modules moving once the lr is above 0."""
+    import numpy as np
+
+    from spatialrgpt_tpu_torch.ops import layers
+    from spatialrgpt_tpu_torch.train.optimizer import OptimizerConfig, build_optimizer
+    from spatialrgpt_tpu_torch.train.step import create_train_state, make_frozen_base_train_step
+    from spatialrgpt_tpu_torch.utils.weights import init_random
+
+    cfg = llama3_8b_cfg()
+    dev = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    model = init_random(cfg, dev, torch.bfloat16, seed=0)
+    ocfg = OptimizerConfig(learning_rate=1e-3, tune_language_model=False, tune_vision_tower=False,
+                           tune_mm_projector=True, tune_region_extractor=True, total_steps=100)
+    build_optimizer(model, ocfg)  # requires_grad on the tuned modules only
+    tuned = [p for m in (model.mm_projector, model.region_extractor) for p in m.parameters()]
+    n_proj = sum(p.numel() for p in model.mm_projector.parameters())
+    rng = np.random.default_rng(0)
+    batch = train_batch(torch, cfg, rng, TRAIN_ROWS)
+    one_row = train_batch(torch, cfg, rng, 1)
+    _, g_bf16 = loss_and_grads(torch, cfg, model, one_row, tuned)
+    layers.quantize_model(model, bits=8, act_quant=True, vision=True)  # bench_train.py:199-204
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    init_s = time.perf_counter() - t0
+    frozen_before = {name: state_fingerprint(torch, getattr(model, name)) for name in ("llm", "vision_tower")}
+    witness = dx_depth_witness(torch, cfg, model, one_row, tuned)
+    torch.cuda.empty_cache()
+    tuned_init = {name: {k: v.detach().clone() for k, v in getattr(model, name).state_dict().items()}
+                  for name in ("mm_projector", "region_extractor")}
+    results, counts_all, checks = {}, None, {}
+    for quant in (1, 2):
+        for name, state in tuned_init.items():  # each setting from the same start, as its own bench_train.py run
+            getattr(model, name).load_state_dict(state)
+        layers.enable_int8_backward(quant == 2)
+        try:
+            loss_k, g_k = loss_and_grads(torch, cfg, model, one_row, tuned)
+            _, g_k2 = loss_and_grads(torch, cfg, model, one_row, tuned)
+            with plain_projections():
+                loss_p, g_p = loss_and_grads(torch, cfg, model, one_row, tuned)
+            run_to_run = rel_l2(g_k2, g_k)
+            vs_plain = rel_l2(g_k, g_p)
+            optimizer = build_optimizer(model, ocfg)
+            state = create_train_state(model, optimizer)
+            step_fn = make_frozen_base_train_step(cfg, optimizer, attn_impl="pallas", remat=True, ce_chunk=CE_CHUNK)
+            tuned_before = state_fingerprint(torch, model.mm_projector) + state_fingerprint(torch, model.region_extractor)
+            moved = lambda: (state_fingerprint(torch, model.mm_projector)  # noqa: E731
+                             + state_fingerprint(torch, model.region_extractor)) != tuned_before
+            want_step = {**attention_train_counts(cfg), **align_quant_counts(cfg, TRAIN_ROWS, quant == 2)}
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            state, record = run_steps(torch, step_fn, state, batch, moved, want_step)
+            counts = read_counts()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            if profile_dir:
+                profile_run(torch, lambda: step_fn(state, batch), profile_dir, f"align_w8a8_quant{quant}_step")
+        finally:
+            layers.enable_int8_backward(False)
+        counts_all = counts if counts_all is None else add_counts(counts_all, counts)
+        q_checks = {
+            "loss_bit_equal_to_plain_route": torch.equal(loss_k, loss_p),
+            "grads_vs_plain_route": vs_plain <= RUN_TO_RUN_FACTOR * run_to_run,
+            "launch_counts_every_step": all(r["launches_as_expected"] for r in record),
+            "int8_backward_kernels": all((r["launches"]["int8_dx_gemm"] > 0) == (quant == 2) for r in record),
+            "losses_finite": all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in record),
+            "tuned_unchanged_at_lr_0": not record[0]["tuned_moved"],
+            "tuned_moved_after": record[-1]["tuned_moved"],
+            "frozen_base_bit_unchanged": all(state_fingerprint(torch, getattr(model, n)) == f
+                                             for n, f in frozen_before.items()),
+        }
+        checks.update({f"quant{quant}_{k}": v for k, v in q_checks.items()})
+        results[f"SRGPT_TRAIN_BENCH_QUANT={quant}"] = {
+            "checks": q_checks, "launches_expected_per_step": want_step, "steps": record,
+            "vs_plain_route_one_row": {"loss_kernel": float(loss_k), "loss_plain": float(loss_p),
+                                       "grad_rel_l2": vs_plain, "grad_rel_l2_kernel_route_run_to_run": run_to_run},
+            "grad_cosine_vs_bf16_align_one_row_no_bound": {
+                "all": cosine(g_k, g_bf16), "mm_projector": cosine(g_k[:n_proj], g_bf16[:n_proj]),
+                "region_extractor": cosine(g_k[n_proj:], g_bf16[n_proj:])},
+            "smoke_figures_not_a_benchmark": {**step_figures(record, peak_gb), "card": nvidia_smi},
+        }
+        del g_k, g_k2, g_p
+        torch.cuda.empty_cache()
+    emit({"phase": "align_w8a8", "ok": all(checks.values()), "checks": checks,
+          "model": "llama3-8b (32 layers, full width) + siglip-so400m (26 of 27 layers), W8A8 llm and vision "
+                   "tower quantized from init_random's bf16 weights (seed 0)",
+          "stage": "align over a frozen W8A8 base: tuned mm_projector + region_extractor, lr 1e-3, remat, "
+                   f"ce_chunk {CE_CHUNK}, attn_impl pallas (bench_train.py SRGPT_TRAIN_BENCH_QUANT=1, then =2)",
+          "batch": {"rows": TRAIN_ROWS, "seq": TRAIN_SEQ, "samples_per_row": TRAIN_SAMPLES_PER_ROW,
+                    "regions": N_REGIONS, "rgb_and_depth": True},
+          "init_and_quantize_s": init_s, **results,
+          "int8_dx_vs_bf16_ste_by_depth_one_row_no_bound": witness})
+    check(all(checks.values()), f"align_w8a8 checks failed: {checks}")
+    return counts_all
+
+
+def phase_qlora(torch, nvidia_smi: str, profile_dir=None) -> dict:
+    """bench_train.py's qlora stage at llama3-8b: an int8 weight-only
+    decoder with its lm_head made straight into the int8 layout
+    (``init_random_quantized(w8a8=False, vision_quant=False)``, no bf16
+    copy of the decoder on the card), bf16 tower, LoRA r 64, alpha 16 on the
+    seven projections, bf16 adapters, projector and region extractor
+    co-trained, the default ``OptimizerConfig`` (lr 2e-5, total 100), remat,
+    CE chunks of 1024, pallas attention, on phase train's batch.  The
+    kernel route (K9) against the plain route (K9's plain version) on one
+    row, with every b drawn nonzero for the comparison (b = 0 at init would
+    make the side branch's addend zero), then set back to 0: the loss
+    within phase train's 1%, and the trained gradients no farther from the
+    plain route's than ``SUM_ORDER_FACTOR`` times the plain route's own
+    distance when its K9 sums are regrouped (``k9_plain_variant``): K9 sums
+    f32 in another order than its plain version, and through 32 layers of
+    random uniform int8 weights a difference of summation order alone moves
+    the gradients by a share that only a run can say (0.118 relative L2 in
+    a first H100 run).  Two wrong routes run through the same comparison
+    and must fail it: K9's sums held in bf16, and the addend dropped.  Then
+    three ``make_lora_train_step`` steps with their launch counts, the base
+    bit-unchanged, and only the adapters, projector and region extractor
+    moving."""
+    import numpy as np
+    from torch import nn
+
+    from spatialrgpt_tpu_torch.train.lora import LoraConfig, apply_lora, init_lora, replace_modules
+    from spatialrgpt_tpu_torch.train.optimizer import OptimizerConfig, build_optimizer
+    from spatialrgpt_tpu_torch.train.step import create_train_state, make_lora_train_step
+    from spatialrgpt_tpu_torch.utils.weights import init_random_quantized
+
+    cfg = llama3_8b_cfg()
+    dev = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    model = init_random_quantized(cfg, dev, w8a8=False, seed=0, vision_quant=False)
+    lcfg = LoraConfig(r=64, alpha=16.0)  # bench_train.py:152-157, the 8B row's bf16 adapters
+    model.adapters = init_lora(model.llm, lcfg, torch.Generator(device=dev).manual_seed(1), dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    trainable = nn.ModuleDict({"adapters": model.adapters, "mm_projector": model.mm_projector,
+                               "region_extractor": model.region_extractor})
+    optimizer = build_optimizer(trainable, OptimizerConfig(learning_rate=2e-5, total_steps=100))
+    params = list(trainable.parameters())
+    rng = np.random.default_rng(0)
+    batch = train_batch(torch, cfg, rng, TRAIN_ROWS)
+    one_row = train_batch(torch, cfg, rng, 1)
+    view = replace_modules(model, {"llm": apply_lora(model.llm, model.adapters, lcfg, merge=False)})
+    g_b = torch.Generator(device=dev).manual_seed(2)
+    with torch.no_grad():  # b ~ N(0, 1 / r): the side branch ~ 15% of a projection's output
+        for _, pair in model.adapters.items():
+            pair.b.copy_(torch.randn(pair.b.shape, generator=g_b, device=dev) * lcfg.r**-0.5)
+    loss_k, g_k = loss_and_grads(torch, cfg, view, one_row, params)
+    routes = {}
+    with plain_projections():
+        loss_p, g_p = loss_and_grads(torch, cfg, view, one_row, params)
+        for variant in ("regrouped", "bf16_sums", "no_addend"):
+            with k9_plain_variant(torch, variant):
+                loss_v, g_v = loss_and_grads(torch, cfg, view, one_row, params)
+            routes[variant] = {"loss_rel": abs(float(loss_v) - float(loss_p)) / abs(float(loss_p)),
+                               "grad_rel_l2": rel_l2(g_v, g_p)}
+            del g_v
+    with torch.no_grad():
+        for _, pair in model.adapters.items():
+            pair.b.zero_()
+    del view
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    grad_rel, grad_bound = rel_l2(g_k, g_p), SUM_ORDER_FACTOR * routes["regrouped"]["grad_rel_l2"]
+    del g_k, g_p
+    torch.cuda.empty_cache()
+    base_before = {name: state_fingerprint(torch, getattr(model, name)) for name in ("llm", "vision_tower")}
+    parts_before = {name: state_fingerprint(torch, module) for name, module in trainable.items()}
+    tuned_before = state_fingerprint(torch, trainable)
+    state = create_train_state(model, optimizer)
+    step_fn = make_lora_train_step(cfg, optimizer, lcfg, attn_impl="pallas", remat=True, ce_chunk=CE_CHUNK)
+    want_step = {**attention_train_counts(cfg), **qlora_quant_counts(cfg, TRAIN_ROWS)}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    state, record = run_steps(torch, step_fn, state, batch, lambda: state_fingerprint(torch, trainable) != tuned_before,
+                              want_step)
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    checks = {
+        "loss_vs_plain_route": loss_rel <= TRAIN_LOSS_REL_BOUND,
+        "grads_vs_plain_route": grad_rel <= grad_bound,
+        "control_bf16_sums_fails_the_comparison": routes["bf16_sums"]["grad_rel_l2"] > grad_bound,
+        "control_no_addend_fails_the_comparison": routes["no_addend"]["grad_rel_l2"] > grad_bound,
+        "launch_counts_every_step": all(r["launches_as_expected"] for r in record),
+        "losses_finite": all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in record),
+        "trained_unchanged_at_lr_0": not record[0]["tuned_moved"],
+        "trained_moved_after": record[-1]["tuned_moved"],
+        "adapters_projector_region_each_moved": all(state_fingerprint(torch, trainable[name]) != f
+                                                    for name, f in parts_before.items()),
+        "base_bit_unchanged": all(state_fingerprint(torch, getattr(model, n)) == f for n, f in base_before.items()),
+        "no_float_decoder_weight": not any(isinstance(m, nn.Linear) for m in model.llm.modules()),
+    }
+    emit({"phase": "qlora", "ok": all(checks.values()), "checks": checks,
+          "model": "llama3-8b (32 layers, full width): int8 weight-only decoder and lm_head made in the int8 layout "
+                   "(init_random_quantized, seed 0) + siglip-so400m (26 of 27 layers) bf16",
+          "stage": f"QLoRA: LoRA r {lcfg.r} alpha {lcfg.alpha} on {list(lcfg.targets)}, bf16 adapters "
+                   f"({sum(p.numel() for p in model.adapters.parameters())} parameters), mm_projector + "
+                   f"region_extractor co-trained, lr 2e-5, remat, ce_chunk {CE_CHUNK}, attn_impl pallas",
+          "batch": {"rows": TRAIN_ROWS, "seq": TRAIN_SEQ, "samples_per_row": TRAIN_SAMPLES_PER_ROW,
+                    "regions": N_REGIONS, "rgb_and_depth": True},
+          "launches": counts, "launches_expected_per_step": want_step, "steps": record,
+          "vs_plain_route_one_row": {"b": "drawn N(0, 1/r) for the comparison, then set back to 0",
+                                     "loss_rel": loss_rel, "loss_bound": TRAIN_LOSS_REL_BOUND,
+                                     "grad_rel_l2": grad_rel, "grad_bound": grad_bound,
+                                     "plain_route_variants": routes,
+                                     "bf16_sums_rounded_every_k_columns": BF16_SUM_COLUMNS},
+          "smoke_figures_not_a_benchmark": {**step_figures(record, peak_gb), "init_s": init_s, "card": nvidia_smi}})
+    check(all(checks.values()), f"qlora checks failed: {checks}")
+    if profile_dir:
+        profile_run(torch, lambda: step_fn(state, batch), profile_dir, "qlora_step")
     return counts
 
 
@@ -1688,6 +2228,14 @@ def phase_demo(torch, profile_dir=None) -> dict:
     return counts
 
 
+def release(torch) -> None:
+    """Between phases: free what the last phase left (its model may sit in
+    a reference cycle until the collector runs), so that the next phase's
+    peak memory counts only its own tensors."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def profile_run(torch, fn, out_dir, name):
     """One warm call of ``fn`` under torch.profiler: device-busy share and
     the operator table by device time, written to ``out_dir/<name>_ops.txt``.
@@ -1721,7 +2269,8 @@ def profile_run(torch, fn, out_dir, name):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR", help="also profile a W8A8 serve TTFT and generate run, one wave "
-                        "of the W8A8 engine, one align step and one demo pipeline run; write their tables to DIR")
+                        "of the W8A8 engine, one align step, one W8A8 align step of each backward, one QLoRA step "
+                        "and one demo pipeline run; write their tables to DIR")
     args = parser.parse_args()
     if not os.path.isdir(os.path.join(ROOT, "spatialrgpt_tpu_torch")):
         print("chip_smoke.py: run it from a checkout of the repository (spatialrgpt_tpu_torch/ is missing)",
@@ -1741,16 +2290,22 @@ def main() -> int:
         phase_grads(torch)
         phase = "main"
         serve = phase_main(torch, smi)
-        torch.cuda.empty_cache()
+        release(torch)
         phase = "serve_w8a8"
         serve_w8a8 = phase_serve_w8a8(torch, smi, args.profile)
-        torch.cuda.empty_cache()
+        release(torch)
         phase = "engine"
         engine = phase_engine(torch, smi, args.profile)
-        torch.cuda.empty_cache()
+        release(torch)
         phase = "train"
         train = phase_train(torch, args.profile)
-        torch.cuda.empty_cache()
+        release(torch)
+        phase = "align_w8a8"
+        align_w8a8 = phase_align_w8a8(torch, smi, args.profile)
+        release(torch)
+        phase = "qlora"
+        qlora = phase_qlora(torch, smi, args.profile)
+        release(torch)
         phase = "demo"
         demo = phase_demo(torch, args.profile)
     except Exception as e:  # report which phase failed, then exit non-zero
@@ -1759,7 +2314,8 @@ def main() -> int:
         return 1
     for row in rows:
         by_path = {"serve": serve[row["name"]], "serve_w8a8": serve_w8a8[row["name"]], "engine": engine[row["name"]],
-                   "train": train[row["name"]], "demo": demo[row["name"]]}
+                   "train": train[row["name"]], "align_w8a8": align_w8a8[row["name"]], "qlora": qlora[row["name"]],
+                   "demo": demo[row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
     print(json.dumps({"kernels": rows}), flush=True)

@@ -74,7 +74,9 @@
 // round-to-nearest operations (__int2float_rn, __fmul_rn(ascale, scale),
 // __fmul_rn, __fadd_rn of the f32 bias: no contraction into an FMA), one
 // cast.  K9's f32 sums run in the tensor core's order, then the splits' in
-// rank order.  K % 16 == 0 (TMA's 16-byte row stride).  The tensor map of a
+// rank order.  Both take an optional f32 (M, N) addend, added after the
+// scale and before the bias: the LoRA side branch of linear, whose f32 sum
+// the reference adds there (layers.py:132-146).  K % 16 == 0 (TMA's 16-byte row stride).  The tensor map of a
 // weight is encoded once per (pointer, shape, box) and cached; x's is
 // encoded per call.
 
@@ -299,15 +301,18 @@ __device__ __forceinline__ void i8x4_to_bf16x4(uint32_t w, uint32_t& lo, uint32_
 }
 
 // the epilogue of one output: K8 f32(acc) * (ascale * scale), K9 acc *
-// scale, then the f32 bias, each rounded once (no contraction into an FMA)
+// scale, then the f32 addend of the row (the LoRA branch's (x a) b * scale,
+// layers.py:132-143; none where add_row is null), then the f32 bias, each
+// rounded once (no contraction into an FMA)
 template <bool A8, typename Acc>
-__device__ __forceinline__ float epilogue(Acc v, float as, float sc, const void* __restrict__ bias, int bias_kind,
-                                          int n) {
+__device__ __forceinline__ float epilogue(Acc v, float as, float sc, const float* __restrict__ add_row,
+                                          const void* __restrict__ bias, int bias_kind, int n) {
   float y;
   if constexpr (A8)
     y = __fmul_rn(__int2float_rn(v), __fmul_rn(as, sc));
   else
     y = __fmul_rn(v, sc);
+  if (add_row != nullptr) y = __fadd_rn(y, add_row[n]);
   if (bias_kind == 1)
     y = __fadd_rn(y, __bfloat162float(static_cast<const bf16*>(bias)[n]));
   else if (bias_kind == 2)
@@ -345,7 +350,8 @@ template <bool A8, int W>
 __global__ void __launch_bounds__(DEC_THREADS, 2)
 decode_kernel(const __grid_constant__ CUtensorMap tm_w, const __grid_constant__ CUtensorMap tm_x,
               const float* __restrict__ ascale, const float* __restrict__ scale, const void* __restrict__ bias,
-              int bias_kind, bf16* __restrict__ out, int M, int N, int KT, int kt_per_split) {
+              int bias_kind, const float* __restrict__ add, bf16* __restrict__ out, int M, int N, int KT,
+              int kt_per_split) {
   using L = DecLayout<A8, W>;
   using Acc = typename std::conditional<A8, int, float>::type;
   extern __shared__ unsigned char smem_raw[];
@@ -475,17 +481,18 @@ decode_kernel(const __grid_constant__ CUtensorMap tm_w, const __grid_constant__ 
     const float as = A8 ? ascale[m] : 1.0f;
     const Acc sv[4] = {s.x, s.y, s.z, s.w};
     bf16* orow = out + static_cast<long long>(m) * N;
+    const float* arow = add == nullptr ? nullptr : add + static_cast<long long>(m) * N;
     const int n = n0 + cc;
     if ((N & 3) == 0 && n + 3 < N) {
       float y[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) y[e] = epilogue<A8>(sv[e], as, scale[n + e], bias, bias_kind, n + e);
+      for (int e = 0; e < 4; ++e) y[e] = epilogue<A8>(sv[e], as, scale[n + e], arow, bias, bias_kind, n + e);
       __nv_bfloat162 v2[2] = {__floats2bfloat162_rn(y[0], y[1]), __floats2bfloat162_rn(y[2], y[3])};
       *reinterpret_cast<uint2*>(orow + n) = *reinterpret_cast<const uint2*>(v2);
     } else {
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        if (n + e < N) orow[n + e] = __float2bfloat16_rn(epilogue<A8>(sv[e], as, scale[n + e], bias, bias_kind, n + e));
+        if (n + e < N) orow[n + e] = __float2bfloat16_rn(epilogue<A8>(sv[e], as, scale[n + e], arow, bias, bias_kind, n + e));
     }
   }
   cluster.sync();  // no CTA leaves while another reads its partial
@@ -518,7 +525,8 @@ __device__ __forceinline__ void tile_coords(int tile, int tiles_m, int tiles_n, 
 __global__ void __launch_bounds__(LG_THREADS, 1)
 large_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
              const float* __restrict__ ascale, const float* __restrict__ scale, const void* __restrict__ bias,
-             int bias_kind, bf16* __restrict__ out, int M, int N, int KT, int tiles_m, int tiles_n) {
+             int bias_kind, const float* __restrict__ add, bf16* __restrict__ out, int M, int N, int KT, int tiles_m,
+             int tiles_n) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
                                                          ~static_cast<uintptr_t>(1023));
@@ -595,19 +603,20 @@ large_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ C
         if (row >= M) continue;
         const float as = ascale[row];
         bf16* orow = out + static_cast<long long>(row) * N;
+        const float* arow = add == nullptr ? nullptr : add + static_cast<long long>(row) * N;
 #pragma unroll
         for (int j = 0; j < LG_BN / 8; ++j) {
           const int col = nb * LG_BN + 8 * j + 2 * c;
           if (col >= N) continue;
-          const float y0 = epilogue<true>(acc[4 * j + 2 * h], as, scale[col], bias, bias_kind, col);
+          const float y0 = epilogue<true>(acc[4 * j + 2 * h], as, scale[col], arow, bias, bias_kind, col);
           if (pairs) {
-            const float y1 = epilogue<true>(acc[4 * j + 2 * h + 1], as, scale[col + 1], bias, bias_kind, col + 1);
+            const float y1 = epilogue<true>(acc[4 * j + 2 * h + 1], as, scale[col + 1], arow, bias, bias_kind, col + 1);
             *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(y0, y1);
           } else {
             orow[col] = __float2bfloat16_rn(y0);
             if (col + 1 < N)
               orow[col + 1] = __float2bfloat16_rn(
-                  epilogue<true>(acc[4 * j + 2 * h + 1], as, scale[col + 1], bias, bias_kind, col + 1));
+                  epilogue<true>(acc[4 * j + 2 * h + 1], as, scale[col + 1], arow, bias, bias_kind, col + 1));
           }
         }
       }
@@ -686,7 +695,7 @@ inline void decode_splits(int tiles, int KT, int& splits, int& per) {
 
 template <bool A8, int W>
 cudaError_t launch_decode(const void* x, const void* q, const float* ascale, const float* scale, const void* bias,
-                          int bias_kind, bf16* out, int M, int N, int K, cudaStream_t stream) {
+                          int bias_kind, const float* add, bf16* out, int M, int N, int K, cudaStream_t stream) {
   using L = DecLayout<A8, W>;
   CUtensorMap tw, tx;
   cudaError_t err = weight_map(&tw, q, N, K, DEC_CH);
@@ -714,21 +723,21 @@ cudaError_t launch_decode(const void* x, const void* q, const float* ascale, con
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kern, tw, tx, ascale, scale, bias, bias_kind, out, M, N, KT, per);
+  err = cudaLaunchKernelEx(&cfg, kern, tw, tx, ascale, scale, bias, bias_kind, add, out, M, N, KT, per);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <bool A8>
 cudaError_t dispatch_decode(const void* x, const void* q, const float* ascale, const float* scale, const void* bias,
-                            int bias_kind, bf16* out, int M, int N, int K, cudaStream_t stream) {
-  if (M <= 8) return launch_decode<A8, 8>(x, q, ascale, scale, bias, bias_kind, out, M, N, K, stream);
-  if (M <= 16) return launch_decode<A8, 16>(x, q, ascale, scale, bias, bias_kind, out, M, N, K, stream);
-  if (M <= 32) return launch_decode<A8, 32>(x, q, ascale, scale, bias, bias_kind, out, M, N, K, stream);
-  return launch_decode<A8, 64>(x, q, ascale, scale, bias, bias_kind, out, M, N, K, stream);  // 64-row tiles
+                            int bias_kind, const float* add, bf16* out, int M, int N, int K, cudaStream_t stream) {
+  if (M <= 8) return launch_decode<A8, 8>(x, q, ascale, scale, bias, bias_kind, add, out, M, N, K, stream);
+  if (M <= 16) return launch_decode<A8, 16>(x, q, ascale, scale, bias, bias_kind, add, out, M, N, K, stream);
+  if (M <= 32) return launch_decode<A8, 32>(x, q, ascale, scale, bias, bias_kind, add, out, M, N, K, stream);
+  return launch_decode<A8, 64>(x, q, ascale, scale, bias, bias_kind, add, out, M, N, K, stream);  // 64-row tiles
 }
 
 inline cudaError_t launch_large(const void* xq, const void* q, const float* ascale, const float* scale, const void* bias,
-                         int bias_kind, bf16* out, int M, int N, int K, cudaStream_t stream) {
+                         int bias_kind, const float* add, bf16* out, int M, int N, int K, cudaStream_t stream) {
   CUtensorMap ta, tb;
   cudaError_t err = weight_map(&tb, q, N, K, LG_BN);
   if (err == cudaSuccess) err = make_map_2d(&ta, xq, M, K, LG_BM, false);
@@ -744,8 +753,8 @@ inline cudaError_t launch_large(const void* xq, const void* q, const float* asca
   const long long tiles = static_cast<long long>(tiles_m) * tiles_n;
   if (tiles >= (1ll << 31)) return cudaErrorInvalidValue;
   const int grid = static_cast<int>(tiles < sm_count() ? tiles : sm_count());
-  kern<<<grid, LG_THREADS, LG_SMEM, stream>>>(ta, tb, ascale, scale, bias, bias_kind, out, M, N, (K + BK - 1) / BK,
-                                               tiles_m, tiles_n);
+  kern<<<grid, LG_THREADS, LG_SMEM, stream>>>(ta, tb, ascale, scale, bias, bias_kind, add, out, M, N,
+                                               (K + BK - 1) / BK, tiles_m, tiles_n);
   return cudaGetLastError();
 }
 
@@ -755,21 +764,22 @@ enum Form : int { DECODE = 0, LARGE = 1 };
 }  // namespace qgemm
 }  // namespace srgpt
 
-// bias_kind: 0 none, 1 bf16, 2 f32 (N,)
+// bias_kind: 0 none, 1 bf16, 2 f32 (N,); add: null or f32 (M, N), added before the bias
 extern "C" int srgpt_w8a8_gemm(const void* xq, const void* q, const void* ascale, const void* scale, const void* bias,
-                               int bias_kind, void* out, int M, int N, int K, int form, void* stream) {
+                               int bias_kind, const void* add, void* out, int M, int N, int K, int form, void* stream) {
   using namespace srgpt::qgemm;
   if (M <= 0 || N <= 0) return static_cast<int>(cudaGetLastError());
   if (K <= 0 || K % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* as = static_cast<const float*>(ascale);
   const float* sc = static_cast<const float*>(scale);
+  const float* ad = static_cast<const float*>(add);
   bf16* o = static_cast<bf16*>(out);
   cudaError_t err;
   if (form == DECODE)
-    err = dispatch_decode<true>(xq, q, as, sc, bias, bias_kind, o, M, N, K, st);
+    err = dispatch_decode<true>(xq, q, as, sc, bias, bias_kind, ad, o, M, N, K, st);
   else if (form == LARGE)
-    err = launch_large(xq, q, as, sc, bias, bias_kind, o, M, N, K, st);
+    err = launch_large(xq, q, as, sc, bias, bias_kind, ad, o, M, N, K, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
@@ -777,10 +787,11 @@ extern "C" int srgpt_w8a8_gemm(const void* xq, const void* q, const void* ascale
 
 // the decode form at every M (M > 64: 64-row tiles)
 extern "C" int srgpt_w8_gemm(const void* x, const void* q, const void* scale, const void* bias, int bias_kind,
-                             void* out, int M, int N, int K, void* stream) {
+                             const void* add, void* out, int M, int N, int K, void* stream) {
   using namespace srgpt::qgemm;
   if (M <= 0 || N <= 0) return static_cast<int>(cudaGetLastError());
   if (K <= 0 || K % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(dispatch_decode<false>(x, q, nullptr, static_cast<const float*>(scale), bias, bias_kind,
-                                                 static_cast<bf16*>(out), M, N, K, static_cast<cudaStream_t>(stream)));
+                                                 static_cast<const float*>(add), static_cast<bf16*>(out), M, N, K,
+                                                 static_cast<cudaStream_t>(stream)));
 }

@@ -28,7 +28,7 @@ from torch.utils.checkpoint import checkpoint
 from spatialrgpt_tpu_torch.config import SpatialRGPTConfig
 from spatialrgpt_tpu_torch.constants import IGNORE_INDEX
 from spatialrgpt_tpu_torch.models import llama, projector, region_extractor, siglip
-from spatialrgpt_tpu_torch.ops.layers import is_quantized, linear
+from spatialrgpt_tpu_torch.ops.layers import linear
 
 
 class SpatialRGPT(nn.Module):
@@ -199,7 +199,7 @@ def _shifted_targets(inputs: VLMInputs) -> Tuple[torch.Tensor, torch.Tensor]:
     return tgt, valid
 
 
-def _token_logp_sum(h: torch.Tensor, tgt: torch.Tensor, valid: torch.Tensor, lm_head: torch.Tensor) -> torch.Tensor:
+def _token_logp_sum(h: torch.Tensor, tgt: torch.Tensor, valid: torch.Tensor, lm_head: nn.Module) -> torch.Tensor:
     """Sum over valid positions of log p(target): LM head, logsumexp and the
     target gather (the lse form: no (.., V) log-softmax is built)."""
     lg = linear(h, lm_head).float()
@@ -222,16 +222,14 @@ def loss_fn(
     ``ce_chunk > 0`` applies the target shift first, then runs the LM head,
     logsumexp and gather per chunk of ``ce_chunk`` positions under
     ``torch.utils.checkpoint``: the (B, S, V) logits never exist, and the
-    backward recomputes one chunk's logits at a time.  MoE decoders and
-    quantized models raise ``NotImplementedError``."""
-    if is_quantized(model):
-        raise NotImplementedError(
-            "the loss of a quantized model is not ported yet: it waits for the frozen-base W8A8 align step "
-            "and the W8A8 straight-through backward"
-        )
+    backward recomputes one chunk's logits at a time.  A quantized decoder's
+    projections and LM head take ``linear``'s quantized branches, whose
+    backward carries dx (the W8A8 straight-through estimator; under remat
+    the recompute runs K7 + K8 again, as ``jax.checkpoint`` recomputes the
+    W8A8 forward).  MoE decoders raise ``NotImplementedError``."""
     h = _hidden(model, cfg, inputs, attn_impl, remat)
     tgt, valid = _shifted_targets(inputs)
-    w = model.llm.lm_head.weight
+    w = model.llm.lm_head
     if ce_chunk:
         S = tgt.shape[1]
         if S % ce_chunk:

@@ -1,4 +1,5 @@
-"""K7-K9: the kernels of the quantized projections (``ops/layers.py::linear``).
+"""K7-K11: the kernels of the quantized projections (``ops/layers.py::linear``)
+and of the W8A8 projection's int8 backward.
 
 The reference computes these with XLA, not Pallas
 (``spatialrgpt_tpu/ops/layers.py::_w8a8_dot`` and ``linear``'s int8
@@ -17,6 +18,15 @@ weight at every call.
 - K9 ``w8_gemm`` (``csrc/int8_gemm.cu``): bf16 activations x int8 weights
   converted to bf16 in registers, f32 sums, then ``* scale``, the f32 bias
   and one cast; always the decode form (in 64-row tiles past 64 rows).
+  K8 and K9 take an optional f32 (M, N) ``add`` (the LoRA side branch),
+  added after the scale and before the bias.
+- K10 ``act_quant_dy_int8`` (``csrc/act_quant.cu``): the SwitchBack
+  prologue of ``_w8a8_dot_bwd``'s int8 route (``layers.py:70-73``): dy times
+  the weight's per-channel scale, quantized per row to int8.
+- K11 ``int8_dx_gemm`` (``csrc/int8_dx_gemm.cu``): K10's int8 rows x the
+  stored weight, contracted over its output axis (q's rows, read as
+  stored), int32 sums, then ``* gscale`` and one cast to bf16
+  (``layers.py:74-78``).
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
 version only for tensors on the CPU.  ``launches`` counts kernel launches
@@ -34,7 +44,7 @@ from spatialrgpt_tpu_torch.ops import _build
 from spatialrgpt_tpu_torch.ops._checks import check_dtype, check_on_cuda
 
 # kernel launches since the last reset (plain-path calls do not count)
-launches = {"act_quant_int8": 0, "w8a8_gemm": 0, "w8_gemm": 0}
+launches = {"act_quant_int8": 0, "w8a8_gemm": 0, "w8_gemm": 0, "act_quant_dy_int8": 0, "int8_dx_gemm": 0}
 
 # the plain int8 product sums chunks of this many k in f32: each partial sum
 # is an integer of at most 1024 * 127^2 < 2^24, so f32 holds it exactly
@@ -55,6 +65,14 @@ DECODE_MAX_N, DECODE_MAX_ROWS = 65535 * 128, 65535 * 64
 # ---------------------------------------------------------------------------
 
 
+def _quant_rows(xf: torch.Tensor, floor: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row int8 of the f32 rows xf: ``s = max(max|xf| * f32(1 / 127),
+    floor)``, ``clip(round(xf / s), -127, 127)``; returns (int8, s (M,))."""
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    s = torch.clamp(amax * (1.0 / 127.0), min=floor)
+    return torch.round(xf / s).clamp(-127, 127).to(torch.int8), s[..., 0]
+
+
 def act_quant_int8_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """``_w8a8_dot``'s activation quantizer over the rows of x (M, K), as
     the reference runs it (under jit): ``ascale = max(max|x| * f32(1 / 127),
@@ -62,11 +80,16 @@ def act_quant_int8_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     by its f32 reciprocal -- and ``xq = clip(round(x / ascale), -127, 127)``
     in f32 with an IEEE division, rounded half to even, clipped before the
     cast."""
-    xf = x.float()
-    amax = xf.abs().amax(dim=-1, keepdim=True)
-    ascale = torch.clamp(amax * (1.0 / 127.0), min=1e-12)
-    xq = torch.round(xf / ascale).clamp(-127, 127).to(torch.int8)
-    return xq, ascale[..., 0]
+    return _quant_rows(x.float(), 1e-12)
+
+
+def act_quant_dy_int8_plain(dy: torch.Tensor, scale: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_w8a8_dot_bwd``'s int8 prologue over the rows of dy (M, N) with the
+    weight's f32 scale (N,): ``dyf = f32(dy) * scale``, ``gscale =
+    max(max|dyf| * f32(1 / 127), 1e-30)`` (the division folded as XLA folds
+    it: the compiled HLO multiplies), ``dyq = clip(round(dyf / gscale),
+    -127, 127)``; returns (int8 dyq (M, N), f32 gscale (M,))."""
+    return _quant_rows(dy.float() * scale, 1e-30)
 
 
 def int8_matmul_plain(xq: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -81,26 +104,40 @@ def int8_matmul_plain(xq: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def finish(y: torch.Tensor, add: Optional[torch.Tensor], bias: Optional[torch.Tensor], dtype) -> torch.Tensor:
+    """The f32 addend, then the f32 bias, then one cast (``layers.py:132-146``)."""
+    if add is not None:
+        y = y + add
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(dtype)
+
+
 def w8a8_gemm_plain(
     xq: torch.Tensor, ascale: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
-    bias: Optional[torch.Tensor] = None, out_dtype: torch.dtype = torch.bfloat16,
+    bias: Optional[torch.Tensor] = None, out_dtype: torch.dtype = torch.bfloat16, add: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """``f32(xq @ q.T) * (ascale[m] * scale[n])``, then the f32 bias, then
-    one cast to ``out_dtype`` (``layers.py:36-41`` and ``:144-146``)."""
-    y = int8_matmul_plain(xq, q).float() * (ascale[:, None] * scale[None, :])
-    if bias is not None:
-        y = y + bias.float()
-    return y.to(out_dtype)
+    """``f32(xq @ q.T) * (ascale[m] * scale[n])``, then the f32 ``add`` and
+    the f32 bias, then one cast to ``out_dtype`` (``layers.py:36-41`` and
+    ``:132-146``)."""
+    return finish(int8_matmul_plain(xq, q).float() * (ascale[:, None] * scale[None, :]), add, bias, out_dtype)
 
 
-def w8_gemm_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``(x @ q.T in f32) * scale``, then the f32 bias, then one cast to x's
-    dtype (``layers.py:123-125``): q in x's dtype is exact, and x's values
-    are exact in f32, so the f32 product is the reference's."""
-    y = torch.matmul(x.float(), q.float().T) * scale
-    if bias is not None:
-        y = y + bias.float()
-    return y.to(x.dtype)
+def w8_gemm_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                  add: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``(x @ q.T in f32) * scale``, then the f32 ``add`` and the f32 bias,
+    then one cast to x's dtype (``layers.py:123-125``): q in x's dtype is
+    exact, and x's values are exact in f32, so the f32 product is the
+    reference's."""
+    return finish(torch.matmul(x.float(), q.float().T) * scale, add, bias, x.dtype)
+
+
+def int8_dx_gemm_plain(dyq: torch.Tensor, q: torch.Tensor, gscale: torch.Tensor,
+                       out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """``bf16(f32(dyq @ q) * gscale[m])`` for int8 dyq (M, N) and the stored
+    int8 q (N, K): the exact int32 product contracted over q's rows, one
+    rounded multiply, one cast (``layers.py:74-78``)."""
+    return (int8_matmul_plain(dyq, q.t()).float() * gscale[:, None]).to(out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -121,6 +158,14 @@ def _check_2d(name: str, **tensors) -> None:
 def _check_aligned(name: str, *tensors: torch.Tensor) -> None:
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{name}: the rows must start 16-byte aligned")
+
+
+def _check_add(name: str, add: Optional[torch.Tensor], M: int, N: int) -> None:
+    if add is None:
+        return
+    check_dtype(name, torch.float32, add)
+    if add.shape != (M, N) or not add.is_contiguous():
+        raise ValueError(f"{name}: add must be contiguous of shape ({M}, {N}), got {tuple(add.shape)}")
 
 
 def _bias_kind(name: str, bias: Optional[torch.Tensor], N: int) -> int:
@@ -155,6 +200,32 @@ def act_quant_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return xq, ascale
 
 
+def act_quant_dy_int8(dy: torch.Tensor, scale: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K10: bf16 dy (M, N) and the weight's f32 scale (N,) on the card ->
+    (int8 dyq (M, N), f32 gscale (M,)), bit-equal to
+    ``act_quant_dy_int8_plain``.  N % 8 == 0."""
+    if dy.device.type == "cpu":
+        return act_quant_dy_int8_plain(dy, scale)
+    name = "act_quant_dy_int8"
+    check_dtype(name, torch.bfloat16, dy)
+    check_dtype(name, torch.float32, scale)
+    _check_2d(name, dy=dy)
+    M, N = dy.shape
+    if N == 0 or N % 8:
+        raise ValueError(f"{name}: N = {N} must be a positive multiple of 8")
+    if scale.shape != (N,) or not scale.is_contiguous():
+        raise ValueError(f"{name}: scale must be contiguous of shape ({N},), got {tuple(scale.shape)}")
+    check_on_cuda(name, dy, scale)
+    _check_aligned(name, dy, scale)
+    dyq = torch.empty((M, N), dtype=torch.int8, device=dy.device)
+    gscale = torch.empty((M,), dtype=torch.float32, device=dy.device)
+    err = _build.lib().srgpt_act_quant_dy(dy.data_ptr(), scale.data_ptr(), dyq.data_ptr(), gscale.data_ptr(), M, N,
+                                          _build.stream_ptr(dy))
+    _build.check(err, name)
+    launches[name] += 1
+    return dyq, gscale
+
+
 def _check_gemm(name: str, a: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> Tuple[int, int, int]:
     check_dtype(name, torch.int8, q)
     check_dtype(name, torch.float32, scale)
@@ -177,14 +248,14 @@ def _check_decode(name: str, M: int, N: int) -> None:
 
 def w8a8_gemm(
     xq: torch.Tensor, ascale: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
-    bias: Optional[torch.Tensor] = None, out_dtype: torch.dtype = torch.bfloat16,
+    bias: Optional[torch.Tensor] = None, out_dtype: torch.dtype = torch.bfloat16, add: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """K8: int8 xq (M, K) with f32 ascale (M,) against int8 q (N, K) with
     f32 scale (N,) on the card -> bf16 (M, N), bit-equal to
     ``w8a8_gemm_plain``.  K % 16 == 0; the decode form (M <=
     ``DECODE_MAX_M``) takes N <= ``DECODE_MAX_N``."""
     if xq.device.type == "cpu":
-        return w8a8_gemm_plain(xq, ascale, q, scale, bias, out_dtype)
+        return w8a8_gemm_plain(xq, ascale, q, scale, bias, out_dtype, add)
     name = "w8a8_gemm"
     check_dtype(name, torch.int8, xq)
     check_dtype(name, torch.float32, ascale)
@@ -197,11 +268,12 @@ def w8a8_gemm(
     if form == FORM_DECODE:
         _check_decode(name, M, N)
     kind = _bias_kind(name, bias, N)
-    check_on_cuda(name, xq, ascale, q, scale, *(() if bias is None else (bias,)))
+    _check_add(name, add, M, N)
+    check_on_cuda(name, xq, ascale, q, scale, *(t for t in (bias, add) if t is not None))
     _check_aligned(name, xq, q)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=xq.device)
     err = _build.lib().srgpt_w8a8_gemm(
-        xq.data_ptr(), q.data_ptr(), ascale.data_ptr(), scale.data_ptr(), _ptr(bias), kind, out.data_ptr(),
+        xq.data_ptr(), q.data_ptr(), ascale.data_ptr(), scale.data_ptr(), _ptr(bias), kind, _ptr(add), out.data_ptr(),
         M, N, K, form, _build.stream_ptr(xq),
     )
     _build.check(err, name)
@@ -209,25 +281,55 @@ def w8a8_gemm(
     return out
 
 
-def w8_gemm(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+def w8_gemm(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor] = None,
+            add: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K9: bf16 x (M, K) against int8 q (N, K) with f32 scale (N,) on the
     card -> bf16 (M, N), within bf16 rounding of ``w8_gemm_plain`` (the f32
     sums run in another order, the same in every run).  K % 16 == 0,
     N <= ``DECODE_MAX_N``, M <= ``DECODE_MAX_ROWS``."""
     if x.device.type == "cpu":
-        return w8_gemm_plain(x, q, scale, bias)
+        return w8_gemm_plain(x, q, scale, bias, add)
     name = "w8_gemm"
     check_dtype(name, torch.bfloat16, x)
     M, N, K = _check_gemm(name, x, q, scale)
     _check_decode(name, M, N)
     kind = _bias_kind(name, bias, N)
-    check_on_cuda(name, x, q, scale, *(() if bias is None else (bias,)))
+    _check_add(name, add, M, N)
+    check_on_cuda(name, x, q, scale, *(t for t in (bias, add) if t is not None))
     _check_aligned(name, x, q)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     err = _build.lib().srgpt_w8_gemm(
-        x.data_ptr(), q.data_ptr(), scale.data_ptr(), _ptr(bias), kind, out.data_ptr(), M, N, K,
+        x.data_ptr(), q.data_ptr(), scale.data_ptr(), _ptr(bias), kind, _ptr(add), out.data_ptr(), M, N, K,
         _build.stream_ptr(x),
     )
     _build.check(err, name)
     launches[name] += 1
     return out
+
+
+def int8_dx_gemm(dyq: torch.Tensor, q: torch.Tensor, gscale: torch.Tensor) -> torch.Tensor:
+    """K11: int8 dyq (M, N) with f32 gscale (M,) against the stored int8 q
+    (N, K), contracted over N, on the card -> bf16 dx (M, K), bit-equal to
+    ``int8_dx_gemm_plain``.  N % 8 == 0, K % 16 == 0."""
+    if dyq.device.type == "cpu":
+        return int8_dx_gemm_plain(dyq, q, gscale)
+    name = "int8_dx_gemm"
+    check_dtype(name, torch.int8, dyq, q)
+    check_dtype(name, torch.float32, gscale)
+    _check_2d(name, dyq=dyq, q=q)
+    (M, N), K = dyq.shape, q.shape[1]
+    if q.shape[0] != N or gscale.shape != (M,) or not gscale.is_contiguous():
+        raise ValueError(f"{name}: dyq {tuple(dyq.shape)}, q {tuple(q.shape)} and gscale {tuple(gscale.shape)} "
+                         "do not fit")
+    if N == 0 or N % 8 or K == 0 or K % 16:
+        raise ValueError(f"{name}: N = {N} must be a positive multiple of 8 and K = {K} of 16")
+    if max(M, N, K) >= 2**31:
+        raise ValueError(f"{name}: M = {M}, N = {N} and K = {K} must be below 2^31")
+    check_on_cuda(name, dyq, q, gscale)
+    _check_aligned(name, dyq, q)
+    dx = torch.empty((M, K), dtype=torch.bfloat16, device=dyq.device)
+    err = _build.lib().srgpt_int8_dx_gemm(dyq.data_ptr(), q.data_ptr(), gscale.data_ptr(), dx.data_ptr(), M, N, K,
+                                          _build.stream_ptr(dyq))
+    _build.check(err, name)
+    launches[name] += 1
+    return dx

@@ -4,8 +4,10 @@ Port of ``spatialrgpt_tpu/ops/layers.py``.  Weights use PyTorch's (out,
 in) layout, as the HF names hold them.  ``linear`` takes a float weight
 (or an ``nn.Linear``) or a quantized ``QuantLinear`` and runs the
 reference's branches: float, W8A8 (K7 + K8), int8 weight-only (K9) and
-packed int4 (plain).  The LoRA side branch and the W8A8 straight-through
-backward are not ported yet.
+packed int4 (plain), each with the reference's gradient into x (the W8A8
+straight-through estimator, its int8 route on K10 + K11 under
+``enable_int8_backward``, and autodiff's dx of the weight-only product) and
+the unmerged LoRA side branch of ``train/lora.py``.
 Numerics follow the reference: LayerNorm statistics and affine in fp32,
 RMSNorm variance in fp32 with the scale applied in the input dtype.
 """
@@ -14,7 +16,7 @@ from __future__ import annotations
 
 import math
 import os
-from typing import Optional, Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -31,6 +33,40 @@ QUANT_KERNELS = True
 # the reference's W8A8 gate for a contracting weight (din > dout): int8
 # activations only from this many rows on (layers.py:114-120)
 A8_MIN_ROWS = 2048
+# the W8A8 backward's dx on K10 + K11 (``enable_int8_backward``)
+INT8_BACKWARD = False
+
+
+def enable_int8_backward(on: bool = True) -> None:
+    """Run the W8A8 straight-through backward's dx as an int8 product
+    (SwitchBack, the reference's ``enable_int8_backward``,
+    ``layers.py:49-60``): dy times the weight's per-channel scale, quantized
+    per row (K10), against the stored int8 weight (K11).  Each forward reads
+    the switch, so a flip acts on the steps that run after it, as the
+    reference's acts on the steps traced after it."""
+    global INT8_BACKWARD
+    INT8_BACKWARD = on
+
+
+class LoraBranch(NamedTuple):
+    """The unmerged LoRA factors a (in, r) and b (r, out) of a projection and
+    their scale alpha / r (``train/lora.py::apply_lora(merge=False)`` sets
+    one as the module's ``lora``)."""
+
+    a: torch.Tensor
+    b: torch.Tensor
+    scale: float
+
+
+class MergedLinear(nn.Module):
+    """A float projection whose (out, in) weight is computed, not trained:
+    ``train/lora.py::apply_lora``'s merged W + a b * scale (a buffer, so it
+    may carry the adapters' gradients)."""
+
+    def __init__(self, weight: torch.Tensor, bias: Optional[torch.Tensor]):
+        super().__init__()
+        self.register_buffer("weight", weight)
+        self.bias = bias
 
 
 class QuantLinear(nn.Module):
@@ -79,52 +115,141 @@ def quantized_input(x: torch.Tensor, *mods: nn.Module) -> Optional[Tuple[torch.T
     W8A8 at x's shape; else None.  The reference gets this sharing from
     XLA's common-subexpression elimination (``layers.py:32-33``)."""
     if any(isinstance(m, QuantLinear) and m.takes_a8(math.prod(x.shape[:-1])) for m in mods):
-        x2 = x.reshape(-1, x.shape[-1]).contiguous()
-        return int8_linear.act_quant_int8(x2) if QUANT_KERNELS else int8_linear.act_quant_int8_plain(x2)
+        with torch.no_grad():  # int8 rows carry no gradient (the STE's dx goes to x itself)
+            x2 = x.reshape(-1, x.shape[-1]).contiguous()
+            return int8_linear.act_quant_int8(x2) if _on_kernels(x2) else int8_linear.act_quant_int8_plain(x2)
     return None
 
 
-def _quant_linear(x: torch.Tensor, p: QuantLinear, xq) -> torch.Tensor:
+def _on_kernels(t: torch.Tensor) -> bool:
+    return QUANT_KERNELS and t.is_cuda
+
+
+def _ste_dx(dy: torch.Tensor, p: "QuantLinear", dtype: torch.dtype, int8: bool, kernels: bool) -> torch.Tensor:
+    """dx of a W8A8 projection by the straight-through estimator
+    (``_w8a8_dot_bwd``, ``layers.py:66-86``), dy (M, N) -> (M, K).
+
+    int8: ``dyq, gscale = K10(dy, scale)`` and ``dx = K11(dyq, q, gscale)``
+    (their plain versions on the CPU, or with ``kernels`` off).  Else
+    ``bf16(dy) @ bf16(q * scale)`` with f32 sums, cast to x's dtype: a
+    plain product (``torch.matmul``, as the reference leaves it to XLA)
+    against the dequantized weight, one layer's transient made here."""
+    if int8:
+        if kernels:
+            dyq, gscale = int8_linear.act_quant_dy_int8(dy.contiguous(), p.scale)
+            return int8_linear.int8_dx_gemm(dyq, p.q, gscale).to(dtype)
+        dyq, gscale = int8_linear.act_quant_dy_int8_plain(dy, p.scale)
+        return int8_linear.int8_dx_gemm_plain(dyq, p.q, gscale, dtype)
+    w = (p.q * p.scale[:, None]).to(torch.bfloat16)
+    if dy.is_cuda:  # cuBLAS sums the bf16 product in f32 and rounds once
+        return torch.matmul(dy.to(torch.bfloat16), w).to(dtype)
+    return torch.matmul(dy.to(torch.bfloat16).float(), w.float()).to(dtype)
+
+
+def _weight_only_dx(dy: torch.Tensor, p: "QuantLinear", dtype: torch.dtype) -> torch.Tensor:
+    """dx of the int8 weight-only product, as the reference's autodiff of
+    ``linear`` computes it: ``(f32(dy) * scale) @ q`` cast to x's dtype.  The
+    reference's jaxpr holds f32 operands; on the CPU the plain product keeps
+    them, and on the card ``dy * scale`` is rounded to bf16 once and the
+    product runs in bf16 with f32 sums (the one bf16 pass that the f32 dot
+    takes on a TPU at default precision), against a bf16 copy of q made
+    here."""
+    g = dy.float() * p.scale
+    if dy.is_cuda:
+        return torch.matmul(g.to(torch.bfloat16), p.q.to(torch.bfloat16)).to(dtype)
+    return torch.matmul(g, p.q.float()).to(dtype)
+
+
+class _W8A8Linear(torch.autograd.Function):
+    """``apply(x2, add, xq, p, kernels)``: K8 over x2's int8 rows ``xq``
+    (K7's, or the siblings' shared ones), the f32 ``add`` (or None) and the
+    bias, in x2's dtype; backward: the straight-through dx of ``_ste_dx``
+    (int8 when ``INT8_BACKWARD`` was on at the forward) and ``add``'s
+    gradient f32(dy).  x2 is an input even when ``xq`` is given, so that
+    every sibling's dx reaches x; q, scale and the bias get none."""
+
+    @staticmethod
+    def forward(ctx, x2, add, xq, p, kernels):
+        ctx.p, ctx.dtype, ctx.int8, ctx.kernels = p, x2.dtype, INT8_BACKWARD, kernels
+        gemm = int8_linear.w8a8_gemm if kernels else int8_linear.w8a8_gemm_plain
+        bias = None if p.bias is None else p.bias.detach()
+        return gemm(xq[0], xq[1], p.q, p.scale, bias, out_dtype=x2.dtype, add=add)
+
+    @staticmethod
+    def backward(ctx, dy):
+        dx = _ste_dx(dy, ctx.p, ctx.dtype, ctx.int8, ctx.kernels) if ctx.needs_input_grad[0] else None
+        return dx, dy.float() if ctx.needs_input_grad[1] else None, None, None, None
+
+
+class _W8Linear(torch.autograd.Function):
+    """``apply(x2, add, p, kernels)``: K9 with the f32 ``add`` (or None) and
+    the bias, in x2's dtype; backward: ``_weight_only_dx`` and ``add``'s
+    gradient f32(dy)."""
+
+    @staticmethod
+    def forward(ctx, x2, add, p, kernels):
+        ctx.p, ctx.dtype = p, x2.dtype
+        gemm = int8_linear.w8_gemm if kernels else int8_linear.w8_gemm_plain
+        return gemm(x2, p.q, p.scale, None if p.bias is None else p.bias.detach(), add=add)
+
+    @staticmethod
+    def backward(ctx, dy):
+        dx = _weight_only_dx(dy, ctx.p, ctx.dtype) if ctx.needs_input_grad[0] else None
+        return dx, dy.float() if ctx.needs_input_grad[1] else None, None, None
+
+
+def _lora_add(x2: torch.Tensor, lora: LoraBranch) -> torch.Tensor:
+    """The side branch ``((x a) b) * scale`` as the reference sums it
+    (``layers.py:132-143``): x a in x's dtype, then an f32 product, f32
+    (M, N)."""
+    h = torch.matmul(x2, lora.a.to(x2.dtype))
+    return torch.matmul(h.float(), lora.b.to(x2.dtype).float()) * lora.scale
+
+
+def _quant_linear(x: torch.Tensor, p: QuantLinear, xq, add: Optional[torch.Tensor]) -> torch.Tensor:
     K = x.shape[-1]
-    x2 = x.reshape(-1, K).contiguous()
-    bias = None if p.bias is None else p.bias.detach()
+    x2 = x.reshape(-1, K)
     if p.takes_a8(x2.shape[0]):  # W8A8: K7 (unless the siblings' xq is given) + K8
-        xq, ascale = quantized_input(x, p) if xq is None else xq
-        gemm = int8_linear.w8a8_gemm if QUANT_KERNELS else int8_linear.w8a8_gemm_plain
-        y = gemm(xq, ascale, p.q, p.scale, bias, out_dtype=x.dtype)
+        xq = quantized_input(x, p) if xq is None else xq
+        y = _W8A8Linear.apply(x2, add, xq, p, _on_kernels(x2))
     elif p.bits == 8:  # int8 weight-only: the scale folds into the f32 sums (K9)
-        gemm = int8_linear.w8_gemm if QUANT_KERNELS else int8_linear.w8_gemm_plain
-        y = gemm(x2, p.q, p.scale, bias)
+        y = _W8Linear.apply(x2.contiguous(), add, p, _on_kernels(x2))
     else:  # packed int4: dequantize, then the product (plain, as the reference leaves it to XLA)
         y = torch.matmul(x2.float(), p.dequantized(x.dtype).float().T)
-        if bias is not None:
-            y = y + bias.float()
-        y = y.to(x.dtype)
+        y = int8_linear.finish(y, add, None if p.bias is None else p.bias.detach(), x.dtype)
     return y.reshape(*x.shape[:-1], p.out_features)
 
 
 def linear(
     x: torch.Tensor,
-    p: Union[torch.Tensor, nn.Linear, QuantLinear],
+    p: Union[torch.Tensor, nn.Module],
     bias: Optional[torch.Tensor] = None,
     xq: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """y = x @ W.T + bias in x's dtype.  ``p`` is a float weight (with
-    ``bias``), an ``nn.Linear`` or a ``QuantLinear``.
+    ``bias``), an ``nn.Linear``, a ``MergedLinear`` or a ``QuantLinear``.
 
     Float: ``F.linear`` with the weight and bias cast to x's dtype (cuBLAS
     accumulates bf16 in f32).  Quantized, as the reference's branches
     (``layers.py:97-146``): W8A8 where ``takes_a8`` (K7's int8 rows, or the
     siblings' ``xq``, and K8), else int8 weight-only (K9), or packed int4
     dequantized; each sums in f32, scales, adds the bias in f32 and casts
-    once."""
+    once.  A module carrying a ``LoraBranch`` as ``lora`` adds the side
+    branch's f32 sum to the f32 y before the bias (then the float branch,
+    too, sums in f32)."""
+    lora = getattr(p, "lora", None)
     if isinstance(p, QuantLinear):
-        return _quant_linear(x, p, xq)
-    if isinstance(p, nn.Linear):
+        add = None if lora is None else _lora_add(x.reshape(-1, x.shape[-1]), lora)
+        return _quant_linear(x, p, xq, add)
+    if isinstance(p, nn.Module):
         p, bias = p.weight, p.bias
     w = p.to(x.dtype)
-    b = None if bias is None else bias.to(x.dtype)
-    return F.linear(x, w, b)
+    if lora is None:
+        return F.linear(x, w, None if bias is None else bias.to(x.dtype))
+    y = torch.matmul(x.float(), w.float().T) + _lora_add(x.reshape(-1, x.shape[-1]), lora).view(*x.shape[:-1], -1)
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
 
 
 def qkv_proj(x: torch.Tensor, attn, hq: int, hk: int, d: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -18,6 +18,8 @@ frozen group ``set_to_zero``; ``skip_nonfinite_updates`` wraps the whole in
   parameter dtype;
 - a frozen group's parameters are not handed to the optimizer and have
   ``requires_grad=False`` (``build_optimizer`` sets it from the tune flags);
+- LoRA adapters (a module named ``adapters``) always train, at the base lr
+  (``spatialrgpt_tpu/train/optimizer.py:93-94``);
 - with ``skip_nonfinite_updates = n > 0`` a step whose gradients hold a
   non-finite value changes nothing, unless it is the (n + 1)-th such step
   in a row.
@@ -53,12 +55,14 @@ class OptimizerConfig:
     skip_nonfinite_updates: int = 0  # 0 = off; else max consecutive skips
 
 
-# reference label -> the port's sub-module (the split checkpoint dir names)
+# reference label -> the port's sub-module (the split checkpoint dir names;
+# ``adapters``: the LoRA / QLoRA adapters, ``train/lora.py::LoraAdapters``)
 MODULES: Dict[str, str] = {
     "llm": "llm",
     "vision": "vision_tower",
     "projector": "mm_projector",
     "region": "region_extractor",
+    "adapters": "adapters",
 }
 
 
@@ -139,12 +143,19 @@ class AdamW(torch.optim.Optimizer):
 def build_optimizer(model: torch.nn.Module, ocfg: OptimizerConfig) -> AdamW:
     """Turn ``requires_grad`` on for the tuned modules and off for the
     frozen ones, and hand the tuned modules' parameters to ``AdamW``, one
-    group each; the projector's peak is ``mm_projector_lr`` when set."""
+    group each; the projector's peak is ``mm_projector_lr`` when set.
+
+    ``model`` holds the modules under the port's names (``MODULES``): the
+    whole ``SpatialRGPT``, or a holder of the trainable ones only (an
+    ``nn.ModuleDict`` of ``mm_projector``, ``region_extractor`` and
+    ``adapters``), as the reference builds its LoRA optimizer from the
+    trainable tree alone."""
     tuned = {
         "llm": ocfg.tune_language_model,
         "vision": ocfg.tune_vision_tower,
         "projector": ocfg.tune_mm_projector,
         "region": ocfg.tune_region_extractor,
+        "adapters": True,
     }
     groups = []
     for label, name in MODULES.items():

@@ -1,30 +1,45 @@
-"""The training step (port of ``spatialrgpt_tpu/train/step.py::make_train_step``).
+"""The training steps (port of ``spatialrgpt_tpu/train/step.py``).
 
 ``train_step(state, batch) -> (state, metrics)``: the loss of
-``models/vlm.py::loss_fn``, its gradients, and one ``AdamW`` update of the
-tuned modules.  Modules named in ``frozen`` get ``requires_grad=False``,
-the twin of the reference's ``stop_gradient``: autograd then builds no
-weight gradients for them, and the backward only carries activations
-through them (all 32 decoder layers in the align stage, to reach the
-projector and the region extractor).
+``models/vlm.py::loss_fn``, its gradients, and one ``AdamW`` update.
+Metrics: ``loss``, ``num_tokens`` and ``grad_norm``, the global norm of
+the trained parameters' gradients.
 
-``donate`` has no counterpart: PyTorch updates the parameters and the
-optimizer state in place, so no second copy of either exists to give
-back.  The LoRA and frozen-base steps (``make_lora_train_step``,
-``make_frozen_base_train_step``) wait for the LoRA branch and the W8A8
-straight-through backward of ``ops/layers.py::linear``: a quantized model
-raises ``NotImplementedError``.
+- ``make_train_step``: modules named in ``frozen`` get
+  ``requires_grad=False``, the twin of the reference's ``stop_gradient``:
+  autograd then builds no weight gradients for them, and the backward only
+  carries activations through them (all 32 decoder layers in the align
+  stage, to reach the projector and the region extractor).
+- ``make_frozen_base_train_step``: the align step over a frozen base that
+  may be quantized (W8A8 decoder and tower, ``bench_train.py``'s
+  ``SRGPT_TRAIN_BENCH_QUANT=1/2``): every parameter the optimizer does not
+  hold is frozen; the W8A8 projections run K7 + K8 forward (and again in
+  remat's recompute) and carry dx by the straight-through backward
+  (``ops/layers.py``; int8 on K10 + K11 after ``enable_int8_backward``).
+- ``make_lora_train_step``: LoRA / QLoRA: the model carries its adapters as
+  ``model.adapters`` (``train/lora.py::LoraAdapters``); each step runs the
+  loss on ``apply_lora``'s view of the decoder, the side branch (merged
+  under DoRA), so gradients reach the adapters and the co-trained modules
+  the optimizer holds, and the base stays on its own (int8) route.
+
+The reference passes the frozen base as a second argument because its
+integer leaves cannot sit in ``value_and_grad``'s tree; here the model
+holds every module and ``requires_grad`` decides, so the steps take
+``(state, batch)``.  ``donate`` has no counterpart: PyTorch updates the
+parameters and the optimizer state in place, so no second copy of either
+exists to give back.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 
 from spatialrgpt_tpu_torch.config import SpatialRGPTConfig
 from spatialrgpt_tpu_torch.models import vlm
-from spatialrgpt_tpu_torch.ops.layers import is_quantized
+from spatialrgpt_tpu_torch.ops.layers import QuantLinear
+from spatialrgpt_tpu_torch.train.lora import LoraConfig, apply_lora, replace_modules
 from spatialrgpt_tpu_torch.train.optimizer import MODULES, AdamW
 
 
@@ -34,15 +49,46 @@ class TrainState(NamedTuple):
     optimizer: AdamW
 
 
+def _trained(optimizer: AdamW) -> set:
+    return {id(p) for group in optimizer.param_groups for p in group["params"]}
+
+
 def create_train_state(model: vlm.SpatialRGPT, optimizer: AdamW) -> TrainState:
-    if is_quantized(model):
-        raise NotImplementedError("training a quantized model (the frozen-base W8A8 align step) is not ported yet")
+    """A quantized model trains only with its quantized modules frozen: the
+    optimizer may hold no parameter of a ``QuantLinear`` (its float bias)."""
+    trained = _trained(optimizer)
+    for name, mod in model.named_modules():
+        if isinstance(mod, QuantLinear) and any(id(p) in trained for p in mod.parameters()):
+            raise ValueError(f"{name} is quantized: its parameters cannot be trained, freeze its module")
     return TrainState(step=0, model=model, optimizer=optimizer)
 
 
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in f32."""
     return torch.sqrt(sum((t.float().square().sum() for t in tensors), torch.zeros(())))
+
+
+def _run(state: TrainState, batch: vlm.VLMInputs, optimizer: AdamW,
+         loss_fn: Callable) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """``loss_fn(model, batch)``'s gradients, then one update of the
+    optimizer; ``grad_norm`` over the gradients that exist (a frozen
+    parameter's is zero in the reference's norm)."""
+    model = state.model
+    model.zero_grad(set_to_none=True)
+    loss, metrics = loss_fn(model, batch)
+    loss.backward()
+    grad_norm = global_norm(p.grad for p in model.parameters() if p.grad is not None)
+    optimizer.step()
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return state._replace(step=state.step + 1), {**metrics, "grad_norm": grad_norm}
+
+
+def _freeze_untrained(model: torch.nn.Module, optimizer: AdamW) -> None:
+    """``requires_grad`` on exactly for the optimizer's parameters: the
+    reference's ``stop_gradient(frozen)``."""
+    trained = _trained(optimizer)
+    for p in model.parameters():
+        p.requires_grad_(id(p) in trained)
 
 
 def make_train_step(
@@ -54,25 +100,56 @@ def make_train_step(
     ce_chunk: int = 0,
 ):
     """Build ``train_step``.  ``remat`` checkpoints every decoder layer;
-    ``frozen`` holds reference labels (llm / vision / projector / region).
-    Metrics: ``loss``, ``num_tokens`` and ``grad_norm``, the global norm of
-    every gradient (a frozen module's count as zeros)."""
+    ``frozen`` holds reference labels (llm / vision / projector / region)."""
     unknown = set(frozen) - set(MODULES)
     if unknown:
         raise ValueError(f"unknown frozen modules {sorted(unknown)}; expected some of {sorted(MODULES)}")
 
-    def train_step(state: TrainState, batch: vlm.VLMInputs) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        model = state.model
+    def loss_fn(model, batch):
         for label in frozen:
             module = getattr(model, MODULES[label], None)
             if module is not None:
                 module.requires_grad_(False)
-        model.zero_grad(set_to_none=True)
-        loss, metrics = vlm.loss_fn(model, cfg, batch, attn_impl=attn_impl, remat=remat, ce_chunk=ce_chunk)
-        loss.backward()
-        grad_norm = global_norm(p.grad for p in model.parameters() if p.grad is not None)
-        optimizer.step()
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        return state._replace(step=state.step + 1), {**metrics, "grad_norm": grad_norm}
+        return vlm.loss_fn(model, cfg, batch, attn_impl=attn_impl, remat=remat, ce_chunk=ce_chunk)
 
-    return train_step
+    return lambda state, batch: _run(state, batch, optimizer, loss_fn)
+
+
+def make_frozen_base_train_step(
+    cfg: SpatialRGPTConfig,
+    optimizer: AdamW,
+    attn_impl: str = "xla",
+    remat: bool = False,
+    ce_chunk: int = 0,
+):
+    """Build the align-style step over a frozen, possibly quantized base
+    (``step.py:177-218``): the optimizer holds the trainable modules
+    (projector and region extractor in the stage-1 align), everything else
+    is frozen."""
+
+    def loss_fn(model, batch):
+        _freeze_untrained(model, optimizer)
+        return vlm.loss_fn(model, cfg, batch, attn_impl=attn_impl, remat=remat, ce_chunk=ce_chunk)
+
+    return lambda state, batch: _run(state, batch, optimizer, loss_fn)
+
+
+def make_lora_train_step(
+    cfg: SpatialRGPTConfig,
+    optimizer: AdamW,
+    lcfg: LoraConfig,
+    attn_impl: str = "xla",
+    remat: bool = False,
+    ce_chunk: int = 0,
+):
+    """Build the LoRA / QLoRA step (``step.py:127-174``): the model's
+    ``adapters`` applied to its decoder as the side branch (merged under
+    DoRA), every parameter but the optimizer's frozen."""
+
+    def loss_fn(model, batch):
+        _freeze_untrained(model, optimizer)
+        llm = apply_lora(model.llm, model.adapters, lcfg, merge=lcfg.use_dora)
+        return vlm.loss_fn(replace_modules(model, {"llm": llm}), cfg, batch, attn_impl=attn_impl, remat=remat,
+                           ce_chunk=ce_chunk)
+
+    return lambda state, batch: _run(state, batch, optimizer, loss_fn)

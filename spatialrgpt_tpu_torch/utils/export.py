@@ -109,16 +109,21 @@ def export_region_extractor(params: Dict) -> Dict[str, np.ndarray]:
     return sd
 
 
+# the reference's llama projection keys -> (their group in a layer's params,
+# the port's module name under a decoder layer)
+LLAMA_PROJECTIONS = {"wq": ("attn", "self_attn.q_proj"), "wk": ("attn", "self_attn.k_proj"),
+                     "wv": ("attn", "self_attn.v_proj"), "wo": ("attn", "self_attn.o_proj"),
+                     "gate": ("mlp", "mlp.gate_proj"), "up": ("mlp", "mlp.up_proj"), "down": ("mlp", "mlp.down_proj")}
+
+
 def export_llama(params: Dict) -> Dict[str, np.ndarray]:
     sd = {"model.embed_tokens.weight": _np32(params["embed_tokens"])}
     for i, lp in enumerate(params["layers"]):
         p = f"model.layers.{i}."
         sd[p + "input_layernorm.weight"] = _np32(lp["input_ln"])
         sd[p + "post_attention_layernorm.weight"] = _np32(lp["post_ln"])
-        for ours, theirs in (("wq", "q_proj"), ("wk", "k_proj"), ("wv", "v_proj"), ("wo", "o_proj")):
-            _dense(sd, p + f"self_attn.{theirs}", lp["attn"][ours])
-        for ours, theirs in (("gate", "gate_proj"), ("up", "up_proj"), ("down", "down_proj")):
-            _dense(sd, p + f"mlp.{theirs}", lp["mlp"][ours])
+        for key, (group, name) in LLAMA_PROJECTIONS.items():
+            _dense(sd, p + name, lp[group][key])
     sd["model.norm.weight"] = _np32(params["final_ln"])
     if "lm_head" in params:
         _dense(sd, "lm_head", params["lm_head"])

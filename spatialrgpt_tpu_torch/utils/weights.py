@@ -11,6 +11,7 @@ standard deviations of the JAX package's ``init_params``, and
 fast_init_quantized``) makes its projections directly in the int8
 layout.
 ``save_composite`` writes a model back in the reference's split layout.
+``load_adapters_from_jax`` carries the reference's LoRA adapter tree across.
 The demo's models: ``init_random_sam_hq`` and ``init_random_depth_anything``
 on the device, and ``load_depth_anything_from_jax`` through the HF names
 (SAM has no JAX ``init_params``; its bridge runs the other way, the port's
@@ -32,6 +33,7 @@ from spatialrgpt_tpu_torch.models.depth_anything import DepthAnythingConfig, Dep
 from spatialrgpt_tpu_torch.models.sam import SamConfig, SamHQModel
 from spatialrgpt_tpu_torch.models.vlm import SpatialRGPT
 from spatialrgpt_tpu_torch.ops.layers import QuantLinear
+from spatialrgpt_tpu_torch.train.lora import LoraAdapters, LoraPair
 
 # a linear's module name -> (bits, a8) where the model holds it quantized, else None
 QuantLayout = Callable[[str], Optional[Tuple[int, bool]]]
@@ -132,6 +134,39 @@ def init_random_quantized(cfg: SpatialRGPTConfig, device, w8a8: bool, seed: int 
     model = _empty_model(SpatialRGPT, cfg, device, dtype, lambda name: (8, w8a8) if name.startswith(roots) else None)
     _init_random_modules(model, g)
     return model
+
+
+def llama_module_name(kernel_path: str) -> str:
+    """A reference adapter key (``layers/3/attn/wq/kernel``, ``lm_head/kernel``)
+    -> the port's module name under the decoder
+    (``model.layers.3.self_attn.q_proj``, ``lm_head``)."""
+    parts = kernel_path.split("/")
+    if parts[-1] != "kernel":
+        raise ValueError(f"{kernel_path}: not a kernel path")
+    if parts[:-1] == ["lm_head"]:
+        return "lm_head"
+    if len(parts) == 5 and parts[0] == "layers" and export.LLAMA_PROJECTIONS.get(parts[3], ("",))[0] == parts[2]:
+        return f"model.layers.{int(parts[1])}.{export.LLAMA_PROJECTIONS[parts[3]][1]}"
+    raise ValueError(f"{kernel_path}: no llama projection of the port has this path")
+
+
+def load_adapters_from_jax(np_adapters, device, dtype=None) -> LoraAdapters:
+    """The reference's adapter tree (``init_lora``'s: ``{kernel path: {a (fi,
+    r), b (r, fo)[, m (fo,)]}}`` as numpy) -> ``LoraAdapters`` on ``device``
+    under the port's module names; a and b keep their layout (the port's
+    adapters are (in, r) and (r, out) too), in ``dtype`` (default: as
+    given; numpy's bfloat16 comes across through f32, exactly)."""
+
+    def tensor(v):
+        a = np.asarray(v)
+        given = torch.bfloat16 if a.dtype.name == "bfloat16" else torch.float32
+        return torch.tensor(a.astype(np.float32)).to(device=device, dtype=dtype or given)
+
+    pairs = {}
+    for path, node in np_adapters.items():
+        t = {k: tensor(v) for k, v in node.items()}
+        pairs[llama_module_name(path)] = LoraPair(t["a"], t["b"], t.get("m"))
+    return LoraAdapters(pairs)
 
 
 # split checkpoint directory of each sub-module (utils/export.py::save_composite)

@@ -360,11 +360,17 @@ def test_init_random_quantized_layout(w8a8, vision_quant):
 
 
 def test_training_a_quantized_model_raises():
-    """The frozen-base W8A8 align step is not ported: the loss and the train
-    state of a quantized model refuse it."""
+    """A quantized model trains only with its quantized modules frozen (the
+    frozen-base W8A8 align step): its loss runs and carries gradients to the
+    tuned modules, and a train state whose optimizer would train a
+    ``QuantLinear``'s parameters (the tower's biases) is refused."""
+    from spatialrgpt_tpu_torch.train.optimizer import OptimizerConfig, build_optimizer
+
     model = init_random_quantized(TINY_T, "cpu", True, dtype=torch.float32)
     _, inputs, _ = _batch()
-    with pytest.raises(NotImplementedError, match="frozen-base W8A8 align step"):
-        tvlm.loss_fn(model, TINY_T, inputs._replace(labels=inputs.input_ids))
-    with pytest.raises(NotImplementedError, match="frozen-base W8A8 align step"):
-        tstep.create_train_state(model, None)
+    model.mm_projector.requires_grad_(True)
+    loss, _ = tvlm.loss_fn(model, TINY_T, inputs._replace(labels=inputs.input_ids))
+    loss.backward()
+    assert torch.isfinite(loss) and all(p.grad is not None for p in model.mm_projector.parameters())
+    with pytest.raises(ValueError, match="quantized"):
+        tstep.create_train_state(model, build_optimizer(model, OptimizerConfig(tune_vision_tower=True)))
