@@ -22,12 +22,14 @@ Phases, each printed as one JSON line:
    the W8A8 serve's shapes: K7 over the prefill's 20,480 rows, K8 at the
    prefill's gate and SigLIP's fc1 over the tower's 93,312 rows (ragged N
    4304 and K 1152; its large form) and at the decode's lm_head and gate
-   (its decode form), K9 at the decode's down and k/v projections and at
-   the QLoRA step's gate over 16,384 rows with the LoRA side branch's f32
-   addend, K10 over the W8A8 align step's
+   (its decode form), K9 at the decode's down and k/v projections (its
+   decode form) and on its large form at the QLoRA step's gate, down and
+   k / v over 16,384 rows with the LoRA side branch's f32 addend, a
+   4096-row chunk of its lm_head and an engine admission's down projection
+   (1536 rows; each row names the form), K10 over the W8A8 align step's
    gate / up output gradient (16,384 x 14,336) and K11 at its gate / up
-   and down dx (K7, K8, K10 and K11 must equal their plain versions bit
-   for bit).  K1, K2, K5 and K4's three kernels run
+   and down dx (both launches; the transpose alone in ``transpose_ms``)
+   (K7, K8, K10 and K11 must equal their plain versions bit for bit).  K1, K2, K5 and K4's three kernels run
    on the TMA + wgmma loops of ``csrc/attention_sm90.cuh`` (K2 and K4's
    forward and dQ with G = 4 query heads x 32 positions per CTA and the
    causal x segment mask built in the kernel; K4 walks only the tiles of
@@ -529,6 +531,8 @@ def phase_kernels(torch):
         live = (same & causal)[:, None]
         return torch.zeros(live.shape, dtype=torch.bfloat16, device=dev).masked_fill(~live, float("-inf"))
 
+    # extra figures timed beside a case's kernel, by the case's index
+    side_timings = {}
     # each case: name, source, replaces, shape, kernel, plain, iterations
     # timed (kernel, plain) and the timer of TIMERS (a graph where one call
     # is shorter than its launch on the host: K1-K3, K6), the work of
@@ -720,19 +724,25 @@ def phase_kernels(torch):
             bound(2 * M * N * K, nbytes(xq8, q8, as8, s8) + 2 * M * N, PEAK_INT8_OPS),
             int_mm_library(torch, xq8, q8),
         ))
-    # K9 also at the QLoRA step's largest shape (the gate over 4 x 4096
-    # rows: the decode form's 64-row tiles read the weight 256 times), with
-    # the f32 addend that the LoRA side branch hands its epilogue there
+    # K9 also on its large form: the QLoRA step's projections over 4 x 4096
+    # rows (with the f32 addend that the LoRA side branch hands the epilogue
+    # of each of them), a chunk of its lm_head's rows, and an engine
+    # admission's down projection (4 x 384 rows)
     m_train = TRAIN_ROWS * TRAIN_SEQ
     for label, M, N, K, timing in (("decode down", SERVE_ROWS, Hd, Id, (100, 10, "graph")),
                                    ("decode k / v", SERVE_ROWS, kvd, Hd, (100, 10, "graph")),
-                                   ("qlora train gate + LoRA addend", m_train, Id, Hd, (5, 1, "events"))):
+                                   ("qlora train gate + LoRA addend", m_train, Id, Hd, (5, 1, "events")),
+                                   ("qlora train down + LoRA addend", m_train, Hd, Id, (5, 1, "events")),
+                                   ("qlora train k / v + LoRA addend", m_train, kvd, Hd, (20, 2, "events")),
+                                   ("qlora lm_head chunk", 4 * 1024, Vd, Hd, (5, 1, "events")),
+                                   ("engine admission down", 4 * 384, Hd, Id, (20, 2, "events"))):
         x9, q9, s9 = rn(M, K), i8(N, K), scales(N, K)
-        add9 = torch.randn(M, N, generator=g, device=dev) * 0.25 if M == m_train else None
+        add9 = torch.randn(M, N, generator=g, device=dev) * 0.25 if "LoRA addend" in label else None
         w9 = dequantize(q9, s9)  # bf16, made here for the library yardstick only
+        form9 = "decode" if K789.w8_gemm_form(M) == K789.FORM_DECODE else "large"
         cases.append((
             "w8_gemm", "spatialrgpt_tpu_torch/csrc/int8_gemm.cu", "spatialrgpt_tpu/ops/layers.py:123 (XLA)",
-            {"projection": label, "M": M, "N": N, "K": K, "f32_addend": add9 is not None},
+            {"projection": label, "M": M, "N": N, "K": K, "f32_addend": add9 is not None, "form": form9},
             lambda x=x9, q=q9, s=s9, a=add9: K789.w8_gemm(x, q, s, add=a),
             lambda x=x9, q=q9, s=s9, a=add9: K789.w8_gemm_plain(x, q, s, add=a),
             timing, bound(2 * M * N * K, nbytes(x9, q9, s9) + 2 * M * N + (0 if add9 is None else nbytes(add9))),
@@ -755,6 +765,8 @@ def phase_kernels(torch):
     for label, N, K in (("gate / up dx", Id, Hd), ("down dx", Hd, Id)):
         dyq11, q11 = i8(m_train, N), i8(N, K)
         gs11 = torch.rand(m_train, generator=g, device=dev) * 1e-4 + 1e-6
+        # K11 is two launches: its row times both; its first alone beside them
+        side_timings[len(cases)] = {"transpose_ms": lambda q=q11: K789.int8_transpose(q)}
         cases.append((
             "int8_dx_gemm", "spatialrgpt_tpu_torch/csrc/int8_dx_gemm.cu", "spatialrgpt_tpu/ops/layers.py:74 (XLA)",
             {"projection": label, "M": m_train, "N": N, "K": K},
@@ -766,7 +778,8 @@ def phase_kernels(torch):
 
     rows = []
     library_bwd_ms = ps_bwd_ms = None
-    for name, source, replaces, shape, kernel, plain, (iters, plain_iters, how), work, (library, lib_fn) in cases:
+    for i_case, (name, source, replaces, shape, kernel, plain, (iters, plain_iters, how), work,
+                 (library, lib_fn)) in enumerate(cases):
         out = kernel()
         torch.cuda.synchronize()
         ref = plain()
@@ -813,6 +826,8 @@ def phase_kernels(torch):
             "flops": work["flops"], "bytes": work["bytes"],
             "timing": timing.format(n=iters) + f" ({plain_iters} calls for the plain version)",
         }
+        for key, fn in side_timings.get(i_case, {}).items():
+            row[key] = timer(torch, fn, iters)
         ok = bit_equal if name in BIT_EQUAL else ratio <= 1.0
         row["bit_equal_to_plain"] = bit_equal
         emit({"phase": "kernel", "ok": ok, "shape": shape, **row})

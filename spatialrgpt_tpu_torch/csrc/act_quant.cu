@@ -26,7 +26,9 @@
 // K10's dy * scale one rounded multiply (__fmul_rn, in both passes),
 // x / scale an IEEE division (__fdiv_rn; the build has no --use_fast_math),
 // rintf's round half to even, the clamp, then the cast.  K % 8 == 0 and
-// 16-byte aligned rows and scale (the wrappers' rule).
+// 16-byte aligned rows and scale (the wrappers' rule).  K10 writes its rows
+// ld_out bytes apart (a multiple of 8): ops/int8_linear.py gives it rows of
+// N rounded up to 16, whose 16-byte stride K11's tensor map needs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,7 +71,7 @@ template <bool DY>
 __global__ void __launch_bounds__(AQ_THREADS) act_quant_kernel(const __nv_bfloat16* __restrict__ x,
                                                                 const float* __restrict__ col_scale,
                                                                 int8_t* __restrict__ xq,
-                                                                float* __restrict__ ascale, int K) {
+                                                                float* __restrict__ ascale, int K, long long ld_out) {
   __shared__ float warp_max[AQ_THREADS / 32];
   const long long row = blockIdx.x;
   const uint4* xr = reinterpret_cast<const uint4*>(x + row * K);
@@ -93,7 +95,7 @@ __global__ void __launch_bounds__(AQ_THREADS) act_quant_kernel(const __nv_bfloat
   const float s = fmaxf(__fmul_rn(m, 1.0f / 127.0f), DY ? 1e-30f : 1e-12f);
   if (threadIdx.x == 0) ascale[row] = s;
 
-  uint2* qr = reinterpret_cast<uint2*>(xq + row * K);
+  uint2* qr = reinterpret_cast<uint2*>(xq + row * ld_out);
   for (int c = threadIdx.x; c < vecs; c += AQ_THREADS) {
     float f[8];
     aq_load8<DY>(xr, cs, c, f);
@@ -113,16 +115,18 @@ __global__ void __launch_bounds__(AQ_THREADS) act_quant_kernel(const __nv_bfloat
 extern "C" int srgpt_act_quant(const void* x, void* xq, void* ascale, long long M, int K, void* stream) {
   if (M <= 0) return static_cast<int>(cudaGetLastError());
   srgpt::act_quant_kernel<false><<<static_cast<unsigned>(M), srgpt::AQ_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), nullptr, static_cast<int8_t*>(xq), static_cast<float*>(ascale), K);
+      static_cast<const __nv_bfloat16*>(x), nullptr, static_cast<int8_t*>(xq), static_cast<float*>(ascale), K, K);
   return static_cast<int>(cudaGetLastError());
 }
 
-// K10: dy (M, N) bf16 and the weight's scale (N,) f32 -> dyq (M, N) int8, gscale (M,) f32
+// K10: dy (M, N) bf16 and the weight's scale (N,) f32 -> dyq (M, N) int8 with
+// rows ld bytes apart (ld >= N, ld % 8 == 0), gscale (M,) f32
 extern "C" int srgpt_act_quant_dy(const void* dy, const void* scale, void* dyq, void* gscale, long long M, int N,
-                                  void* stream) {
+                                  long long ld, void* stream) {
   if (M <= 0) return static_cast<int>(cudaGetLastError());
+  if (ld < N || ld % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
   srgpt::act_quant_kernel<true><<<static_cast<unsigned>(M), srgpt::AQ_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(dy), static_cast<const float*>(scale), static_cast<int8_t*>(dyq),
-      static_cast<float*>(gscale), N);
+      static_cast<float*>(gscale), N, ld);
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,19 +17,19 @@
 // zero adds nothing to a sum).  The Hopper primitives (mbarrier, TMA, wgmma
 // descriptors and fences, the tensor-map encoder) are attention_sm90.cuh's.
 //
-// Two forms, both a TMA ring filled by one producer thread and drained by
-// two consumer warpgroups:
+// Two forms each, all a TMA ring filled by one producer thread and drained
+// by two consumer warpgroups:
 //
-// * Decode form (every K9 call; K8 at M <= 128 rows, ops/int8_linear.py::
-//   DECODE_MAX_M).  Bound: the weight's bytes (K9 at the decode's down
-//   projection, 64 x 4096 x 14,336: 58.7 MB, 17.5 us at 3.35 TB/s; K8's
-//   lm_head, 64 x 128,264 x 4096: 525 MB, 157 us).  A and B are swapped:
-//   y^T (N x M) = q (N x K) . x^T, so a 64-channel slice of the weight is
-//   wgmma's 64-row A and the M activation rows are its N, rounded up to 8,
-//   16, 32 or 64 columns (legal s8 and bf16 widths): 8 rows cost 8 columns.
-//   Rows past 64 take more 64-row tiles (grid z), each reading the weight
-//   again; that is also K9's launch at M > 64, which the main path never
-//   makes (there the contracting projections take W8A8 from 2048 rows on).
+// * Decode form (K8 at M <= 128 rows, ops/int8_linear.py::DECODE_MAX_M; K9
+//   at M <= W8_DECODE_MAX_M).  Bound: the weight's bytes (K9 at the
+//   decode's down projection, 64 x 4096 x 14,336: 58.7 MB, 17.5 us at 3.35
+//   TB/s; K8's lm_head, 64 x 128,264 x 4096: 525 MB, 157 us).  A and B are
+//   swapped: y^T (N x M) = q (N x K) . x^T, so a 64-channel slice of the
+//   weight is wgmma's 64-row A and the M activation rows are its N, rounded
+//   up to 8, 16, 32 or 64 columns (legal s8 and bf16 widths): 8 rows cost 8
+//   columns.  Rows past 64 take more 64-row tiles (grid z), each reading
+//   the weight again (K8 between 65 and 128 rows, K9 between 65 and
+//   W8_DECODE_MAX_M).
 //   A CTA owns 128 channels (one warpgroup each 64) and one k range; both
 //   warpgroups read the same x tile, x stays in L2.  K8: wgmma m64nWk32 s8 x
 //   s8 -> s32, both operands from shared memory, one stage's products in
@@ -49,9 +49,10 @@
 //   left behind between launches.  The ring holds ~110 KB (3-6 stages of
 //   128 k), two CTAs an SM.
 //
-// * Large form (K8 at M > 128: the prefill's 20,480 rows and the tower's
-//   93,312).  Bound: int8 operations (prefill gate 20,480 x 14,336 x 4096:
-//   2.41 TOP, 1.22 ms at 1,979 TOP/s).  A persistent grid of one CTA per SM
+// * K8's large form (M > 128: the prefill's 20,480 rows and the tower's
+//   93,312; also K11's product, csrc/int8_dx_gemm.cu).  Bound: int8
+//   operations (prefill gate 20,480 x 14,336 x 4096: 2.41 TOP, 1.22 ms at
+//   1,979 TOP/s).  A persistent grid of one CTA per SM
 //   walks 128 x 256 output tiles in a grouped raster order (8 row tiles per
 //   group, so a group's weight columns stay in L2); a producer warp (its
 //   warpgroup at setmaxnreg 40) streams 128 x 128 A and 256 x 128 B int8
@@ -63,11 +64,49 @@
 //   warp, 96 registers a thread) took 2.218 ms at the prefill gate and
 //   1.374 at SigLIP's fc1 against 1.988 and 1.203 for 128 x 256.
 //
-// Where the forms meet (H100, scripts/bench_qgemm.py): at 96 rows the
+// * K9's large form (M > W8_DECODE_MAX_M: QLoRA's 16,384 training rows,
+//   the engine's W8A8 admissions of 2-4 prompts).  Bound: bf16 operations
+//   (QLoRA gate 16,384 x 14,336 x 4096: 1.92 TFLOP, 1.95 ms at 989
+//   TFLOP/s).  The decode form's swap-AB product on K8's persistent loop:
+//   y^T = q . x^T over 128-channel x 256-row tiles in the same grouped
+//   raster (8 row tiles of x, 2048 rows, share each channel panel of q in
+//   L2; x's panels stay there while a group walks the channels), one CTA a
+//   tile.  The producer streams the int8 q tiles (128 channels x 64 k,
+//   64-byte rows, 64B-swizzled: 8 KB) and the bf16 x tiles (256 rows x 64
+//   k, one 128B-swizzled atom: 32 KB) through a ring of 4 stages; each
+//   consumer converts its 64 channels' k16 slice to bf16 A fragments in
+//   registers (as the decode form, from the 64B swizzle) and runs wgmma
+//   m64n256k16 with A from registers and x as B: 128 f32 accumulators a
+//   thread.  Each k16 step is a commit group of its own; waiting until 3
+//   are left in flight before step kk's conversion frees the registers
+//   that the previous stage's step kk read, so conversions overlap the
+//   products.  The accumulators are (channel, row): the epilogue stages 64
+//   rows at a time through shared memory as [row][channel] and finishes 8
+//   channels a thread (the scale, the f32 addend, the bias, one cast) with
+//   16-byte stores along y's rows; with the addend (its own instantiation)
+//   a part's addend is read into registers before the part is staged.  No
+//   k split: the f32 sums run in the same order in every run.  On an H100
+//   (scripts/bench_qgemm.py's k9_large, three interleaved runs of each
+//   variant in one call): reading the addend ahead took the QLoRA gate with
+//   the addend from 3.47-3.58 ms to 3.17-3.40 (it spills 64 bytes; in the
+//   kernel without the addend too, it slowed k / v from 0.240-0.256 to
+//   0.264-0.270 and the lm_head chunk from 7.43-7.62 to 7.88-7.96, hence
+//   the two instantiations); 2-CTA clusters that multicast halves of the x
+//   tile read 3.32-3.56 at the gate and 2.93-2.97 at the down projection
+//   against 3.47-3.55 and 2.88-3.25 for one CTA a tile, within the runs'
+//   spread, and were dropped.
+//
+// Where the forms meet (H100, scripts/bench_qgemm.py): at 96 rows K8's
 // decode form takes a decode step's K8 calls (32 x q, o, gate, up and the
 // lm_head) in ~3.4 ms against the large form's ~3.7 (q / o 0.016 against
 // 0.024 ms, gate even, the lm_head, read twice, 0.364 against 0.202), and
-// likewise at 128 rows; hence DECODE_MAX_M = 128.
+// likewise at 128 rows; hence DECODE_MAX_M = 128.  K9's large form has no k
+// split, so at few tiles (k / v: 8 channel tiles) its CTAs walk all of K
+// alone (~0.05 ms at any M up to 1536).  Between 385 and 2047 rows K9 gets
+// only the W8A8 admissions' k, v and down (q, o, gate and up take W8A8 at
+// any row count); those three take 0.2232 ms on the decode form against
+// 0.2698 on the large at 512 rows, 0.3199 against 0.2720 at 576
+// (k9_boundary); hence W8_DECODE_MAX_M = 512.
 //
 // K8's sums are exact in any order, so K8 equals its plain version bit for
 // bit: the epilogue keeps the reference's order with explicit
@@ -265,6 +304,20 @@ __device__ __forceinline__ void wgmma_bf16_n64_rs(float (&d)[32], const uint32_t
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
+// D (64 x 256, f32, registers) (+)= A (64 x 16, bf16 registers) * B (16 x 256, bf16, shared, K-major)
+__device__ __forceinline__ void wgmma_bf16_n256_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t desc_b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
 // the s8 product of one k32 step at width W (decode: the activation rows; large: the tile's columns)
 template <int W>
 __device__ __forceinline__ void mma_s8(int (&d)[W / 2], uint64_t desc_a, uint64_t desc_b, int accumulate) {
@@ -275,14 +328,15 @@ __device__ __forceinline__ void mma_s8(int (&d)[W / 2], uint64_t desc_a, uint64_
   else wgmma_s8_n256(d, desc_a, desc_b, accumulate);
 }
 
-// the bf16 product of one k16 step at width W, A from registers
+// the bf16 product of one k16 step at width W (decode: the activation rows; large: 256), A from registers
 template <int W>
 __device__ __forceinline__ void mma_bf16_rs(float (&d)[W / 2], const uint32_t (&a)[4], uint64_t desc_b,
                                             int accumulate) {
   if constexpr (W == 8) wgmma_bf16_n8_rs(d, a, desc_b, accumulate);
   else if constexpr (W == 16) wgmma_bf16_n16_rs(d, a, desc_b, accumulate);
   else if constexpr (W == 32) wgmma_bf16_n32_rs(d, a, desc_b, accumulate);
-  else wgmma_bf16_n64_rs(d, a, desc_b, accumulate);
+  else if constexpr (W == 64) wgmma_bf16_n64_rs(d, a, desc_b, accumulate);
+  else wgmma_bf16_n256_rs(d, a, desc_b, accumulate);
 }
 
 // four int8 (bytes 0-3 of w) -> two bf16x2 (bytes 0-1 in lo, 2-3 in hi),
@@ -522,6 +576,11 @@ __device__ __forceinline__ void tile_coords(int tile, int tiles_m, int tiles_n, 
   nb = in_group / gm;
 }
 
+// DX: K11's product (csrc/int8_dx_gemm.cu), dx = bf16(f32(acc) * gscale[m]):
+// the row scale alone, no column scale, addend or bias.  K8's epilogue with
+// a column scale of 1 gives the same bits (__fmul_rn(gscale, 1.0f) is
+// gscale), so both read the same code.
+template <bool DX>
 __global__ void __launch_bounds__(LG_THREADS, 1)
 large_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
              const float* __restrict__ ascale, const float* __restrict__ scale, const void* __restrict__ bias,
@@ -603,20 +662,238 @@ large_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ C
         if (row >= M) continue;
         const float as = ascale[row];
         bf16* orow = out + static_cast<long long>(row) * N;
-        const float* arow = add == nullptr ? nullptr : add + static_cast<long long>(row) * N;
+        const float* arow = DX || add == nullptr ? nullptr : add + static_cast<long long>(row) * N;
+        const int kind = DX ? 0 : bias_kind;
 #pragma unroll
         for (int j = 0; j < LG_BN / 8; ++j) {
           const int col = nb * LG_BN + 8 * j + 2 * c;
           if (col >= N) continue;
-          const float y0 = epilogue<true>(acc[4 * j + 2 * h], as, scale[col], arow, bias, bias_kind, col);
+          const float y0 = epilogue<true>(acc[4 * j + 2 * h], as, DX ? 1.0f : scale[col], arow, bias, kind, col);
           if (pairs) {
-            const float y1 = epilogue<true>(acc[4 * j + 2 * h + 1], as, scale[col + 1], arow, bias, bias_kind, col + 1);
+            const float y1 =
+                epilogue<true>(acc[4 * j + 2 * h + 1], as, DX ? 1.0f : scale[col + 1], arow, bias, kind, col + 1);
             *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(y0, y1);
           } else {
             orow[col] = __float2bfloat16_rn(y0);
             if (col + 1 < N)
               orow[col + 1] = __float2bfloat16_rn(
-                  epilogue<true>(acc[4 * j + 2 * h + 1], as, scale[col + 1], arow, bias, bias_kind, col + 1));
+                  epilogue<true>(acc[4 * j + 2 * h + 1], as, DX ? 1.0f : scale[col + 1], arow, bias, kind, col + 1));
+          }
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K9's large form (M > W8_DECODE_MAX_M): y^T = q . x^T, persistent, 128
+// channels x 256 rows a tile
+// ---------------------------------------------------------------------------
+
+constexpr int W8L_CH = 2 * TILE_ROWS;                   // channels per tile: one consumer warpgroup each 64
+constexpr int W8L_ROWS = 256;                           // activation rows per tile: wgmma's N
+constexpr int W8L_BK = BF16_ATOM;                       // k per stage: one 128-byte atom of x's bf16 rows
+constexpr int W8L_Q_BYTES = W8L_CH * W8L_BK;            // int8 q tile, 64-byte rows, 64B-swizzled: 8 KB
+constexpr int W8L_STAGE = W8L_Q_BYTES + W8L_ROWS * ROW;  // + the bf16 x tile, 128B-swizzled: 40 KB
+constexpr int W8L_STAGES = 4;
+constexpr int W8L_EPI_ROWS = 64;                        // rows of a tile staged through shared memory at once
+constexpr int W8L_EPI_LD = TILE_ROWS + 4;               // f32 per staged row (+4: no bank conflict)
+constexpr int W8L_EPI_BYTES = W8L_EPI_ROWS * W8L_EPI_LD * 4;  // per consumer warpgroup: 17 KB
+constexpr int W8L_EPI_ITEMS = W8L_EPI_ROWS * (TILE_ROWS / 8) / 128;  // 8-channel groups a thread finishes a part: 4
+constexpr int W8L_BARS = W8L_STAGES * W8L_STAGE + 2 * W8L_EPI_BYTES;
+constexpr int W8L_SMEM = W8L_BARS + 16 * W8L_STAGES + 1024;
+
+// y at channels n..n+7 of a row of the output: + the bias, rounded once,
+// then one cast and one 16-byte store
+__device__ __forceinline__ void w8_bias_store8(float (&y)[8], const void* __restrict__ bias, int bias_kind,
+                                               bf16* __restrict__ orow, int n) {
+  if (bias_kind == 1) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) y[e] = __fadd_rn(y[e], __bfloat162float(static_cast<const bf16*>(bias)[n + e]));
+  } else if (bias_kind == 2) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) y[e] = __fadd_rn(y[e], static_cast<const float*>(bias)[n + e]);
+  }
+  __nv_bfloat162 o[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) o[e] = __floats2bfloat162_rn(y[2 * e], y[2 * e + 1]);
+  *reinterpret_cast<uint4*>(orow + n) = *reinterpret_cast<const uint4*>(o);
+}
+
+// the epilogue of 8 channels n..n+7 of row m: v * scale, the f32 addend,
+// the bias, each rounded once, then one cast; 16-byte stores where the row
+// allows them
+__device__ __forceinline__ void w8_store8(const float (&v)[8], const float* __restrict__ scale,
+                                          const float* __restrict__ add, const void* __restrict__ bias,
+                                          int bias_kind, bf16* __restrict__ out, long long m, int n, int N) {
+  const float* arow = add == nullptr ? nullptr : add + m * N;
+  bf16* orow = out + m * N;
+  if ((N & 7) == 0 && n + 8 <= N) {
+    float y[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) y[e] = __fmul_rn(v[e], scale[n + e]);
+    if (arow != nullptr) {
+      float a[8];
+      if ((reinterpret_cast<uintptr_t>(arow + n) & 15) == 0) {
+        const float4 a0 = *reinterpret_cast<const float4*>(arow + n), a1 = *reinterpret_cast<const float4*>(arow + n + 4);
+        a[0] = a0.x, a[1] = a0.y, a[2] = a0.z, a[3] = a0.w, a[4] = a1.x, a[5] = a1.y, a[6] = a1.z, a[7] = a1.w;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) a[e] = arow[n + e];
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) y[e] = __fadd_rn(y[e], a[e]);
+    }
+    w8_bias_store8(y, bias, bias_kind, orow, n);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      if (n + e < N) orow[n + e] = __float2bfloat16_rn(epilogue<false>(v[e], 1.0f, scale[n + e], arow, bias, bias_kind, n + e));
+  }
+}
+
+// ADD: the f32 (M, N) addend is given (its own instantiation: reading it
+// ahead takes 32 registers a thread, which the kernel without it keeps)
+template <bool ADD>
+__global__ void __launch_bounds__(LG_THREADS, 1)
+w8_large_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_x,
+                const float* __restrict__ scale, const void* __restrict__ bias, int bias_kind,
+                const float* __restrict__ add, bf16* __restrict__ out, int M, int N, int KT, int tiles_m, int tiles_n) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                                         ~static_cast<uintptr_t>(1023));
+  const uint32_t base = smem_u32(smem);
+  const uint32_t bar_full = base + W8L_BARS, bar_empty = bar_full + 8 * W8L_STAGES;
+  const int n_tiles = tiles_m * tiles_n;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < W8L_STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, LG_CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---------------- producer: setmaxnreg gives its registers to the consumers ----------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        int mb, nb;  // row tile (256 rows of x), channel tile (128 of q)
+        tile_coords(tile, tiles_m, tiles_n, mb, nb);
+        for (int kt = 0; kt < KT; ++kt, ++it) {
+          const int st = it % W8L_STAGES;
+          mbar_wait(bar_empty + 8 * st, ((it / W8L_STAGES) & 1) ^ 1);  // the first round passes at once
+          mbar_expect_tx(bar_full + 8 * st, W8L_STAGE);
+          const uint32_t dst = base + st * W8L_STAGE;
+          tma_load_2d(dst, &tm_q, bar_full + 8 * st, kt * W8L_BK, nb * W8L_CH);
+          tma_load_2d(dst + W8L_Q_BYTES, &tm_x, bar_full + 8 * st, kt * W8L_BK, mb * W8L_ROWS);
+        }
+      }
+    }
+  } else {
+    // ---------------- consumers: channels [64 cw, 64 cw + 64) of each tile ----------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");  // 128 f32 accumulators a thread
+    const int cw = wg - 1, tid = threadIdx.x % 128;
+    const int w4 = tid / 32, lane = tid % 32, g = lane / 4, c = lane % 4;
+    float* staged = reinterpret_cast<float*>(smem + W8L_STAGES * W8L_STAGE + cw * W8L_EPI_BYTES);
+    // this thread's A fragments: channels g and g + 8 of its warp's 16, bytes
+    // 2c, 2c + 1, 2c + 8, 2c + 9 of each k16 chunk; TMA's 64B swizzle puts a
+    // row r's chunk j at chunk j ^ ((r >> 1) & 3), which is (g >> 1) & 3 for
+    // both rows (no bank conflict: 16 distinct words for 16 addresses)
+    const int r0 = cw * TILE_ROWS + 16 * w4 + g;
+    const int sw = (g >> 1) & 3, off = 4 * (c >> 1);
+    const uint32_t sel = (c & 1) ? 0x7632 : 0x5410;
+    uint32_t a[W8L_BK / 16][4];
+    auto release = [&](int slot) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_empty + 8 * slot);
+    };
+    int it = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      int mb, nb;
+      tile_coords(tile, tiles_m, tiles_n, mb, nb);
+      float acc[W8L_ROWS / 2];
+      for (int kt = 0; kt < KT; ++kt, ++it) {
+        const int st = it % W8L_STAGES;
+        mbar_wait(bar_full + 8 * st, (it / W8L_STAGES) & 1);
+        const unsigned char* row0 = smem + st * W8L_STAGE + r0 * W8L_BK;
+        const unsigned char* row1 = row0 + 8 * W8L_BK;
+        const uint32_t x_tile = base + st * W8L_STAGE + W8L_Q_BYTES;
+#pragma unroll
+        for (int kk = 0; kk < W8L_BK / 16; ++kk) {
+          // one commit group per k16 step: with 3 left in flight, the
+          // previous stage's step kk, the last reader of a[kk], is done
+          wgmma_wait<W8L_BK / 16 - 1>();
+          const int chunk = ((kk ^ sw) << 4) + off;
+          const uint32_t p0 = __byte_perm(*reinterpret_cast<const uint32_t*>(row0 + chunk),
+                                          *reinterpret_cast<const uint32_t*>(row0 + chunk + 8), sel);
+          const uint32_t p1 = __byte_perm(*reinterpret_cast<const uint32_t*>(row1 + chunk),
+                                          *reinterpret_cast<const uint32_t*>(row1 + chunk + 8), sel);
+          i8x4_to_bf16x4(p0, a[kk][0], a[kk][2]);
+          i8x4_to_bf16x4(p1, a[kk][1], a[kk][3]);
+          wgmma_fence();
+          mma_bf16_rs<W8L_ROWS>(acc, a[kk], sw128_desc(x_tile + 32 * kk, 1, 64), kt > 0 || kk > 0);
+          wgmma_commit();
+        }
+        // only this stage's products are in flight: the previous stage's slot is free
+        if (kt > 0) release((it - 1) % W8L_STAGES);
+      }
+      wgmma_wait<0>();
+      fence_acc(acc);
+      release((it - 1) % W8L_STAGES);
+
+      // epilogue: the accumulators are (channel, row); W8L_EPI_ROWS rows at
+      // a time go through shared memory as [row][channel], then each thread
+      // finishes 8 channels of W8L_EPI_ITEMS rows (16-byte stores along y's
+      // rows)
+      const int m0 = mb * W8L_ROWS, n0 = nb * W8L_CH + cw * TILE_ROWS, ch = 16 * w4 + g;
+      // ADD with 16-byte addend rows: the part's addend is read into
+      // registers before the part is staged, so that the reads' latency
+      // overlaps the staging instead of holding the stores
+      const bool ahead = ADD && (N & 7) == 0 && (reinterpret_cast<uintptr_t>(add) & 15) == 0;
+#pragma unroll
+      for (int part = 0; part < W8L_ROWS / W8L_EPI_ROWS; ++part) {
+        float4 pre[W8L_EPI_ITEMS][2];
+        if (ahead) {
+#pragma unroll
+          for (int t = 0; t < W8L_EPI_ITEMS; ++t) {
+            const int m = m0 + part * W8L_EPI_ROWS + tid / 8 + 16 * t, n = n0 + 8 * (tid % 8);
+            if (m < M && n < N) {
+              const float* ap = add + static_cast<long long>(m) * N + n;
+              pre[t][0] = *reinterpret_cast<const float4*>(ap);
+              pre[t][1] = *reinterpret_cast<const float4*>(ap + 4);
+            }
+          }
+        }
+        named_barrier_sync(1 + cw, 128);  // the previous part's reads are done
+#pragma unroll
+        for (int j = 0; j < W8L_EPI_ROWS / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            staged[(8 * j + 2 * c + (e & 1)) * W8L_EPI_LD + ch + 8 * (e >> 1)] =
+                acc[4 * (part * (W8L_EPI_ROWS / 8) + j) + e];
+        named_barrier_sync(1 + cw, 128);
+#pragma unroll
+        for (int t = 0; t < W8L_EPI_ITEMS; ++t) {
+          const int i = tid + 128 * t, r = i / (TILE_ROWS / 8), grp = i % (TILE_ROWS / 8);
+          const int m = m0 + part * W8L_EPI_ROWS + r, n = n0 + 8 * grp;
+          if (m >= M || n >= N) continue;
+          const float4 s0 = *reinterpret_cast<const float4*>(staged + r * W8L_EPI_LD + 8 * grp);
+          const float4 s1 = *reinterpret_cast<const float4*>(staged + r * W8L_EPI_LD + 8 * grp + 4);
+          const float v[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+          if (ahead) {
+            const float a[8] = {pre[t][0].x, pre[t][0].y, pre[t][0].z, pre[t][0].w,
+                                pre[t][1].x, pre[t][1].y, pre[t][1].z, pre[t][1].w};
+            float y[8];
+#pragma unroll
+            for (int e = 0; e < 8; ++e) y[e] = __fadd_rn(__fmul_rn(v[e], scale[n + e]), a[e]);
+            w8_bias_store8(y, bias, bias_kind, out + static_cast<long long>(m) * N, n);
+          } else {
+            w8_store8(v, scale, ADD ? add : nullptr, bias, bias_kind, out, m, n, N);
           }
         }
       }
@@ -628,21 +905,23 @@ large_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ C
 // host side
 // ---------------------------------------------------------------------------
 
-// a row-major (rows, K) int8 or bf16 matrix as a 2-D tensor map {K, rows}:
-// boxes of one 128-byte atom x box_rows rows, 128B-swizzled, zeros past
-// every edge
-inline cudaError_t make_map_2d(CUtensorMap* map, const void* ptr, long long rows, long long K, int box_rows,
-                               bool is_bf16) {
+// a row-major (rows, K) int8 or bf16 matrix with a row stride of ld
+// elements as a 2-D tensor map {K, rows}: boxes of box_bytes (one 128-byte
+// atom, 128B-swizzled, or 64 bytes, 64B-swizzled) x box_rows rows, zeros
+// past every edge (past K too where ld > K)
+inline cudaError_t make_map_2d(CUtensorMap* map, const void* ptr, long long rows, long long K, long long ld,
+                               int box_rows, bool is_bf16, int box_bytes = ROW) {
   sm90::EncodeTiledFn fn = sm90::encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   const int esize = is_bf16 ? 2 : 1;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K) * esize};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(ROW / esize), static_cast<cuuint32_t>(box_rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * esize};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_bytes / esize), static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
   CUresult r = fn(map, is_bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
                   const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                  CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+                  box_bytes == ROW ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
@@ -650,17 +929,18 @@ inline cudaError_t make_map_2d(CUtensorMap* map, const void* ptr, long long rows
 // a function of these alone, so a hit is the map that encoding would give
 constexpr size_t MAP_CACHE_MAX = 1 << 16;
 
-inline cudaError_t weight_map(CUtensorMap* map, const void* q, long long N, long long K, int box_rows) {
+inline cudaError_t weight_map(CUtensorMap* map, const void* q, long long N, long long K, int box_rows,
+                              int box_bytes = ROW) {
   static std::mutex mu;
-  static std::map<std::tuple<const void*, long long, long long, int>, CUtensorMap> cache;
-  const auto key = std::make_tuple(q, N, K, box_rows);
+  static std::map<std::tuple<const void*, long long, long long, int, int>, CUtensorMap> cache;
+  const auto key = std::make_tuple(q, N, K, box_rows, box_bytes);
   std::lock_guard<std::mutex> lock(mu);
   auto hit = cache.find(key);
   if (hit != cache.end()) {
     *map = hit->second;
     return cudaSuccess;
   }
-  const cudaError_t err = make_map_2d(map, q, N, K, box_rows, false);
+  const cudaError_t err = make_map_2d(map, q, N, K, K, box_rows, false, box_bytes);
   if (err != cudaSuccess) return err;
   if (cache.size() >= MAP_CACHE_MAX) cache.clear();
   cache.emplace(key, *map);
@@ -699,7 +979,7 @@ cudaError_t launch_decode(const void* x, const void* q, const float* ascale, con
   using L = DecLayout<A8, W>;
   CUtensorMap tw, tx;
   cudaError_t err = weight_map(&tw, q, N, K, DEC_CH);
-  if (err == cudaSuccess) err = make_map_2d(&tx, x, M, K, W, !A8);
+  if (err == cudaSuccess) err = make_map_2d(&tx, x, M, K, K, W, !A8);
   if (err != cudaSuccess) return err;
   auto kern = decode_kernel<A8, W>;
   static bool attr_set = false;  // once per instantiation
@@ -736,16 +1016,14 @@ cudaError_t dispatch_decode(const void* x, const void* q, const float* ascale, c
   return launch_decode<A8, 64>(x, q, ascale, scale, bias, bias_kind, add, out, M, N, K, stream);  // 64-row tiles
 }
 
-inline cudaError_t launch_large(const void* xq, const void* q, const float* ascale, const float* scale, const void* bias,
-                         int bias_kind, const float* add, bf16* out, int M, int N, int K, cudaStream_t stream) {
-  CUtensorMap ta, tb;
-  cudaError_t err = weight_map(&tb, q, N, K, LG_BN);
-  if (err == cudaSuccess) err = make_map_2d(&ta, xq, M, K, LG_BM, false);
-  if (err != cudaSuccess) return err;
-  auto kern = large_kernel;
+template <bool DX>
+cudaError_t run_large(const CUtensorMap& ta, const CUtensorMap& tb, const float* ascale, const float* scale,
+                      const void* bias, int bias_kind, const float* add, bf16* out, int M, int N, int K,
+                      cudaStream_t stream) {
+  auto kern = large_kernel<DX>;
   static bool attr_set = false;  // once per instantiation
   if (!attr_set) {
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, LG_SMEM);
+    const cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, LG_SMEM);
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
@@ -758,7 +1036,51 @@ inline cudaError_t launch_large(const void* xq, const void* q, const float* asca
   return cudaGetLastError();
 }
 
-// K8's forms (ops/int8_linear.py picks one)
+inline cudaError_t launch_large(const void* xq, const void* q, const float* ascale, const float* scale, const void* bias,
+                                int bias_kind, const float* add, bf16* out, int M, int N, int K, cudaStream_t stream) {
+  CUtensorMap ta, tb;
+  cudaError_t err = weight_map(&tb, q, N, K, LG_BN);
+  if (err == cudaSuccess) err = make_map_2d(&ta, xq, M, K, K, LG_BM, false);
+  if (err != cudaSuccess) return err;
+  return run_large<false>(ta, tb, ascale, scale, bias, bias_kind, add, out, M, N, K, stream);
+}
+
+// K11's product on K8's large form (called by csrc/int8_dx_gemm.cu after
+// its transpose): dx (M, K) = bf16(f32(dyq . qt^T) * gscale[m]) for int8
+// dyq (M, N) and qt (K, N), rows ld_dyq and ld_qt bytes apart (multiples of
+// 16); both maps are encoded per call (qt is the call's own workspace)
+cudaError_t launch_large_dx(const void* dyq, long long ld_dyq, const void* qt, long long ld_qt, const float* gscale,
+                            bf16* dx, int M, int N, int K, cudaStream_t stream) {
+  CUtensorMap ta, tb;
+  cudaError_t err = make_map_2d(&ta, dyq, M, N, ld_dyq, LG_BM, false);
+  if (err == cudaSuccess) err = make_map_2d(&tb, qt, K, N, ld_qt, LG_BN, false);
+  if (err != cudaSuccess) return err;
+  return run_large<true>(ta, tb, gscale, nullptr, nullptr, 0, nullptr, dx, M, K, N, stream);
+}
+
+inline cudaError_t launch_w8_large(const void* x, const void* q, const float* scale, const void* bias, int bias_kind,
+                                   const float* add, bf16* out, int M, int N, int K, cudaStream_t stream) {
+  CUtensorMap tq, tx;
+  cudaError_t err = weight_map(&tq, q, N, K, W8L_CH, W8L_BK);
+  if (err == cudaSuccess) err = make_map_2d(&tx, x, M, K, K, W8L_ROWS, true);
+  if (err != cudaSuccess) return err;
+  auto kern = add != nullptr ? w8_large_kernel<true> : w8_large_kernel<false>;
+  static bool attr_set[2] = {false, false};
+  if (!attr_set[add != nullptr]) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, W8L_SMEM);
+    if (err != cudaSuccess) return err;
+    attr_set[add != nullptr] = true;
+  }
+  const int tiles_m = (M + W8L_ROWS - 1) / W8L_ROWS, tiles_n = (N + W8L_CH - 1) / W8L_CH;
+  const long long tiles = static_cast<long long>(tiles_m) * tiles_n;
+  if (tiles >= (1ll << 31)) return cudaErrorInvalidValue;
+  const int grid = static_cast<int>(tiles < sm_count() ? tiles : sm_count());
+  kern<<<grid, LG_THREADS, W8L_SMEM, stream>>>(tq, tx, scale, bias, bias_kind, add, out, M, N,
+                                               (K + W8L_BK - 1) / W8L_BK, tiles_m, tiles_n);
+  return cudaGetLastError();
+}
+
+// the forms of K8 and K9 (ops/int8_linear.py picks one)
 enum Form : int { DECODE = 0, LARGE = 1 };
 
 }  // namespace qgemm
@@ -785,13 +1107,22 @@ extern "C" int srgpt_w8a8_gemm(const void* xq, const void* q, const void* ascale
   return static_cast<int>(err);
 }
 
-// the decode form at every M (M > 64: 64-row tiles)
+// form DECODE (M > 64: 64-row tiles) or LARGE
 extern "C" int srgpt_w8_gemm(const void* x, const void* q, const void* scale, const void* bias, int bias_kind,
-                             const void* add, void* out, int M, int N, int K, void* stream) {
+                             const void* add, void* out, int M, int N, int K, int form, void* stream) {
   using namespace srgpt::qgemm;
   if (M <= 0 || N <= 0) return static_cast<int>(cudaGetLastError());
   if (K <= 0 || K % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(dispatch_decode<false>(x, q, nullptr, static_cast<const float*>(scale), bias, bias_kind,
-                                                 static_cast<const float*>(add), static_cast<bf16*>(out), M, N, K,
-                                                 static_cast<cudaStream_t>(stream)));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(scale);
+  const float* ad = static_cast<const float*>(add);
+  bf16* o = static_cast<bf16*>(out);
+  cudaError_t err;
+  if (form == DECODE)
+    err = dispatch_decode<false>(x, q, nullptr, sc, bias, bias_kind, ad, o, M, N, K, st);
+  else if (form == LARGE)
+    err = launch_w8_large(x, q, sc, bias, bias_kind, ad, o, M, N, K, st);
+  else
+    err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
 }

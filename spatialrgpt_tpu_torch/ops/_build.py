@@ -46,10 +46,11 @@ _SIGNATURES = {
     "srgpt_grid_bias_attention": [_P] * 6 + [_I] * 6 + [_LL] * 12 + [_F, _P],
     "srgpt_layer_norm": [_P] * 4 + [_LL, _I, _F, _I, _P],
     "srgpt_act_quant": [_P, _P, _P, _LL, _I, _P],
-    "srgpt_act_quant_dy": [_P] * 4 + [_LL, _I, _P],
+    "srgpt_act_quant_dy": [_P] * 4 + [_LL, _I, _LL, _P],
     "srgpt_w8a8_gemm": [_P] * 5 + [_I, _P, _P] + [_I] * 4 + [_P],
-    "srgpt_w8_gemm": [_P] * 4 + [_I, _P, _P] + [_I] * 3 + [_P],
-    "srgpt_int8_dx_gemm": [_P] * 4 + [_I] * 3 + [_P],
+    "srgpt_w8_gemm": [_P] * 4 + [_I, _P, _P] + [_I] * 4 + [_P],
+    "srgpt_int8_dx_gemm": [_P, _LL] + [_P] * 4 + [_I] * 3 + [_P],
+    "srgpt_int8_transpose": [_P, _P, _I, _I, _P],
 }
 
 _lib = None

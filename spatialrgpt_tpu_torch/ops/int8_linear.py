@@ -17,16 +17,20 @@ weight at every call.
   tiles), above it the large form (a persistent TMA + wgmma main loop).
 - K9 ``w8_gemm`` (``csrc/int8_gemm.cu``): bf16 activations x int8 weights
   converted to bf16 in registers, f32 sums, then ``* scale``, the f32 bias
-  and one cast; always the decode form (in 64-row tiles past 64 rows).
-  K8 and K9 take an optional f32 (M, N) ``add`` (the LoRA side branch),
-  added after the scale and before the bias.
+  and one cast.  At most ``W8_DECODE_MAX_M`` rows it runs the decode form
+  (K8's decode form with bf16 activations), above it the large form (the
+  same swap-AB product on K8's persistent loop, 128 channels x 256 rows a
+  tile); ``w8_gemm_form`` is the rule.  K8 and K9 take an optional f32
+  (M, N) ``add`` (the LoRA side branch), added after the scale and before
+  the bias.
 - K10 ``act_quant_dy_int8`` (``csrc/act_quant.cu``): the SwitchBack
   prologue of ``_w8a8_dot_bwd``'s int8 route (``layers.py:70-73``): dy times
   the weight's per-channel scale, quantized per row to int8.
 - K11 ``int8_dx_gemm`` (``csrc/int8_dx_gemm.cu``): K10's int8 rows x the
-  stored weight, contracted over its output axis (q's rows, read as
-  stored), int32 sums, then ``* gscale`` and one cast to bf16
-  (``layers.py:74-78``).
+  stored weight, contracted over its output axis, int32 sums, then
+  ``* gscale`` and one cast to bf16 (``layers.py:74-78``).  Two launches a
+  call: q transposed into a workspace of this call alone, then K8's large
+  form on the transposed copy (TN).
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
 version only for tensors on the CPU.  ``launches`` counts kernel launches
@@ -55,6 +59,15 @@ EXACT_K_CHUNK = 1024
 # the large form above
 FORM_DECODE, FORM_LARGE = 0, 1
 DECODE_MAX_M = 128
+# K9's forms: the decode form up to W8_DECODE_MAX_M rows, the large form
+# above.  Between 385 and 2047 rows K9 gets only the W8A8 engine
+# admissions' k, v and down (q, o, gate and up take W8A8 at any row count;
+# the weight-only route runs at QLoRA's 16,384 rows); scripts/bench_qgemm.py's
+# k9_boundary phase (H100) times those three on both forms: 0.2232 ms on the
+# decode form against 0.2698 on the large at 512 rows, 0.3199 against
+# 0.2720 at 576 (the large form has no k split: at k / v's 8 channel tiles
+# its CTAs walk all of K alone)
+W8_DECODE_MAX_M = 512
 # the decode form's grid: 128-channel tiles in y and 64-row tiles in z, at
 # most 65,535 of each
 DECODE_MAX_N, DECODE_MAX_ROWS = 65535 * 128, 65535 * 64
@@ -63,6 +76,17 @@ DECODE_MAX_N, DECODE_MAX_ROWS = 65535 * 128, 65535 * 64
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
+
+
+def w8_gemm_form(M: int) -> int:
+    """K9's form at M rows: ``FORM_DECODE`` up to ``W8_DECODE_MAX_M``,
+    ``FORM_LARGE`` above."""
+    return FORM_DECODE if M <= W8_DECODE_MAX_M else FORM_LARGE
+
+
+def _pad16(n: int) -> int:
+    """n rounded up to a multiple of 16: a row stride that TMA takes."""
+    return -(-n // 16) * 16
 
 
 def _quant_rows(xf: torch.Tensor, floor: float) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -203,7 +227,10 @@ def act_quant_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def act_quant_dy_int8(dy: torch.Tensor, scale: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """K10: bf16 dy (M, N) and the weight's f32 scale (N,) on the card ->
     (int8 dyq (M, N), f32 gscale (M,)), bit-equal to
-    ``act_quant_dy_int8_plain``.  N % 8 == 0."""
+    ``act_quant_dy_int8_plain``.  N % 8 == 0.  On the card dyq's rows lie
+    N rounded up to 16 bytes apart (a view of an (M, N16) buffer where N %
+    16 != 0), the row stride that K11's tensor map needs; on the CPU dyq is
+    contiguous."""
     if dy.device.type == "cpu":
         return act_quant_dy_int8_plain(dy, scale)
     name = "act_quant_dy_int8"
@@ -217,13 +244,13 @@ def act_quant_dy_int8(dy: torch.Tensor, scale: torch.Tensor) -> Tuple[torch.Tens
         raise ValueError(f"{name}: scale must be contiguous of shape ({N},), got {tuple(scale.shape)}")
     check_on_cuda(name, dy, scale)
     _check_aligned(name, dy, scale)
-    dyq = torch.empty((M, N), dtype=torch.int8, device=dy.device)
+    rows = torch.empty((M, _pad16(N)), dtype=torch.int8, device=dy.device)
     gscale = torch.empty((M,), dtype=torch.float32, device=dy.device)
-    err = _build.lib().srgpt_act_quant_dy(dy.data_ptr(), scale.data_ptr(), dyq.data_ptr(), gscale.data_ptr(), M, N,
-                                          _build.stream_ptr(dy))
+    err = _build.lib().srgpt_act_quant_dy(dy.data_ptr(), scale.data_ptr(), rows.data_ptr(), gscale.data_ptr(), M, N,
+                                          rows.shape[1], _build.stream_ptr(dy))
     _build.check(err, name)
     launches[name] += 1
-    return dyq, gscale
+    return rows[:, :N], gscale
 
 
 def _check_gemm(name: str, a: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> Tuple[int, int, int]:
@@ -285,21 +312,24 @@ def w8_gemm(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, bias: Optiona
             add: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K9: bf16 x (M, K) against int8 q (N, K) with f32 scale (N,) on the
     card -> bf16 (M, N), within bf16 rounding of ``w8_gemm_plain`` (the f32
-    sums run in another order, the same in every run).  K % 16 == 0,
-    N <= ``DECODE_MAX_N``, M <= ``DECODE_MAX_ROWS``."""
+    sums run in another order, the same in every run).  K % 16 == 0; the
+    form of ``w8_gemm_form(M)``; the decode form takes N <= ``DECODE_MAX_N``
+    and M <= ``DECODE_MAX_ROWS``."""
     if x.device.type == "cpu":
         return w8_gemm_plain(x, q, scale, bias, add)
     name = "w8_gemm"
     check_dtype(name, torch.bfloat16, x)
     M, N, K = _check_gemm(name, x, q, scale)
-    _check_decode(name, M, N)
+    form = w8_gemm_form(M)
+    if form == FORM_DECODE:
+        _check_decode(name, M, N)
     kind = _bias_kind(name, bias, N)
     _check_add(name, add, M, N)
     check_on_cuda(name, x, q, scale, *(t for t in (bias, add) if t is not None))
     _check_aligned(name, x, q)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     err = _build.lib().srgpt_w8_gemm(
-        x.data_ptr(), q.data_ptr(), scale.data_ptr(), _ptr(bias), kind, _ptr(add), out.data_ptr(), M, N, K,
+        x.data_ptr(), q.data_ptr(), scale.data_ptr(), _ptr(bias), kind, _ptr(add), out.data_ptr(), M, N, K, form,
         _build.stream_ptr(x),
     )
     _build.check(err, name)
@@ -310,13 +340,23 @@ def w8_gemm(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, bias: Optiona
 def int8_dx_gemm(dyq: torch.Tensor, q: torch.Tensor, gscale: torch.Tensor) -> torch.Tensor:
     """K11: int8 dyq (M, N) with f32 gscale (M,) against the stored int8 q
     (N, K), contracted over N, on the card -> bf16 dx (M, K), bit-equal to
-    ``int8_dx_gemm_plain``.  N % 8 == 0, K % 16 == 0."""
+    ``int8_dx_gemm_plain``.  N % 8 == 0, K % 16 == 0.
+
+    Two launches a call (``launches`` counts the call once): q transposed
+    into a (K, N16) workspace, N16 = N rounded up to 16, allocated here and
+    dropped on return, then K8's large form over dyq and the transposed
+    copy.  dyq's rows must lie a multiple of 16 bytes apart, as K10 writes
+    them; a dyq whose rows do not (a contiguous one with N % 16 != 0) is
+    copied into such rows first."""
     if dyq.device.type == "cpu":
         return int8_dx_gemm_plain(dyq, q, gscale)
     name = "int8_dx_gemm"
     check_dtype(name, torch.int8, dyq, q)
     check_dtype(name, torch.float32, gscale)
-    _check_2d(name, dyq=dyq, q=q)
+    _check_2d(name, q=q)
+    if dyq.dim() != 2 or dyq.stride(1) != 1 or dyq.stride(0) < dyq.shape[1]:
+        raise ValueError(f"{name}: dyq must be a 2-D tensor of contiguous rows, got shape {tuple(dyq.shape)} "
+                         f"and strides {tuple(dyq.stride())}")
     (M, N), K = dyq.shape, q.shape[1]
     if q.shape[0] != N or gscale.shape != (M,) or not gscale.is_contiguous():
         raise ValueError(f"{name}: dyq {tuple(dyq.shape)}, q {tuple(q.shape)} and gscale {tuple(gscale.shape)} "
@@ -326,10 +366,33 @@ def int8_dx_gemm(dyq: torch.Tensor, q: torch.Tensor, gscale: torch.Tensor) -> to
     if max(M, N, K) >= 2**31:
         raise ValueError(f"{name}: M = {M}, N = {N} and K = {K} must be below 2^31")
     check_on_cuda(name, dyq, q, gscale)
+    if dyq.stride(0) % 16:
+        rows = torch.empty((M, _pad16(N)), dtype=torch.int8, device=dyq.device)
+        rows[:, :N].copy_(dyq)
+        dyq = rows[:, :N]
     _check_aligned(name, dyq, q)
+    qt = torch.empty((K, _pad16(N)), dtype=torch.int8, device=dyq.device)  # the call's workspace
     dx = torch.empty((M, K), dtype=torch.bfloat16, device=dyq.device)
-    err = _build.lib().srgpt_int8_dx_gemm(dyq.data_ptr(), q.data_ptr(), gscale.data_ptr(), dx.data_ptr(), M, N, K,
-                                          _build.stream_ptr(dyq))
+    err = _build.lib().srgpt_int8_dx_gemm(dyq.data_ptr(), dyq.stride(0), q.data_ptr(), gscale.data_ptr(),
+                                          qt.data_ptr(), dx.data_ptr(), M, N, K, _build.stream_ptr(dyq))
     _build.check(err, name)
     launches[name] += 1
     return dx
+
+
+def int8_transpose(q: torch.Tensor) -> torch.Tensor:
+    """K11's first launch alone, for tests and timing: int8 q (N, K) on the
+    card -> q^T as (K, N16) int8 rows, N16 = N rounded up to 16 (columns N
+    .. N16 - 1 zero).  Not counted in ``launches``: ``int8_dx_gemm`` runs
+    it inside each call."""
+    name = "int8_transpose"
+    check_dtype(name, torch.int8, q)
+    _check_2d(name, q=q)
+    N, K = q.shape
+    if K == 0 or K % 16:
+        raise ValueError(f"{name}: K = {K} must be a positive multiple of 16")
+    check_on_cuda(name, q)
+    _check_aligned(name, q)
+    qt = torch.empty((K, _pad16(N)), dtype=torch.int8, device=q.device)
+    _build.check(_build.lib().srgpt_int8_transpose(q.data_ptr(), qt.data_ptr(), N, K, _build.stream_ptr(q)), name)
+    return qt

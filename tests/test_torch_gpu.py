@@ -834,6 +834,71 @@ def test_cluster_split_leaves_nothing_behind(cuda, which):
             _bf16_close(first, K789.w8_gemm_plain(*args))
 
 
+# K9's large form: ragged rows (a partial 256-row tile, more tiles than SMs
+# at 16,384 + 7), an odd N (a ragged 128-channel tile, scalar stores) and N
+# = 1024 (16-byte stores, the addend read ahead in registers), K tails past
+# the 64-deep stage (1040, 4304) and the decode's widths
+_W8_LARGE_M = [129, 300, 16384 + 7]
+_W8_LARGE_K = [64, 1040, 4304]
+
+
+@pytest.mark.parametrize("N", [1001, 1024])
+@pytest.mark.parametrize("with_add", [False, True], ids=["no_add", "add"])
+@pytest.mark.parametrize("bias", _BIAS)
+@pytest.mark.parametrize("K", _W8_LARGE_K)
+@pytest.mark.parametrize("M", _W8_LARGE_M)
+def test_w8_large_form_within_bound(cuda, monkeypatch, M, K, bias, with_add, N):
+    """K9's large form within the bf16 bound of its plain version, with and
+    without the f32 addend, each bias kind."""
+    monkeypatch.setattr(K789, "W8_DECODE_MAX_M", 0)
+    rng = np.random.default_rng(M + K)
+    x, q, scale, b = _w8_case(rng, M, N, K, bias, cuda)
+    add = torch.tensor(rng.standard_normal((M, N)).astype(np.float32), device=cuda) if with_add else None
+    out = _launched("w8_gemm", K789.w8_gemm, x, q, scale, b, add)
+    assert out.dtype == torch.bfloat16 and out.shape == (M, N)
+    _bf16_close(out, K789.w8_gemm_plain(x, q, scale, b, add))
+
+
+@pytest.mark.parametrize("N", [100, 300, 1129])
+def test_w8_large_form_odd_channel_tiles(cuda, monkeypatch, N):
+    """An odd count of 128-channel tiles (1, 3, 9), the last one ragged:
+    the large form stores nothing past N."""
+    monkeypatch.setattr(K789, "W8_DECODE_MAX_M", 0)
+    rng = np.random.default_rng(N)
+    x, q, scale, b = _w8_case(rng, 1000, N, 1040, torch.float32, cuda)
+    out = _launched("w8_gemm", K789.w8_gemm, x, q, scale, b)
+    assert out.shape == (1000, N)
+    _bf16_close(out, K789.w8_gemm_plain(x, q, scale, b))
+
+
+@pytest.mark.parametrize("M", [1, 63, 64, 65, 96, 128, 129, 192, 256, 257, 384, 385, 512, 513])
+def test_w8_both_forms_around_the_boundary(cuda, monkeypatch, M):
+    """K9's decode and large forms on the same inputs, each forced on either
+    side of ``W8_DECODE_MAX_M``, both within the bf16 bound of the plain
+    version (the form boundary's measurement runs both)."""
+    rng = np.random.default_rng(M)
+    x, q, scale, b = _w8_case(rng, M, 1024, 4096, torch.float32, cuda)
+    add = torch.tensor(rng.standard_normal((M, 1024)).astype(np.float32), device=cuda)
+    ref = K789.w8_gemm_plain(x, q, scale, b, add)
+    for decode_max_m in (1 << 30, 0):
+        monkeypatch.setattr(K789, "W8_DECODE_MAX_M", decode_max_m)
+        _bf16_close(_launched("w8_gemm", K789.w8_gemm, x, q, scale, b, add), ref)
+
+
+def test_w8_large_form_repeats_its_bits(cuda, monkeypatch):
+    """The large form sums in one order (no k split): launches back to back,
+    with another input in between, give the same bits."""
+    monkeypatch.setattr(K789, "W8_DECODE_MAX_M", 0)
+    rng = np.random.default_rng(5)
+    args = _w8_case(rng, 4096 + 3, 4096, 4304, torch.bfloat16, cuda)
+    first = _launched("w8_gemm", K789.w8_gemm, *args)
+    second = _launched("w8_gemm", K789.w8_gemm, *args)
+    _launched("w8_gemm", K789.w8_gemm, -args[0], *args[1:])
+    third = _launched("w8_gemm", K789.w8_gemm, *args)
+    assert torch.equal(first, second) and torch.equal(first, third)
+    _bf16_close(first, K789.w8_gemm_plain(*args))
+
+
 def test_w8a8_persistent_grid_walks_many_tiles(cuda):
     """The large form's persistent grid (one CTA per SM) walks more tiles
     than it has CTAs: SigLIP fc1's ragged N = 4304 and K = 1152 at the
@@ -920,6 +985,51 @@ def test_int8_dx_kernel_bit_equal(cuda, M, N, K):
     rows = 2048  # the plain version's f32 chunks, a slice of rows at a time
     ref = torch.cat([K789.int8_dx_gemm_plain(dyq[i:i + rows], q, gs[i:i + rows]) for i in range(0, M, rows)])
     assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("N,K", [(8, 16), (1032, 64), (14336, 4096), (4096, 14336), (128264, 4096)])
+def test_int8_transpose_bit_equal(cuda, N, K):
+    """K11's first launch alone: q^T as (K, N16) rows, equal to
+    ``q.t().contiguous()`` on its first N columns, zeros past them."""
+    rng = np.random.default_rng(N + K)
+    q = _int8(rng, N, K, device=cuda)
+    qt = K789.int8_transpose(q)
+    assert qt.shape == (K, -(-N // 16) * 16)
+    assert torch.equal(qt[:, :N], q.t().contiguous()) and not qt[:, N:].any()
+
+
+@pytest.mark.parametrize("M,N,K", [(37, 1040, 4304), (129, 1032, 64), (300, 128264, 64), (2048, 4104, 1024)])
+def test_int8_dx_kernel_on_k10_rows(cuda, M, N, K):
+    """K11 on the rows that K10 writes (N rounded up to 16 apart where N % 16
+    != 0, the lm_head's 128,264): bit-equal to the plain version on the same
+    values, with no copy of dyq."""
+    rng = np.random.default_rng(M + N)
+    dy, scale = _dy_rows(rng, M, N, cuda)
+    dyq, gs = _launched("act_quant_dy_int8", K789.act_quant_dy_int8, dy, scale)
+    assert dyq.stride(0) % 16 == 0 and dyq.stride(0) >= N
+    q = _int8(rng, N, K, device=cuda)
+    out = _launched("int8_dx_gemm", K789.int8_dx_gemm, dyq, q, gs)
+    assert torch.equal(out, K789.int8_dx_gemm_plain(dyq.contiguous(), q, gs))
+
+
+def test_int8_dx_keeps_no_transposed_weight(cuda):
+    """One lm_head-sized call (4096 rows x 128,264 -> 4096) allocates no more
+    than a transposed copy of q and the output beyond its operands, and
+    frees the copy before it returns."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    M, N, K = 4096, 128264, 4096
+    dy = torch.randn(M, N, generator=g, device=cuda).to(torch.bfloat16)
+    dyq, gs = K789.act_quant_dy_int8(dy, torch.rand(N, generator=g, device=cuda) * 1e-2 + 1e-4)
+    del dy
+    q = torch.randint(-127, 128, (N, K), generator=g, dtype=torch.int8, device=cuda)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dx = K789.int8_dx_gemm(dyq, q, gs)
+    torch.cuda.synchronize()
+    transient = K * -(-N // 16) * 16
+    assert torch.cuda.max_memory_allocated() - base <= transient + dx.numel() * dx.element_size() + 2**20
+    assert torch.cuda.memory_allocated() - base == dx.numel() * dx.element_size()
 
 
 def test_backward_kernel_wrappers_raise(cuda):

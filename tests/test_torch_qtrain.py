@@ -139,6 +139,41 @@ def test_k10_plain_equals_the_reference():
     assert float(got_s[1]) == np.float32(1e-30) and not got_q[1].any()
 
 
+@pytest.mark.parametrize("N", [48, 40])
+def test_k10_wrapper_on_the_cpu_returns_contiguous_rows(N):
+    """On the CPU K10's wrapper returns contiguous (M, N) rows, at N % 16 ==
+    0 and at N % 16 == 8 (on the card they lie N rounded up to 16 apart)."""
+    rng = np.random.default_rng(N)
+    dy = torch.tensor(rng.standard_normal((5, N)).astype(np.float32)).to(torch.bfloat16)
+    scale = torch.tensor((rng.random(N) * 1e-2 + 1e-4).astype(np.float32))
+    dyq, gscale = int8_linear.act_quant_dy_int8(dy, scale)
+    assert dyq.shape == (5, N) and dyq.is_contiguous() and dyq.dtype == torch.int8 and gscale.shape == (5,)
+
+
+# ragged M, N % 16 == 8 (the lm_head's 128,264), K % 128 != 0
+@pytest.mark.parametrize("M,N,K", [(37, 1032, 4304), (129, 8, 80), (300, 4104, 1040)])
+def test_k11_is_k8s_product_on_the_transposed_weight(M, N, K):
+    """K11's premise: its plain version equals K8's plain version over dyq
+    with gscale as the row scale, the transposed weight and a column scale
+    of ones, bit for bit (``__fmul_rn(gscale, 1.0f)`` is gscale)."""
+    rng = np.random.default_rng(M + N + K)
+    dyq = torch.tensor(rng.integers(-127, 128, (M, N)), dtype=torch.int8)
+    q = torch.tensor(rng.integers(-127, 128, (N, K)), dtype=torch.int8)
+    gscale = torch.tensor(rng.random(M) * 1e-4 + 1e-6, dtype=torch.float32)
+    want = int8_linear.int8_dx_gemm_plain(dyq, q, gscale)
+    got = int8_linear.w8a8_gemm_plain(dyq, gscale, q.t().contiguous(), torch.ones(K))
+    assert got.dtype == want.dtype == torch.bfloat16 and torch.equal(got, want)
+
+
+def test_k11_wrapper_refuses_strided_columns():
+    """K11 takes dyq's rows at any 16-byte stride (K10's padded rows) but
+    not columns that are not contiguous; checked before the device."""
+    dyq = torch.empty(64, 4, dtype=torch.int8, device="meta").t()
+    q = torch.empty(64, 32, dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError, match="contiguous rows"):
+        int8_linear.int8_dx_gemm(dyq, q, torch.empty(4, device="meta"))
+
+
 @pytest.mark.parametrize("dtype", [np.float32, "bfloat16"], ids=["f32", "bf16"])
 @pytest.mark.parametrize("case", sorted(_STE_CASES))
 def test_int8_backward_matches_jax(int8_backward, case, dtype):

@@ -127,6 +127,18 @@ def _meta(*shape, dtype=torch.bfloat16):
 
 
 _I8, _F32 = torch.int8, torch.float32
+
+
+def _on_k9_decode_form(fn, *args):
+    """``fn(*args)`` with K9's decode form at every M."""
+    saved = int8_linear.W8_DECODE_MAX_M
+    int8_linear.W8_DECODE_MAX_M = 1 << 62
+    try:
+        return fn(*args)
+    finally:
+        int8_linear.W8_DECODE_MAX_M = saved
+
+
 # one wrapper call on meta tensors each, and what it must raise: dtype and
 # shape are checked before the device, so every rule runs without a card
 _REFUSALS = {
@@ -152,9 +164,10 @@ _REFUSALS = {
                        ValueError, "do not fit"),
     "w8_device": (lambda: int8_linear.w8_gemm(_meta(4, 64), _meta(8, 64, dtype=_I8), _meta(8, dtype=_F32)),
                   ValueError, "CUDA device"),
-    # the decode form's grid: 128-channel tiles in y, 64-row tiles in z
-    "w8_rows_past_the_grid": (lambda: int8_linear.w8_gemm(_meta(int8_linear.DECODE_MAX_ROWS + 1, 64),
-                                                          _meta(8, 64, dtype=_I8), _meta(8, dtype=_F32)),
+    # the decode form's grid: 128-channel tiles in y, 64-row tiles in z (K9
+    # at these rows takes the large form unless the decode form is forced)
+    "w8_rows_past_the_grid": (lambda: _on_k9_decode_form(int8_linear.w8_gemm, _meta(int8_linear.DECODE_MAX_ROWS + 1, 64),
+                                                         _meta(8, 64, dtype=_I8), _meta(8, dtype=_F32)),
                               ValueError, "decode form"),
     "w8_columns_past_the_grid": (lambda: int8_linear.w8_gemm(_meta(4, 64), _meta(int8_linear.DECODE_MAX_N + 1, 64, dtype=_I8),
                                                              _meta(int8_linear.DECODE_MAX_N + 1, dtype=_F32)),
@@ -171,6 +184,26 @@ def test_quant_wrappers_check_before_the_device(case):
     call, error, match = _REFUSALS[case]
     with pytest.raises(error, match=match):
         call()
+
+
+# K9's form by the rows of its main-path callers: the demo's and the serve's
+# decode (8 and 64 rows) and an engine admission of one 384-row prompt on the
+# decode form; admissions of 2 and 4 prompts (768, 1536 rows) and QLoRA's 4 x
+# 4096 training rows on the large form
+@pytest.mark.parametrize("M,form", [(1, "decode"), (8, "decode"), (64, "decode"), (384, "decode"), (768, "large"),
+                                    (1536, "large"), (16384, "large")])
+def test_w8_gemm_form_by_caller(M, form):
+    assert int8_linear.w8_gemm_form(M) == {"decode": int8_linear.FORM_DECODE, "large": int8_linear.FORM_LARGE}[form]
+
+
+def test_w8_gemm_form_boundary(monkeypatch):
+    """The decode form up to ``W8_DECODE_MAX_M`` rows, the large form above,
+    read from the module at each call (so a measurement can force either)."""
+    m = int8_linear.W8_DECODE_MAX_M
+    assert int8_linear.w8_gemm_form(m) == int8_linear.FORM_DECODE
+    assert int8_linear.w8_gemm_form(m + 1) == int8_linear.FORM_LARGE
+    monkeypatch.setattr(int8_linear, "W8_DECODE_MAX_M", 0)
+    assert int8_linear.w8_gemm_form(1) == int8_linear.FORM_LARGE
 
 
 # ---------------------------------------------------------------------------
