@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch + CUDA port (``spatialrgpt_tpu_torch``) on one
 NVIDIA GPU: the quickest proof that the port still starts on the card.
 
-    python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py [--profile DIR] [--paths A,B]
 
 Phases, each printed as one JSON line:
 
@@ -120,6 +120,32 @@ Phases, each printed as one JSON line:
    launch counts, the base
    bit-unchanged and the adapters, projector and region extractor moving;
    the same figures.
+   recipe -- the training entry point, ``train/train.py::main``, from argv
+   as ``python -m spatialrgpt_tpu_torch.train.train`` takes it, at the
+   same widths: a composite directory of ``init_random`` weights (seed 0)
+   written first is the base model, a character tokenizer of Llama-3's
+   size (``CharTokenizer``; ``<mask>`` / ``<depth>`` added past it grow
+   the vocabulary by 2) stands in for the tokenizer files, and the
+   ``dummy`` mixture (32 samples of one 384 x 384 image, its depth and one
+   region, packed by the collator into 4 rows of 4096) for the data.
+   (a) 1_mm_align.sh's flags cut to ``--data_mixture dummy
+   --gradient_accumulation_steps 2 --max_steps 4 --save_steps 2``: K1's
+   and K4's launches every micro step, the projector and region
+   extractor moving after micro steps 2 and 4 only, decoder and tower
+   bit-unchanged, the accumulator in the checkpoint; a second ``main`` in
+   the same directory to 6 micro steps resumes at 4 with it restored; the
+   same flags on ``--attn_impl xla`` (stopped after one step by
+   ``--total_time_limit``): the first loss within 1%.  (d) The composite
+   that (a) saved, read back by ``load_reference_checkpoint``: logits on
+   one row bit-equal to the trained model's.  (b) ``--lora_enable true
+   --bits 8 --lora_r 64 --lora_alpha 16``, 2 steps: K9's launches on its
+   large form, the int8 base bit-unchanged, the trained modules moving,
+   ``adapter.npz`` and ``non_lora_trainables.npz`` loading back equal.
+   (c) ``--dpo_enable`` on 4 preference pairs over PNG images, 2 a step,
+   2 steps: the first loss ln 2 within 1e-4 with every reward 0, the
+   second finite, the reference copy unchanged.  Per part the median step
+   after the first, positions/s and peak GB.  The launches counted are
+   ``main``'s alone (``recipe_main``); (d)'s comparison is not counted.
 7. demo    -- bench_demo.py's pipeline (``demo/pipeline.py``) on 8
    synthetic photos of 768 x 1024: Depth-Anything ViT-L colorized depth,
    SAM-HQ vit_h masks for 2 boxes per image in chunks of 4, device
@@ -137,7 +163,11 @@ The times of phases 5-7 are smoke figures of this card, not a
 benchmark.  Then the ``kernels`` line and, last, ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero before that line; so does a machine
 without a CUDA card, and a directory without the port's package.
-``--profile DIR`` also profiles the W8A8 serve's first token and its
+``--paths recipe`` (or any other paths of ``PATHS``, comma-separated)
+runs the device and build phases and only those paths: a partial run for
+working on one path, without the kernel phase and the last two lines.
+``--profile DIR`` (the recipe phase is not profiled: its steps are the
+align and QLoRA steps' own) also profiles the W8A8 serve's first token and its
 whole ``generate``, one wave of the engine's phase (b) (32 requests
 through the 32 slots), one align step, one W8A8 align step under each
 backward, one QLoRA step and one demo pipeline run with
@@ -152,6 +182,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2054,6 +2085,378 @@ def phase_qlora(torch, nvidia_smi: str, profile_dir=None) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# recipe: the training entry point, train/train.py::main
+# ---------------------------------------------------------------------------
+
+LLAMA3_VOCAB = 128256  # the Llama-3 tokenizer's size: <mask> and <depth> are added past it
+# scripts/srgpt/llama3_8b/1_mm_align.sh's flags (its base model and output
+# directory aside), with the recipe phase's cuts after them
+ALIGN_FLAGS = [
+    "--llm_preset", "llama3-8b", "--conv_template", "llama_3", "--vision_tower", "siglip-so400m-patch14-384",
+    "--mm_vision_select_feature", "cls_patch", "--mm_vision_select_layer", "-2", "--mm_projector", "mlp_downsample",
+    "--enable_region", "true", "--enable_depth", "true", "--region_extractor", "regiongpt",
+    "--tune_vision_tower", "false", "--tune_mm_projector", "true", "--tune_language_model", "false",
+    "--tune_region_extractor", "true", "--image_aspect_ratio", "resize", "--per_device_train_batch_size", "32",
+    "--learning_rate", "1e-3", "--model_max_length", "4096", "--save_steps", "100", "--save_total_limit", "1",
+    "--logging_steps", "1", "--dp_size", "1", "--fsdp_size", "1",
+]
+RECIPE_CUTS = ["--data_mixture", "dummy", "--gradient_accumulation_steps", "2", "--max_steps", "4", "--save_steps", "2"]
+RECIPE_RESUME_STEPS = 6
+DPO_PAIRS, DPO_BATCH = 4, 2
+
+
+class CharTokenizer:
+    """A character tokenizer of Llama-3's size (the tests' FakeTokenizer,
+    ``tests/test_templates.py:18``): each template special string one
+    token, every other character one token, no BOS prepended (the llama_3
+    template writes its own), and the HF methods ``load_tokenizer`` calls;
+    ``add_tokens`` appends past ``size``."""
+
+    SPECIALS = ["<|begin_of_text|>", "<|start_header_id|>", "<|end_header_id|>", "<|eot_id|>", "<|end_of_text|>",
+                "</s>", "<s>", "[/INST]", "[INST]"]
+
+    def __init__(self, size: int = LLAMA3_VOCAB):
+        self.specials = list(self.SPECIALS)
+        self.vocab = {s: 1000 + i for i, s in enumerate(self.specials)}
+        self.size = size
+        self.bos_token_id, self.eos_token_id, self.pad_token_id = 1, 2, 0
+        self.model_max_length = 4096
+
+    def __len__(self) -> int:
+        return self.size
+
+    def __call__(self, text, **kw):
+        ids, i = [], 0
+        while i < len(text):
+            for s in self.specials:
+                if text.startswith(s, i):
+                    ids.append(self.vocab[s])
+                    i += len(s)
+                    break
+            else:
+                ids.append(3 + ord(text[i]) % 900)
+                i += 1
+        return argparse.Namespace(input_ids=ids)
+
+    def add_tokens(self, tokens, special_tokens=False) -> int:
+        new = [t for t in tokens if t not in self.vocab]
+        for t in new:
+            self.vocab[t], self.size = self.size, self.size + 1
+        self.specials += new
+        return len(new)
+
+    def convert_tokens_to_ids(self, token) -> int:
+        return self.vocab[token]
+
+
+@contextlib.contextmanager
+def observed_trainers(torch):
+    """``train/train.py``'s ``Trainer`` replaced, inside the block, by a
+    subclass that watches each run ``main`` makes: per step the seconds
+    (host clock around a synchronised step), the kernels' launches, the
+    metrics, the rows and live tokens of the batch and whether the
+    optimizer's parameters moved; the frozen modules' fingerprints before
+    and after the run; what a resume restored.  Yields the list of runs;
+    each holds its trainer (its model) until the list is cleared."""
+    from spatialrgpt_tpu_torch.train import train as train_mod
+
+    base_cls, runs = train_mod.Trainer, []
+
+    def trained_fp(state):
+        return [int(p.detach().reshape(-1).view(torch.uint8).sum(dtype=torch.int64))
+                for g in state.optimizer.param_groups for p in g["params"]]
+
+    class Observed(base_cls):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            model = self.state.model
+            rec = {"trainer": self, "steps": [], "resumed": None,
+                   "frozen_before": {n: state_fingerprint(torch, getattr(model, n)) for n in ("llm", "vision_tower")}}
+            if hasattr(self.state, "ref_model"):  # DPO's reference copy: its own clones of the trained modules
+                rec["reference_before"] = state_fingerprint(torch, self.state.ref_model)
+            runs.append(rec)
+            inner = self.train_step
+
+            def step(state, batch):
+                before, fp = read_counts(), trained_fp(state)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = inner(state, batch)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                after = read_counts()
+                parts = (batch,) if hasattr(batch, "input_ids") else batch  # DPO: (chosen, rejected)
+                rec["steps"].append({
+                    "seconds": seconds, "metrics": {k: float(v) for k, v in metrics.items()},
+                    "rows": [int(b.input_ids.shape[0]) for b in parts],
+                    "live_tokens": [int((b.segment_ids != 0).sum()) for b in parts],
+                    "images": [int(b.images.shape[0]) for b in parts],
+                    "trained_moved": trained_fp(state) != fp, "launches": {n: after[n] - before[n] for n in after},
+                })
+                return state, metrics
+
+            self.train_step = step
+
+        def load_checkpoint(self, path):
+            step = super().load_checkpoint(path)
+            opt = self.state.optimizer
+            runs[-1]["resumed"] = {"step": step, "mini_step": getattr(opt, "mini_step", None),
+                                   "gradient_step": getattr(opt, "gradient_step", None),
+                                   "accumulator_zero": all(not bool(a.any()) for a in getattr(opt, "acc", []))}
+            return step
+
+    train_mod.Trainer = Observed
+    try:
+        yield runs
+    finally:
+        train_mod.Trainer = base_cls
+
+
+def frozen_unchanged(torch, rec) -> bool:
+    model = rec["trainer"].state.model
+    return all(state_fingerprint(torch, getattr(model, n)) == f for n, f in rec["frozen_before"].items())
+
+
+def recipe_figures(rec, nvidia_smi: str, peak_gb: float) -> dict:
+    """The median step after the first, positions/s (rows x 4096 a step)
+    and live tokens/s, the run's peak."""
+    steps = rec["steps"][1:] or rec["steps"]
+    step_s = statistics.median(s["seconds"] for s in steps)
+    positions = statistics.median(sum(s["rows"]) * TRAIN_SEQ for s in steps)
+    live = statistics.median(sum(s["live_tokens"]) for s in steps)
+    return {"step_s_median_after_first": step_s, "positions_per_s": positions / step_s, "live_tokens_per_s": live / step_s,
+            "peak_mem_gb": peak_gb, "card": nvidia_smi}
+
+
+def dpo_pairs(out_dir: str) -> str:
+    """DPO_PAIRS preference pairs over a PNG each (the card has Pillow:
+    ``data/preprocess.py`` decodes them), a region in every prompt."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(4)
+    answers = ["a red cube", "two boxes side by side", "the lamp is taller", "the chair", "about 2 meters",
+               "about 10 meters", "yes, behind it", "no, in front"]
+    rows = []
+    for i in range(DPO_PAIRS):
+        path = os.path.join(out_dir, f"pair{i}.png")
+        Image.fromarray(rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)).save(path)
+        rows.append({"prompt": f"What is <mask> <depth> next to? ({i})", "chosen": answers[(2 * i) % 8],
+                     "rejected": answers[(2 * i + 1) % 8], "image": path})
+    path = os.path.join(out_dir, "pairs.jsonl")
+    with open(path, "w") as f:
+        f.writelines(json.dumps(r) + "\n" for r in rows)
+    return path
+
+
+def recipe_main(torch, argv, totals: dict):
+    """``main(argv)`` as a user calls it on the card (the default device),
+    given ``CharTokenizer`` (there are no tokenizer files), with the counts
+    set to 0 before it and added to ``totals`` after; -> (result, the
+    observed run, peak GB)."""
+    from spatialrgpt_tpu_torch.train import train as train_mod
+
+    torch.cuda.reset_peak_memory_stats()
+    with observed_trainers(torch) as runs:
+        reset_counts()
+        result = train_mod.main(argv, tokenizer=CharTokenizer())
+        counts = read_counts()
+    for name, n in counts.items():
+        totals[name] = totals.get(name, 0) + n
+    check(len(runs) == 1, f"main built {len(runs)} trainers")
+    return result, runs[0], torch.cuda.max_memory_allocated() / 1e9
+
+
+def move_composite(src: str, dst: str) -> None:
+    """The final save's files (config.json and the split directories) out
+    of ``src``, its checkpoints left in place."""
+    from spatialrgpt_tpu_torch.utils.weights import SPLIT_DIRS
+
+    os.makedirs(dst)
+    for name in ("config.json",) + SPLIT_DIRS:
+        os.replace(os.path.join(src, name), os.path.join(dst, name))
+
+
+def phase_recipe(torch, nvidia_smi: str) -> dict:
+    """``python -m spatialrgpt_tpu_torch.train.train`` at llama3-8b through
+    ``train.main`` and argv, on the ``dummy`` mixture (32 samples of one
+    384 x 384 image, RGB + depth, a region each), with a character
+    tokenizer of Llama-3's size and a composite directory of random
+    weights (``init_random``, seed 0) as the base model:
+    (a) 1_mm_align.sh's flags with 2-step accumulation, 4 micro steps:
+        K1 / K4 launches per micro step, the tuned modules moving only on
+        micro steps 2 and 4, the frozen ones bit-unchanged; then a second
+        ``main`` in the same directory to 6 micro steps that resumes at 4
+        with the accumulator restored; then the same flags on
+        ``--attn_impl xla`` (stopped after its first step by
+        ``--total_time_limit``), whose first loss the kernel route's must
+        match within 1%;
+    (b) QLoRA: ``--lora_enable --bits 8``, r 64 / alpha 16, 2 steps: K9's
+        launches (its large form), the int8 base bit-unchanged, the
+        adapters moving, ``adapter.npz`` / ``non_lora_trainables.npz``
+        loading back equal;
+    (c) DPO on DPO_PAIRS pairs with images, 2 pairs a step, 2 steps: the
+        first loss ln 2 within 1e-4 and every reward 0 (the policy is its
+        reference copy), the second finite;
+    (d) the composite that (a)'s first run saved, read back by
+        ``load_reference_checkpoint``: logits on one row bit-equal to the
+        trained model's."""
+    import numpy as np
+
+    from spatialrgpt_tpu_torch import SpatialRGPTConfig, preset
+    from spatialrgpt_tpu_torch.models import vlm
+    from spatialrgpt_tpu_torch.ops.int8_linear import FORM_LARGE, w8_gemm_form
+    from spatialrgpt_tpu_torch.utils.checkpoint import load_pytree, load_reference_checkpoint
+    from spatialrgpt_tpu_torch.utils.weights import init_random, save_composite
+
+    cfg = preset("llama3-8b")
+    dev = torch.device(DEVICE)
+    totals, report, checks = {}, {}, {}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
+        base = os.path.join(work, "base")
+        t0 = time.perf_counter()
+        save_composite(base, init_random(cfg, dev, torch.bfloat16, seed=0), cfg)
+        release(torch)
+        report["base_composite_s"] = time.perf_counter() - t0
+        align = ["--model_name_or_path", base] + ALIGN_FLAGS + RECIPE_CUTS
+        attn = attention_train_counts(cfg)
+
+        # (a) stage 1 with accumulation, its composite (d), its resume, its plain route
+        out_a = os.path.join(work, "align")
+        t0 = time.perf_counter()
+        result, run, peak = recipe_main(torch, align + ["--output_dir", out_a], totals)
+        wall = time.perf_counter() - t0
+        steps = run["steps"]
+        loaded = SpatialRGPTConfig.load(out_a)
+        opt = torch.load(os.path.join(out_a, "checkpoint-4", "opt.pt"), map_location="cpu")
+        with open(os.path.join(out_a, "metrics.jsonl")) as f:
+            logged = [json.loads(line)["step"] for line in f]
+        checks["a_completed_4_micro_steps"] = result == {"status": "completed", "step": 4} and logged == [1, 2, 3, 4]
+        checks["a_launches_every_micro_step"] = len(steps) == 4 and all(
+            s["launches"] == {**attn, **NO_QUANT} for s in steps)
+        checks["a_tuned_move_on_micro_steps_2_and_4_only"] = [s["trained_moved"] for s in steps] == [False, True] * 2
+        checks["a_frozen_bit_unchanged"] = frozen_unchanged(torch, run)
+        checks["a_checkpoint_holds_the_accumulator"] = (sorted(os.listdir(out_a)) == [
+            "checkpoint-4", "config.json", "llm", "metrics.jsonl", "mm_projector", "region_extractor",
+            "vision_tower"] and opt["mini_step"] == 0 and opt["gradient_step"] == 2 and len(opt["acc"]) > 0)
+        checks["a_vocab_grown_by_region_tokens"] = (loaded.mask_token_id, loaded.depth_token_id,
+                                                    loaded.num_extra_tokens) == (LLAMA3_VOCAB, LLAMA3_VOCAB + 1, 2)
+        report["a_align"] = {"result": result, "wall_s": wall, "steps": steps,
+                             "launches_expected_per_micro_step": {**attn, **NO_QUANT},
+                             "figures": recipe_figures(run, nvidia_smi, peak)}
+
+        # (d) the composite the run saved, read back
+        final = os.path.join(work, "align_final")
+        move_composite(out_a, final)
+        trained = run["trainer"].state.model
+        t0 = time.perf_counter()
+        back = load_reference_checkpoint(final, loaded, dev, trained.llm.lm_head.weight.dtype)
+        load_s = time.perf_counter() - t0
+        one_row = train_batch(torch, loaded, np.random.default_rng(3), 1)
+        with torch.no_grad():
+            want, got = (vlm.forward(m, loaded, one_row, attn_impl="pallas") for m in (trained, back))
+            same = bool(torch.equal(got, want))
+        checks["d_reloaded_logits_bit_equal"] = same and bool(torch.isfinite(want).all())
+        report["d_composite"] = {"load_s": load_s, "logits_shape": list(want.shape), "bit_equal": same}
+        del back, trained, run, want, got, one_row
+        shutil.rmtree(final)
+        release(torch)
+
+        result, run, peak = recipe_main(torch, align + ["--output_dir", out_a, "--max_steps",
+                                                        str(RECIPE_RESUME_STEPS)], totals)
+        with open(os.path.join(out_a, "metrics.jsonl")) as f:
+            logged = [json.loads(line)["step"] for line in f]
+        checks["a_resume_continues_at_4"] = (result == {"status": "completed", "step": RECIPE_RESUME_STEPS}
+                                             and logged == list(range(1, 7)) and len(run["steps"]) == 2)
+        checks["a_resume_restores_the_accumulator"] = run["resumed"] == {
+            "step": 4, "mini_step": 0, "gradient_step": 2, "accumulator_zero": True}
+        checks["a_resume_moves_on_micro_step_6_only"] = [s["trained_moved"] for s in run["steps"]] == [False, True]
+        report["a_resume"] = {"result": result, "resumed": run["resumed"], "steps": run["steps"]}
+        del run
+        shutil.rmtree(out_a)
+        release(torch)
+
+        out_x = os.path.join(work, "align_xla")
+        result, run, peak = recipe_main(torch, align + ["--output_dir", out_x, "--attn_impl", "xla",
+                                                        "--total_time_limit", "1", "--pre_terminate_time", "1"], totals)
+        plain_loss = run["steps"][0]["metrics"]["loss"] if run["steps"] else float("nan")
+        kernel_loss = steps[0]["metrics"]["loss"]
+        loss_rel = abs(kernel_loss - plain_loss) / abs(plain_loss)
+        checks["a_plain_route_stopped_by_its_time_limit"] = result == {"status": "timeout", "step": 1}
+        checks["a_plain_route_launches_no_kernel"] = all(n == 0 for n in run["steps"][0]["launches"].values())
+        checks["a_first_loss_vs_plain_route"] = loss_rel <= TRAIN_LOSS_REL_BOUND
+        report["a_plain_route"] = {"first_loss": plain_loss, "kernel_first_loss": kernel_loss, "loss_rel": loss_rel,
+                                   "bound": TRAIN_LOSS_REL_BOUND, "seconds": run["steps"][0]["seconds"],
+                                   "peak_mem_gb": peak}
+        del run
+        shutil.rmtree(out_x)
+        release(torch)
+
+        # (b) QLoRA through main
+        out_b = os.path.join(work, "qlora")
+        result, run, peak = recipe_main(torch, align + ["--output_dir", out_b, "--max_steps", "2", "--lora_enable",
+                                                        "true", "--bits", "8", "--lora_r", "64", "--lora_alpha", "16",
+                                                        "--gradient_accumulation_steps", "1"], totals)
+        state = run["trainer"].state
+        L = cfg.llm.num_hidden_layers
+        want_step = {**attn, **NO_QUANT, "w8_gemm": L * (7 + 6) + 1}  # remat recomputes all but down; lm_head once
+        rows = [s["rows"][0] * TRAIN_SEQ for s in run["steps"]]
+        adapters = load_pytree(os.path.join(out_b, "adapter.npz"))
+        non_lora = load_pytree(os.path.join(out_b, "non_lora_trainables.npz"))
+
+        def loads_back(saved, module) -> bool:
+            return all(np.array_equal(saved[n], p.detach().float().cpu().numpy()) for n, p in module.named_parameters())
+
+        checks["b_completed"] = result == {"status": "completed", "step": 2}
+        checks["b_k9_launches_every_step_on_its_large_form"] = all(
+            s["launches"] == want_step for s in run["steps"]) and all(w8_gemm_form(m) == FORM_LARGE for m in rows)
+        checks["b_int8_base_bit_unchanged"] = frozen_unchanged(torch, run)
+        checks["b_trained_moved_every_step"] = all(s["trained_moved"] for s in run["steps"])
+        checks["b_adapter_npz_loads_back_equal"] = (
+            sorted(adapters["adapters"]) == sorted(n for n, _ in state.model.adapters.items())
+            and all(loads_back(adapters["adapters"][n], pair) for n, pair in state.model.adapters.items())
+            and int(adapters["config"]["r"]) == 64)
+        checks["b_non_lora_npz_loads_back_equal"] = sorted(non_lora) == ["mm_projector", "region_extractor"] and all(
+            loads_back(non_lora[n], getattr(state.model, n)) for n in non_lora)
+        report["b_qlora"] = {"result": result, "steps": run["steps"], "launches_expected_per_step": want_step,
+                             "k9_rows": rows, "figures": recipe_figures(run, nvidia_smi, peak)}
+        del run, state
+        shutil.rmtree(out_b)
+        release(torch)
+
+        # (c) DPO through main
+        out_c = os.path.join(work, "dpo")
+        os.makedirs(out_c)
+        result, run, peak = recipe_main(torch, align + [
+            "--output_dir", out_c, "--dpo_enable", "true", "--dpo_data_path", dpo_pairs(out_c),
+            "--per_device_train_batch_size", str(DPO_BATCH), "--max_steps", "2", "--gradient_accumulation_steps", "1",
+        ], totals)
+        first, second = ({**s["metrics"]} for s in run["steps"]) if len(run["steps"]) == 2 else ({}, {})
+        want_step = {**NO_QUANT, **{k: 2 * v for k, v in attn.items()}}  # the policy's two passes (remat)
+        for k, v in {"vit_attention": 2 * attn["vit_attention"], "flash_attention_fwd": L * 2}.items():
+            want_step[k] += v  # the reference copy's two forwards
+        checks["c_completed"] = result == {"status": "completed", "step": 2}
+        checks["c_first_loss_ln2"] = abs(first.get("dpo_loss", float("nan")) - math.log(2)) <= 1e-4
+        checks["c_first_rewards_zero"] = first.get("chosen_reward") == first.get("rejected_reward") == 0.0
+        checks["c_second_finite"] = bool(second) and all(math.isfinite(v) for v in second.values())
+        checks["c_launches_every_step"] = all(s["launches"] == want_step for s in run["steps"])
+        checks["c_policy_moved_reference_kept"] = all(s["trained_moved"] for s in run["steps"]) and \
+            state_fingerprint(torch, run["trainer"].state.ref_model) == run["reference_before"]
+        report["c_dpo"] = {"result": result, "steps": run["steps"], "launches_expected_per_step": want_step,
+                           "figures": recipe_figures(run, nvidia_smi, peak)}
+        del run
+        release(torch)
+    emit({"phase": "recipe", "ok": all(checks.values()), "checks": checks,
+          "model": "llama3-8b (32 layers, full width) + siglip-so400m (26 of 27 layers), bf16, random from seed 0, "
+                   "through a composite directory; character tokenizer of Llama-3's size",
+          "data": "dummy mixture: 32 samples of one 384 x 384 image + depth + 1 region, packed into rows of 4096",
+          **report, "launches": totals})
+    check(all(checks.values()), f"recipe checks failed: {checks}")
+    return totals
+
+
 def demo_expected_counts(vlm_cfg, sam_cfg, da_cfg, n_images: int, chunk: int, hw):
     """The demo pipeline's launch counts, from its shapes, and K6's by stage.
     K6 is counted at every LayerNorm whose input passes
@@ -2281,56 +2684,62 @@ def profile_run(torch, fn, out_dir, name):
           "top_kernels_ms_calls": {e.key[:120]: [e.self_device_time_total / 1e3, e.count] for e in top}})
 
 
+# the paths after the kernel phase, in order: name -> its phase (each
+# returns the kernels' launch counts of its main path)
+PATHS = {
+    "serve": lambda torch, smi, prof: phase_main(torch, smi),
+    "serve_w8a8": phase_serve_w8a8,
+    "engine": phase_engine,
+    "train": lambda torch, smi, prof: phase_train(torch, prof),
+    "align_w8a8": phase_align_w8a8,
+    "qlora": phase_qlora,
+    "recipe": lambda torch, smi, prof: phase_recipe(torch, smi),
+    "demo": lambda torch, smi, prof: phase_demo(torch, prof),
+}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR", help="also profile a W8A8 serve TTFT and generate run, one wave "
                         "of the W8A8 engine, one align step, one W8A8 align step of each backward, one QLoRA step "
                         "and one demo pipeline run; write their tables to DIR")
+    parser.add_argument("--paths", metavar="A,B", help="run only these paths after the build (of: "
+                        f"{', '.join(PATHS)}; 'none' for none): a partial run, which ends without the kernel phase, "
+                        "the kernels line and the ok line")
     args = parser.parse_args()
     if not os.path.isdir(os.path.join(ROOT, "spatialrgpt_tpu_torch")):
         print("chip_smoke.py: run it from a checkout of the repository (spatialrgpt_tpu_torch/ is missing)",
               file=sys.stderr)
         return 2
+    paths = list(PATHS) if args.paths is None else [p for p in args.paths.split(",") if p != "none"]
+    unknown = set(paths) - set(PATHS)
+    if unknown:
+        parser.error(f"unknown paths {sorted(unknown)}")
     sys.path.insert(0, ROOT)
     import torch
 
     phase = "device"
+    counts = {}
     try:
         smi = phase_device(torch)
         phase = "build"
         phase_build()
-        phase = "kernels"
-        rows = phase_kernels(torch)
-        phase = "grads"
-        phase_grads(torch)
-        phase = "main"
-        serve = phase_main(torch, smi)
-        release(torch)
-        phase = "serve_w8a8"
-        serve_w8a8 = phase_serve_w8a8(torch, smi, args.profile)
-        release(torch)
-        phase = "engine"
-        engine = phase_engine(torch, smi, args.profile)
-        release(torch)
-        phase = "train"
-        train = phase_train(torch, args.profile)
-        release(torch)
-        phase = "align_w8a8"
-        align_w8a8 = phase_align_w8a8(torch, smi, args.profile)
-        release(torch)
-        phase = "qlora"
-        qlora = phase_qlora(torch, smi, args.profile)
-        release(torch)
-        phase = "demo"
-        demo = phase_demo(torch, args.profile)
+        if args.paths is None:
+            phase = "kernels"
+            rows = phase_kernels(torch)
+            phase = "grads"
+            phase_grads(torch)
+        for phase in paths:
+            counts[phase] = PATHS[phase](torch, smi, args.profile)
+            release(torch)
     except Exception as e:  # report which phase failed, then exit non-zero
         traceback.print_exc()
         emit({"phase": phase, "ok": False, "error": f"{type(e).__name__}: {e}"})
         return 1
+    if args.paths is not None:
+        return 0
     for row in rows:
-        by_path = {"serve": serve[row["name"]], "serve_w8a8": serve_w8a8[row["name"]], "engine": engine[row["name"]],
-                   "train": train[row["name"]], "align_w8a8": align_w8a8[row["name"]], "qlora": qlora[row["name"]],
-                   "demo": demo[row["name"]]}
+        by_path = {path: part[row["name"]] for path, part in counts.items()}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
     print(json.dumps({"kernels": rows}), flush=True)

@@ -199,12 +199,29 @@ def _shifted_targets(inputs: VLMInputs) -> Tuple[torch.Tensor, torch.Tensor]:
     return tgt, valid
 
 
-def _token_logp_sum(h: torch.Tensor, tgt: torch.Tensor, valid: torch.Tensor, lm_head: nn.Module) -> torch.Tensor:
-    """Sum over valid positions of log p(target): LM head, logsumexp and the
-    target gather (the lse form: no (.., V) log-softmax is built)."""
+def _token_logp(h: torch.Tensor, tgt: torch.Tensor, valid: torch.Tensor, lm_head: nn.Module) -> torch.Tensor:
+    """(B, S) log p(target) at the valid positions, 0 elsewhere: LM head,
+    logsumexp and the target gather (the lse form: no (.., V) log-softmax
+    is built)."""
     lg = linear(h, lm_head).float()
     tok = lg.gather(-1, torch.where(valid, tgt, 0)[..., None])[..., 0] - torch.logsumexp(lg, dim=-1)
-    return (tok * valid).sum()
+    return tok * valid
+
+
+def _token_logp_sum(h: torch.Tensor, tgt: torch.Tensor, valid: torch.Tensor, lm_head: nn.Module) -> torch.Tensor:
+    return _token_logp(h, tgt, valid, lm_head).sum()
+
+
+def sequence_logprob(
+    model: SpatialRGPT, cfg: SpatialRGPTConfig, inputs: VLMInputs, attn_impl: str = "xla", remat: bool = False
+) -> torch.Tensor:
+    """(B,) sum of each row's log p(target) over its supervised targets (the
+    port of ``spatialrgpt_tpu/train/dpo.py::sequence_logprob``, which takes
+    a log-softmax of ``forward``'s logits; here the lse form of
+    ``loss_fn``, the same function)."""
+    h = _hidden(model, cfg, inputs, attn_impl, remat)
+    tgt, valid = _shifted_targets(inputs)
+    return _token_logp(h, tgt, valid, model.llm.lm_head).sum(dim=-1)
 
 
 def loss_fn(

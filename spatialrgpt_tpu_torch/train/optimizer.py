@@ -23,6 +23,11 @@ frozen group ``set_to_zero``; ``skip_nonfinite_updates`` wraps the whole in
 - with ``skip_nonfinite_updates = n > 0`` a step whose gradients hold a
   non-finite value changes nothing, unless it is the (n + 1)-th such step
   in a row.
+
+``MultiSteps`` is gradient accumulation with ``optax.MultiSteps``' meaning
+(``train/train.py:165-168`` wraps the optimizer in it): the gradients of k
+micro steps are averaged, and the wrapped ``AdamW`` updates on every k-th
+call only, so its schedule counts updates, not micro steps.
 """
 
 from __future__ import annotations
@@ -138,6 +143,55 @@ class AdamW(torch.optim.Optimizer):
         state_dict = dict(state_dict)
         self.notfinite_count = state_dict.pop("notfinite_count", 0)
         super().load_state_dict(state_dict)
+
+
+class MultiSteps:
+    """``optax.MultiSteps(inner, every_k)`` with its defaults: each call
+    folds the micro step's gradients into a running mean (Welford's
+    ``acc + (g - acc) / (n + 1)``, as optax), and the k-th call hands the
+    mean to ``inner`` as the gradients of one update and starts the mean
+    again; between, the parameters do not move.  A parameter with no
+    gradient counts as a zero gradient, as in ``AdamW``.  The state (the
+    means, the micro step and the updates taken) is part of
+    ``state_dict``, so a checkpoint taken in the middle of an accumulation
+    resumes it exactly."""
+
+    def __init__(self, inner: AdamW, every_k: int):
+        if every_k < 1:
+            raise ValueError(f"every_k {every_k} < 1")
+        self.inner, self.every_k = inner, every_k
+        self.mini_step = self.gradient_step = 0
+        self.acc = [torch.zeros_like(p) for group in inner.param_groups for p in group["params"]]
+
+    @property
+    def param_groups(self):
+        return self.inner.param_groups
+
+    def _params(self):
+        return [p for group in self.inner.param_groups for p in group["params"]]
+
+    @torch.no_grad()
+    def step(self, closure=None) -> None:
+        n = self.mini_step
+        for i, p in enumerate(self._params()):
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            self.acc[i] = self.acc[i] + (g - self.acc[i]) / (n + 1)
+        if n + 1 < self.every_k:
+            self.mini_step = n + 1
+            return
+        for i, p in enumerate(self._params()):
+            p.grad, self.acc[i] = self.acc[i], torch.zeros_like(p)
+        self.inner.step()
+        self.mini_step, self.gradient_step = 0, self.gradient_step + 1
+
+    def state_dict(self):
+        return {"inner": self.inner.state_dict(), "mini_step": self.mini_step, "gradient_step": self.gradient_step,
+                "acc": list(self.acc)}
+
+    def load_state_dict(self, state_dict) -> None:
+        self.inner.load_state_dict(state_dict["inner"])
+        self.mini_step, self.gradient_step = state_dict["mini_step"], state_dict["gradient_step"]
+        self.acc = [saved.to(a.device, a.dtype) for a, saved in zip(self.acc, state_dict["acc"], strict=True)]
 
 
 def build_optimizer(model: torch.nn.Module, ocfg: OptimizerConfig) -> AdamW:

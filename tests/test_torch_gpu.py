@@ -1285,3 +1285,45 @@ def test_tiny_engine_row_past_the_cache_inside_a_window(cuda):
     assert (C - pa - 1) % 8 and C - pb - 1 >= -(-(C - pa - 1) // 8) * 8  # A runs past C while B decodes
     assert len(a_toks) == C - pa and len(b_toks) == C - pb
     assert run(lambda C: 1)[1] == b_toks
+
+
+def test_tiny_train_main_pallas_against_xla(cuda, tmp_path, monkeypatch):
+    """``train/train.py::main`` from argv on the card (no ``device``: the
+    card is the default), stage-1 flags on the ``dummy`` mixture with a
+    tiny preset: the kernel route launches K1 and K4 as an align step does,
+    the plain route none, and their losses agree within 1%."""
+    import json
+
+    from chip_smoke import CharTokenizer
+    from spatialrgpt_tpu_torch.train import train as train_mod
+
+    cfg = SpatialRGPTConfig(
+        llm=LlamaConfig(vocab_size=1024, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+                        num_attention_heads=4, num_key_value_heads=2),
+        vision=SiglipVisionConfig(hidden_size=32, intermediate_size=64, num_hidden_layers=3,
+                                  num_attention_heads=2, image_size=384, patch_size=14),
+        projector=ProjectorConfig(mm_hidden_size=32, hidden_size=256),
+        region=RegionExtractorConfig(mm_hidden_size=32, hidden_size=256, ada_pool_size=4),
+        mask_token_id=1009, depth_token_id=1010,
+    )
+    monkeypatch.setattr(train_mod, "preset", lambda name: cfg)
+    argv = ["--data_mixture", "dummy", "--tune_language_model", "false", "--tune_vision_tower", "false",
+            "--per_device_train_batch_size", "4", "--model_max_length", "1024", "--max_steps", "2",
+            "--learning_rate", "1e-3", "--regions_per_image", "2"]
+    losses, counts = {}, {}
+    for impl in ("pallas", "xla"):
+        tokenizer = CharTokenizer(size=1009)
+        tokenizer.add_tokens(["<mask>", "<depth>"])  # 1009, 1010: the preset's region ids
+        K1.launches = 0
+        K4.launches = dict.fromkeys(K4.launches, 0)
+        out = tmp_path / impl
+        assert train_mod.main(argv + ["--attn_impl", impl, "--output_dir", str(out)], tokenizer=tokenizer) == {
+            "status": "completed", "step": 2}
+        torch.cuda.synchronize()
+        counts[impl] = (K1.launches, dict(K4.launches))
+        with open(out / "metrics.jsonl") as f:
+            losses[impl] = [json.loads(line)["loss"] for line in f]
+    assert counts["pallas"] == (4, {"flash_attention_fwd": 8, "flash_attention_bwd_dkv": 4, "flash_attention_bwd_dq": 4})
+    assert counts["xla"] == (0, dict.fromkeys(K4.launches, 0))
+    for got, want in zip(losses["pallas"], losses["xla"], strict=True):
+        assert abs(got - want) <= 0.01 * abs(want), losses

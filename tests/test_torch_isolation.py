@@ -3,10 +3,14 @@
 package, and the port's copies of the JAX package's framework-free
 modules (``config``, ``constants``, ``conversation``, ``data/splice``,
 ``demo/engine``, the ``utils/export`` name maps, Pillow's bicubic
-coefficients) give what the originals give.
+coefficients) give what the originals give.  The data layer and
+``train/args.py`` are verbatim copies: their code equals the originals'
+(``tests/test_torch_data.py`` runs them side by side).
 """
 
+import ast
 import dataclasses
+import re
 import os
 import subprocess
 import sys
@@ -61,7 +65,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 30, proc.stdout  # the walk really found the package
+    assert n_modules >= 55, proc.stdout  # the walk really found the package
 
 
 @pytest.mark.parametrize("name", sorted(jconfig.LLAMA_PRESETS))
@@ -172,3 +176,36 @@ def test_pil_bicubic_coefficients_equal(in_size, out_size):
     (m_t, mi_t), (m_j, mi_j) = tdp._resample_matrix(in_size, out_size), jpre._resample_matrix(in_size, out_size)
     np.testing.assert_array_equal(m_t, m_j)
     np.testing.assert_array_equal(mi_t, mi_j)
+
+
+# the port's verbatim copies: module path -> top-level names it leaves out
+VERBATIM_COPIES = {
+    "data/tokenize.py": (), "data/templates.py": (), "data/preprocess.py": (), "data/sampler.py": (),
+    "data/video.py": (), "data/interleaved.py": (), "data/prefetch.py": (), "train/args.py": (),
+    "data/dataset.py": ("to_vlm_inputs",),  # the one JAX function: models/vlm.py::VLMInputs.from_spliced
+}
+
+
+def _top_level(path: str, rename: bool) -> dict:
+    """Each top-level statement but the module docstring, as its AST
+    (functions and classes under their names); with ``rename`` the JAX
+    package's imports read as the port's."""
+    src = open(os.path.join(ROOT, path)).read()
+    if rename:
+        src = re.sub(r"\bspatialrgpt_tpu\.", "spatialrgpt_tpu_torch.", src)
+        src = src.replace("from spatialrgpt_tpu import", "from spatialrgpt_tpu_torch import")
+    body = ast.parse(src).body
+    if body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant):
+        body = body[1:]
+    return {getattr(node, "name", None) or ast.dump(node): ast.dump(node) for node in body}
+
+
+@pytest.mark.parametrize("path", sorted(VERBATIM_COPIES))
+def test_verbatim_copies_equal_their_originals(path):
+    want = _top_level(os.path.join("spatialrgpt_tpu", path), rename=True)
+    got = _top_level(os.path.join("spatialrgpt_tpu_torch", path), rename=False)
+    left_out = VERBATIM_COPIES[path]
+    assert sorted(set(want) - set(got)) == sorted(left_out)
+    assert set(got) <= set(want), sorted(set(got) - set(want))
+    for name, node in got.items():
+        assert node == want[name], f"{path}: {name} differs from the original"
