@@ -14,7 +14,9 @@ Phases, each printed as one JSON line:
    path's shapes, in bf16, with the max abs error and its ratio to the
    per-element bound of ``ops/_checks.py::bf16_err_over_bound`` (4 bf16
    ulps of the element plus of its row's largest value; at most 1
-   passes): K1-K3 at the serving shapes, K4's forward, dK/dV and dQ
+   passes): K1-K3 at the serving shapes (K2 also at SpatialRGPT-Bench's
+   prefill: 32 rows in the 1024 bucket, one live segment of 250-320
+   positions a row, the rest padding), K4's forward, dK/dV and dQ
    kernels at the align step's (B4 S4096 Hq32 Hk8 D128, 4 packed samples
    per row and a padded tail), K5 at SAM vit_h's global layers (B4 S4096
    on a 64 x 64 grid, H16 D80, f32 rel-pos bias) and K6 at SAM's and
@@ -146,6 +148,27 @@ Phases, each printed as one JSON line:
    second finite, the reference copy unchanged.  Per part the median step
    after the first, positions/s and peak GB.  The launches counted are
    ``main``'s alone (``recipe_main``); (d)'s comparison is not counted.
+   eval -- the evaluation entry points (``spatialrgpt_tpu_torch/eval``) at
+   the same widths, bf16 weights from seed 0, a character tokenizer of
+   Llama-3's size and synthetic files: 24 SpatialRGPT-Bench entries (48
+   records) over 12 JPEGs of 480 x 640, 768 x 1024 and 375 x 1242, a COCO
+   instances file, a VQA question file.  (a) ``run_bench`` at
+   srgpt_bench.sh's configuration (32 rows, the 1024 bucket, 128 greedy
+   tokens, bf16 KV cache) with Depth-Anything ViT-L read from an HF-named
+   ``pytorch_model.bin`` through ``depth_model_path`` (its depth bit-equal
+   to the in-memory model's): the records' fields, K1 / K2 counts from the
+   batches and no other kernel, the first batch's first-token logits
+   against the plain route (``generate`` on ``attn_impl="xla"`` patched
+   into the runner), then ``judge.score_file``: a score for every
+   category.  (b) The same with ``w8a8=True, kv_quant=True`` on the same
+   model and predictor: no Depth-Anything forward (memoized), K1-K3 and
+   K7-K9 counts from the shapes, first-token logits bit-equal to K7-K9's
+   plain versions, the caller's bf16 model bit-unchanged.  (c)
+   ``run_region_cls`` on 32 COCO boxes and ``run_vqa`` on 16 questions (32
+   tokens each): records, K1 / K2 counts, ``score_region_predictions``.
+   Per run wall s, records/s, generated tokens/s, peak GB; per batch the
+   first-token and decode s (a wrapper around the runner's ``generate``);
+   the Depth-Anything stage's s.
 7. demo    -- bench_demo.py's pipeline (``demo/pipeline.py``) on 8
    synthetic photos of 768 x 1024: Depth-Anything ViT-L colorized depth,
    SAM-HQ vit_h masks for 2 boxes per image in chunks of 4, device
@@ -178,6 +201,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -598,6 +622,27 @@ def phase_kernels(torch):
         ("F.scaled_dot_product_attention, k/v expanded to Hq, (B, 1, S, S) causal x segment mask, "
          "SDPBackend.EFFICIENT_ATTENTION", lambda: lib2_call(*lib2_in)),
     ))
+    # K2 at SpatialRGPT-Bench's prefill (srgpt_bench.sh: 32 rows in the 1024
+    # bucket), each row one live segment of EVAL_K2_LIVE positions and the
+    # rest padding: does K2 skip the padded tiles?
+    B, S = EVAL_BATCH, EVAL_BUCKET
+    qe, ke, ve = rn(B, S, Hq, D), rn(B, S, Hk, D), rn(B, S, Hk, D)
+    sege = torch.zeros(B, S, dtype=torch.int32, device=dev)
+    live_e = np.random.default_rng(2).integers(*EVAL_K2_LIVE, B)
+    for b in range(B):
+        sege[b, : live_e[b]] = 1
+    libe_in, libe_call = sdpa_library(torch, "EFFICIENT_ATTENTION", qe, ke, ve, causal_segment_mask(sege))
+    cases.append((
+        "onepass_attention", "spatialrgpt_tpu_torch/csrc/prefill_attention.cu",
+        "spatialrgpt_tpu/ops/prefill_attention.py:228",
+        {"B": B, "S": S, "Hq": Hq, "Hk": Hk, "D": D, "live_positions_min_max": [int(live_e.min()), int(live_e.max())],
+         "padding_share": 1 - float(live_e.sum()) / (B * S)},
+        lambda: K2.onepass_attention(qe, ke, ve, sege), lambda: K2.onepass_attention_plain(qe, ke, ve, sege),
+        (20, 3, "events"),
+        bound(4 * D * Hq * live_pairs(torch, sege), live_bytes(sege, qe, ke, ve) + nbytes(sege, qe)),
+        ("F.scaled_dot_product_attention, k/v expanded to Hq, (B, 1, S, S) causal x segment mask, "
+         "SDPBackend.EFFICIENT_ATTENTION", lambda: libe_call(*libe_in)),
+    ))
     # K3: one decode step against the int8 cache of 320 + 32 slots
     B, C, Hq, Hk, D = N_ROWS, PAD_BUCKET + MAX_NEW, 32, 8, 128
     q3 = rn(B, Hq, D)
@@ -864,7 +909,7 @@ def phase_kernels(torch):
         emit({"phase": "kernel", "ok": ok, "shape": shape, **row})
         check(ok, f"{name}: error {ratio} x the per-element bound (max abs err {err}, bit-equal {bit_equal})")
         rows.append(row)
-    del bias5, lib_in, lib2_in, lib4_in, lib5_in, ps_in, ps_grad_in, cases
+    del bias5, lib_in, lib2_in, libe_in, lib4_in, lib5_in, ps_in, ps_grad_in, cases
     torch.cuda.empty_cache()
     # one row per kernel in the kernels line: K6's at its first (SAM) shape
     first = {}
@@ -1268,7 +1313,7 @@ def serve_run(torch, cfg, model, n_rows: int):
     return res, counts, figures, run
 
 
-def logits_vs(torch, res, ref, vocab: int, min_equal_rows: int = 0) -> tuple:
+def logits_vs(torch, res, ref, vocab: int, min_equal_rows: int = 0, max_new: int = MAX_NEW) -> tuple:
     """Checks and fields of a serve run against another route's run of the
     same batch and weights.  The last step's logits hold K3 and the per-row
     cache scatter, 31 decode steps on.  Greedy decoding amplifies bf16
@@ -1284,7 +1329,7 @@ def logits_vs(torch, res, ref, vocab: int, min_equal_rows: int = 0) -> tuple:
     rel_last = rel_l2(res.last_logits[same], ref.last_logits[same]) if n_same else float("inf")
     min_equal_rows = min_equal_rows or -(-n_rows // 2)
     checks = {
-        "tokens_shape": list(tokens.shape) == [n_rows, MAX_NEW],
+        "tokens_shape": list(tokens.shape) == [n_rows, max_new],
         "tokens_in_vocab": bool(((tokens >= 0) & (tokens < vocab)).all()),
         "logits_finite": bool(torch.isfinite(first).all() and torch.isfinite(res.last_logits).all()),
         "first_logits_vs_plain": rel <= LOGITS_REL_BOUND,
@@ -2149,6 +2194,19 @@ class CharTokenizer:
     def convert_tokens_to_ids(self, token) -> int:
         return self.vocab[token]
 
+    def decode(self, ids, skip_special_tokens=False) -> str:
+        """The tests' FakeTokenizer.decode: a special string back, or left
+        out with ``skip_special_tokens``; any other id one character."""
+        inv = {v: k for k, v in self.vocab.items()}
+        out = []
+        for t in map(int, ids):
+            if t in (self.bos_token_id, self.eos_token_id, self.pad_token_id) or t in inv:
+                if not skip_special_tokens:
+                    out.append(inv.get(t, f"<{t}>"))
+            else:
+                out.append(chr((t - 3) % 900))
+        return "".join(out)
+
 
 @contextlib.contextmanager
 def observed_trainers(torch):
@@ -2457,6 +2515,399 @@ def phase_recipe(torch, nvidia_smi: str) -> dict:
     return totals
 
 
+# SpatialRGPT-Bench as scripts/srgpt/eval/srgpt_bench.sh runs it
+# (BenchConfig's defaults: 32 rows, the 1024 bucket, 128 new tokens, 8
+# region slots, the bf16 KV cache), on a synthetic annotation file of 24
+# entries over 12 JPEGs of three sizes; its rounds make 48 records, and the
+# first 16 entries exactly the first batch of 32
+EVAL_IMAGE_HW = ((480, 640), (768, 1024), (375, 1242))
+EVAL_IMAGES = 12
+EVAL_ROUNDS = (1, 2, 3, 2) * 4 + (2,) * 8
+EVAL_FIRST_BATCH_ENTRIES = 16
+EVAL_BATCH, EVAL_BUCKET, EVAL_MAX_NEW = 32, 1024, 128
+EVAL_CATEGORIES = [("quantitative", c) for c in ("distance_data", "vertical_distance_data",
+                                                 "horizontal_distance_data", "width_data", "height_data",
+                                                 "direction")] + \
+                  [("qualitative", c) for c in ("left_predicate", "below_predicate", "behind_predicate",
+                                                "tall_predicate", "big_predicate", "wide_predicate")]
+# region classification (coco_cls.sh: conv v1, run_region_cls's batch 16 and
+# 512 bucket) and VQA (VQAConfig's batch 16 and 1024 bucket), 32 new tokens
+RC_ITEMS, RC_CATEGORIES = 32, ("person", "dog", "chair", "car", "cup", "bottle")
+VQA_QUESTIONS = 16
+EVAL_SHORT_MAX_NEW = 32
+# the K2 row at the bench's prefill: live prompt lengths of a real
+# tokenizer's SpatialRGPT-Bench prompt (196 image tokens + ~60-120 text and
+# region tokens) in the 1024 bucket
+EVAL_K2_LIVE = (250, 321)
+
+
+def eval_data(work: str, cfg) -> dict:
+    """The eval phase's files under ``work``: 12 JPEGs (``synth_photo``, 4 of
+    each of EVAL_IMAGE_HW), a SpatialRGPT-Bench annotation file (``id``,
+    ``image_info``, ``text_q``, ``qa_info`` over the bench's 12 categories,
+    ``rle`` of 1-3 masks by the port's ``rle_encode`` but one entry with
+    ``bbox`` only, ``conversations`` of EVAL_ROUNDS rounds), the same
+    file's first EVAL_FIRST_BATCH_ENTRIES entries, a COCO instances file of
+    RC_ITEMS boxes (and one crowd annotation, which the items skip) and a
+    VQA question file."""
+    import numpy as np
+    from PIL import Image
+
+    from spatialrgpt_tpu_torch.data.preprocess import rle_encode
+    from spatialrgpt_tpu_torch.demo.pipeline import synth_photo
+
+    rng = np.random.default_rng(11)
+    os.makedirs(os.path.join(work, "images"))
+    sizes = {}
+    for i in range(EVAL_IMAGES):
+        h, w = EVAL_IMAGE_HW[i % len(EVAL_IMAGE_HW)]
+        name = f"img{i:02d}.jpg"
+        Image.fromarray(synth_photo(rng, h, w)).save(os.path.join(work, "images", name), quality=90)
+        sizes[name] = (h, w)
+    names = sorted(sizes)
+
+    def box(h, w):
+        x1, y1 = int(rng.integers(0, w // 2)), int(rng.integers(0, h // 2))
+        return [x1, y1, x1 + int(rng.integers(w // 8, w // 2)), y1 + int(rng.integers(h // 8, h // 2))]
+
+    answers = {"quantitative": ["2.5 meters", "about 80 centimeters", "3 o'clock", "1.2 feet"],
+               "qualitative": ["Yes, Region [0] is to the left.", "No, it is shorter.", "Region [1] is behind it."]}
+    entries = []
+    for i, n_rounds in enumerate(EVAL_ROUNDS):
+        fp = names[i % EVAL_IMAGES]
+        h, w = sizes[fp]
+        qtype, cat = EVAL_CATEGORIES[i % len(EVAL_CATEGORIES)]
+        boxes = [box(h, w) for _ in range(1 + i % 3)]
+        conv = []
+        for r in range(n_rounds):
+            regions = " and ".join(f"Region [{k}] <mask>" for k in range(len(boxes)))
+            q = f"Round {r}: what is the {cat.replace('_', ' ')} of {regions}?"
+            conv += [{"from": "human", "value": ("<image>\n" if r == 0 else "") + q},
+                     {"from": "gpt", "value": answers[qtype][(i + r) % len(answers[qtype])]}]
+        e = {"id": f"srgpt-{i:03d}", "image_info": {"file_path": fp, "height": h, "width": w},
+             "text_q": conv[0]["value"].replace("<image>\n", ""), "qa_info": {"type": qtype, "category": cat},
+             "bbox": boxes, "conversations": conv}
+        if i != 5:  # entry 5 has a bbox only
+            masks = []
+            for x1, y1, x2, y2 in boxes:
+                m = np.zeros((h, w), np.uint8)
+                m[y1:y2, x1:x2] = 1
+                masks.append(rle_encode(m))
+            e["rle"] = masks
+        entries.append(e)
+    paths = {"images": os.path.join(work, "images"), "bench": os.path.join(work, "bench.json"),
+             "bench_first_batch": os.path.join(work, "bench_first_batch.json"),
+             "coco": os.path.join(work, "instances.json"), "vqa": os.path.join(work, "vqa.jsonl"), "sizes": sizes}
+    with open(paths["bench"], "w") as f:
+        json.dump(entries, f)
+    with open(paths["bench_first_batch"], "w") as f:
+        json.dump(entries[:EVAL_FIRST_BATCH_ENTRIES], f)
+
+    coco = {"images": [{"id": i + 1, "file_name": n, "height": sizes[n][0], "width": sizes[n][1]}
+                       for i, n in enumerate(names)],
+            "categories": [{"id": 10 + k, "name": c} for k, c in enumerate(RC_CATEGORIES)], "annotations": []}
+    for a in range(RC_ITEMS + 1):
+        img = coco["images"][a % EVAL_IMAGES]
+        x1, y1, x2, y2 = box(img["height"], img["width"])
+        coco["annotations"].append({"id": a, "image_id": img["id"], "bbox": [x1, y1, x2 - x1, y2 - y1],
+                                    "category_id": 10 + a % len(RC_CATEGORIES), "iscrowd": int(a == 7)})
+    with open(paths["coco"], "w") as f:
+        json.dump(coco, f)
+    with open(paths["vqa"], "w") as f:
+        for q in range(VQA_QUESTIONS):
+            f.write(json.dumps({"question_id": q, "image": names[q % EVAL_IMAGES],
+                                "text": f"Question {q}: how many boxes are in the picture?"}) + "\n")
+    return paths
+
+
+@contextlib.contextmanager
+def watched_generate(torch, module, attn_impl=None):
+    """``module.generate`` (an eval runner's) replaced inside the block by a
+    wrapper that times each batch: the first token (``serving/generate.py``'s
+    ``_prefill``, synchronised) and the decode after it, and records the
+    batch's rows, prompt lengths, decode steps run (the longest row's
+    tokens less the first: every row decodes until all stop) and
+    generated tokens, and the first batch's result.  With ``attn_impl``
+    every batch runs on that route.  Yields the list of batches."""
+    from spatialrgpt_tpu_torch.serving import generate as gen_mod
+
+    real, real_prefill, batches = module.generate, gen_mod._prefill, []
+
+    def prefill(*a, **k):
+        out = real_prefill(*a, **k)
+        torch.cuda.synchronize()
+        batches[-1]["t_first"] = time.perf_counter()
+        return out
+
+    def wrapped(model, cfg, inputs, plens, **kw):
+        if attn_impl is not None:
+            kw["attn_impl"] = attn_impl
+        rec = {"rows": int(inputs.input_ids.shape[0]), "positions": int(inputs.input_ids.shape[1]),
+               "prompt_lengths": plens.tolist()}
+        batches.append(rec)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = real(model, cfg, inputs, plens, **kw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        t_first = rec.pop("t_first")
+        rec.update(first_token_s=t_first - t0, decode_s=t1 - t_first, decode_steps=int(res.num_generated.max()) - 1,
+                   generated_tokens=int(res.num_generated.sum()))
+        if len(batches) == 1:
+            rec["result"] = res
+        return res
+
+    module.generate, gen_mod._prefill = wrapped, prefill
+    try:
+        yield batches
+    finally:
+        module.generate, gen_mod._prefill = real, real_prefill
+
+
+def eval_run(torch, fn, module, totals: dict, attn_impl=None) -> tuple:
+    """One runner call as a user makes it, its counts set to 0 before it and
+    added to ``totals`` after: -> (answers path, batches, counts, wall s,
+    peak GB)."""
+    torch.cuda.reset_peak_memory_stats()
+    with watched_generate(torch, module, attn_impl) as batches:
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    for name, n in counts.items():
+        totals[name] = totals.get(name, 0) + n
+    return out, batches, counts, wall, torch.cuda.max_memory_allocated() / 1e9
+
+
+def eval_figures(records: int, batches, wall: float, peak_gb: float, nvidia_smi: str) -> dict:
+    gen = sum(b["generated_tokens"] for b in batches)
+    return {"wall_s": wall, "records": records, "records_per_s": records / wall, "generated_tokens": gen,
+            "generated_tokens_per_s": gen / wall, "peak_mem_gb": peak_gb, "card": nvidia_smi,
+            "per_batch": [{k: b[k] for k in ("rows", "positions", "first_token_s", "decode_s", "decode_steps")}
+                          for b in batches],
+            "prompt_lengths_min_max": [min(min(b["prompt_lengths"]) for b in batches),
+                                       max(max(b["prompt_lengths"]) for b in batches)],
+            "padding_share": 1 - sum(sum(b["prompt_lengths"]) for b in batches)
+            / sum(b["rows"] * b["positions"] for b in batches)}
+
+
+def eval_counts(cfg, batches, quantized: bool, kv_quant: bool) -> dict:
+    """K1-K11 launches of a runner's batches: per batch one tower pass (K1
+    per tower layer) and one prefill (K2 per decoder layer); with the int8
+    cache K3 per layer and decode step; with a W8A8 model K7-K9 by
+    ``quant_phase_counts`` (the tower over [images; depths])."""
+    L = cfg.llm.num_hidden_layers
+    want = {"vit_attention": tower_layers(cfg) * len(batches), "onepass_attention": L * len(batches),
+            "decode_attention_int8_flat": L * sum(b["decode_steps"] for b in batches) if kv_quant else 0,
+            "flash_attention_fwd": 0, "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
+            "grid_bias_attention": 0, "fused_layer_norm": 0, **NO_QUANT}
+    if quantized:  # the bench's tower runs over [images; depths], as quant_phase_counts counts it
+        for b in batches:
+            prefill, step = quant_phase_counts(cfg, b["rows"], b["positions"], b["rows"])
+            want.update(add_counts({k: want[k] for k in NO_QUANT}, prefill, times(b["decode_steps"], step)))
+    return want
+
+
+BENCH_FIELDS = ["question_id", "round", "image", "question", "pred", "output_ids", "gt", "model_id", "qa_info"]
+
+
+def phase_eval(torch, nvidia_smi: str) -> dict:
+    """The evaluation entry points at llama3-8b + SigLIP-so400m (random
+    bf16 weights, seed 0, on the card), with a character tokenizer of
+    Llama-3's size (``CharTokenizer``; <mask> and <depth> added past it)
+    and synthetic files (``eval_data``):
+    (a) ``run_bench`` at srgpt_bench.sh's configuration with
+        ``depth_source="model"``: Depth-Anything ViT-L (``init_random_
+        depth_anything``, f32, seed 2) written as an HF-named
+        ``pytorch_model.bin`` and read back through ``depth_model_path``
+        (its colorized depth of one image bit-equal to the in-memory
+        model's); 48 records with the reference's fields; K1 / K2 launch
+        counts from the batches and no other kernel; the first batch's
+        first-token logits against the same batch on the plain route
+        (``generate`` with ``attn_impl="xla"`` patched into the runner for
+        a ``run_bench`` of the first batch's entries, and
+        ``plain_projections()``), by ``logits_vs``; then ``judge.score_file``
+        with ``LocalExtractor``: score.json written, a key for every
+        category;
+    (b) the same with ``w8a8=True, kv_quant=True`` on the same model tuple
+        and predictor: no Depth-Anything forward (memoized by path), K1-K3
+        and K7-K9 counts from the shapes, the first batch's first-token
+        logits bit-equal to a ``run_bench`` of the first batch on K7-K9's
+        plain versions, the caller's bf16 model bit-unchanged;
+    (c) ``run_region_cls`` on RC_ITEMS COCO-style items
+        (``coco_annotation_to_items``) and ``run_vqa`` on VQA_QUESTIONS
+        questions: record counts, K1 / K2 counts,
+        ``score_region_predictions``' keys.
+    Per run the wall s, records/s, generated tokens/s and peak GB; per
+    batch the first-token and decode s; the Depth-Anything stage's s."""
+    import numpy as np
+    from PIL import Image
+
+    from spatialrgpt_tpu_torch.data.preprocess import SiglipProcessor
+    from spatialrgpt_tpu_torch.eval import judge, region_cls, spatial_bench, vqa
+    from spatialrgpt_tpu_torch.models import depth_anything as tda
+    from spatialrgpt_tpu_torch.ops.layers import QuantLinear
+    from spatialrgpt_tpu_torch.utils.weights import init_random, init_random_depth_anything
+
+    cfg = llama3_8b_cfg()
+    dev = torch.device(DEVICE)
+    totals, report, checks = {}, {}, {}
+    phase_t0 = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
+        data = eval_data(work, cfg)
+        t0 = time.perf_counter()
+        model = init_random(cfg, dev, torch.bfloat16, seed=0)
+        tok = CharTokenizer()
+        tok.add_tokens(["<mask>", "<depth>"], special_tokens=True)
+        check((tok.convert_tokens_to_ids("<mask>"), tok.convert_tokens_to_ids("<depth>")) ==
+              (cfg.mask_token_id, cfg.depth_token_id), "the tokenizer's region ids are not the config's")
+        tup = (tok, model, cfg, SiglipProcessor(size=cfg.vision.image_size))
+
+        # Depth-Anything ViT-L through depth_model_path
+        dcfg = tda.DepthAnythingConfig()
+        da_dir = os.path.join(work, "depth_anything")
+        os.makedirs(da_dir)
+        da_model = init_random_depth_anything(dcfg, dev, torch.float32, seed=2)
+        torch.save({k: v.cpu() for k, v in da_model.state_dict().items()}, os.path.join(da_dir, "pytorch_model.bin"))
+        bcfg = spatial_bench.BenchConfig(
+            annotation_file=data["bench"], image_folder=data["images"], answers_file=os.path.join(work, "a", "answers.jsonl"),
+            conv_mode="llama_3", batch_size=EVAL_BATCH, depth_model_path=da_dir)
+        predictor = spatial_bench._build_depth_predictor(bcfg, None)
+        one = np.asarray(Image.open(os.path.join(data["images"], "img01.jpg")).convert("RGB"))
+        loaded_bit_equal = bool(np.array_equal(predictor.predict_colorized([one])[0],
+                                               tda.DepthPredictor(da_model, dcfg).predict_colorized([one])[0]))
+        checks["depth_model_path_bit_equal_to_in_memory"] = loaded_bit_equal
+        del da_model
+        torch.cuda.synchronize()
+        report["init_s"] = time.perf_counter() - t0
+        da_calls = []
+        colorized = predictor.colorized
+
+        def counted_colorized(images):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = colorized(images)
+            torch.cuda.synchronize()
+            da_calls.append({"images": list(images.shape), "s": time.perf_counter() - t})
+            return out
+
+        predictor.colorized = counted_colorized
+        release(torch)
+
+        # (a) srgpt_bench.sh's configuration, then the judge
+        ans, batches, counts, wall, peak = eval_run(
+            torch, lambda: spatial_bench.run_bench(bcfg, tup, predictor), spatial_bench, totals)
+        recs = [json.loads(line) for line in open(ans)]
+        want = eval_counts(cfg, batches, quantized=False, kv_quant=False)
+        first = batches[0].pop("result")
+        checks["a_48_records_with_the_reference_fields"] = len(recs) == sum(EVAL_ROUNDS) and all(
+            list(r) == BENCH_FIELDS and len(r["output_ids"]) == EVAL_MAX_NEW for r in recs)
+        checks["a_batches_32_and_16"] = [(b["rows"], b["positions"]) for b in batches] == \
+            [(EVAL_BATCH, EVAL_BUCKET), (sum(EVAL_ROUNDS) - EVAL_BATCH, EVAL_BUCKET)]
+        checks["a_launch_counts"] = counts == want
+        checks["a_depth_anything_once_per_shape"] = sorted(tuple(c["images"][:3]) for c in da_calls) == sorted(
+            (EVAL_IMAGES // len(EVAL_IMAGE_HW), h, w) for h, w in EVAL_IMAGE_HW)
+        a_da = {"calls": list(da_calls), "s": sum(c["s"] for c in da_calls)}
+        with plain_projections():
+            _, plain_batches, _, _, _ = eval_run(torch, lambda: spatial_bench.run_bench(
+                dataclasses.replace(bcfg, annotation_file=data["bench_first_batch"],
+                                    answers_file=os.path.join(work, "a_plain", "answers.jsonl")), tup, predictor),
+                spatial_bench, {}, attn_impl="xla")
+        vocab = cfg.llm.vocab_size + cfg.num_extra_tokens
+        vs_checks, vs_fields = logits_vs(torch, first, plain_batches[0].pop("result"), vocab, max_new=EVAL_MAX_NEW)
+        # greedy near-ties over 128 steps leave few rows equal throughout:
+        # the last step is reported, the first token held
+        vs_fields["last_logits_check_reported_only"] = vs_checks.pop("last_logits_vs_plain")
+        checks.update({f"a_{k}": v for k, v in vs_checks.items()})
+        scores = judge.score_file(ans)
+        cats = {c for _, c in EVAL_CATEGORIES}
+        score_keys = {f"Quan_{judge.QUANT_CATEGORY_NAMES[c]}_acc" for t, c in EVAL_CATEGORIES if t == "quantitative"} | \
+            {f"Qual_{judge._qual_bucket(c)}_acc" for t, c in EVAL_CATEGORIES if t == "qualitative"}
+        checks["a_score_json_has_every_category"] = os.path.exists(
+            os.path.join(os.path.dirname(ans), "score.json")) and score_keys <= set(scores) and cats == {
+            r["qa_info"]["category"] for r in recs}
+        report["a_bench"] = {"launches": counts, "launches_expected": want, "depth_anything": a_da,
+                             "first_batch_vs_plain_route": vs_fields, "scores": scores,
+                             "first_record": {k: recs[0][k] for k in ("question_id", "round", "pred", "output_ids")},
+                             "figures": eval_figures(len(recs), batches, wall, peak, nvidia_smi)}
+        del first, plain_batches
+        release(torch)
+
+        # (b) the same with W8A8 and the int8 cache, on the same tuple and predictor
+        before = state_fingerprint(torch, model)
+        n_da = len(da_calls)
+        bcfg_q = dataclasses.replace(bcfg, w8a8=True, kv_quant=True, answers_file=os.path.join(work, "b", "answers.jsonl"))
+        ans, batches, counts, wall, peak = eval_run(
+            torch, lambda: spatial_bench.run_bench(bcfg_q, tup, predictor), spatial_bench, totals)
+        recs_q = [json.loads(line) for line in open(ans)]
+        want = eval_counts(cfg, batches, quantized=True, kv_quant=True)
+        first = batches[0].pop("result")
+        release(torch)
+        with plain_projections():
+            _, plain_batches, _, _, _ = eval_run(torch, lambda: spatial_bench.run_bench(
+                dataclasses.replace(bcfg_q, annotation_file=data["bench_first_batch"], max_new_tokens=1,
+                                    answers_file=os.path.join(work, "b_plain", "answers.jsonl")), tup, predictor),
+                spatial_bench, {})
+        plain_first = plain_batches[0].pop("result")
+        checks["b_48_records"] = len(recs_q) == len(recs) and all(list(r) == BENCH_FIELDS for r in recs_q)
+        checks["b_no_depth_anything_forward"] = len(da_calls) == n_da
+        checks["b_launch_counts"] = counts == want
+        checks["b_first_logits_bit_equal_to_plain_projections"] = bool(
+            torch.equal(first.first_logits, plain_first.first_logits) and torch.isfinite(first.first_logits).all())
+        checks["b_caller_model_unchanged"] = state_fingerprint(torch, model) == before and not any(
+            isinstance(m, QuantLinear) for m in model.modules())
+        report["b_bench_w8a8"] = {
+            "launches": counts, "launches_expected": want,
+            "tokens_agreement_vs_bf16_run": float(np.mean([a["output_ids"] == b["output_ids"]
+                                                           for a, b in zip(recs, recs_q)])),
+            "figures": eval_figures(len(recs_q), batches, wall, peak, nvidia_smi)}
+        del first, plain_first, plain_batches
+        release(torch)
+
+        # (c) region classification and VQA
+        with open(data["coco"]) as f:
+            items = region_cls.coco_annotation_to_items(json.load(f))
+        ans, batches, counts, wall, peak = eval_run(torch, lambda: region_cls.run_region_cls(
+            tup, items, data["images"], answers_file=os.path.join(work, "region_cls.jsonl"), conv_mode="v1"),
+            region_cls, totals)
+        recs_rc = [json.loads(line) for line in open(ans)]
+        batches[0].pop("result")
+        want = eval_counts(cfg, batches, quantized=False, kv_quant=False)
+        rc_scores = region_cls.score_region_predictions(recs_rc)
+        checks["c_region_cls_records"] = len(items) == RC_ITEMS and len(recs_rc) == RC_ITEMS and all(
+            list(r) == ["pred", "gt_category", "file_name"] for r in recs_rc)
+        checks["c_region_cls_launch_counts"] = counts == want and [b["rows"] for b in batches] == [16, 16]
+        checks["c_region_cls_scores"] = set(rc_scores) == {"accuracy"} | {f"acc_{c}" for c in RC_CATEGORIES}
+        report["c_region_cls"] = {"launches": counts, "launches_expected": want, "scores": rc_scores,
+                                  "figures": eval_figures(len(recs_rc), batches, wall, peak, nvidia_smi)}
+        vcfg = vqa.VQAConfig(question_file=data["vqa"], image_folder=data["images"],
+                             answers_file=os.path.join(work, "vqa", "answers.jsonl"), max_new_tokens=EVAL_SHORT_MAX_NEW)
+        ans, batches, counts, wall, peak = eval_run(torch, lambda: vqa.run_vqa(vcfg, tup), vqa, totals)
+        recs_v = [json.loads(line) for line in open(ans)]
+        batches[0].pop("result")
+        want = eval_counts(cfg, batches, quantized=False, kv_quant=False)
+        checks["c_vqa_records"] = len(recs_v) == VQA_QUESTIONS and all(
+            list(r) == ["question_id", "prompt", "text", "model_id"] for r in recs_v)
+        checks["c_vqa_launch_counts"] = counts == want and [(b["rows"], b["positions"]) for b in batches] == [
+            (VQA_QUESTIONS, EVAL_BUCKET)]
+        report["c_vqa"] = {"launches": counts, "launches_expected": want,
+                           "figures": eval_figures(len(recs_v), batches, wall, peak, nvidia_smi)}
+        del tup, model, predictor
+        release(torch)
+    emit({"phase": "eval", "ok": all(checks.values()), "checks": checks,
+          "model": "llama3-8b (32 layers, full width) + siglip-so400m (26 of 27 layers), bf16, random from seed 0; "
+                   "Depth-Anything ViT-L f32, random from seed 2, through depth_model_path; character tokenizer",
+          "data": f"{len(EVAL_ROUNDS)} SpatialRGPT-Bench entries ({sum(EVAL_ROUNDS)} records) over {EVAL_IMAGES} "
+                  f"JPEGs of {list(EVAL_IMAGE_HW)}; {RC_ITEMS} COCO boxes; {VQA_QUESTIONS} VQA questions",
+          **report, "launches": totals, "phase_s": time.perf_counter() - phase_t0, "card": nvidia_smi,
+          "smoke_figures_not_a_benchmark": True})
+    check(all(checks.values()), f"eval checks failed: {checks}")
+    return totals
+
+
 def demo_expected_counts(vlm_cfg, sam_cfg, da_cfg, n_images: int, chunk: int, hw):
     """The demo pipeline's launch counts, from its shapes, and K6's by stage.
     K6 is counted at every LayerNorm whose input passes
@@ -2694,6 +3145,7 @@ PATHS = {
     "align_w8a8": phase_align_w8a8,
     "qlora": phase_qlora,
     "recipe": lambda torch, smi, prof: phase_recipe(torch, smi),
+    "eval": lambda torch, smi, prof: phase_eval(torch, smi),
     "demo": lambda torch, smi, prof: phase_demo(torch, prof),
 }
 

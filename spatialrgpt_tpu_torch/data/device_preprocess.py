@@ -58,11 +58,11 @@ _RESCALE = float(np.float32(1.0 / 255.0))
 _MEAN_STD = 0.5
 
 
-def device_siglip_normalize(images_u8: torch.Tensor) -> torch.Tensor:
-    """(B, S, S, C) uint8 at the processor size -> f32: SiglipProcessor's
+def device_siglip_normalize(images_u8: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(B, S, S, C) uint8 at the processor size -> ``dtype``: SiglipProcessor's
     rescale + normalize in the same f32 order, x * rescale, then
-    (x - mean) / std."""
-    return (images_u8.to(torch.float32) * _RESCALE - _MEAN_STD) / _MEAN_STD
+    (x - mean) / std, cast once."""
+    return ((images_u8.to(torch.float32) * _RESCALE - _MEAN_STD) / _MEAN_STD).to(dtype)
 
 
 def device_preprocess_uint8(images: torch.Tensor, out_size: int) -> torch.Tensor:

@@ -267,3 +267,12 @@ def forward(
 def logits(model: LlamaForCausalLM, hidden: torch.Tensor) -> torch.Tensor:
     """LM head in the hidden dtype, returned as fp32 (as the reference)."""
     return linear(hidden, model.lm_head).float()
+
+
+def forward_logits(model: LlamaForCausalLM, cfg: LlamaConfig, *, input_ids: torch.Tensor, position_ids: torch.Tensor,
+                   segment_ids: Optional[torch.Tensor] = None, attn_impl: str = "xla") -> torch.Tensor:
+    """Token ids -> f32 logits (B, S, V), no cache (the reference's
+    convenience of ``llama.py:401``)."""
+    h, _ = forward(model, cfg, inputs_embeds=embed_tokens(model, input_ids), position_ids=position_ids,
+                   segment_ids=segment_ids, attn_impl=attn_impl)
+    return logits(model, h)

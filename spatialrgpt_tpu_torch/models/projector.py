@@ -1,11 +1,13 @@
-"""Multimodal projector, ``mlp_downsample`` variant (port of
-``spatialrgpt_tpu/models/projector.py``).
+"""Multimodal projector (port of ``spatialrgpt_tpu/models/projector.py``).
 
-``flat_square`` packs 2x2 neighbouring patches into channels with the
-reference's exact (row-pair, column) interleave, so 27x27 tokens (zero-
-padded to 28x28) become 14x14; then LayerNorm (eps 1e-5) -> Linear ->
-exact GELU -> Linear.  Parameters under the reference's names
-``layers.{1,2,4}.*``.
+- ``mlp_downsample`` (the default): ``flat_square`` packs 2x2 neighbouring
+  patches into channels with the reference's exact (row-pair, column)
+  interleave, so 27x27 tokens (zero-padded to 28x28) become 14x14; then
+  LayerNorm (eps 1e-5) -> Linear -> exact GELU -> Linear.  Parameters under
+  the reference's names ``layers.{1,2,4}.*``.
+- ``linear``: one Linear, ``layers.weight`` / ``layers.bias`` (the
+  reference's ``self.layers = nn.Linear``).
+- ``identity``: no parameters; the tower's tokens pass through.
 """
 
 from __future__ import annotations
@@ -20,8 +22,14 @@ from spatialrgpt_tpu_torch.ops.layers import gelu_erf, layer_norm, linear
 class MultimodalProjector(nn.Module):
     def __init__(self, cfg: ProjectorConfig, dtype=None):
         super().__init__()
+        if cfg.projector_type == "linear":
+            self.layers = nn.Linear(cfg.mm_hidden_size, cfg.hidden_size, dtype=dtype)
+            return
+        if cfg.projector_type == "identity":
+            self.layers = nn.Identity()
+            return
         if cfg.projector_type != "mlp_downsample":
-            raise NotImplementedError(f"projector type {cfg.projector_type} is not ported")
+            raise ValueError(f"Unknown projector type: {cfg.projector_type}")
         c4, h = cfg.mm_hidden_size * 4, cfg.hidden_size
         self.layers = nn.ModuleList(
             [
@@ -50,6 +58,10 @@ def flat_square(x: torch.Tensor) -> torch.Tensor:
 
 def forward(module: MultimodalProjector, x: torch.Tensor, cfg: ProjectorConfig) -> torch.Tensor:
     """x: (N, num_tokens, mm_hidden) -> (N, out_tokens, hidden)."""
+    if cfg.projector_type == "identity":
+        return x
+    if cfg.projector_type == "linear":
+        return linear(x, module.layers)
     n, hw, c = x.shape
     side = int(round(hw**0.5))
     x = flat_square(x.reshape(n, side, side, c)).reshape(n, -1, c * 4)

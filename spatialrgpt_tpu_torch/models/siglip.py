@@ -11,11 +11,17 @@ Attention goes through kernel K1 (``ops/vit_attention.py``) with the
 default ``attn_impl="onepass"`` (the name the whole serving path uses for
 its kernel route); ``attn_impl="xla"`` takes K1's plain version instead.
 The reference's
-pad-once path and VIT_KNOBS are not ported: they work around TPU layout
-rules, and K1 masks the ragged sequence itself.
+pad-once path and ``set_vit_knobs`` (VIT_KNOBS, the Pallas kernel's TPU
+block sizes) are not ported: they work around TPU layout rules, K1 masks
+the ragged sequence itself, and the port's route choice is ``attn_impl``.
+``resize_pos_embeds`` is the reference's resolution elevation.
 """
 
 from __future__ import annotations
+
+import copy
+import dataclasses
+from typing import Tuple
 
 import torch
 from torch import nn
@@ -148,3 +154,39 @@ def forward_full(
         x = _encoder_layer(x, layer, cfg, attn_impl)
     post = model.vision_model.post_layernorm
     return layer_norm(x, post.weight, post.bias, cfg.layer_norm_eps)
+
+
+@torch.no_grad()
+def resize_pos_embeds(model: SiglipVisionModel, cfg: SiglipVisionConfig,
+                      new_resolution: int) -> Tuple[SiglipVisionModel, SiglipVisionConfig]:
+    """Resolution elevation (the reference's ``siglip.py:249-270``): the
+    learned position table interpolated linearly from the checkpoint's
+    resolution to ``new_resolution`` with the reference's exact index
+    mapping (pid = arange(N) / (N - 1) * (M - 1); new = frac * table[ceil] +
+    (ceil - pid) * table[floor], in f32).  Returns a view of ``model`` whose
+    embeddings hold the new table (every other tensor shared; ``model``
+    stays as it is) and the config at the new resolution."""
+    if new_resolution in (cfg.image_size, -1):
+        return model, cfg
+    num_new = (new_resolution // cfg.patch_size) ** 2
+    emb = model.vision_model.embeddings
+    old = emb.position_embedding.weight
+    old_n = old.shape[0]
+    mapped = torch.arange(num_new, dtype=torch.float32, device=old.device) / (num_new - 1) * (old_n - 1)
+    floor = torch.floor(mapped).long().clamp(0, old_n - 1)
+    ceil = torch.ceil(mapped).long().clamp(0, old_n - 1)
+    frac = (mapped - floor.float())[:, None]
+    ceil_frac = (ceil.float() - mapped)[:, None]
+    table = frac * old[ceil].float() + ceil_frac * old[floor].float()
+    new_emb = copy.copy(emb)
+    new_emb._modules = dict(emb._modules)
+    new_emb.position_embedding = nn.Embedding(num_new, old.shape[1], dtype=old.dtype, device=old.device,
+                                              _weight=table.to(old.dtype))
+    new_emb.position_embedding.requires_grad_(old.requires_grad)
+    vm = copy.copy(model.vision_model)
+    vm._modules = dict(model.vision_model._modules)
+    vm.embeddings = new_emb
+    out = copy.copy(model)
+    out._modules = dict(model._modules)
+    out.vision_model = vm
+    return out, dataclasses.replace(cfg, image_size=new_resolution)

@@ -12,8 +12,10 @@ Vision encode contract (as the reference):
 Refinement and pooling run over the whole batch at once, unchunked: the
 reference chunks ``_refine_and_pool`` only to bound TPU memory at batch
 96, and at the port's batch sizes the high-res grid fits the card with
-room to spare.  Raw uint8 pixels are not accepted yet (the reference
-normalizes them in-graph); pass normalized floats.
+room to spare.  Raw uint8 pixels, depths and masks are accepted, as the
+reference accepts them: pixels at the tower resolution are normalized on
+the device (``data/device_preprocess.py::device_siglip_normalize``) into
+the tower's dtype, masks are cast.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from spatialrgpt_tpu_torch.config import SpatialRGPTConfig
 from spatialrgpt_tpu_torch.constants import IGNORE_INDEX
+from spatialrgpt_tpu_torch.data.device_preprocess import device_siglip_normalize
 from spatialrgpt_tpu_torch.models import llama, projector, region_extractor, siglip
 from spatialrgpt_tpu_torch.ops.layers import linear
 
@@ -98,13 +101,23 @@ class VLMInputs(NamedTuple):
 def encode_images(
     model: SpatialRGPT,
     cfg: SpatialRGPTConfig,
-    images: torch.Tensor,  # (N, H, W, 3) normalized
+    images: torch.Tensor,  # (N, H, W, 3) normalized float, or raw uint8
     depths: Optional[torch.Tensor],
     masks: Optional[torch.Tensor],  # (N, R, Hm, Wm)
     attn_impl: str = "onepass",
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
     """(image_features (N, T, H), mask_embeds (N, R, H) | None,
-    depth_embeds (N, R, H) | None)."""
+    depth_embeds (N, R, H) | None).  uint8 images and depths (each on its
+    own: a caller may mix a normalized field with a raw one) are normalized
+    into the dtype of the patch embedding's bias (float also in a quantized
+    tower), uint8 masks cast to it (the mask processor rescales by 1)."""
+    act_dtype = model.vision_tower.vision_model.embeddings.patch_embedding.bias.dtype
+    if images.dtype == torch.uint8:
+        images = device_siglip_normalize(images, act_dtype)
+    if depths is not None and depths.dtype == torch.uint8:
+        depths = device_siglip_normalize(depths, act_dtype)
+    if masks is not None and masks.dtype == torch.uint8:
+        masks = masks.to(act_dtype)
     tower_fn = lambda x: siglip.forward_features(model.vision_tower, x, cfg.vision, attn_impl)  # noqa: E731
     mask_embeds = depth_embeds = None
     if cfg.enable_region:

@@ -76,6 +76,10 @@ def export_siglip(params: Dict) -> Dict[str, np.ndarray]:
 
 
 def export_projector(params: Dict, projector_type: str = "mlp_downsample") -> Dict[str, np.ndarray]:
+    if projector_type == "identity":
+        return {}
+    if projector_type == "linear":
+        return {"layers.weight": _np32(params["fc"]["kernel"]).T, "layers.bias": _np32(params["fc"]["bias"])}
     if projector_type != "mlp_downsample":
         raise NotImplementedError(projector_type)
     return {

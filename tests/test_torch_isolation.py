@@ -3,9 +3,11 @@
 package, and the port's copies of the JAX package's framework-free
 modules (``config``, ``constants``, ``conversation``, ``data/splice``,
 ``demo/engine``, the ``utils/export`` name maps, Pillow's bicubic
-coefficients) give what the originals give.  The data layer and
-``train/args.py`` are verbatim copies: their code equals the originals'
-(``tests/test_torch_data.py`` runs them side by side).
+coefficients) give what the originals give.  The data layer,
+``train/args.py``, the judge modules and ``demo/server.py`` are verbatim
+copies: their code equals the originals' (``tests/test_torch_data.py``
+runs the data layer side by side); so do the framework-free helpers of the
+eval runners.
 """
 
 import ast
@@ -183,6 +185,17 @@ VERBATIM_COPIES = {
     "data/tokenize.py": (), "data/templates.py": (), "data/preprocess.py": (), "data/sampler.py": (),
     "data/video.py": (), "data/interleaved.py": (), "data/prefetch.py": (), "train/args.py": (),
     "data/dataset.py": ("to_vlm_inputs",),  # the one JAX function: models/vlm.py::VLMInputs.from_spliced
+    "eval/judge.py": (), "eval/judge_prompts.py": (), "eval/judge_calibration.py": (), "demo/server.py": (),
+}
+
+# the framework-free helpers of the port's eval runners, copied from the
+# reference's modules beside the runners the port rewrites: module path ->
+# the names that equal their originals
+COPIED_HELPERS = {
+    "eval/spatial_bench.py": ("BenchConfig", "get_chunk", "build_prompt", "build_round_prompts", "stop_str_for",
+                              "masks_for_line", "get_model_name"),
+    "eval/region_cls.py": ("PROMPTS", "get_crop_box", "score_region_predictions", "coco_annotation_to_items"),
+    "eval/vqa.py": ("VQAConfig",),
 }
 
 
@@ -209,3 +222,17 @@ def test_verbatim_copies_equal_their_originals(path):
     assert set(got) <= set(want), sorted(set(got) - set(want))
     for name, node in got.items():
         assert node == want[name], f"{path}: {name} differs from the original"
+
+
+@pytest.mark.parametrize("path,name", [(p, n) for p, names in sorted(COPIED_HELPERS.items()) for n in names])
+def test_copied_helpers_equal_their_originals(path, name):
+    def named(tree: dict) -> dict:  # a module-level assignment under the name it binds
+        out = {}
+        for key, dump in tree.items():
+            m = re.match(r"Assign\(targets=\[Name\(id='(\w+)'", key)
+            out[m.group(1) if m else key] = dump
+        return out
+
+    want = named(_top_level(os.path.join("spatialrgpt_tpu", path), rename=True))
+    got = named(_top_level(os.path.join("spatialrgpt_tpu_torch", path), rename=False))
+    assert got[name] == want[name], f"{path}: {name} differs from the original"
