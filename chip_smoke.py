@@ -19,7 +19,8 @@ Phases, each printed as one JSON line:
    positions a row, the rest padding), K4's forward, dK/dV and dQ
    kernels at the align step's (B4 S4096 Hq32 Hk8 D128, 4 packed samples
    per row and a padded tail), K5 at SAM vit_h's global layers (B4 S4096
-   on a 64 x 64 grid, H16 D80, f32 rel-pos bias) and K6 at SAM's and
+   on a 64 x 64 grid, H16 D80, f32 rel-pos bias; also at B1, the synth
+   path's one image a call) and K6 at SAM's and
    Depth-Anything's LayerNorm rows, K7-K9 (the quantized projections) at
    the W8A8 serve's shapes: K7 over the prefill's 20,480 rows, K8 at the
    prefill's gate and SigLIP's fc1 over the tower's 93,312 rows (ragged N
@@ -181,9 +182,23 @@ Phases, each printed as one JSON line:
    depth and mask logits to it, and the VLM stage as serve_w8a8 does; also
    ``DemoEngine.set_image`` / ``add_regions`` on one photo through the
    adapters.
+8. synth   -- the 2D -> 3D synthesis pipeline's entry point,
+   ``run_directory(SynthPipeline(cfg, **build_stage_models(...)), dir,
+   out)``, over 8 synthetic JPEGs (4 of 480 x 640, 4 of 768 x 1024): RAM
+   Swin-L tagger (4585 synthetic tag names), OWL-ViT B/32 detector (a
+   character tokenizer in the CLIP BPE's place), SAM vit_h segmenter, metric
+   Depth-Anything ViT-L with CameraNet intrinsics and gravity, the host's
+   lift, template QA; bf16, random from fixed seeds, ``SRGPT_FUSED_LN``'s
+   switch on.  Checks the launch counts (K5 once per SAM global layer and
+   segmented image, K6 at RAM's head and SAM's encoder, nothing else), each
+   segmented image's mask logits on the K5 route against the plain route
+   (its recorded boxes through both, K6 on in both), QA pairs on each shape
+   and ``out.json``; reports per image the counts of each stage and the
+   mask pixels that differ between the routes, and per stage the seconds.
 
-The times of phases 5-7 are smoke figures of this card, not a
-benchmark.  Then the ``kernels`` line and, last, ``{"ok": true, "device":
+The times of phases 5-8 are smoke figures of this card, not a
+benchmark.  Then the ``kernels`` line (one row per kernel at its first
+shape, its later shapes under ``other_shapes``) and, last, ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero before that line; so does a machine
 without a CUDA card, and a directory without the port's package.
 ``--paths recipe`` (or any other paths of ``PATHS``, comma-separated)
@@ -193,7 +208,7 @@ working on one path, without the kernel phase and the last two lines.
 align and QLoRA steps' own) also profiles the W8A8 serve's first token and its
 whole ``generate``, one wave of the engine's phase (b) (32 requests
 through the 32 slots), one align step, one W8A8 align step under each
-backward, one QLoRA step and one demo pipeline run with
+backward, one QLoRA step, one demo pipeline run and one synth image with
 ``torch.profiler`` and writes their operator tables to DIR.
 """
 
@@ -260,6 +275,26 @@ DEMO_MASK_REL_BOUND = 0.05
 # the binary masks must agree wherever the plain path's logit is at least
 # this share of the logits' RMS away from 0
 DEMO_MASK_MARGIN = 0.5
+
+
+# the synth path: run_directory over synthetic JPEGs of two shapes, 4 each
+# (interleaved in the directory's sorted order), on the five models at the
+# JAX package's widths in bf16 from fixed seeds
+SYNTH_HW = ((480, 640), (768, 1024)) * 4
+# random weights force the thresholds.  The tagger keeps RAM's class
+# threshold (0.68: about a fifth of 4585 random logits pass).  A random
+# OWL-ViT's patch scores sit at 0.507-0.520 in every image (its logits are
+# nearly equal across patches and photos): 0.51 keeps 4-34 of the 576
+# proposals of each of these photos.  SynthConfig keeps its defaults but for the mask
+# area bound (random SAM masks cover ~3/4 of an image)
+SYNTH_BOX_THRESHOLD = 0.51
+SYNTH_CONFIG = dict(mask_area_max=1.0)
+# the metric head's range in meters: Depth-Anything-V2-Metric's indoor
+# (Hypersim) model's; the config's default of 1 is the relative model's
+SYNTH_MAX_DEPTH = 20.0
+# the CLIP BPE's begin / end-of-text ids (the end id is the largest, where
+# OWL-ViT's text tower pools) and its 16 positions
+CLIP_BOS, CLIP_EOT, CLIP_LEN = 49406, 49407, 16
 
 
 # kernels held bit-equal to their plain versions (the others within
@@ -745,20 +780,38 @@ def phase_kernels(torch):
         ("F.scaled_dot_product_attention, (B, H, S, S) bf16 bias materialised from rel_h / rel_w, "
          "SDPBackend.EFFICIENT_ATTENTION", lambda: lib5_call(*lib5_in)),
     ))
-    # K6: SAM vit_h's encoder rows (a chunk of 4 images x 4096 tokens, C 1280)
-    # and Depth-Anything ViT-L's (8 images x 1814 tokens, C 1024), bf16
+    # K5 at the synth path's shape: the segmenter runs one image a call (B1)
+    q5s, k5s, v5s = rn(1, S, 3, H, D).unbind(2)
+    rel_hs = torch.randn(1, H, S, gh, generator=g, device=dev)
+    rel_ws = torch.randn(1, H, S, gw, generator=g, device=dev)
+    bias5s = (rel_hs[..., :, None] + rel_ws[..., None, :]).reshape(1, H, S, S).to(torch.bfloat16)
+    lib5s_in, lib5s_call = sdpa_library(torch, "EFFICIENT_ATTENTION", q5s, k5s, v5s, bias5s)
+    cases.append((
+        "grid_bias_attention", "spatialrgpt_tpu_torch/csrc/grid_bias_attention.cu",
+        "spatialrgpt_tpu/ops/flash_attention.py:397", {"B": 1, "S": S, "grid": [gh, gw], "H": H, "D": D,
+                                                       "path": "synth: one image a segmenter call"},
+        lambda: K4.grid_bias_attention(q5s, k5s, v5s, rel_hs, rel_ws, gw),
+        lambda: K4.grid_bias_attention_plain(q5s, k5s, v5s, rel_hs, rel_ws, gw), (40, 4, "events"),
+        bound(4 * H * S * S * D, nbytes(q5s, k5s, v5s, rel_hs, rel_ws, q5s)),
+        ("F.scaled_dot_product_attention, (1, H, S, S) bf16 bias materialised from rel_h / rel_w, "
+         "SDPBackend.EFFICIENT_ATTENTION", lambda: lib5s_call(*lib5s_in)),
+    ))
+    # K6: SAM vit_h's encoder rows (a chunk of 4 images x 4096 tokens, C 1280),
+    # Depth-Anything ViT-L's (8 images x 1814 tokens, C 1024) and the synth
+    # path's RAM tagging head (4585 tag queries, C 768, eps 1e-12), bf16
     # weights as the models hold them (the streaming kernel takes them as
     # they are: one launch per call)
-    for rows6, C in ((DEMO_SAM_CHUNK * 4096, 1280), (DEMO_IMAGES * 1814, 1024)):
+    for rows6, C, eps, path in ((DEMO_SAM_CHUNK * 4096, 1280, 1e-6, None), (DEMO_IMAGES * 1814, 1024, 1e-6, None),
+                                (4585, 768, 1e-12, "synth: RAM's tagging head")):
         x6 = (torch.randn(rows6, C, generator=g, device=dev) * 3 + 1).to(torch.bfloat16)
         w6, b6 = rn(C), rn(C)
         cases.append((
             "fused_layer_norm", "spatialrgpt_tpu_torch/csrc/layer_norm.cu", "spatialrgpt_tpu/ops/layer_norm.py:36",
-            {"rows": rows6, "C": C},
-            lambda x=x6, w=w6, b=b6: K6.fused_layer_norm(x, w, b, 1e-6),
-            lambda x=x6, w=w6, b=b6: K6.fused_layer_norm_plain(x, w, b, 1e-6), (200, 20, "graph"),
+            {"rows": rows6, "C": C, "eps": eps, **({"path": path} if path else {})},
+            lambda x=x6, w=w6, b=b6, e=eps: K6.fused_layer_norm(x, w, b, e),
+            lambda x=x6, w=w6, b=b6, e=eps: K6.fused_layer_norm_plain(x, w, b, e), (200, 20, "graph"),
             bound(8 * rows6 * C, nbytes(x6, w6, b6, x6)),
-            ("F.layer_norm", lambda x=x6, w=w6, b=b6, C=C: F.layer_norm(x, (C,), w, b, 1e-6)),
+            ("F.layer_norm", lambda x=x6, w=w6, b=b6, C=C, e=eps: F.layer_norm(x, (C,), w, b, e)),
         ))
     # K7-K9: the quantized projections of bench.py's default serve (W8A8,
     # SERVE_ROWS rows): K7 over the prefill rows, K8 at the prefill's gate
@@ -852,7 +905,7 @@ def phase_kernels(torch):
             dx_int_mm_library(torch, dyq11, q11),
         ))
 
-    rows = []
+    rows, shapes = [], []
     library_bwd_ms = ps_bwd_ms = None
     for i_case, (name, source, replaces, shape, kernel, plain, (iters, plain_iters, how), work,
                  (library, lib_fn)) in enumerate(cases):
@@ -909,12 +962,19 @@ def phase_kernels(torch):
         emit({"phase": "kernel", "ok": ok, "shape": shape, **row})
         check(ok, f"{name}: error {ratio} x the per-element bound (max abs err {err}, bit-equal {bit_equal})")
         rows.append(row)
-    del bias5, lib_in, lib2_in, libe_in, lib4_in, lib5_in, ps_in, ps_grad_in, cases
+        shapes.append(shape)
+    del bias5, bias5s, lib_in, lib2_in, libe_in, lib4_in, lib5_in, lib5s_in, ps_in, ps_grad_in, cases
     torch.cuda.empty_cache()
-    # one row per kernel in the kernels line: K6's at its first (SAM) shape
+    # one row per kernel in the kernels line, at its first shape (K2 the
+    # serve's prefill, K5 the demo's B4 chunk, K6 SAM's rows); a kernel's
+    # later shapes go under that row's ``other_shapes``
     first = {}
-    for row in rows:
-        first.setdefault(row["name"], row)
+    for row, shape in zip(rows, shapes):
+        if row["name"] not in first:
+            first[row["name"]] = dict(row, other_shapes=[])
+        else:
+            first[row["name"]]["other_shapes"].append({"shape": shape, **{k: row[k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err", "share_of_bound")}})
     return list(first.values())
 
 
@@ -3097,6 +3157,252 @@ def phase_demo(torch, profile_dir=None) -> dict:
     return counts
 
 
+def clip_char_tokenize(prompts):
+    """A character tokenizer in the CLIP BPE's place (no tokenizer files are
+    part of the repository): begin-of-text, one id per byte (256 + byte),
+    end-of-text, padded with 0 to OWL-ViT's 16 positions; the mask marks
+    the real ids."""
+    import numpy as np
+
+    ids = np.zeros((len(prompts), CLIP_LEN), np.int64)
+    for i, text in enumerate(prompts):
+        row = [CLIP_BOS] + [256 + b for b in text.encode()[: CLIP_LEN - 2]] + [CLIP_EOT]
+        ids[i, : len(row)] = row
+    return ids, (ids != 0).astype(np.int64)
+
+
+def synth_expected_counts(ram_cfg, sam_cfg, tagged: int, segmented: int) -> tuple:
+    """The synth path's launch counts: K5 once per SAM global layer and
+    segmented image (one ``predict_boxes`` call an image, B1), K6 at every
+    LayerNorm whose bf16 input passes ``ops/layers.py::layer_norm``'s gate
+    (C % 128 == 0, at least 4096 rows), per stage; no other kernel.  Of the
+    five models only two have such rows: RAM's tagging head (4585 query rows
+    at width 768: per decoder layer its self-attention, cross-attention and
+    FFN norms, and the final norm; Swin-L's rows are 9216 at C 192 and 2304
+    and fewer at 384 and up) and SAM's encoder (4096 rows: two norms a layer
+    and the neck's two; its mask decoder runs in f32).  OWL-ViT (577 and 512
+    rows), Depth-Anything (1370) and CameraNet (f32 activations) have none."""
+    def gate(rows: int, c: int) -> int:
+        return int(c % 128 == 0 and rows >= 4096)
+
+    ram = gate(ram_cfg.num_tags, ram_cfg.hidden_size) * (3 * ram_cfg.num_decoder_layers + 1)
+    v, g = sam_cfg.vision, (sam_cfg.vision.image_size // sam_cfg.vision.patch_size) ** 2
+    sam = gate(g, v.hidden_size) * 2 * v.num_hidden_layers + gate(g, v.output_channels) * 2
+    counts = {name: 0 for name in read_counts()}
+    counts["grid_bias_attention"] = len(v.global_attn_indexes) * segmented
+    counts["fused_layer_norm"] = ram * tagged + sam * segmented
+    return counts, {"ram_per_image": ram, "sam_per_image": sam}
+
+
+class StageWatch:
+    """Wraps a pipeline's stage callables: per image (an image starts at its
+    tagger call) the counts of each stage's output, and per stage the
+    seconds, synchronised on the card.  The lift's seconds leave out the
+    depth and calibration models it calls."""
+
+    def __init__(self, torch, pipe):
+        self.torch, self.images, self.seconds, self.calls, self.called_by = torch, [], {}, [], []
+        seg, lift = pipe.segment, pipe.lift
+        seg.tagger = self.wrap("tag", seg.tagger, lambda out: {"tags": len(out)}, first=True)
+        seg.detector = self.wrap("detect", seg.detector, lambda out: {"detections": len(out)})
+        seg.segmenter = self.wrap("segment", seg.segmenter, None)
+        seg.process = self.wrap("filter", seg.process, lambda out: {"masks_kept": len(out)}, timed=False)
+        for name in ("depth_model", "intrinsics_model", "gravity_model"):
+            setattr(lift, name, self.wrap("depth_calib", getattr(lift, name), None))
+        lift.process = self.wrap("lift", lift.process, lambda out: {"objects_lifted": len(out)}, nested="depth_calib")
+        pipe.prompter.evaluate_predicates_on_pairs = self.wrap(
+            "qa", pipe.prompter.evaluate_predicates_on_pairs, lambda out: {"qa_pairs": len(out)})
+
+    def wrap(self, stage, fn, count, first=False, timed=True, nested=None):
+        def run(*args, **kwargs):
+            if first:
+                self.images.append({})
+            if stage == "segment" and len(args[1]):  # an image with boxes: one SAM forward
+                self.calls.append(args)
+                self.called_by.append(len(self.images) - 1)
+            inner = self.seconds.get(nested, 0.0)
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.torch.cuda.synchronize()
+            if timed:
+                spent = time.perf_counter() - t0 - (self.seconds.get(nested, 0.0) - inner)
+                self.seconds[stage] = self.seconds.get(stage, 0.0) + spent
+            if count is not None:
+                self.images[-1].update(count(out))
+            return out
+
+        return run
+
+
+def phase_synth(torch, nvidia_smi: str, profile_dir=None) -> dict:
+    """The synthesis pipeline's entry point on the card: ``run_directory``
+    over ``SynthPipeline(cfg, **build_stage_models(...))``."""
+    import numpy as np
+    from PIL import Image
+
+    from spatialrgpt_tpu_torch.demo.pipeline import synth_photo
+    from spatialrgpt_tpu_torch.models import depth_anything as tda
+    from spatialrgpt_tpu_torch.models import owl_vit, ram, sam
+    from spatialrgpt_tpu_torch.ops import layers
+    from spatialrgpt_tpu_torch.synth import calibration
+    from spatialrgpt_tpu_torch.synth import models as smodels
+    from spatialrgpt_tpu_torch.synth import pipeline as spipe
+    from spatialrgpt_tpu_torch.utils import weights
+
+    phase_t0 = time.perf_counter()
+    dev = torch.device(DEVICE)
+    rcfg, ocfg, scfg = ram.RamConfig(), owl_vit.OwlViTConfig(), sam.SamConfig()
+    dcfg, ccfg = tda.DepthAnythingConfig(metric=True, max_depth=SYNTH_MAX_DEPTH), calibration.CameraNetConfig()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ram_m = weights.init_random_ram(rcfg, dev, torch.bfloat16, seed=3)
+    owl_m = weights.init_random_owl_vit(ocfg, dev, torch.bfloat16, seed=4)
+    sam_m = weights.init_random_sam_hq(scfg, dev, torch.bfloat16, seed=1)
+    depth_m = weights.init_random_depth_anything(dcfg, dev, torch.bfloat16, seed=2)
+    cam_m = weights.init_random_camera_net(ccfg, dev, torch.bfloat16, seed=5)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tags = [f"object{i}" for i in range(rcfg.num_tags)]  # a synthetic tag list of RAM's size
+    models = smodels.build_stage_models(  # no device: the card is the default
+        ram_params=ram_m, ram_cfg=rcfg, ram_tags=tags, owl_params=owl_m, owl_cfg=ocfg,
+        owl_tokenize=clip_char_tokenize, sam_params=sam_m, sam_cfg=scfg, depth_params=depth_m, depth_cfg=dcfg,
+        calib_params=cam_m, calib_cfg=ccfg, box_threshold=SYNTH_BOX_THRESHOLD,
+    )
+    cfg = spipe.SynthConfig(**SYNTH_CONFIG)
+    pipe = spipe.SynthPipeline(cfg, **models)
+    watch = StageWatch(torch, pipe)
+    seg_kernel = smodels.make_sam_segmenter(sam_m, scfg)
+    seg_plain = smodels.make_sam_segmenter(sam_m, scfg, attn_impl="xla")
+    rng = np.random.default_rng(0)
+    shapes = {}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    fused_before = layers.FUSED_LN
+    with tempfile.TemporaryDirectory(prefix="synth_", dir=os.path.join(ROOT, "build")) as work:
+        for i, (h, w) in enumerate(SYNTH_HW):
+            name = f"photo{i}.jpg"
+            Image.fromarray(synth_photo(rng, h, w)).save(os.path.join(work, name), quality=95)
+            shapes[name] = [h, w]
+        photos = {n: np.asarray(Image.open(os.path.join(work, n)).convert("RGB")) for n in sorted(shapes)}
+
+        def detector_ranks(image):
+            """The detector's patch scores (sigmoid of the best query's logit)
+            at ranks 1, 4, 16, 32 and 64 of the 576, for the first 32 tags."""
+            ids, mask = clip_char_tokenize([f"a photo of a {t}" for t in tags[:32]])
+            x = torch.as_tensor(owl_vit.preprocess_image(image, ocfg.vision.image_size)[None], device=dev)
+            logits, _ = owl_vit.detect(owl_m, ocfg, x, torch.as_tensor(ids, device=dev),
+                                       torch.as_tensor(mask, device=dev))
+            top = torch.sigmoid(logits[0].amax(dim=-1)).sort(descending=True).values.cpu().numpy()
+            return {f"rank{r}": float(top[r - 1]) for r in (1, 4, 16, 32, 64) if r <= len(top)}
+
+        def segment_route(attn_impl, segmenter):
+            """Each segmented image's recorded boxes through one route: SAM's
+            mask logits and the segmenter's masks at the image's size."""
+            out = []
+            for image, boxes in watch.calls:
+                x, b = (torch.as_tensor(a, device=dev) for a in smodels.sam_inputs(image, boxes, scfg))
+                logits, _ = sam.predict_boxes(sam_m, scfg, x, b, attn_impl=attn_impl)
+                out.append((logits, segmenter(image, boxes)))
+            return out
+
+        try:
+            # SRGPT_FUSED_LN on in the run and on both routes of the
+            # comparison: the routes differ in K5 alone
+            layers.FUSED_LN = True
+            try:  # warm-up on its own pipeline (the QA sampler's stream stays fresh): handles, allocator, every op once
+                spipe.SynthPipeline(cfg, **models).annotate(photos["photo0.jpg"])
+            except spipe.SkipImageException:
+                pass
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t = time.perf_counter()
+            stats = spipe.run_directory(pipe, work, os.path.join(work, "out.json"))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            counts = read_counts()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            with open(os.path.join(work, "out.json")) as f:
+                records = json.load(f)
+            ranks = {n: detector_ranks(im) for n, im in photos.items()}
+            kernel_route = segment_route("onepass", seg_kernel)
+            reset_counts()
+            plain_route = segment_route("xla", seg_plain)
+            plain_counts = read_counts()
+        finally:
+            layers.FUSED_LN = fused_before
+
+    names = sorted(shapes)
+    tagged, segmented = len(watch.images), len(watch.calls)
+    want, per_image_ln = synth_expected_counts(rcfg, scfg, tagged, segmented)
+    # the plain route of the comparison: K6 at SAM's encoder rows, twice an
+    # image (its logits, then its segmenter's masks), and no K5
+    want_plain = dict.fromkeys(want, 0)
+    want_plain["fused_layer_norm"] = 2 * per_image_ln["sam_per_image"] * segmented
+    vs_plain = []
+    for (logits_k, masks_k), (logits_p, masks_p) in zip(kernel_route, plain_route):
+        rms = float(logits_p.float().square().mean().sqrt())
+        sure = logits_p.abs() > DEMO_MASK_MARGIN * rms
+        vs_plain.append({
+            "boxes": len(masks_k), "mask_logits_rel_l2": rel_l2(logits_k, logits_p),
+            "mismatches_beyond_margin": int(((logits_k > 0) != (logits_p > 0))[sure].sum()),
+            "mask_pixels_differing": int(sum((mk != mp).sum() for mk, mp in zip(masks_k, masks_p))),
+            "mask_pixels": int(sum(mk.size for mk in masks_k)),
+        })
+    qa_shapes = {tuple(shapes[n]) for n, r in records.items() if r["qa"]}
+    checks = {
+        "launch_counts": counts == want,
+        "plain_route_launches_k6_alone": plain_counts == want_plain,
+        "tagged_every_image": tagged == len(names),
+        "segmented_some_image": segmented > 0,
+        "mask_logits_vs_plain": all(v["mask_logits_rel_l2"] <= DEMO_MASK_REL_BOUND for v in vs_plain),
+        "masks_vs_plain_beyond_margin": all(v["mismatches_beyond_margin"] == 0 for v in vs_plain),
+        "qa_on_each_shape": qa_shapes == {tuple(hw) for hw in SYNTH_HW},
+        "out_json_has_every_annotated_image": stats["annotated"] == len(records) and set(records) <= set(names)
+        and stats["annotated"] + stats["skipped"] == len(names),
+        "records_well_formed": all(
+            r["objects"] and all(len(o["center"]) == 3 and len(o["extent"]) == 3 and len(o["box"]) == 4
+                                 and all(math.isfinite(v) for v in o["center"] + o["extent"]) for o in r["objects"])
+            and all(q["question"] and q["answer"] and q["type"] for q in r["qa"]) for r in records.values()),
+    }
+    per_image = {n: dict(hw=shapes[n], annotated=n in records, **c) for n, c in zip(names, watch.images)}
+    for i, v in zip(watch.called_by, vs_plain):
+        per_image[names[i]]["segment_vs_plain_route"] = v
+    emit({
+        "phase": "synth", "ok": all(checks.values()), "checks": checks,
+        "models": "RAM Swin-L 384 (4585 tags) + OWL-ViT B/32 768 + SAM-HQ vit_h (box head) + Depth-Anything ViT-L "
+                  "metric + CameraNet, bf16, random from seeds 3 / 4 / 1 / 2 / 5; SRGPT_FUSED_LN on",
+        "data": f"{len(names)} synthetic JPEGs of {sorted({tuple(hw) for hw in SYNTH_HW})}",
+        "cuts": {"weights": "random", "photos": "demo/pipeline.py::synth_photo", "tokenizer": "clip_char_tokenize",
+                 "tag_list": f"object0..object{rcfg.num_tags - 1}", "tagger_thresholds": rcfg.default_threshold,
+                 "box_threshold": SYNTH_BOX_THRESHOLD, "synth_config_changed": SYNTH_CONFIG},
+        "launches": counts, "launches_expected": want, "fused_layer_norm_per_image": per_image_ln,
+        "plain_route_launches": plain_counts,
+        "images_tagged": tagged, "images_segmented": segmented,
+        "mask_bound": DEMO_MASK_REL_BOUND, "annotated": stats["annotated"], "skipped": stats["skipped"],
+        "segment_output_equal_to_plain_route_share": sum(
+            v["mask_pixels_differing"] == 0 for v in vs_plain) / max(len(vs_plain), 1),
+        "per_image": per_image, "detector_score_ranks": ranks,
+        "smoke_figures_not_a_benchmark": {
+            "init_s": init_s, "wall_s": wall, "images_per_s": len(names) / wall, "stage_s": watch.seconds,
+            "peak_mem_gb": peak_gb, "card": nvidia_smi, "phase_s": time.perf_counter() - phase_t0,
+        },
+    })
+    check(all(checks.values()), f"synth checks failed: {checks}")
+    if profile_dir:
+        def one_image():
+            try:
+                spipe.SynthPipeline(cfg, **models).annotate(photos["photo0.jpg"])
+            except spipe.SkipImageException:
+                pass
+
+        layers.FUSED_LN = True
+        try:
+            profile_run(torch, one_image, profile_dir, "synth_image")
+        finally:
+            layers.FUSED_LN = fused_before
+    return counts
+
+
 def release(torch) -> None:
     """Between phases: free what the last phase left (its model may sit in
     a reference cycle until the collector runs), so that the next phase's
@@ -3147,6 +3453,7 @@ PATHS = {
     "recipe": lambda torch, smi, prof: phase_recipe(torch, smi),
     "eval": lambda torch, smi, prof: phase_eval(torch, smi),
     "demo": lambda torch, smi, prof: phase_demo(torch, prof),
+    "synth": phase_synth,
 }
 
 

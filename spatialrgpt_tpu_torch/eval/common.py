@@ -10,17 +10,13 @@ import numpy as np
 import torch
 
 from spatialrgpt_tpu_torch.models.vlm import SpatialRGPT, VLMInputs
+from spatialrgpt_tpu_torch.utils.device import card_device
 
 
 def eval_device(device) -> torch.device:
     """``device`` when given; else the card, and without one an error (the
     CPU only when the caller asks for it)."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("the eval runners run on a CUDA card and none is available; pass device='cpu' to run "
-                           "on the CPU")
-    return torch.device("cuda")
+    return card_device(device, "the eval runners")
 
 
 def batch_inputs(model: SpatialRGPT, sb, images: np.ndarray, depths: Optional[np.ndarray],

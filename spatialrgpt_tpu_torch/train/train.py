@@ -46,6 +46,7 @@ from spatialrgpt_tpu_torch.train.args import parse_args
 from spatialrgpt_tpu_torch.train.optimizer import MODULES, MultiSteps, OptimizerConfig, build_optimizer
 from spatialrgpt_tpu_torch.train.step import create_train_state, make_lora_train_step, make_train_step
 from spatialrgpt_tpu_torch.train.trainer import Trainer, TrainerConfig
+from spatialrgpt_tpu_torch.utils.device import card_device
 
 PARALLEL_FLAGS = ("dp_size", "fsdp_size", "seq_parallel_size", "seq_parallel_ring_size")
 
@@ -88,14 +89,6 @@ def make_batches(dataset, collator, sampler, batch_size, device, dtype, epochs: 
                 if not idx:
                     break
             yield VLMInputs.from_spliced(*collator([dataset[i] for i in idx]), device=device, dtype=dtype)
-
-
-def _device(device) -> torch.device:
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("train.main runs on a CUDA card and none is available; pass device='cpu' to train on the CPU")
-    return torch.device("cuda")
 
 
 def _optimizer(module: nn.Module, ocfg: OptimizerConfig, accumulate: int):
@@ -179,7 +172,7 @@ def main(argv=None, *, device=None, tokenizer=None):
             raise NotImplementedError(
                 f"--{flag} {getattr(targs, flag)}: meshes and sequence parallelism are not ported yet "
                 "(ROADMAP.md queue 1 item 8, Parallel); the port trains on one card")
-    device = _device(device)
+    device = card_device(device, "train.main")
     dtype = torch.bfloat16 if margs.model_dtype == "bfloat16" else torch.float32
     attn_impl = targs.attn_impl
     cfg = build_config(margs, dargs, targs)

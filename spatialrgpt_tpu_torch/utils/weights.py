@@ -16,6 +16,9 @@ The demo's models: ``init_random_sam_hq`` and ``init_random_depth_anything``
 on the device, and ``load_depth_anything_from_jax`` through the HF names
 (SAM has no JAX ``init_params``; its bridge runs the other way, the port's
 HF-named ``state_dict()`` through the JAX ``convert_sam_hq``).
+The synth pipeline's models: ``init_random_{ram,owl_vit,camera_net}`` on the
+device and ``load_{ram,owl_vit,camera_net}_from_jax``, which carry the JAX
+package's parameter trees (numpy) across by the names of the port's modules.
 """
 
 from __future__ import annotations
@@ -30,9 +33,12 @@ from torch import nn
 from spatialrgpt_tpu_torch.config import SpatialRGPTConfig
 from spatialrgpt_tpu_torch.utils import export
 from spatialrgpt_tpu_torch.models.depth_anything import DepthAnythingConfig, DepthAnythingModel, LayerScale
+from spatialrgpt_tpu_torch.models.owl_vit import OwlViTConfig, OwlViTModel
+from spatialrgpt_tpu_torch.models.ram import RamConfig, RamModel
 from spatialrgpt_tpu_torch.models.sam import SamConfig, SamHQModel
 from spatialrgpt_tpu_torch.models.vlm import SpatialRGPT
 from spatialrgpt_tpu_torch.ops.layers import QuantLinear
+from spatialrgpt_tpu_torch.synth.calibration import CameraNet, CameraNetConfig
 from spatialrgpt_tpu_torch.train.lora import LoraAdapters, LoraPair
 
 # a linear's module name -> (bits, a8) where the model holds it quantized, else None
@@ -323,3 +329,167 @@ def load_depth_anything_from_jax(np_params, cfg: DepthAnythingConfig, device, dt
     model = _empty_model(DepthAnythingModel, cfg, device, dtype)
     model.load_state_dict(state, strict=True)
     return model
+
+
+# ---------------------------------------------------------------------------
+# the synth pipeline's models: RAM (Swin-L), OWL-ViT, CameraNet
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def init_random_ram(cfg: RamConfig, device, dtype=torch.bfloat16, seed: int = 0) -> RamModel:
+    """Random RAM tagger made on ``device`` from ``seed``, with the JAX
+    ``ram.init_params`` / ``swin.init_params`` recipe: dense kernels
+    N(0, fan_in^-1/2), patch kernel, rel-pos tables and tag embeddings
+    N(0, 0.02), the group-wise fc N(0, D^-1/2), norm scales 1, biases 0."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    model = _empty_model(RamModel, cfg, device, dtype)
+    _init_random_modules(model, g)
+    tables = [blk.attention.self.relative_position_bias_table
+              for stage in model.swin.encoder.layers for blk in stage.blocks]
+    for t in tables + [model.tag_embed]:
+        t.normal_(0.0, 0.02, generator=g)
+    model.fc_w.normal_(0.0, cfg.hidden_size**-0.5, generator=g)
+    model.fc_b.zero_()
+    return model
+
+
+@torch.no_grad()
+def init_random_owl_vit(cfg: OwlViTConfig, device, dtype=torch.bfloat16, seed: int = 0) -> OwlViTModel:
+    """Random OWL-ViT made on ``device`` from ``seed``, with the JAX
+    ``owl_vit.init_params`` recipe: dense kernels N(0, fan_in^-1/2), patch
+    kernel, class embedding, token and position tables N(0, 0.02), norm
+    scales 1, biases 0."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    model = _empty_model(OwlViTModel, cfg, device, dtype)
+    _init_random_modules(model, g)
+    model.owlvit.vision_model.embeddings.class_embedding.normal_(0.0, 0.02, generator=g)
+    return model
+
+
+@torch.no_grad()
+def init_random_camera_net(cfg: CameraNetConfig, device, dtype=torch.bfloat16, seed: int = 0) -> CameraNet:
+    """Random CameraNet made on ``device`` from ``seed``, with the JAX
+    ``calibration.init_params`` recipe: dense kernels (the patch embedding
+    is one) N(0, fan_in^-1/2), position table N(0, 0.02), norm scales 1,
+    biases 0."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    model = _empty_model(CameraNet, cfg, device, dtype)
+    _init_random_modules(model, g)
+    model.pos_embed.normal_(0.0, 0.02, generator=g)
+    return model
+
+
+def _dense(sd: dict, name: str, q) -> None:
+    sd[name + ".weight"] = np.asarray(q["kernel"]).T
+    if "bias" in q:
+        sd[name + ".bias"] = np.asarray(q["bias"])
+
+
+def _norm(sd: dict, name: str, q) -> None:
+    sd[name + ".weight"], sd[name + ".bias"] = np.asarray(q["scale"]), np.asarray(q["bias"])
+
+
+def _export_tree(sd: dict, tree, prefix: str) -> None:
+    """A JAX parameter tree whose paths are the port's module names: a
+    ``kernel`` entry is a linear's (in, out) kernel, a ``scale`` entry a
+    LayerNorm's, anything else an array of the module as it is."""
+    for key, v in tree.items() if isinstance(tree, dict) else enumerate(tree):
+        name = f"{prefix}{key}"
+        if isinstance(v, dict) and "kernel" in v:
+            _dense(sd, name, v)
+        elif isinstance(v, dict) and "scale" in v:
+            _norm(sd, name, v)
+        elif isinstance(v, (dict, list)):
+            _export_tree(sd, v, name + ".")
+        else:
+            sd[name] = np.asarray(v)
+
+
+def export_swin(p, prefix: str = "") -> dict:
+    """``swin.init_params``-layout pytree (numpy) -> the HF ``SwinModel``
+    names that ``swin.convert_swin`` reads (its inverse)."""
+    sd = {}
+    emb = prefix + "embeddings."
+    sd[emb + "patch_embeddings.projection.weight"] = np.asarray(p["patch_embed"]["kernel"]).transpose(3, 2, 0, 1)
+    sd[emb + "patch_embeddings.projection.bias"] = np.asarray(p["patch_embed"]["bias"])
+    _norm(sd, emb + "norm", p["embed_norm"])
+    for si, stage in enumerate(p["stages"]):
+        st = f"{prefix}encoder.layers.{si}."
+        for bi, bp in enumerate(stage["blocks"]):
+            b = st + f"blocks.{bi}."
+            _norm(sd, b + "layernorm_before", bp["ln1"])
+            _norm(sd, b + "layernorm_after", bp["ln2"])
+            for ours, theirs in (("q", "self.query"), ("k", "self.key"), ("v", "self.value"), ("proj", "output.dense")):
+                _dense(sd, b + "attention." + theirs, bp["attn"][ours])
+            sd[b + "attention.self.relative_position_bias_table"] = np.asarray(bp["attn"]["rel_pos_table"])
+            _dense(sd, b + "intermediate.dense", bp["mlp"]["fc1"])
+            _dense(sd, b + "output.dense", bp["mlp"]["fc2"])
+        if "downsample" in stage:
+            _norm(sd, st + "downsample.norm", stage["downsample"]["norm"])
+            _dense(sd, st + "downsample.reduction", stage["downsample"]["reduction"])
+    _norm(sd, prefix + "layernorm", p["final_norm"])
+    return sd
+
+
+def export_owlvit(p) -> dict:
+    """``owl_vit.init_params``-layout pytree (numpy) -> the HF
+    ``OwlViTForObjectDetection`` names that ``convert_owlvit`` reads (its
+    inverse)."""
+    sd = {}
+
+    def clip_layers(prefix, layers):
+        for i, lp in enumerate(layers):
+            b = f"{prefix}.layers.{i}."
+            _norm(sd, b + "layer_norm1", lp["ln1"])
+            _norm(sd, b + "layer_norm2", lp["ln2"])
+            for ours, theirs in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"), ("proj", "out_proj")):
+                _dense(sd, b + "self_attn." + theirs, lp["attn"][ours])
+            _dense(sd, b + "mlp.fc1", lp["mlp"]["fc1"])
+            _dense(sd, b + "mlp.fc2", lp["mlp"]["fc2"])
+
+    vm, tm = "owlvit.vision_model.", "owlvit.text_model."
+    v, t = p["vision"], p["text"]
+    sd[vm + "embeddings.patch_embedding.weight"] = np.asarray(v["patch_embed"]["kernel"]).transpose(3, 2, 0, 1)
+    sd[vm + "embeddings.class_embedding"] = np.asarray(v["class_embed"])
+    sd[vm + "embeddings.position_embedding.weight"] = np.asarray(v["pos_embed"])
+    _norm(sd, vm + "pre_layernorm", v["pre_ln"])
+    clip_layers(vm + "encoder", v["layers"])
+    _norm(sd, vm + "post_layernorm", v["post_ln"])
+    sd[tm + "embeddings.token_embedding.weight"] = np.asarray(t["token_embed"])
+    sd[tm + "embeddings.position_embedding.weight"] = np.asarray(t["pos_embed"])
+    clip_layers(tm + "encoder", t["layers"])
+    _norm(sd, tm + "final_layer_norm", t["final_ln"])
+    _dense(sd, "owlvit.text_projection", p["text_projection"])
+    _norm(sd, "layer_norm", p["merged_ln"])
+    _export_tree(sd, {"class_head": p["class_head"], "box_head": p["box_head"]}, "")
+    return sd
+
+
+def _load_state(cls, cfg, sd: dict, device, dtype):
+    state = {k: torch.tensor(np.asarray(a, np.float32)).to(device=device, dtype=dtype) for k, a in sd.items()}
+    model = _empty_model(cls, cfg, device, dtype)
+    model.load_state_dict(state, strict=True)
+    return model
+
+
+def load_ram_from_jax(np_params, cfg: RamConfig, device, dtype=torch.float32) -> RamModel:
+    """``ram.init_params``-layout pytree (numpy) -> ``RamModel`` on ``device``:
+    the backbone through the HF Swin names, the head by its own."""
+    sd = export_swin(np_params["swin"], "swin.")
+    _export_tree(sd, {k: v for k, v in np_params.items() if k != "swin"}, "")
+    return _load_state(RamModel, cfg, sd, device, dtype)
+
+
+def load_owl_vit_from_jax(np_params, cfg: OwlViTConfig, device, dtype=torch.float32) -> OwlViTModel:
+    """``owl_vit.init_params``-layout pytree (numpy) -> ``OwlViTModel`` on
+    ``device`` through the HF names."""
+    return _load_state(OwlViTModel, cfg, export_owlvit(np_params), device, dtype)
+
+
+def load_camera_net_from_jax(np_params, cfg: CameraNetConfig, device, dtype=torch.float32) -> CameraNet:
+    """``calibration.init_params``-layout pytree (numpy) -> ``CameraNet`` on
+    ``device`` (the module holds the tree's own names)."""
+    sd = {}
+    _export_tree(sd, np_params, "")
+    return _load_state(CameraNet, cfg, sd, device, dtype)

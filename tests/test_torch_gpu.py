@@ -7,7 +7,9 @@ versions, K9 within the bf16 bound, and a tiny W8A8 ``generate`` through
 K1-K3 and K7-K9, and a tiny serving engine: its waves equal to lockstep
 ``generate`` on both caches, K3 against its plain version under slot
 churn, and a row driven past the cache inside a window; and the eval
-runners (SpatialRGPT-Bench, region classification, VQA) on a tiny model.
+runners (SpatialRGPT-Bench, region classification, VQA) on a tiny model;
+and the synth pipeline's models (Swin, RAM, OWL-ViT, CameraNet) in bf16
+against f32 on the CPU, with the SAM segmenter's K5 launches at B1.
 
 Every test here is marked ``gpu`` and skips where there is no CUDA card
 (the kernels are CUDA C++ for sm_90a and have no CPU mode).  The file
@@ -582,17 +584,19 @@ def layer_norm_rows(rng, kind: str, rows: int, C: int) -> np.ndarray:
     return x.numpy()
 
 
-_LN_CASES = [(4099, 1280, 0, "normal"), (37, 200, 0, "normal"), (5, 77, 0, "normal"), (3, 4100, 0, "normal"),
-             (70, 256, 3, "normal"), (4099, 1280, 0, "large_mean"), (4096, 1024, 0, "near_constant")]
+_LN_CASES = [(4099, 1280, 0, "normal", 1e-6), (37, 200, 0, "normal", 1e-6), (5, 77, 0, "normal", 1e-6),
+             (3, 4100, 0, "normal", 1e-6), (70, 256, 3, "normal", 1e-6), (4099, 1280, 0, "large_mean", 1e-6),
+             (4096, 1024, 0, "near_constant", 1e-6), (4585, 768, 0, "normal", 1e-12)]
 
 
 @pytest.mark.parametrize("weight_dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("rows,C,offset,kind", _LN_CASES)
-def test_layer_norm_kernel_matches_plain(cuda, rows, C, offset, kind, weight_dtype):
+@pytest.mark.parametrize("rows,C,offset,kind,eps", _LN_CASES)
+def test_layer_norm_kernel_matches_plain(cuda, rows, C, offset, kind, eps, weight_dtype):
     """K6 against its plain version: a ragged row count at SAM's width, a C
     that is a multiple of 8 but not of 128, a C that is not a multiple of 8
     (one element per lane), C > 2048 (the row read once per pass) and a row
-    start that is not 16-byte aligned (the scalar route); weights in bf16,
+    start that is not 16-byte aligned (the scalar route), RAM's tagging
+    head (4585 rows at C 768, eps 1e-12); weights in bf16,
     as the models hold them, and in f32.  Two kinds of rows that the other
     checks cannot tell apart from a faulty kernel: "large_mean" rows, where
     a kernel that computes the variance as E[x^2] - mean^2 fails the bound,
@@ -606,7 +610,7 @@ def test_layer_norm_kernel_matches_plain(cuda, rows, C, offset, kind, weight_dty
     # a profiled warm-up call first: the first profiled calls of a process
     # can record no CUDA event at all while the tracer starts
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]):
-        K6.fused_layer_norm(x, w, b, 1e-6)
+        K6.fused_layer_norm(x, w, b, eps)
         torch.cuda.synchronize()
     # and a profiled call that recorded no CUDA event at all (the tracer saw
     # nothing) is repeated, up to 3 times; a call that recorded any event is
@@ -614,28 +618,28 @@ def test_layer_norm_kernel_matches_plain(cuda, rows, C, offset, kind, weight_dty
     for _ in range(1 + 3):
         before = K6.launches
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            out = K6.fused_layer_norm(x, w, b, 1e-6)
+            out = K6.fused_layer_norm(x, w, b, eps)
             torch.cuda.synchronize()
         kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         if kernels:
             break
     assert K6.launches == before + 1
     assert len(kernels) == 1 and "layer_norm" in kernels[0], kernels
-    ref = K6.fused_layer_norm_plain(x, w, b, 1e-6)
+    ref = K6.fused_layer_norm_plain(x, w, b, eps)
     _bf16_close(out, ref)
     if kind != "normal":
         xf = x.float()
         mean = xf.mean(-1, keepdim=True)
         short_var = (xf * xf).mean(-1, keepdim=True) - mean * mean
         d = xf - mean
-        faults = {"short_variance": d * torch.rsqrt(short_var + 1e-6), "no_eps": d * torch.rsqrt((d * d).mean(-1, keepdim=True))}
+        faults = {"short_variance": d * torch.rsqrt(short_var + eps), "no_eps": d * torch.rsqrt((d * d).mean(-1, keepdim=True))}
         fault = faults["short_variance" if kind == "large_mean" else "no_eps"]
         assert bf16_err_over_bound((fault * w.float() + b.float()).to(torch.bfloat16), ref) > 1.0
     g = _rand(rng, rows, C, device=cuda)
     grads = []
     for fn in (K6.fused_layer_norm, K6.fused_layer_norm_plain):
         ins = [t.detach().clone().requires_grad_() for t in (x, w, b)]
-        fn(*ins, 1e-6).backward(g)
+        fn(*ins, eps).backward(g)
         grads.append([t.grad for t in ins])
     for got, want in zip(*grads):
         assert got is not None and torch.equal(got, want)
@@ -1411,3 +1415,90 @@ def test_tiny_train_main_pallas_against_xla(cuda, tmp_path, monkeypatch):
     assert counts["xla"] == (0, dict.fromkeys(K4.launches, 0))
     for got, want in zip(losses["pallas"], losses["xla"], strict=True):
         assert abs(got - want) <= 0.01 * abs(want), losses
+
+
+# ---------------------------------------------------------------------------
+# the synth pipeline's models
+# ---------------------------------------------------------------------------
+
+
+def _synth_model(which: str, device, dtype):
+    """A narrow model of each kind, random from a fixed seed, and its forward
+    on a batch of 2 (all of its outputs in a tuple)."""
+    from spatialrgpt_tpu_torch.models import owl_vit, ram, swin
+    from spatialrgpt_tpu_torch.synth import calibration
+    from spatialrgpt_tpu_torch.utils import weights
+
+    scfg = swin.SwinConfig(image_size=192, patch_size=4, embed_dim=64, depths=(2, 2), num_heads=(2, 4),
+                           window_size=12)
+    if which == "swin":
+        model = weights.init_random_ram(ram.RamConfig(swin=scfg, num_tags=8, hidden_size=64), device, dtype, 1).swin
+        return model, lambda m, x: (swin.forward(m, x, scfg),), (2, 192, 192, 3)
+    if which == "ram":
+        cfg = ram.RamConfig(swin=scfg, num_tags=512, hidden_size=128)
+        return weights.init_random_ram(cfg, device, dtype, 1), lambda m, x: (ram.forward(m, x, cfg),), (2, 192, 192, 3)
+    if which == "owl_vit":
+        cfg = owl_vit.OwlViTConfig(
+            vision=owl_vit.OwlViTVisionConfig(hidden_size=128, num_hidden_layers=2, num_attention_heads=2,
+                                              intermediate_size=256),
+            text=owl_vit.OwlViTTextConfig(vocab_size=512, hidden_size=64, num_hidden_layers=2, num_attention_heads=2,
+                                          intermediate_size=128),
+            projection_dim=64)
+        ids = torch.tensor(np.random.default_rng(3).integers(1, 500, (4, 16)), device=device)
+        ids[:, -1] = 511  # the end-of-text id: the largest
+        return weights.init_random_owl_vit(cfg, device, dtype, 1), lambda m, x: owl_vit.detect(
+            m, cfg, x, ids.to(x.device), torch.ones_like(ids, device=x.device)), (2, 768, 768, 3)
+    cfg = calibration.CameraNetConfig()
+    return weights.init_random_camera_net(cfg, device, dtype, 1), lambda m, x: (calibration.forward(m, x, cfg),), (
+        2, 224, 224, 3)
+
+
+@pytest.mark.parametrize("which", ["swin", "ram", "owl_vit", "camera_net"])
+def test_synth_model_forward_card_bf16_vs_cpu_f32(cuda, which):
+    """The synth models' forwards on the card in bf16 against the same
+    (bf16-rounded) weights in f32 on the CPU: relative L2 < 0.05 per output,
+    the bound of the narrow demo pipeline's test."""
+    model, fwd, shape = _synth_model(which, "cpu", torch.float32)
+    card = model.to(cuda, torch.bfloat16)
+    ref = {k: t.detach().float().cpu() for k, t in card.state_dict().items()}
+    model_cpu, _, _ = _synth_model(which, "cpu", torch.float32)
+    model_cpu.load_state_dict(ref)
+    x = torch.tensor(np.random.default_rng(2).standard_normal(shape).astype(np.float32))
+    with torch.no_grad():
+        got = fwd(card, x.to(cuda))
+        want = fwd(model_cpu, x)
+    for g, w in zip(got, want, strict=True):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        rel = float((g.float().cpu() - w).norm() / w.norm())
+        assert rel < 0.05, (which, rel)
+
+
+def test_sam_segmenter_launches_k5_once_per_image_and_global_layer(cuda):
+    """``make_sam_segmenter`` on the card (no ``device``: the card is the
+    default) at SAM's 1024-pixel input with a narrow encoder of one global
+    layer: K5 launches once for an image of 3 boxes (B1, the synth path's
+    shape), not at all on the plain route, and the mask logits of the two
+    routes agree within the demo's bound."""
+    from spatialrgpt_tpu_torch.demo.pipeline import synth_photo
+    from spatialrgpt_tpu_torch.models import sam as tsam
+    from spatialrgpt_tpu_torch.synth import models as smodels
+    from spatialrgpt_tpu_torch.utils.weights import init_random_sam_hq
+
+    scfg = tsam.SamConfig(
+        vision=tsam.SamVisionConfig(hidden_size=128, num_hidden_layers=2, num_attention_heads=2, intermediate_size=256,
+                                    output_channels=128, global_attn_indexes=(1,)),
+        prompt_hidden_size=128, decoder_hidden_size=128, decoder_num_heads=4, decoder_mlp_dim=256,
+    )
+    model = init_random_sam_hq(scfg, cuda, torch.bfloat16, seed=2)
+    img = synth_photo(np.random.default_rng(11), 480, 640)
+    boxes = [np.array(b, np.float32) for b in ([40, 200, 300, 460], [350, 220, 600, 430], [0, 0, 640, 480])]
+    K5.grid_bias_launches = 0
+    masks = smodels.make_sam_segmenter(model, scfg)(img, boxes)
+    assert K5.grid_bias_launches == 1
+    assert len(masks) == 3 and all(m.shape == (480, 640) and m.dtype == bool for m in masks)
+    smodels.make_sam_segmenter(model, scfg, attn_impl="xla")(img, boxes)
+    assert K5.grid_bias_launches == 1
+    x, b = (torch.as_tensor(a, device=cuda) for a in smodels.sam_inputs(img, boxes, scfg))
+    fast, _ = tsam.predict_boxes(model, scfg, x, b)
+    plain, _ = tsam.predict_boxes(model, scfg, x, b, attn_impl="xla")
+    assert float((fast - plain).norm() / plain.norm()) < 0.05

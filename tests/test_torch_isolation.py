@@ -4,10 +4,11 @@ package, and the port's copies of the JAX package's framework-free
 modules (``config``, ``constants``, ``conversation``, ``data/splice``,
 ``demo/engine``, the ``utils/export`` name maps, Pillow's bicubic
 coefficients) give what the originals give.  The data layer,
-``train/args.py``, the judge modules and ``demo/server.py`` are verbatim
-copies: their code equals the originals' (``tests/test_torch_data.py``
-runs the data layer side by side); so do the framework-free helpers of the
-eval runners.
+``train/args.py``, the judge modules, ``demo/server.py`` and the synth
+pipeline's framework-free stages (``synth/{geometry,prompts,pipeline,
+rephrase,visualize}``) are verbatim copies: their code equals the originals'
+(``tests/test_torch_data.py`` runs the data layer side by side); so do the
+framework-free helpers of the eval runners and of the synth models.
 """
 
 import ast
@@ -186,16 +187,25 @@ VERBATIM_COPIES = {
     "data/video.py": (), "data/interleaved.py": (), "data/prefetch.py": (), "train/args.py": (),
     "data/dataset.py": ("to_vlm_inputs",),  # the one JAX function: models/vlm.py::VLMInputs.from_spliced
     "eval/judge.py": (), "eval/judge_prompts.py": (), "eval/judge_calibration.py": (), "demo/server.py": (),
+    "synth/geometry.py": (), "synth/prompts.py": (), "synth/pipeline.py": (), "synth/rephrase.py": (),
+    "synth/visualize.py": (),
 }
 
-# the framework-free helpers of the port's eval runners, copied from the
-# reference's modules beside the runners the port rewrites: module path ->
-# the names that equal their originals
+# the framework-free helpers of the port's eval runners and synth models,
+# copied from the reference's modules beside the code the port rewrites:
+# module path -> the names that equal their originals
 COPIED_HELPERS = {
     "eval/spatial_bench.py": ("BenchConfig", "get_chunk", "build_prompt", "build_round_prompts", "stop_str_for",
                               "masks_for_line", "get_model_name"),
     "eval/region_cls.py": ("PROMPTS", "get_crop_box", "score_region_predictions", "coco_annotation_to_items"),
     "eval/vqa.py": ("VQAConfig",),
+    # and those of the synth pipeline's models
+    "models/swin.py": ("SwinConfig", "SWIN_L_384", "_rel_pos_index", "_shift_attn_mask"),
+    "models/ram.py": ("IMAGENET_MEAN", "IMAGENET_STD", "RamConfig", "process_tag_classes", "preprocess_image"),
+    "models/owl_vit.py": ("OwlViTVisionConfig", "OwlViTTextConfig", "OwlViTConfig", "box_bias", "OWLVIT_MEAN",
+                          "OWLVIT_STD", "preprocess_image"),
+    "synth/calibration.py": ("CameraNetConfig", "_prep", "intrinsics_from_vfov"),
+    "synth/models.py": ("SAM_MEAN", "SAM_STD", "_to_uint8", "_resize"),
 }
 
 
