@@ -195,8 +195,25 @@ Phases, each printed as one JSON line:
    (its recorded boxes through both, K6 on in both), QA pairs on each shape
    and ``out.json``; reports per image the counts of each stage and the
    mask pixels that differ between the routes, and per stage the seconds.
+9. families -- the presets beside Llama's through ``generate`` (phase
+   main's region QA: 8 rows, 320 bucket, the int8 cache, 64 greedy
+   tokens), random weights from seed 0 at full width: mistral-7b bf16 (and
+   one row of 4600 live positions in the 4608 bucket, where its 4096
+   window binds: the plain route without the window must lie further from
+   the plain route than the kernels do) and W8A8; gemma-7b bf16 and W8A8
+   (K2's D = 256 form, K3 at D 256, the tied f32 head); mixtral-8x7b W8A8
+   on the dense MoE at its 32 layers, then a ``ServingEngine`` run of the
+   same 8 rows through 8 slots, its tokens equal to ``generate``'s; the
+   sparse MoE in bf16 at Mixtral's widths on 8 of its layers, experts
+   stacked, against the dense block.  Checks each run's launch counts, the
+   bf16 runs against K1-K3's plain versions (``logits_vs``), the W8A8 runs'
+   first-token logits bit-equal on K7-K9's plain versions; reports TTFT,
+   decode tokens/s, peak GB per run.  The kernel phase adds K2 at D 256
+   (B8 S320 Hq16 Hk16) and windowed (B1 S4608, window 4096), K3 at D 256
+   n_rep 1 (B8 C384 Hq16), K8 and K9 at Mixtral's router (N 8) and Gemma's
+   gate and down.
 
-The times of phases 5-8 are smoke figures of this card, not a
+The times of phases 5-9 are smoke figures of this card, not a
 benchmark.  Then the ``kernels`` line (one row per kernel at its first
 shape, its later shapes under ``other_shapes``) and, last, ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero before that line; so does a machine
@@ -295,6 +312,30 @@ SYNTH_MAX_DEPTH = 20.0
 # the CLIP BPE's begin / end-of-text ids (the end id is the largest, where
 # OWL-ViT's text tower pools) and its 16 positions
 CLIP_BOS, CLIP_EOT, CLIP_LEN = 49406, 49407, 16
+
+
+# the families path: the presets of config.py beside the Llama ones, each
+# as bench.py's region QA (the serve phase's rows and bucket) at 64 greedy
+# tokens; Mistral also on one row whose live prompt passes its 4096-position
+# window, and the sparse MoE (bf16: its stacked experts are float) at
+# Mixtral's widths on this many of its 32 layers
+FAMILY_MAX_NEW = 64
+FAMILY_LONG_BUCKET, FAMILY_LONG_LIVE, FAMILY_LONG_MAX_NEW = 4608, 4600, 8
+SPARSE_MOE_LAYERS = 8
+# each decoder layer's update (output less input) on the kernel route
+# against the plain route's, from the same input, relative L2: the
+# attention kernels inside the model at full depth (H100: Mistral-7B's
+# layers 0.0047-0.0074, Gemma-7B's 0.0060-0.0085); the sparse MoE block
+# against the dense one on the tokens without a router tie (median 0.0055
+# a token in bf16)
+LAYER_REL_BOUND = 0.02
+# the depth at which a preset's bf16 run is held to the plain route by
+# ``logits_vs`` (its full widths): random Gemma-7B amplifies a bf16
+# rounding layer after layer (first-token logits 0.208 apart after its 28
+# layers on the H100, each route as far from an f32 decoder as the other),
+# so its full depth is held layer by layer (LAYER_REL_BOUND) and its
+# logits at 2 layers; the others at their full depth
+FAMILY_LOGITS_DEPTH = {"gemma-7b": 2}
 
 
 # kernels held bit-equal to their plain versions (the others within
@@ -512,13 +553,15 @@ def live_bytes(seg, *tensors) -> int:
     return sum(t.numel() // seg.numel() * t.element_size() * live for t in tensors)
 
 
-def live_pairs(torch, seg) -> int:
+def live_pairs(torch, seg, window=None) -> int:
     """(query, key) pairs a causal packed-segment kernel must compute: both
-    in one nonzero segment, key <= query."""
+    in one nonzero segment, key <= query (and query - key < window)."""
     n = 0
     for row in seg:
         _, counts = torch.unique_consecutive(row[row != 0], return_counts=True)
-        n += int((counts * (counts + 1) // 2).sum())
+        for c in counts.tolist():
+            w = c if window is None else min(window, c)  # query i of a run of c sees min(i + 1, w) keys
+            n += w * (w + 1) // 2 + (c - w) * w
     return n
 
 
@@ -553,6 +596,7 @@ def sdpa_library(torch, backend: str, q, k, v, mask=None, is_causal=False):
             return F.scaled_dot_product_attention(*ins, attn_mask=mask, is_causal=is_causal)
 
     return (qt, kt, vt), call
+
 
 
 def int_mm_library(torch, xq, q):
@@ -598,6 +642,8 @@ def dx_int_mm_library(torch, dyq, q):
 def phase_kernels(torch):
     import numpy as np
     import torch.nn.functional as F
+
+    from spatialrgpt_tpu_torch import preset
 
     from spatialrgpt_tpu_torch.ops import decode_attention as K3
     from spatialrgpt_tpu_torch.ops import flash_attention as K4
@@ -678,6 +724,43 @@ def phase_kernels(torch):
         ("F.scaled_dot_product_attention, k/v expanded to Hq, (B, 1, S, S) causal x segment mask, "
          "SDPBackend.EFFICIENT_ATTENTION", lambda: libe_call(*libe_in)),
     ))
+    # K2's D = 256 form at Gemma-7B's prefill (the families path: B8 S320,
+    # Hq = Hk = 16, G = 1), right-padded rows as the serve's
+    B, S, Hq, Hk, D = N_ROWS, PAD_BUCKET, 16, 16, 256
+    qg, kg, vg = rn(B, S, Hq, D), rn(B, S, Hk, D), rn(B, S, Hk, D)
+    libg_in, libg_call = sdpa_library(torch, "EFFICIENT_ATTENTION", qg, kg, vg, causal_segment_mask(seg))
+    cases.append((
+        "onepass_attention", "spatialrgpt_tpu_torch/csrc/prefill_attention.cu",
+        "spatialrgpt_tpu/ops/prefill_attention.py:228",
+        {"B": B, "S": S, "Hq": Hq, "Hk": Hk, "D": D, "path": "families: gemma-7b, the D = 256 form"},
+        lambda: K2.onepass_attention(qg, kg, vg, seg), lambda: K2.onepass_attention_plain(qg, kg, vg, seg),
+        (50, 5, "graph"),
+        bound(4 * D * Hq * live_pairs(torch, seg), live_bytes(seg, qg, kg, vg) + nbytes(seg, qg)),
+        ("F.scaled_dot_product_attention at D 256, (B, 1, S, S) causal x segment mask, "
+         "SDPBackend.EFFICIENT_ATTENTION", lambda: libg_call(*libg_in)),
+    ))
+    # K2 with Mistral-7B's window of 4096 over one row of 4600 live
+    # positions (the families path's long prompt): the window binds
+    wl = preset("mistral-7b").llm.sliding_window
+    B, S, Hq, Hk, D = 1, FAMILY_LONG_BUCKET, 32, 8, 128
+    ql, kl, vl = rn(B, S, Hq, D), rn(B, S, Hk, D), rn(B, S, Hk, D)
+    segl = torch.zeros(B, S, dtype=torch.int32, device=dev)
+    segl[:, :FAMILY_LONG_LIVE] = 1
+    at = torch.arange(S, device=dev)
+    in_window = (at[:, None] - at[None, :]) < wl
+    maskl = causal_segment_mask(segl).masked_fill(~in_window, float("-inf"))
+    libl_in, libl_call = sdpa_library(torch, "EFFICIENT_ATTENTION", ql, kl, vl, maskl)
+    cases.append((
+        "onepass_attention", "spatialrgpt_tpu_torch/csrc/prefill_attention.cu",
+        "spatialrgpt_tpu/ops/prefill_attention.py:228",
+        {"B": B, "S": S, "Hq": Hq, "Hk": Hk, "D": D, "window": wl, "live": FAMILY_LONG_LIVE,
+         "path": "families: mistral-7b's long prompt"},
+        lambda: K2.onepass_attention(ql, kl, vl, segl, window=wl),
+        lambda: K2.onepass_attention_plain(ql, kl, vl, segl, window=wl), (20, 2, "events"),
+        bound(4 * D * Hq * live_pairs(torch, segl, wl), live_bytes(segl, ql, kl, vl) + nbytes(segl, ql)),
+        ("F.scaled_dot_product_attention, k/v expanded to Hq, (1, 1, S, S) causal x segment x window mask, "
+         "SDPBackend.EFFICIENT_ATTENTION", lambda: libl_call(*libl_in)),
+    ))
     # K3: one decode step against the int8 cache of 320 + 32 slots
     B, C, Hq, Hk, D = N_ROWS, PAD_BUCKET + MAX_NEW, 32, 8, 128
     q3 = rn(B, Hq, D)
@@ -692,6 +775,24 @@ def phase_kernels(torch):
         lambda: K3.decode_attention_int8_flat(q3, kq, ks, vq, vs, lengths, Hk),
         lambda: K3.decode_attention_int8_flat_plain(q3, kq, ks, vq, vs, lengths, Hk), (200, 20, "graph"),
         bound(4 * Hq * D * live3, nbytes(q3, lengths, q3) + live3 * Hk * (2 * D + 2 * 4)),
+        ("no single call dequantises an int8 cache", None),
+    ))
+    # K3 at Gemma-7B's decode (the families path): n_rep 1, D 256, the cache
+    # of 320 + 64 slots
+    B, C, Hq, Hk, D = N_ROWS, PAD_BUCKET + FAMILY_MAX_NEW, 16, 16, 256
+    q3g = rn(B, Hq, D)
+    kqg, ksg = quantize_kv(rn(B, C, Hk, D))
+    vqg, vsg = quantize_kv(rn(B, C, Hk, D))
+    kqg, vqg = kqg.reshape(B, C, Hk * D), vqg.reshape(B, C, Hk * D)
+    lengths_g = torch.tensor([0, C - 1, 5, 63, 64, 200, 305, 383], dtype=torch.int32, device=dev)
+    live3g = int(torch.clamp(lengths_g + 1, max=C).sum())
+    cases.append((
+        "decode_attention_int8_flat", "spatialrgpt_tpu_torch/csrc/decode_attention.cu",
+        "spatialrgpt_tpu/ops/decode_attention.py:174",
+        {"B": B, "C": C, "Hq": Hq, "Hk": Hk, "D": D, "path": "families: gemma-7b"},
+        lambda Hk=Hk: K3.decode_attention_int8_flat(q3g, kqg, ksg, vqg, vsg, lengths_g, Hk),
+        lambda Hk=Hk: K3.decode_attention_int8_flat_plain(q3g, kqg, ksg, vqg, vsg, lengths_g, Hk), (200, 20, "graph"),
+        bound(4 * Hq * D * live3g, nbytes(q3g, lengths_g, q3g) + live3g * Hk * (2 * D + 2 * 4)),
         ("no single call dequantises an int8 cache", None),
     ))
     # K4: the align step's attention, segment ids of bench_train.py's packing
@@ -837,11 +938,17 @@ def phase_kernels(torch):
     ))
     vcfg = lcfg.vision
     m_tower = SERVE_ROWS * 2 * (vcfg.image_size // vcfg.patch_size) ** 2  # RGB + depth images of 729 patches
+    gemma, mixtral = preset("gemma-7b").llm, preset("mixtral-8x7b").llm
+    m_fam = N_ROWS * PAD_BUCKET  # the families path's prefill rows
     for label, M, N, K, (iters, plain_iters, how) in (("prefill gate", m_pf, Id, Hd, (20, 2, "events")),
                                                      ("decode lm_head", SERVE_ROWS, Vd, Hd, (20, 2, "graph")),
                                                      ("decode gate", SERVE_ROWS, Id, Hd, (100, 10, "graph")),
                                                      ("siglip fc1", m_tower, vcfg.intermediate_size,
-                                                      vcfg.hidden_size, (20, 2, "events"))):
+                                                      vcfg.hidden_size, (20, 2, "events")),
+                                                     ("families: mixtral-8x7b prefill router", m_fam,
+                                                      mixtral.num_experts, mixtral.hidden_size, (50, 5, "graph")),
+                                                     ("families: gemma-7b prefill gate", m_fam,
+                                                      gemma.intermediate_size, gemma.hidden_size, (20, 2, "events"))):
         xq8, q8 = i8(M, K), i8(N, K)
         as8 = torch.rand(M, generator=g, device=dev) * 0.05 + 1e-3
         s8 = scales(N, K)
@@ -864,7 +971,11 @@ def phase_kernels(torch):
                                    ("qlora train down + LoRA addend", m_train, Hd, Id, (5, 1, "events")),
                                    ("qlora train k / v + LoRA addend", m_train, kvd, Hd, (20, 2, "events")),
                                    ("qlora lm_head chunk", 4 * 1024, Vd, Hd, (5, 1, "events")),
-                                   ("engine admission down", 4 * 384, Hd, Id, (20, 2, "events"))):
+                                   ("engine admission down", 4 * 384, Hd, Id, (20, 2, "events")),
+                                   ("families: mixtral-8x7b decode router", N_ROWS, mixtral.num_experts,
+                                    mixtral.hidden_size, (200, 20, "graph")),
+                                   ("families: gemma-7b decode down", N_ROWS, gemma.hidden_size,
+                                    gemma.intermediate_size, (100, 10, "graph"))):
         x9, q9, s9 = rn(M, K), i8(N, K), scales(N, K)
         add9 = torch.randn(M, N, generator=g, device=dev) * 0.25 if "LoRA addend" in label else None
         w9 = dequantize(q9, s9)  # bf16, made here for the library yardstick only
@@ -963,7 +1074,8 @@ def phase_kernels(torch):
         check(ok, f"{name}: error {ratio} x the per-element bound (max abs err {err}, bit-equal {bit_equal})")
         rows.append(row)
         shapes.append(shape)
-    del bias5, bias5s, lib_in, lib2_in, libe_in, lib4_in, lib5_in, lib5s_in, ps_in, ps_grad_in, cases
+    del bias5, bias5s, lib_in, lib2_in, libe_in, libg_in, libl_in, maskl, lib4_in, lib5_in, lib5s_in, ps_in
+    del ps_grad_in, cases
     torch.cuda.empty_cache()
     # one row per kernel in the kernels line, at its first shape (K2 the
     # serve's prefill, K5 the demo's B4 chunk, K6 SAM's rows); a kernel's
@@ -1012,10 +1124,11 @@ def phase_grads(torch):
         check(present and ratio <= 1.0, f"{name}: gradients missing or off ({ratio} x the bound)")
 
 
-def draw_rows(cfg, rng, n_rows: int):
+def draw_rows(cfg, rng, n_rows: int, text_tokens: int = PROMPT_TEXT_TOKENS):
     """bench.py::build_batch's draws: ``n_rows`` prompts of bos + 8 text
-    tokens + the image + 2 x (<mask>, <depth>) + the 96-token question, then
-    random pixels, depths and region masks at the tower resolution."""
+    tokens + the image + 2 x (<mask>, <depth>) + the 96-token question (or
+    ``text_tokens``), then random pixels, depths and region masks at the
+    tower resolution."""
     import numpy as np
 
     from spatialrgpt_tpu_torch import IMAGE_TOKEN_INDEX
@@ -1025,7 +1138,7 @@ def draw_rows(cfg, rng, n_rows: int):
         ids = (
             [1] + list(rng.integers(10, 1000, 8)) + [IMAGE_TOKEN_INDEX]
             + [cfg.mask_token_id, cfg.depth_token_id] * N_REGIONS
-            + list(rng.integers(10, 1000, PROMPT_TEXT_TOKENS))
+            + list(rng.integers(10, 1000, text_tokens))
         )
         rows.append(np.asarray(ids, np.int64))
     size = cfg.vision.image_size
@@ -1131,11 +1244,17 @@ def tower_layer_counts(cfg, m: int) -> dict:
 
 
 def decoder_layer_counts(cfg, m: int) -> dict:
+    """A decoder layer's K7-K11 launches at ``m`` rows: q/k/v, o, then the
+    MLP's gate and up and its down, or a MoE layer's router with every
+    expert's gate and up (all read one x: one K7) and each expert's down."""
     lc = cfg.llm
     H, I = lc.hidden_size, lc.intermediate_size
     q_out, kv_out = lc.num_attention_heads * lc.head_dim, lc.num_key_value_heads * lc.head_dim
-    return add_counts(quant_group(m, (H, q_out), (H, kv_out), (H, kv_out)), quant_group(m, (q_out, H)),
-                      quant_group(m, (H, I), (H, I)), quant_group(m, (I, H)))
+    attn = add_counts(quant_group(m, (H, q_out), (H, kv_out), (H, kv_out)), quant_group(m, (q_out, H)))
+    if lc.is_moe:
+        E = lc.num_experts
+        return add_counts(attn, quant_group(m, (H, E), *[(H, I)] * (2 * E)), times(E, quant_group(m, (I, H))))
+    return add_counts(attn, quant_group(m, (H, I), (H, I)), quant_group(m, (I, H)))
 
 
 def tower_layers(cfg) -> int:
@@ -1150,9 +1269,12 @@ def quant_phase_counts(cfg, rows: int, bucket: int, decode_rows: int) -> tuple:
     v, lc = cfg.vision, cfg.llm
     tower_rows = 2 * rows * (v.image_size // v.patch_size) ** 2  # [images; depths]
     vocab = lc.vocab_size + cfg.num_extra_tokens
-    lm_head = quant_group(rows, (lc.hidden_size, vocab))  # the last position of every row
-    step = add_counts(times(lc.num_hidden_layers, decoder_layer_counts(cfg, decode_rows)),
-                      quant_group(decode_rows, (lc.hidden_size, vocab)))
+
+    def head(m):  # a tied head is the float embedding table: no quantized kernel
+        return dict(NO_QUANT) if lc.tie_word_embeddings else quant_group(m, (lc.hidden_size, vocab))
+
+    lm_head = head(rows)  # the last position of every row
+    step = add_counts(times(lc.num_hidden_layers, decoder_layer_counts(cfg, decode_rows)), head(decode_rows))
     prefill = add_counts(times(tower_layers(cfg), tower_layer_counts(cfg, tower_rows)),
                          times(lc.num_hidden_layers, decoder_layer_counts(cfg, rows * bucket)), lm_head)
     return prefill, step
@@ -1328,17 +1450,18 @@ def dx_depth_witness(torch, cfg, model, batch, params) -> dict:
     return out
 
 
-def serve_runner(torch, cfg, model, n_rows: int):
-    """``run(max_new, impl="onepass")``: region-QA ``generate`` of ``model``
-    over ``n_rows`` rows of bench.py's batch, drawn from seed 0."""
+def serve_runner(torch, cfg, model, n_rows: int, text_tokens: int = PROMPT_TEXT_TOKENS, bucket: int = PAD_BUCKET):
+    """``run(max_new, impl="onepass", model_cfg=cfg)``: region-QA ``generate``
+    of ``model`` over ``n_rows`` rows of bench.py's batch (``text_tokens``
+    of question, padded to ``bucket``), drawn from seed 0."""
     import numpy as np
 
     from spatialrgpt_tpu_torch.serving.generate import generate
 
-    inputs, plens = build_batch(torch, cfg, np.random.default_rng(0), n_rows)
+    inputs, plens = splice(torch, cfg, *draw_rows(cfg, np.random.default_rng(0), n_rows, text_tokens), bucket)
 
-    def run(max_new, impl="onepass"):
-        out = generate(model, cfg, inputs, plens, max_new_tokens=max_new, temperature=0.0,
+    def run(max_new, impl="onepass", model_cfg=cfg):
+        out = generate(model, model_cfg, inputs, plens, max_new_tokens=max_new, temperature=0.0,
                        eos_token_id=-1, attn_impl=impl, kv_quant=True)  # bench.py's SRGPT_BENCH_KV_INT8=1
         torch.cuda.synchronize()
         return out
@@ -1346,19 +1469,20 @@ def serve_runner(torch, cfg, model, n_rows: int):
     return run
 
 
-def serve_run(torch, cfg, model, n_rows: int):
+def serve_run(torch, cfg, model, n_rows: int, max_new: int = MAX_NEW, **batch):
     """Region-QA ``generate`` over ``n_rows`` rows of bench.py's batch: a
-    warm-up, then the timed run of MAX_NEW greedy tokens with the launch
+    warm-up, then the timed run of ``max_new`` greedy tokens with the launch
     counts read around it, then three TTFT runs.  Returns the timed run's
     result, its counts, the smoke figures and a function ``run(max_new,
-    impl)`` that runs ``generate`` on the same batch."""
-    run = serve_runner(torch, cfg, model, n_rows)
+    impl)`` that runs ``generate`` on the same batch (``serve_runner``'s,
+    ``batch`` its batch arguments)."""
+    run = serve_runner(torch, cfg, model, n_rows, **batch)
     run(2)  # warm-up: cuBLAS handles, allocator, every op of the path once
 
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    res = run(MAX_NEW)
+    res = run(max_new)
     e2e_s = time.perf_counter() - t0
     counts = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1369,7 +1493,8 @@ def serve_run(torch, cfg, model, n_rows: int):
         run(1)
         ttfts.append(time.perf_counter() - t0)
     ttft_s = statistics.median(ttfts)
-    figures = {"ttft_s": ttft_s, "e2e_s": e2e_s, "tok_s": n_rows * MAX_NEW / e2e_s, "peak_mem_gb": peak_gb}
+    figures = {"ttft_s": ttft_s, "e2e_s": e2e_s, "tok_s": n_rows * max_new / e2e_s,
+               "decode_tok_s": n_rows * (max_new - 1) / (e2e_s - ttft_s), "peak_mem_gb": peak_gb}
     return res, counts, figures, run
 
 
@@ -1414,14 +1539,7 @@ def phase_main(torch, nvidia_smi: str) -> dict:
     model = init_random(cfg, torch.device(DEVICE), torch.bfloat16, seed=0)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    L = cfg.llm.num_hidden_layers
-    want = {
-        "vit_attention": cfg.vision.num_hidden_layers + 1 + cfg.vision.select_layer,
-        "onepass_attention": L,
-        "decode_attention_int8_flat": L * (MAX_NEW - 1),
-        "flash_attention_fwd": 0, "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
-        "grid_bias_attention": 0, "fused_layer_norm": 0, **NO_QUANT,
-    }
+    want = serve_counts(cfg, N_ROWS, PAD_BUCKET, MAX_NEW, quantized=False)
     res, counts, figures, run = serve_run(torch, cfg, model, N_ROWS)
     checks, fields = logits_vs(torch, res, run(MAX_NEW, "xla"), cfg.llm.vocab_size + cfg.num_extra_tokens)
     checks["launch_counts"] = counts == want
@@ -1492,15 +1610,7 @@ def phase_serve_w8a8(torch, nvidia_smi: str, profile_dir=None) -> dict:
     model = init_random_quantized(cfg, torch.device(DEVICE), w8a8=True, seed=0)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    L = cfg.llm.num_hidden_layers
-    want = {
-        "vit_attention": cfg.vision.num_hidden_layers + 1 + cfg.vision.select_layer,
-        "onepass_attention": L,
-        "decode_attention_int8_flat": L * (MAX_NEW - 1),
-        "flash_attention_fwd": 0, "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
-        "grid_bias_attention": 0, "fused_layer_norm": 0,
-        **quant_expected_counts(cfg, SERVE_ROWS, PAD_BUCKET, MAX_NEW),
-    }
+    want = serve_counts(cfg, SERVE_ROWS, PAD_BUCKET, MAX_NEW, quantized=True)
     res, counts, figures, run = serve_run(torch, cfg, model, SERVE_ROWS)
     if profile_dir:
         profile_run(torch, lambda: run(1), profile_dir, "serve_w8a8_ttft")
@@ -1774,6 +1884,289 @@ def phase_engine(torch, nvidia_smi: str, profile_dir=None) -> dict:
           "b_bench_engine_config": out_b})
     check(all(checks.values()), f"engine checks failed: {checks}")
     return counts
+
+
+def family_cfg(name: str, **llm):
+    """``preset(name)`` as bench.py serves it (phase main's extra tokens),
+    eos at -1 so that every row runs its full budget, room for the long
+    prompt; ``llm`` overrides decoder fields."""
+    from spatialrgpt_tpu_torch import preset
+
+    cfg = preset(name)
+    return cfg.replace(
+        mask_token_id=cfg.llm.vocab_size, depth_token_id=cfg.llm.vocab_size + 1, num_extra_tokens=8,
+        model_max_length=max(FAMILY_LONG_BUCKET, cfg.model_max_length),
+        llm=dataclasses.replace(cfg.llm, eos_token_id=-1, **llm),
+    )
+
+
+def serve_counts(cfg, rows: int, bucket: int, max_new: int, quantized: bool) -> dict:
+    """The launches of one region-QA ``generate`` with the int8 cache: K1
+    per tower layer, K2 per decoder layer, K3 per decoder layer and decode
+    step, K7-K9 by ``quant_expected_counts`` when the llm and tower are
+    W8A8."""
+    L = cfg.llm.num_hidden_layers
+    return {
+        "vit_attention": tower_layers(cfg), "onepass_attention": L, "decode_attention_int8_flat": L * (max_new - 1),
+        "flash_attention_fwd": 0, "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
+        "grid_bias_attention": 0, "fused_layer_norm": 0,
+        **(quant_expected_counts(cfg, rows, bucket, max_new) if quantized else NO_QUANT),
+    }
+
+
+def layer_updates_vs_plain(torch, cfg, model) -> list:
+    """Per decoder layer, over phase main's 8 rows: the relative L2 distance
+    of the layer's update (output less input) on the kernel route from the
+    plain route's, both from the plain route's input to that layer."""
+    import numpy as np
+
+    from spatialrgpt_tpu_torch.models import llama, vlm
+
+    inputs, _ = build_batch(torch, cfg, np.random.default_rng(0), N_ROWS)
+    rels = []
+    with torch.no_grad():
+        x = vlm.prepare_embeds(model, cfg, inputs, "xla")
+        for layer in model.llm.model.layers:
+            args = (layer, cfg.llm, inputs.position_ids, inputs.segment_ids)
+            plain = llama.decoder_layer(x, *args, "xla")[0]
+            rels.append(rel_l2(llama.decoder_layer(x, *args, "onepass")[0] - x, plain - x))
+            x = plain
+    return rels
+
+
+def moe_blocks_sparse_vs_dense(torch, cfg, model) -> dict:
+    """Per MoE layer, over phase main's 8 rows on the dense route: the
+    sparse block's output against the dense block's, from the layer's MoE
+    input, on the tokens where the dense gate keeps exactly k experts
+    (relative L2), and how many tokens tie at the k-th probability (there
+    the dense gate keeps every tied expert and the sparse block k, as the
+    reference's two blocks do; bf16 router logits tie often)."""
+    import numpy as np
+
+    from spatialrgpt_tpu_torch.models import llama, vlm
+
+    inputs, _ = build_batch(torch, cfg, np.random.default_rng(0), N_ROWS)
+    lc, rels, ties = cfg.llm, [], []
+    with torch.no_grad():
+        x = vlm.prepare_embeds(model, cfg, inputs, "onepass")
+        for layer in model.llm.model.layers:
+            attn, _ = llama.attention_block(llama.norm(x, layer.input_layernorm), layer.self_attn, lc,
+                                            inputs.position_ids, inputs.segment_ids, "onepass")
+            x = x + attn
+            h = llama.norm(x, layer.post_attention_layernorm)
+            moe = layer.block_sparse_moe
+            dense, _ = llama.moe_block(h, moe, lc)
+            sparse, _ = llama.moe_block_sparse(h, moe, lc)
+            untied = (llama.router_gates(h, moe, lc)[1] > 0).sum(dim=-1) == lc.num_experts_per_tok
+            rels.append(rel_l2(sparse[untied], dense[untied]))
+            ties.append(int((~untied).sum()))
+            x = x + dense
+    return {"rel_l2_untied_tokens": rels, "tied_tokens": ties, "tokens": int(inputs.input_ids.numel())}
+
+
+def phase_families(torch, nvidia_smi: str, profile_dir=None) -> dict:
+    """The presets beside Llama's through ``generate`` (bench.py's region QA:
+    8 rows, RGB + depth, 2 regions, the 320 bucket, FAMILY_MAX_NEW greedy
+    tokens, the int8 cache), weights random from seed 0 at full width:
+
+    - mistral-7b, bf16 then W8A8 (llm and tower); bf16 also on one row of
+      FAMILY_LONG_LIVE live positions in the FAMILY_LONG_BUCKET bucket,
+      where its 4096-position window binds (the plain route without the
+      window must lie further from the plain route than the kernel route);
+    - gemma-7b, bf16 then W8A8: K2's D = 256 form, K3 at D 256, the tied
+      f32 head, scaled embeddings, ``1 + w`` norms, GeLU-tanh;
+    - mixtral-8x7b, W8A8 on the dense MoE at its 32 layers (bf16 would
+      not fit the card), then one ``ServingEngine`` run of the same 8 rows
+      through 8 slots (one admission, windows of 8), its tokens equal to
+      ``generate``'s;
+    - the sparse MoE: bf16 at Mixtral's widths on SPARSE_MOE_LAYERS layers,
+      experts stacked, held to the dense block on the same weights.
+
+    Each run is counted (its launches against ``serve_counts``) and held to
+    the plain route.  bf16: every decoder layer's update against the plain
+    route's from the same input (``layer_updates_vs_plain``, at most
+    LAYER_REL_BOUND), and phase main's check (``logits_vs`` over MAX_NEW
+    tokens, K1-K3's plain versions) at FAMILY_LOGITS_DEPTH layers of the
+    full widths (Gemma: 2; its full depth's first-token distance and an
+    f32-decoder witness reported).  W8A8: first-token logits bit-equal to
+    the same run on K7-K9's plain versions.  The sparse MoE: its
+    first-token logits within LOGITS_REL_BOUND of the dense route's, each
+    layer's block within LAYER_REL_BOUND of the dense block's on the
+    tokens without a router tie (``moe_blocks_sparse_vs_dense``); its
+    tokens against the dense route's reported.  Per run TTFT, decode
+    tokens/s and peak memory.  Returns the summed launch counts of the
+    kernel runs."""
+    import numpy as np
+
+    from spatialrgpt_tpu_torch import NUM_TOKENS_PER_IMAGE
+    from spatialrgpt_tpu_torch.models import llama
+    from spatialrgpt_tpu_torch.serving.engine import ServingEngine
+    from spatialrgpt_tpu_torch.utils.weights import init_random, init_random_quantized
+
+    dev = torch.device(DEVICE)
+    t_phase = time.perf_counter()
+    checks, runs, totals = {}, {}, []
+    # draw_rows' prompt: bos, 8 tokens, the image, 2 x (<mask>, <depth>), then the question
+    long_batch = {"text_tokens": FAMILY_LONG_LIVE - (1 + 8 + NUM_TOKENS_PER_IMAGE + 2 * N_REGIONS),
+                  "bucket": FAMILY_LONG_BUCKET}
+
+    def served(label, cfg, model, quantized, n_rows=N_ROWS, max_new=FAMILY_MAX_NEW, **batch):
+        res, counts, figures, run = serve_run(torch, cfg, model, n_rows, max_new, **batch)
+        want = serve_counts(cfg, n_rows, batch.get("bucket", PAD_BUCKET), max_new, quantized)
+        checks[f"{label}_launch_counts"] = counts == want
+        vocab = cfg.llm.vocab_size + cfg.num_extra_tokens
+        checks[f"{label}_tokens_in_vocab"] = bool(((res.tokens >= 0) & (res.tokens < vocab)).all())
+        totals.append(counts)
+        runs[label] = {"rows": n_rows, "max_new_tokens": max_new, "launches": counts,
+                       "launches_expected": want if counts != want else "equal",
+                       "smoke_figures_not_a_benchmark": {**figures, "card": nvidia_smi},
+                       "first_tokens_row0": res.tokens[0, :8].tolist()}
+        return res, run
+
+    def held(label, res, ref, **kw):
+        got, fields = logits_vs(torch, res, ref, **kw)
+        checks.update({f"{label}_{k}": v for k, v in got.items()})
+        runs[label]["vs_plain_route"] = fields
+
+    def w8a8_held(label, res, run):
+        with plain_projections():
+            ref = run(1)
+        checks[f"{label}_first_logits_bit_equal_to_plain_projections"] = torch.equal(res.first_logits,
+                                                                                      ref.first_logits)
+
+    def layers_held(label, cfg, model):
+        rels = layer_updates_vs_plain(torch, cfg, model)
+        checks[f"{label}_layer_updates_vs_plain"] = max(rels) <= LAYER_REL_BOUND
+        runs[label]["layer_updates_rel_l2_vs_plain"] = rels
+
+    def init(cfg, quantized):
+        t0 = time.perf_counter()
+        model = (init_random_quantized(cfg, dev, w8a8=True, seed=0) if quantized
+                 else init_random(cfg, dev, torch.bfloat16, seed=0))
+        torch.cuda.synchronize()
+        return model, time.perf_counter() - t0
+
+    for name in ("mistral-7b", "gemma-7b"):
+        cfg = family_cfg(name)
+        vocab = cfg.llm.vocab_size + cfg.num_extra_tokens
+        model, init_s = init(cfg, False)
+        label = f"{name}_bf16"
+        res, run = served(label, cfg, model, False)
+        runs[label]["init_s"] = init_s
+        layers_held(label, cfg, model)
+        depth = FAMILY_LOGITS_DEPTH.get(name)
+        if depth is None:
+            held(label, run(MAX_NEW), run(MAX_NEW, "xla"), vocab=vocab)
+        else:  # full depth reported; the logits held at `depth` layers of the full widths
+            kernel, plain = run(1), run(1, "xla")
+            runs[label]["full_depth_first_logits_rel_l2_vs_plain"] = rel_l2(kernel.first_logits, plain.first_logits)
+            with torch.no_grad():
+                model.float()  # the decoder in f32 (the tower keeps the bf16 pixels): a witness, not a route
+                f32 = run(1, "xla")
+            runs[label]["full_depth_first_logits_rel_l2_to_f32_decoder"] = {
+                "kernel_route": rel_l2(kernel.first_logits, f32.first_logits),
+                "plain_route": rel_l2(plain.first_logits, f32.first_logits)}
+            del model, run, kernel, plain, f32
+            release(torch)
+            short = family_cfg(name, num_hidden_layers=depth)
+            model, _ = init(short, False)
+            run = serve_runner(torch, short, model, N_ROWS)
+            held(label, run(MAX_NEW), run(MAX_NEW, "xla"), vocab=vocab)
+            runs[label]["vs_plain_route"]["layers"] = depth
+        if cfg.llm.sliding_window:
+            label = f"{name}_bf16_long_prompt"
+            res, run = served(label, cfg, model, False, 1, FAMILY_LONG_MAX_NEW, **long_batch)
+            plain = run(FAMILY_LONG_MAX_NEW, "xla")
+            checks[f"{label}_live_positions"] = serve_runner_lengths(torch, cfg, long_batch) == [FAMILY_LONG_LIVE]
+            held(label, res, plain, vocab=vocab, min_equal_rows=1, max_new=FAMILY_LONG_MAX_NEW)
+            unwindowed = cfg.replace(llm=dataclasses.replace(cfg.llm, sliding_window=None))
+            full = run(1, "xla", model_cfg=unwindowed)
+            kernel_rel, window_rel = rel_l2(res.first_logits, plain.first_logits), rel_l2(full.first_logits,
+                                                                                          plain.first_logits)
+            checks[f"{label}_window_binds"] = window_rel > kernel_rel
+            runs[label]["first_logits_rel_l2_without_the_window_vs_plain"] = window_rel
+            del plain, full
+        del model, run, res
+        release(torch)
+        model, init_s = init(cfg, True)
+        label = f"{name}_w8a8"
+        res, run = served(label, cfg, model, True)
+        runs[label]["init_s"] = init_s
+        w8a8_held(label, res, run)
+        del model, run, res
+        release(torch)
+
+    # mixtral-8x7b: W8A8 at full width (~47 GB), then the engine on the same model
+    cfg = family_cfg("mixtral-8x7b")
+    model, init_s = init(cfg, True)
+    label = "mixtral-8x7b_w8a8"
+    res, run = served(label, cfg, model, True)
+    runs[label]["init_s"] = init_s
+    runs[label]["weights_gb"] = sum(t.numel() * t.element_size() for t in model.llm.state_dict().values()) / 1e9
+    w8a8_held(label, res, run)
+    rows, pixels = draw_rows(cfg, np.random.default_rng(0), N_ROWS)
+    requests = [splice(torch, cfg, [rows[i]], tuple(a[i : i + 1] for a in pixels), PAD_BUCKET, host_index_fields=True)
+                for i in range(N_ROWS)]
+    eng = ServingEngine(model, cfg, num_slots=N_ROWS, prompt_bucket=PAD_BUCKET, max_new_tokens=FAMILY_MAX_NEW,
+                        kv_quant=True, admit_width=N_ROWS, attn_impl="onepass")
+    log = record_engine(eng)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    ids = [eng.submit(x, int(p[0]), max_new_tokens=FAMILY_MAX_NEW) for x, p in requests]
+    done = {r.request_id: r.tokens for r in eng.run_until_drained(num_steps=ENGINE_MULTI)}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    want = engine_counts(cfg, log, N_ROWS, PAD_BUCKET, quantized=True)
+    totals.append(counts)
+    lockstep = res.tokens.tolist()
+    equal = sum(done.get(i) == lockstep[b] for b, i in enumerate(ids))
+    checks["mixtral-8x7b_engine_tokens_equal_lockstep"] = equal == N_ROWS
+    checks["mixtral-8x7b_engine_launch_counts"] = counts == want
+    checks["mixtral-8x7b_engine_one_admission"] = log["admissions"] == [N_ROWS]
+    runs["mixtral-8x7b_w8a8_engine"] = {
+        "slots": N_ROWS, "requests": N_ROWS, "rows_equal_to_lockstep": equal, "admissions": log["admissions"],
+        "windows": log["windows"], "launches": counts, "launches_expected": want if counts != want else "equal",
+        "smoke_figures_not_a_benchmark": {"tok_s": N_ROWS * FAMILY_MAX_NEW / wall, "wall_s": wall,
+                                          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                                          "card": nvidia_smi}}
+    del model, run, res, eng, requests
+    release(torch)
+
+    # the sparse MoE against the dense block on the same weights
+    cfg = family_cfg("mixtral-8x7b", num_hidden_layers=SPARSE_MOE_LAYERS)
+    model, init_s = init(cfg, False)
+    llama.stack_experts(model.llm)
+    sparse_cfg = cfg.replace(llm=dataclasses.replace(cfg.llm, moe_impl="sparse"))
+    dense, _ = served("mixtral-8x7b_bf16_dense", cfg, model, False)
+    label = "mixtral-8x7b_bf16_sparse"
+    sparse, _ = served(label, sparse_cfg, model, False)
+    runs[label]["layers"] = SPARSE_MOE_LAYERS
+    got, fields = logits_vs(torch, sparse, dense, cfg.llm.vocab_size + cfg.num_extra_tokens, max_new=FAMILY_MAX_NEW)
+    checks[f"{label}_first_logits_vs_dense"] = got["first_logits_vs_plain"]
+    runs[label]["vs_dense_route_tokens_reported"] = fields
+    blocks = moe_blocks_sparse_vs_dense(torch, cfg, model)
+    checks[f"{label}_blocks_vs_dense"] = max(blocks["rel_l2_untied_tokens"]) <= LAYER_REL_BOUND
+    runs[label]["blocks_vs_dense"] = blocks
+    del model, dense, sparse
+    release(torch)
+
+    emit({"phase": "families", "ok": all(checks.values()), "seconds": time.perf_counter() - t_phase,
+          "checks": checks, "runs": runs,
+          "model": "mistral-7b, gemma-7b, mixtral-8x7b at full width (the sparse MoE at "
+                   f"{SPARSE_MOE_LAYERS} of 32 layers) + siglip-so400m (26 of 27 layers), random from seed 0"})
+    check(all(checks.values()), f"families checks failed: {[k for k, v in checks.items() if not v]}")
+    return add_counts(*totals)
+
+
+def serve_runner_lengths(torch, cfg, batch: dict) -> list:
+    """The live prompt lengths of ``serve_runner``'s batch."""
+    import numpy as np
+
+    _, plens = splice(torch, cfg, *draw_rows(cfg, np.random.default_rng(0), 1, batch["text_tokens"]),
+                      batch["bucket"])
+    return plens.tolist()
 
 
 def state_fingerprint(torch, module) -> list:
@@ -3454,6 +3847,7 @@ PATHS = {
     "eval": lambda torch, smi, prof: phase_eval(torch, smi),
     "demo": lambda torch, smi, prof: phase_demo(torch, prof),
     "synth": phase_synth,
+    "families": phase_families,
 }
 
 

@@ -1,7 +1,11 @@
 """Llama-family decoder (port of ``spatialrgpt_tpu/models/llama.py``) for
-the plain Llama configs the serving slice runs (``llama3-8b``,
-``sheared-3b``): GQA, rotate-half RoPE with linear scaling, SiLU MLP,
-RMSNorm, untied LM head.
+every preset of ``config.py``: GQA, rotate-half RoPE with linear scaling,
+RMSNorm and a SiLU MLP (Llama, Sheared-LLaMA), Mistral's sliding window,
+Gemma's knobs (GeLU-tanh MLP, ``1 + w`` norms, embeddings scaled by
+sqrt(hidden), an explicit head dim, the head tied to the embedding table)
+and Mixtral's MoE FFN (a router and ``num_experts`` SiLU experts under HF
+Mixtral's names, ``block_sparse_moe.gate`` and ``experts.{e}.w1/w3/w2``);
+q/k/v may carry biases (``attention_bias``).
 
 Parameters live in ``LlamaForCausalLM`` under the HF names that
 ``spatialrgpt_tpu/utils/export.py::export_llama`` writes
@@ -18,8 +22,16 @@ place of the projections and ``lm_head``; the blocks hand each module to
 ``[length, length + S)``: the reference's incremental prefill, which the
 serving engine's prefix path uses.
 
-MoE, the sliding window, the Gemma knobs and MPT are not ported yet: a
-config that asks for them raises ``NotImplementedError``.
+The MoE block runs densely by default, as the reference's ``_moe_block``
+(every expert on every token, gated by the top-k router weights; a tie at
+the k-th probability keeps every tied expert), or, with ``moe_impl =
+"sparse"`` and experts stacked by ``stack_experts``, top-k routed over
+contiguous expert slices (``moe_block_sparse``).  Both return the
+router's load-balancing aux loss; ``forward(..., with_aux=True)`` sums it.
+
+The sliding window binds in every prefill route (``causal_attention``);
+attention against a cache (decode, incremental prefill) ignores it, as the
+reference's ``decode_attention`` does.
 """
 
 from __future__ import annotations
@@ -33,33 +45,40 @@ from torch.utils.checkpoint import checkpoint
 
 from spatialrgpt_tpu_torch.config import LlamaConfig
 from spatialrgpt_tpu_torch.ops.attention import causal_attention, decode_attention
-from spatialrgpt_tpu_torch.ops.layers import linear, qkv_proj, quantized_input, rms_norm, silu
+from spatialrgpt_tpu_torch.ops.layers import (
+    QuantLinear, gelu_tanh, linear, matmul_f32, qkv_proj, quantized_input, rms_norm, silu,
+)
 from spatialrgpt_tpu_torch.ops.quant import quantize_kv
+
+ACTIVATIONS = {"silu": silu, "gelu_tanh": gelu_tanh}
+MOE_IMPLS = ("dense", "sparse")
 
 
 def check_supported(cfg: LlamaConfig) -> None:
-    unported = {
-        "num_experts (MoE)": cfg.is_moe,
-        "sliding_window": cfg.sliding_window is not None,
-        "hidden_act != silu": cfg.hidden_act != "silu",
-        "norm_plus_one": cfg.norm_plus_one,
-        "scale_embeddings": cfg.scale_embeddings,
-        "explicit_head_dim": cfg.explicit_head_dim is not None,
-        "tie_word_embeddings": cfg.tie_word_embeddings,
-        "attention_bias": cfg.attention_bias,
-    }
-    asked = [k for k, v in unported.items() if v]
-    if asked:
-        raise NotImplementedError(f"llama config asks for what the port does not have yet: {asked}")
+    """Raise ``NotImplementedError`` for a knob of ``LlamaConfig`` that the
+    port does not run."""
+    if cfg.hidden_act not in ACTIVATIONS:
+        raise NotImplementedError(f"llama hidden_act {cfg.hidden_act!r} is not ported (of {sorted(ACTIVATIONS)})")
+    if cfg.is_moe and cfg.moe_impl not in MOE_IMPLS:
+        raise NotImplementedError(f"llama moe_impl {cfg.moe_impl!r} is not ported (of {MOE_IMPLS})")
+
+
+class RMSNorm(nn.RMSNorm):
+    """``nn.RMSNorm``'s weight under its HF name; ``plus_one`` (Gemma)
+    scales by ``1 + weight``."""
+
+    def __init__(self, size: int, eps: float, plus_one: bool = False, dtype=None):
+        super().__init__(size, eps=eps, dtype=dtype)
+        self.plus_one = plus_one
 
 
 class LlamaAttention(nn.Module):
     def __init__(self, cfg: LlamaConfig, dtype=None):
         super().__init__()
-        h, d = cfg.hidden_size, cfg.head_dim
-        self.q_proj = nn.Linear(h, cfg.num_attention_heads * d, bias=False, dtype=dtype)
-        self.k_proj = nn.Linear(h, cfg.num_key_value_heads * d, bias=False, dtype=dtype)
-        self.v_proj = nn.Linear(h, cfg.num_key_value_heads * d, bias=False, dtype=dtype)
+        h, d, bias = cfg.hidden_size, cfg.head_dim, cfg.attention_bias
+        self.q_proj = nn.Linear(h, cfg.num_attention_heads * d, bias=bias, dtype=dtype)
+        self.k_proj = nn.Linear(h, cfg.num_key_value_heads * d, bias=bias, dtype=dtype)
+        self.v_proj = nn.Linear(h, cfg.num_key_value_heads * d, bias=bias, dtype=dtype)
         self.o_proj = nn.Linear(cfg.num_attention_heads * d, h, bias=False, dtype=dtype)
 
 
@@ -70,15 +89,43 @@ class LlamaMLP(nn.Module):
         self.gate_proj = nn.Linear(h, i, bias=False, dtype=dtype)
         self.up_proj = nn.Linear(h, i, bias=False, dtype=dtype)
         self.down_proj = nn.Linear(i, h, bias=False, dtype=dtype)
+        self.act = cfg.hidden_act
+
+
+class MixtralExpert(nn.Module):
+    """One SiLU expert under HF Mixtral's names: w1 gate, w3 up, w2 down."""
+
+    def __init__(self, cfg: LlamaConfig, dtype=None):
+        super().__init__()
+        h, i = cfg.hidden_size, cfg.intermediate_size
+        self.w1 = nn.Linear(h, i, bias=False, dtype=dtype)
+        self.w3 = nn.Linear(h, i, bias=False, dtype=dtype)
+        self.w2 = nn.Linear(i, h, bias=False, dtype=dtype)
+
+
+class MixtralSparseMoe(nn.Module):
+    """HF Mixtral's ``block_sparse_moe``: the router ``gate`` (hidden ->
+    num_experts) and the experts.  ``stacked`` holds (w1, w3, w2) of all
+    experts as (E, out, in) tensors once ``stack_experts`` ran (the experts'
+    weights are then views of them), else None."""
+
+    def __init__(self, cfg: LlamaConfig, dtype=None):
+        super().__init__()
+        self.gate = nn.Linear(cfg.hidden_size, cfg.num_experts, bias=False, dtype=dtype)
+        self.experts = nn.ModuleList(MixtralExpert(cfg, dtype) for _ in range(cfg.num_experts))
+        self.stacked: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
 
 
 class LlamaDecoderLayer(nn.Module):
     def __init__(self, cfg: LlamaConfig, dtype=None):
         super().__init__()
         self.self_attn = LlamaAttention(cfg, dtype)
-        self.mlp = LlamaMLP(cfg, dtype)
-        self.input_layernorm = nn.RMSNorm(cfg.hidden_size, eps=cfg.rms_norm_eps, dtype=dtype)
-        self.post_attention_layernorm = nn.RMSNorm(cfg.hidden_size, eps=cfg.rms_norm_eps, dtype=dtype)
+        if cfg.is_moe:
+            self.block_sparse_moe = MixtralSparseMoe(cfg, dtype)
+        else:
+            self.mlp = LlamaMLP(cfg, dtype)
+        self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.norm_plus_one, dtype)
+        self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.norm_plus_one, dtype)
 
 
 class LlamaModel(nn.Module):
@@ -86,15 +133,21 @@ class LlamaModel(nn.Module):
         super().__init__()
         self.embed_tokens = nn.Embedding(cfg.vocab_size + extra_vocab, cfg.hidden_size, dtype=dtype)
         self.layers = nn.ModuleList(LlamaDecoderLayer(cfg, dtype) for _ in range(cfg.num_hidden_layers))
-        self.norm = nn.RMSNorm(cfg.hidden_size, eps=cfg.rms_norm_eps, dtype=dtype)
+        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.norm_plus_one, dtype)
 
 
 class LlamaForCausalLM(nn.Module):
+    """The decoder and its head; ``lm_head`` is None where the head is tied
+    to the embedding table (``tie_word_embeddings``, Gemma).  ``cfg`` is
+    kept for ``embed_tokens`` and ``logits``."""
+
     def __init__(self, cfg: LlamaConfig, extra_vocab: int = 0, dtype=None):
         super().__init__()
         check_supported(cfg)
+        self.cfg = cfg
         self.model = LlamaModel(cfg, extra_vocab, dtype)
-        self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size + extra_vocab, bias=False, dtype=dtype)
+        self.lm_head = None if cfg.tie_word_embeddings else nn.Linear(
+            cfg.hidden_size, cfg.vocab_size + extra_vocab, bias=False, dtype=dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -153,8 +206,13 @@ def apply_rope(
 # ---------------------------------------------------------------------------
 
 
-def norm(x: torch.Tensor, module: nn.RMSNorm) -> torch.Tensor:
-    return rms_norm(x, module.weight, module.eps)
+def norm(x: torch.Tensor, module: RMSNorm) -> torch.Tensor:
+    """RMSNorm; Gemma's ``1 + w`` is formed in f32 and, like any scale, cast
+    to x's dtype by ``rms_norm`` (the reference's ``_norm``)."""
+    w = module.weight
+    if module.plus_one:
+        w = 1.0 + w.float()
+    return rms_norm(x, w, module.eps)
 
 
 def attention_block(
@@ -181,19 +239,131 @@ def attention_block(
         cache.v[layer_idx, :, cache.length : end] = v.to(cache.v.dtype)
         out = decode_attention(q, cache.k[layer_idx], cache.v[layer_idx], end)
     else:
-        out = causal_attention(q, k, v, segment_ids=segment_ids, impl=impl)
+        out = causal_attention(q, k, v, segment_ids=segment_ids, impl=impl, window=cfg.sliding_window)
     return linear(out.reshape(B, S, Hq * D), attn.o_proj), (k, v)
 
 
+def _ffn(x: torch.Tensor, gate: nn.Module, up: nn.Module, down: nn.Module, act: str, xq=None) -> torch.Tensor:
+    """down(act(gate(x)) * up(x)); ``xq``: x's int8 rows where gate and up
+    (and their siblings) take W8A8."""
+    h = ACTIVATIONS[act](linear(x, gate, xq=xq))
+    return linear(h * linear(x, up, xq=xq), down)
+
+
 def mlp_block(x: torch.Tensor, mlp: LlamaMLP) -> torch.Tensor:
-    """SiLU MLP; gate and up share x's int8 rows where they take W8A8."""
-    xq = quantized_input(x, mlp.gate_proj, mlp.up_proj)
-    gate = silu(linear(x, mlp.gate_proj, xq=xq))
-    return linear(gate * linear(x, mlp.up_proj, xq=xq), mlp.down_proj)
+    """The dense MLP (SiLU, or Gemma's GeLU-tanh); gate and up share x's
+    int8 rows where they take W8A8."""
+    return _ffn(x, mlp.gate_proj, mlp.up_proj, mlp.down_proj, mlp.act,
+                quantized_input(x, mlp.gate_proj, mlp.up_proj))
+
+
+def router_gates(x: torch.Tensor, moe: MixtralSparseMoe, cfg: LlamaConfig, xq=None):
+    """(f32 softmax probabilities, f32 gates), each (..., E): the dense
+    block's gate keeps every expert whose probability reaches the k-th
+    largest (so a tie there keeps more than k), renormalised."""
+    probs = torch.softmax(linear(x, moe.gate, xq=xq).float(), dim=-1)
+    kth = torch.topk(probs, cfg.num_experts_per_tok, dim=-1).values[..., -1:]
+    gates = torch.where(probs >= kth, probs, torch.zeros_like(probs))
+    return probs, gates / gates.sum(dim=-1, keepdim=True).clamp(min=1e-9)
+
+
+def moe_block(x: torch.Tensor, moe: MixtralSparseMoe, cfg: LlamaConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's dense ``_moe_block``: every expert on every token,
+    weighted by ``router_gates``, the outputs added in expert order in x's
+    dtype; returns (output, the switch-style aux loss E * sum_e f_e P_e).
+    The router and every expert's gate and up read x's int8 rows once where
+    any of them takes W8A8."""
+    experts = moe.experts
+    xq = quantized_input(x, moe.gate, *(e.w1 for e in experts), *(e.w3 for e in experts))
+    probs, gates = router_gates(x, moe, cfg, xq)
+    out = torch.zeros_like(x)
+    for i, e in enumerate(experts):
+        out = out + _ffn(x, e.w1, e.w3, e.w2, "silu", xq) * gates[..., i : i + 1].to(x.dtype)
+    frac_tokens = (gates > 0).float().mean(dim=(0, 1))
+    aux = cfg.num_experts * (frac_tokens * probs.mean(dim=(0, 1))).sum()
+    return out, aux
+
+
+@torch.no_grad()
+def stack_experts(model: LlamaForCausalLM) -> LlamaForCausalLM:
+    """In place: every MoE layer's expert weights into (E, out, in) tensors
+    (``MixtralSparseMoe.stacked``, one copy), each expert's weight a view of
+    them, so the dense block still runs; the sparse block's form of the
+    reference's ``stack_experts``.  Float experts only (the reference stacks
+    ``kernel`` entries, and ``quantize_llm`` leaves none)."""
+    for layer in model.model.layers:
+        moe = getattr(layer, "block_sparse_moe", None)
+        if moe is None:
+            continue
+        if any(isinstance(m, QuantLinear) for m in moe.experts.modules()):
+            raise NotImplementedError("stack_experts: the sparse MoE takes float experts (a quantized model's "
+                                      "experts run on the dense block)")
+        stacked = []
+        for name in ("w1", "w3", "w2"):
+            w = torch.stack([getattr(e, name).weight for e in moe.experts])
+            for i, e in enumerate(moe.experts):
+                getattr(e, name).weight = nn.Parameter(w[i], requires_grad=False)
+            stacked.append(w)
+        moe.stacked = tuple(stacked)
+    return model
+
+
+def _grouped_f32(xs: torch.Tensor, w: torch.Tensor, sizes: List[int]) -> torch.Tensor:
+    """Rows of xs in contiguous expert groups of ``sizes`` times their
+    expert's (out, in) slice of ``w`` (E, out, in): f32 sums of xs-dtype
+    products, f32 (rows, out) (``lax.ragged_dot`` with f32 output)."""
+    out = xs.new_empty((xs.shape[0], w.shape[1]), dtype=torch.float32)
+    lo = 0
+    for e, n in enumerate(sizes):
+        if n:
+            out[lo : lo + n] = matmul_f32(xs[lo : lo + n], w[e].to(xs.dtype))
+        lo += n
+    return out
+
+
+def moe_block_sparse(x: torch.Tensor, moe: MixtralSparseMoe, cfg: LlamaConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``_moe_block_sparse``: each token copied per top-k
+    choice, the copies sorted stably by expert, every expert's contiguous
+    slice through its (gate, up, down) with f32 sums, the outputs weighted
+    and index-added in f32; the aux loss as the dense block's.  Without
+    stacked experts it is the dense block."""
+    if moe.stacked is None:
+        return moe_block(x, moe, cfg)
+    B, S, H = x.shape
+    E, K = cfg.num_experts, cfg.num_experts_per_tok
+    T = B * S
+    probs = torch.softmax(linear(x, moe.gate).float().reshape(T, E), dim=-1)
+    top_p, top_e = torch.topk(probs, K, dim=-1)
+    gates = top_p / top_p.sum(dim=-1, keepdim=True).clamp(min=1e-9)
+    flat_e = top_e.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    token_idx = order // K
+    xs = x.reshape(T, H)[token_idx]
+    sizes = torch.bincount(flat_e, minlength=E).tolist()
+    w1, w3, w2 = moe.stacked
+    mid = (F.silu(_grouped_f32(xs, w1, sizes)) * _grouped_f32(xs, w3, sizes)).to(x.dtype)
+    outs = _grouped_f32(mid, w2, sizes) * gates.reshape(-1)[order][:, None]
+    combined = torch.zeros((T, H), dtype=torch.float32, device=x.device).index_add_(0, token_idx, outs)
+    sel = F.one_hot(top_e, E).float().sum(dim=1)
+    aux = E * (sel.mean(dim=0) * probs.mean(dim=0)).sum()
+    return combined.to(x.dtype).reshape(B, S, H), aux
+
+
+def ffn_block(x: torch.Tensor, layer: LlamaDecoderLayer, cfg: LlamaConfig) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """A layer's FFN over its normed input: (output, MoE aux loss or None)."""
+    if not cfg.is_moe:
+        return mlp_block(x, layer.mlp), None
+    block = moe_block_sparse if cfg.moe_impl == "sparse" else moe_block
+    return block(x, layer.block_sparse_moe, cfg)
 
 
 def embed_tokens(model: LlamaForCausalLM, input_ids: torch.Tensor) -> torch.Tensor:
-    return F.embedding(input_ids, model.model.embed_tokens.weight)
+    """Embedding rows; Gemma scales them by sqrt(hidden), the scalar rounded
+    to the table's dtype first (the reference's ``embed_tokens``)."""
+    x = F.embedding(input_ids, model.model.embed_tokens.weight)
+    if model.cfg.scale_embeddings:
+        x = x * torch.tensor(model.cfg.hidden_size**0.5, dtype=x.dtype, device=x.device)
+    return x
 
 
 def decoder_layer(
@@ -205,12 +375,14 @@ def decoder_layer(
     attn_impl: str,
     cache: Optional[KVCache] = None,
     layer_idx: int = 0,
-) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """One pre-norm decoder layer; returns (x, this layer's (k, v))."""
+):
+    """One pre-norm decoder layer; returns (x, this layer's (k, v), its MoE
+    aux loss or None)."""
     h = norm(x, layer.input_layernorm)
     attn_out, kv = attention_block(h, layer.self_attn, cfg, position_ids, segment_ids, attn_impl, cache, layer_idx)
     x = x + attn_out
-    return x + mlp_block(norm(x, layer.post_attention_layernorm), layer.mlp), kv
+    out, aux = ffn_block(norm(x, layer.post_attention_layernorm), layer, cfg)
+    return x + out, kv, aux
 
 
 def _layer_hidden(*args) -> torch.Tensor:
@@ -229,8 +401,11 @@ def forward(
     collect_kv: bool = False,
     kv_quant: bool = False,
     remat: bool = False,
+    with_aux: bool = False,
 ):
-    """Run the decoder stack; returns (final-normed hidden states, kv).
+    """Run the decoder stack; returns (final-normed hidden states, kv), and
+    with ``with_aux`` the summed MoE router aux loss (f32, 0 without MoE)
+    as a third value.
 
     With ``cache`` the tokens are written into it in place and attend to
     it (segment ids and ``attn_impl`` are not used); the second value is
@@ -245,27 +420,43 @@ def forward(
     ``torch.utils.checkpoint``: only its input is kept, and the backward
     runs the layer's forward again (the reference's per-layer
     ``jax.checkpoint``, llama.py:362-371).  The attention kernel's forward
-    therefore launches twice per layer in a training step.
+    therefore launches twice per layer in a training step (MoE layers
+    under remat are not ported: their aux loss waits for the training
+    slice, and ``with_aux`` with ``remat`` raises).
     """
+    if remat and with_aux:
+        raise NotImplementedError("forward(remat=True, with_aux=True): the MoE aux loss under remat is not ported")
     x = inputs_embeds
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     if cache is not None:
         for li, layer in enumerate(model.model.layers):
-            x, _ = decoder_layer(x, layer, cfg, position_ids, None, attn_impl, cache, li)
-        return norm(x, model.model.norm), cache._replace(length=cache.length + x.shape[1])
+            x, _, aux = decoder_layer(x, layer, cfg, position_ids, None, attn_impl, cache, li)
+            aux_total = aux_total if aux is None else aux_total + aux
+        out = norm(x, model.model.norm), cache._replace(length=cache.length + x.shape[1])
+        return out + (aux_total,) if with_aux else out
     kv = [] if collect_kv else None
     for layer in model.model.layers:
         args = (layer, cfg, position_ids, segment_ids, attn_impl)
         if remat and not collect_kv:
             x = checkpoint(_layer_hidden, x, *args, use_reentrant=False)
             continue
-        x, (k, v) = decoder_layer(x, *args)
+        x, (k, v), aux = decoder_layer(x, *args)
+        aux_total = aux_total if aux is None else aux_total + aux
         if collect_kv:
             kv.append((quantize_kv(k), quantize_kv(v)) if kv_quant else (k, v))
-    return norm(x, model.model.norm), kv
+    out = norm(x, model.model.norm), kv
+    return out + (aux_total,) if with_aux else out
 
 
 def logits(model: LlamaForCausalLM, hidden: torch.Tensor) -> torch.Tensor:
-    """LM head in the hidden dtype, returned as fp32 (as the reference)."""
+    """LM head in the hidden dtype, returned as fp32 (as the reference).  A
+    tied head is the embedding table (its extra rows included) in the
+    hidden dtype, with f32 sums and an f32 result, never rounded to the
+    hidden dtype (the reference's ``logits``, a product outside any
+    kernel)."""
+    if model.lm_head is None:
+        w = model.model.embed_tokens.weight.to(hidden.dtype)
+        return matmul_f32(hidden.reshape(-1, hidden.shape[-1]), w).reshape(*hidden.shape[:-1], w.shape[0])
     return linear(hidden, model.lm_head).float()
 
 

@@ -31,7 +31,6 @@ from spatialrgpt_tpu_torch.config import SpatialRGPTConfig
 from spatialrgpt_tpu_torch.constants import IGNORE_INDEX
 from spatialrgpt_tpu_torch.data.device_preprocess import device_siglip_normalize
 from spatialrgpt_tpu_torch.models import llama, projector, region_extractor, siglip
-from spatialrgpt_tpu_torch.ops.layers import linear
 
 
 class SpatialRGPT(nn.Module):
@@ -181,23 +180,32 @@ def prepare_embeds(model: SpatialRGPT, cfg: SpatialRGPTConfig, inputs: VLMInputs
 # ---------------------------------------------------------------------------
 
 
-def _hidden(model: SpatialRGPT, cfg: SpatialRGPTConfig, inputs: VLMInputs, attn_impl: str, remat: bool) -> torch.Tensor:
-    if cfg.llm.is_moe:
-        raise NotImplementedError("MoE decoders (and their router aux loss) are not ported yet")
+def _hidden(model: SpatialRGPT, cfg: SpatialRGPTConfig, inputs: VLMInputs, attn_impl: str, remat: bool,
+            with_aux: bool = False):
     # the plain path stays plain; every kernel route runs the tower on K1,
     # as the reference's tower takes its Pallas kernel whatever the decoder uses
     embeds = prepare_embeds(model, cfg, inputs, "xla" if attn_impl == "xla" else "onepass")
-    h, _ = llama.forward(
+    out = llama.forward(
         model.llm, cfg.llm, inputs_embeds=embeds, position_ids=inputs.position_ids,
-        segment_ids=inputs.segment_ids, attn_impl=attn_impl, remat=remat,
+        segment_ids=inputs.segment_ids, attn_impl=attn_impl, remat=remat, with_aux=with_aux,
     )
-    return h
+    return (out[0], out[2]) if with_aux else out[0]
+
+
+def _training_decoder(cfg: SpatialRGPTConfig) -> None:
+    if cfg.llm.is_moe:
+        raise NotImplementedError("training an MoE decoder (its router aux loss in the loss) is not ported yet")
 
 
 def forward(
-    model: SpatialRGPT, cfg: SpatialRGPTConfig, inputs: VLMInputs, attn_impl: str = "xla", remat: bool = False
-) -> torch.Tensor:
-    """Full multimodal forward -> f32 logits (B, S, V)."""
+    model: SpatialRGPT, cfg: SpatialRGPTConfig, inputs: VLMInputs, attn_impl: str = "xla", remat: bool = False,
+    with_aux: bool = False,
+):
+    """Full multimodal forward -> f32 logits (B, S, V), and with
+    ``with_aux`` (logits, the summed MoE router aux loss)."""
+    if with_aux:
+        h, aux = _hidden(model, cfg, inputs, attn_impl, remat, with_aux=True)
+        return llama.logits(model.llm, h), aux
     return llama.logits(model.llm, _hidden(model, cfg, inputs, attn_impl, remat))
 
 
@@ -212,17 +220,17 @@ def _shifted_targets(inputs: VLMInputs) -> Tuple[torch.Tensor, torch.Tensor]:
     return tgt, valid
 
 
-def _token_logp(h: torch.Tensor, tgt: torch.Tensor, valid: torch.Tensor, lm_head: nn.Module) -> torch.Tensor:
+def _token_logp(h: torch.Tensor, tgt: torch.Tensor, valid: torch.Tensor, llm: nn.Module) -> torch.Tensor:
     """(B, S) log p(target) at the valid positions, 0 elsewhere: LM head,
     logsumexp and the target gather (the lse form: no (.., V) log-softmax
     is built)."""
-    lg = linear(h, lm_head).float()
+    lg = llama.logits(llm, h)
     tok = lg.gather(-1, torch.where(valid, tgt, 0)[..., None])[..., 0] - torch.logsumexp(lg, dim=-1)
     return tok * valid
 
 
-def _token_logp_sum(h: torch.Tensor, tgt: torch.Tensor, valid: torch.Tensor, lm_head: nn.Module) -> torch.Tensor:
-    return _token_logp(h, tgt, valid, lm_head).sum()
+def _token_logp_sum(h: torch.Tensor, tgt: torch.Tensor, valid: torch.Tensor, llm: nn.Module) -> torch.Tensor:
+    return _token_logp(h, tgt, valid, llm).sum()
 
 
 def sequence_logprob(
@@ -232,9 +240,10 @@ def sequence_logprob(
     port of ``spatialrgpt_tpu/train/dpo.py::sequence_logprob``, which takes
     a log-softmax of ``forward``'s logits; here the lse form of
     ``loss_fn``, the same function)."""
+    _training_decoder(cfg)
     h = _hidden(model, cfg, inputs, attn_impl, remat)
     tgt, valid = _shifted_targets(inputs)
-    return _token_logp(h, tgt, valid, model.llm.lm_head).sum(dim=-1)
+    return _token_logp(h, tgt, valid, model.llm).sum(dim=-1)
 
 
 def loss_fn(
@@ -257,9 +266,10 @@ def loss_fn(
     backward carries dx (the W8A8 straight-through estimator; under remat
     the recompute runs K7 + K8 again, as ``jax.checkpoint`` recomputes the
     W8A8 forward).  MoE decoders raise ``NotImplementedError``."""
+    _training_decoder(cfg)
     h = _hidden(model, cfg, inputs, attn_impl, remat)
     tgt, valid = _shifted_targets(inputs)
-    w = model.llm.lm_head
+    w = model.llm
     if ce_chunk:
         S = tgt.shape[1]
         if S % ce_chunk:

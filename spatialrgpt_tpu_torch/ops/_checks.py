@@ -14,6 +14,9 @@ GRAD_FLOOR = 2.0**-16
 # the widest head dim of K1 and K5 on the Hopper main loop
 # (csrc/attention_sm90.cuh::NARROW; K2 and K4 run it at WIDE = 128)
 SM90_MAX_HEAD_DIM = 80
+# the widest head dim of K2: its second form (csrc/prefill_attention.cu,
+# Gemma's 256) takes 128 < D <= 256; K4 stops at 128
+K2_MAX_HEAD_DIM = 256
 # query rows of one CTA of the main loop (csrc/attention_sm90.cuh::BM): K2
 # and K4's forward and dQ fold G = Hq / Hk heads x FOLD_ROWS / G positions
 # into them, so G must divide it
@@ -33,19 +36,19 @@ def check_on_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: all tensors must be on one CUDA device, got {t.device}")
 
 
-def check_bshd(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def check_bshd(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, max_head_dim: int = 128) -> None:
     """(B, S, H, D) bf16 tensors read through strides: the head dim must be
-    contiguous, a multiple of 8 and at most 128 (the kernels are built for
-    padded widths 80 and 128); the other strides and the base pointers must
-    keep 16-byte rows aligned."""
+    contiguous, a multiple of 8 and at most ``max_head_dim`` (the kernels
+    are built for padded widths 80 and 128, K2 also 256); the other strides
+    and the base pointers must keep 16-byte rows aligned."""
     check_dtype(name, torch.bfloat16, q, k, v)
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"{name}: expected (B, S, H, D) tensors")
     B, S, _, D = q.shape
     if k.shape != v.shape or k.shape[0] != B or k.shape[1] != S or k.shape[3] != D:
         raise ValueError(f"{name}: q {tuple(q.shape)} / k {tuple(k.shape)} / v {tuple(v.shape)} mismatch")
-    if D % 8 != 0 or D > 128:
-        raise ValueError(f"{name}: head dim {D} must be a multiple of 8 and <= 128")
+    if D % 8 != 0 or D > max_head_dim:
+        raise ValueError(f"{name}: head dim {D} must be a multiple of 8 and <= {max_head_dim}")
     for t in (q, k, v):
         if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]):
             raise ValueError(f"{name}: head dim must be contiguous with 16-byte aligned rows, strides {t.stride()}")

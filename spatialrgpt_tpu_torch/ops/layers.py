@@ -252,6 +252,17 @@ def linear(
     return y.to(x.dtype)
 
 
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (M, K) @ w.T for w (N, K) of x's dtype, f32 (M, N): f32 sums of the
+    products, never rounded to x's dtype (``jnp.dot(...,
+    preferred_element_type=f32)``).  On the card one cuBLAS GEMM with an f32
+    output; on the CPU an f32 product (exact for the products of bf16
+    values)."""
+    if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16):
+        return torch.mm(x, w.t(), out_dtype=torch.float32)
+    return torch.matmul(x.float(), w.float().t())
+
+
 def qkv_proj(x: torch.Tensor, attn, hq: int, hk: int, d: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """q/k/v projections over (B, S, C) from a module holding ``q_proj``,
     ``k_proj`` and ``v_proj`` linears (float or quantized; x is quantized

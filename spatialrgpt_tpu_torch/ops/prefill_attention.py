@@ -19,7 +19,7 @@ import torch
 
 from spatialrgpt_tpu_torch.ops import _build
 from spatialrgpt_tpu_torch.ops._autograd import KernelForwardPlainGrad
-from spatialrgpt_tpu_torch.ops._checks import FOLD_ROWS, check_bshd
+from spatialrgpt_tpu_torch.ops._checks import FOLD_ROWS, K2_MAX_HEAD_DIM, check_bshd
 
 NEG_INF = -1e30
 
@@ -77,7 +77,7 @@ def onepass_attention(
         raise ValueError(f"onepass_attention: segment_ids {tuple(segment_ids.shape)} on {segment_ids.device}")
     if window is not None and window < 1:
         raise ValueError(f"onepass_attention: window {window} < 1")
-    check_bshd("onepass_attention", q, k, v)
+    check_bshd("onepass_attention", q, k, v, K2_MAX_HEAD_DIM)
     seg = segment_ids.to(torch.int32).contiguous()
     return KernelForwardPlainGrad.apply(
         lambda q, k, v: _launch(q, k, v, seg, window), lambda q, k, v: onepass_attention_plain(q, k, v, seg, window),

@@ -167,8 +167,9 @@ def _decode_step(model, cfg: SpatialRGPTConfig, x, lengths, cache: Union[QuantKV
                  attn_impl: str):
     """One new token per row: x (B, 1, H) embeddings at positions
     ``lengths`` (B,); writes each row's K/V at slot ``lengths[b]`` and
-    attends to slots ``<= lengths[b]``.  Returns the final-normed hidden
-    (B, 1, H)."""
+    attends to slots ``<= lengths[b]`` (a sliding window is not applied
+    here, as the reference's cached decode does not apply it).  Returns the
+    final-normed hidden (B, 1, H)."""
     lc = cfg.llm
     rows = torch.arange(x.shape[0], device=x.device)
     pos = lengths.long()
@@ -181,7 +182,7 @@ def _decode_step(model, cfg: SpatialRGPTConfig, x, lengths, cache: Union[QuantKV
             h = h + _per_slot_attention_quant(hn, layer.self_attn, lc, rows, pos, lengths32, cache, li, attn_impl)
         else:
             h = h + _per_slot_attention(hn, layer.self_attn, lc, rows, pos, cache, li)
-        h = h + llama.mlp_block(llama.norm(h, layer.post_attention_layernorm), layer.mlp)
+        h = h + llama.ffn_block(llama.norm(h, layer.post_attention_layernorm), layer, lc)[0]
     return llama.norm(h, model.llm.model.norm)
 
 

@@ -2,7 +2,9 @@
 
 ``load_from_jax`` carries a JAX parameter pytree (numpy arrays) across
 through the HF-named state dicts of ``utils/export.py`` (the port's copy
-of the JAX package's name maps), so the port loads exactly the tensor
+of the JAX package's name maps; the decoder's through
+``export_llama_families``, which adds the Mixtral, Gemma and q/k/v-bias
+names that map does not know), so the port loads exactly the tensor
 names of the reference checkpoint layout; a tree quantized by
 ``quantize_llm`` loads into ``QuantLinear``s.  ``init_random`` makes a
 model directly on the device from a seeded ``torch.Generator``, with the
@@ -61,6 +63,36 @@ def _empty_model(cls, cfg, device, dtype, quant: Optional[QuantLayout] = None):
     return model.to_empty(device=device).requires_grad_(False).eval()
 
 
+# a reference MoE layer's expert keys -> HF Mixtral's names of the same projections
+MOE_PROJECTIONS = {"gate": "w1", "up": "w3", "down": "w2"}
+
+
+def export_llama_families(params) -> dict:
+    """``export.export_llama``'s names (the same, in its order, for a plain
+    Llama tree) and what that copy of the reference's map does not know:
+    q/k/v biases, a MoE layer's router (``block_sparse_moe.gate``) and
+    experts (``block_sparse_moe.experts.{e}.w1/w3/w2``), a tied head (no
+    ``lm_head``)."""
+    sd = {"model.embed_tokens.weight": export._np32(params["embed_tokens"])}
+    for i, lp in enumerate(params["layers"]):
+        p = f"model.layers.{i}."
+        sd[p + "input_layernorm.weight"] = export._np32(lp["input_ln"])
+        sd[p + "post_attention_layernorm.weight"] = export._np32(lp["post_ln"])
+        for key, (group, name) in export.LLAMA_PROJECTIONS.items():
+            if group in lp:  # a MoE layer has no "mlp"
+                export._dense(sd, p + name, lp[group][key], bias="bias" in lp[group][key])
+        moe = p + "block_sparse_moe."
+        if "router" in lp:
+            export._dense(sd, moe + "gate", lp["router"])
+        for e, ep in enumerate(lp.get("experts", ())):
+            for key, name in MOE_PROJECTIONS.items():
+                export._dense(sd, f"{moe}experts.{e}.{name}", ep[key])
+    sd["model.norm.weight"] = export._np32(params["final_ln"])
+    if "lm_head" in params:
+        export._dense(sd, "lm_head", params["lm_head"])
+    return sd
+
+
 def load_from_jax(np_params, cfg: SpatialRGPTConfig, device, dtype=torch.float32) -> SpatialRGPT:
     """JAX ``vlm.init_params``-layout pytree -> ``SpatialRGPT`` on ``device``.
     Entries quantized by ``quantize_llm`` (``kernel_q``) load into
@@ -69,7 +101,7 @@ def load_from_jax(np_params, cfg: SpatialRGPTConfig, device, dtype=torch.float32
     parts = {
         "vision_tower.": export.export_siglip(np_params["vision"]),
         "mm_projector.": export.export_projector(np_params["projector"], cfg.projector.projector_type),
-        "llm.": export.export_llama(np_params["llm"]),
+        "llm.": export_llama_families(np_params["llm"]),
     }
     if cfg.enable_region:
         parts["region_extractor."] = export.export_region_extractor(np_params["region"])
@@ -143,16 +175,24 @@ def init_random_quantized(cfg: SpatialRGPTConfig, device, w8a8: bool, seed: int 
 
 
 def llama_module_name(kernel_path: str) -> str:
-    """A reference adapter key (``layers/3/attn/wq/kernel``, ``lm_head/kernel``)
-    -> the port's module name under the decoder
-    (``model.layers.3.self_attn.q_proj``, ``lm_head``)."""
+    """A reference adapter key (``layers/3/attn/wq/kernel``, ``lm_head/kernel``,
+    ``layers/3/router/kernel``, ``layers/3/experts/2/gate/kernel``) -> the
+    port's module name under the decoder (``model.layers.3.self_attn.q_proj``,
+    ``lm_head``, ``model.layers.3.block_sparse_moe.gate``,
+    ``model.layers.3.block_sparse_moe.experts.2.w1``)."""
     parts = kernel_path.split("/")
     if parts[-1] != "kernel":
         raise ValueError(f"{kernel_path}: not a kernel path")
     if parts[:-1] == ["lm_head"]:
         return "lm_head"
-    if len(parts) == 5 and parts[0] == "layers" and export.LLAMA_PROJECTIONS.get(parts[3], ("",))[0] == parts[2]:
-        return f"model.layers.{int(parts[1])}.{export.LLAMA_PROJECTIONS[parts[3]][1]}"
+    if len(parts) >= 4 and parts[0] == "layers" and parts[1].isdigit():
+        layer = f"model.layers.{int(parts[1])}."
+        if len(parts) == 5 and export.LLAMA_PROJECTIONS.get(parts[3], ("",))[0] == parts[2]:
+            return layer + export.LLAMA_PROJECTIONS[parts[3]][1]
+        if parts[2:] == ["router", "kernel"]:
+            return layer + "block_sparse_moe.gate"
+        if len(parts) == 6 and parts[2] == "experts" and parts[3].isdigit() and parts[4] in MOE_PROJECTIONS:
+            return f"{layer}block_sparse_moe.experts.{int(parts[3])}.{MOE_PROJECTIONS[parts[4]]}"
     raise ValueError(f"{kernel_path}: no llama projection of the port has this path")
 
 

@@ -9,7 +9,10 @@ K1-K3 and K7-K9, and a tiny serving engine: its waves equal to lockstep
 churn, and a row driven past the cache inside a window; and the eval
 runners (SpatialRGPT-Bench, region classification, VQA) on a tiny model;
 and the synth pipeline's models (Swin, RAM, OWL-ViT, CameraNet) in bf16
-against f32 on the CPU, with the SAM segmenter's K5 launches at B1.
+against f32 on the CPU, with the SAM segmenter's K5 launches at B1; and
+the decoder families: K2's D = 256 form, K3 at Gemma's cache, K8 / K9 at
+Mixtral's router (N = 8) and Gemma's widths, tiny Mistral, Gemma and
+Mixtral region-QA batches through the kernels.
 
 Every test here is marked ``gpu`` and skips where there is no CUDA card
 (the kernels are CUDA C++ for sm_90a and have no CPU mode).  The file
@@ -214,6 +217,7 @@ _DECODE_CASES = [
     (2, 4096, 8, 1, 64),  # n_rep 8, D 64
     (3, 2000, 16, 2, 256),  # n_rep 8, D 256: 250 positions a CTA, more than one slab of 240
     (2, 300, 6, 2, 12),  # n_rep 3, D 12
+    (8, 384, 16, 16, 256),  # Gemma-7B's serve cache (320 + 64): n_rep 1, D 256
 ]
 
 
@@ -1502,3 +1506,158 @@ def test_sam_segmenter_launches_k5_once_per_image_and_global_layer(cuda):
     fast, _ = tsam.predict_boxes(model, scfg, x, b)
     plain, _ = tsam.predict_boxes(model, scfg, x, b, attn_impl="xla")
     assert float((fast - plain).norm() / plain.norm()) < 0.05
+
+
+# ---------------------------------------------------------------------------
+# the decoder families: Mistral's window, Gemma's head dim 256, Mixtral's MoE
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("S", [1, 70, 320, 1000])
+@pytest.mark.parametrize("D", [192, 256])
+@pytest.mark.parametrize("G", [1, 4])
+def test_onepass_d256_kernel_matches_plain(cuda, G, D, S):
+    """K2's D = 256 form (64-key tiles, P V in two 128-column halves) against
+    its plain version: G 1 (Gemma-7B's MHA) and 4, D 256 and 192 (TMA's zero
+    fill pads it to 256), S from one token to 1000.  Rows: one segment,
+    right padding, two packed segments, all padding.  Once with no window
+    on q/k/v as strided views of one fused projection, once with a window
+    of 37 and once of 300 (S 1000: the window binds across many tiles) on
+    contiguous tensors."""
+    rng = np.random.default_rng(G * 10000 + D * 10 + S + 7)
+    Hk = 2
+    Hq = G * Hk
+    q, k, v = _rand(rng, 4, S, Hq + 2 * Hk, D, device=cuda).split([Hq, Hk, Hk], dim=2)
+    seg = torch.ones(4, S, dtype=torch.int32, device=cuda)
+    seg[1, S // 2 + 1 :] = 0
+    seg[2, S // 3 :] = 2
+    seg[3] = 0
+    dense = (q.contiguous(), k.contiguous(), v.contiguous())
+    for (qq, kk, vv), window in (((q, k, v), None), (dense, 37), (dense, 300)):
+        before = K2.launches
+        out = K2.onepass_attention(qq, kk, vv, seg, window=window)
+        torch.cuda.synchronize()
+        assert K2.launches == before + 1
+        assert torch.all(out[seg == 0] == 0)
+        _bf16_close(out, K2.onepass_attention_plain(qq, kk, vv, seg, window=window))
+
+
+def test_onepass_d256_bound_separates_a_skipped_key_tile(cuda):
+    """At Gemma-7B's prefill heads (Hq = Hk = 16, D 256, S 320) a K2 whose
+    queries lose the keys of their own 64-key tile fails the bound that the
+    D = 256 form meets."""
+    rng = np.random.default_rng(12)
+    B, S, H, D = 2, 320, 16, 256
+    q, k, v = (_rand(rng, B, S, H, D, device=cuda) for _ in range(3))
+    seg = torch.ones(B, S, dtype=torch.int32, device=cuda)
+    seg[1, 290:] = 0
+    ref = K2.onepass_attention_plain(q, k, v, seg)
+    tile = torch.arange(S, device=cuda) // 64
+    fault = _masked_attention(q, k, v, _causal_segment_live(seg) & (tile[:, None] != tile[None, :]))
+    assert bf16_err_over_bound(K2.onepass_attention(q, k, v, seg), ref) <= 1.0
+    assert bf16_err_over_bound(fault, ref) > 1.0
+
+
+# (M, N, K): Mixtral's router (4096 -> 8) at the prefill's 2560 rows and at
+# decode rows; Gemma-7B's gate / up (3072 -> 24,576) and down (24,576 ->
+# 3072) at the prefill's and the decode's rows
+_FAMILY_PROJECTIONS = [(2560, 8, 4096), (8, 8, 4096), (64, 8, 4096), (2560, 24576, 3072), (2560, 3072, 24576),
+                       (8, 24576, 3072), (8, 3072, 24576)]
+
+
+@pytest.mark.parametrize("M,N,K", _FAMILY_PROJECTIONS)
+def test_family_projections(cuda, M, N, K):
+    """K8 bit-equal and K9 within the bf16 bound of their plain versions at
+    the families' shapes: N = 8 is one ragged channel tile of either form."""
+    rng = np.random.default_rng(M + N + K)
+    xq, ascale, q, scale, b = _w8a8_case(rng, M, N, K, None, cuda)
+    out = _launched("w8a8_gemm", K789.w8a8_gemm, xq, ascale, q, scale)
+    assert out.shape == (M, N) and torch.equal(out, K789.w8a8_gemm_plain(xq, ascale, q, scale))
+    x = _rand(rng, M, K, device=cuda)
+    out = _launched("w8_gemm", K789.w8_gemm, x, q, scale)
+    _bf16_close(out, K789.w8_gemm_plain(x, q, scale))
+
+
+def _family_cfg(family: str, experts_per_tok: int = 2):
+    """Tiny composite configs of the three families; Gemma at its head dim
+    256 (K2's second form, K3 at D 256)."""
+    knobs = {
+        "mistral": dict(sliding_window=6),
+        "gemma": dict(hidden_act="gelu_tanh", norm_plus_one=True, scale_embeddings=True, explicit_head_dim=256,
+                      tie_word_embeddings=True, num_key_value_heads=4),
+        "mixtral": dict(num_experts=4, num_experts_per_tok=experts_per_tok),
+    }[family]
+    base = dict(vocab_size=64, hidden_size=64, intermediate_size=128, num_hidden_layers=2, num_attention_heads=4,
+                num_key_value_heads=2, eos_token_id=-1)
+    return dataclasses.replace(_tiny_quant_cfg(), llm=LlamaConfig(**{**base, **knobs}))
+
+
+def _family_batch(cuda):
+    sb = expand_rows(
+        [np.array([5, IMAGE_TOKEN_INDEX, 60, 61, 8, 9, 10, 11], np.int64), np.array([IMAGE_TOKEN_INDEX, 7], np.int64)],
+        None, max_len=64, tokens_per_image=4, mask_token_id=60, depth_token_id=61, regions_per_image=2, pad_to=16,
+    )
+    rng = np.random.default_rng(5)
+    inputs = VLMInputs.from_spliced(
+        sb, rng.standard_normal((2, 56, 56, 3)), rng.standard_normal((2, 56, 56, 3)),
+        (rng.random((2, 2, 56, 56)) > 0.5).astype(np.float32), np.ones((2, 2), bool),
+        device=cuda, dtype=torch.bfloat16,
+    )
+    return inputs, torch.as_tensor(sb.segment_ids.sum(axis=1), device=cuda)
+
+
+@pytest.mark.parametrize("family", ["mistral", "gemma", "mixtral"])
+def test_tiny_family_generate_runs_the_kernels(cuda, family):
+    """A tiny region-QA batch of each family on the card, bf16 weights, the
+    int8 cache: K2 once per decoder layer (Gemma's on the D = 256 form),
+    K3 once per layer and decode step, and first-token logits within the
+    serve checks' bound of the plain route's; Mixtral's sparse route over
+    stacked experts within the same bound of its dense route.  Mixtral's
+    tokens here take all 4 experts: a tiny random router's top 2 of 4 sit
+    near ties that a bf16 rounding of the attention flips (top-2 read 0.065
+    on the H100), so its logits would hold the router's discontinuity, not
+    the kernels'; the full-width runs keep top 2 of 8 (chip_smoke.py)."""
+    from spatialrgpt_tpu_torch.models import llama
+
+    cfg = _family_cfg(family, experts_per_tok=4)
+    inputs, plens = _family_batch(cuda)
+    model = init_random(cfg, cuda, torch.bfloat16, seed=1)
+    K2.launches = K3.launches = 0
+    fast = generate(model, cfg, inputs, plens, max_new_tokens=5, attn_impl="onepass", kv_quant=True)
+    assert (K2.launches, K3.launches) == (2, 2 * 4)
+    plain = generate(model, cfg, inputs, plens, max_new_tokens=5, attn_impl="xla", kv_quant=True)
+    assert (K2.launches, K3.launches) == (2, 2 * 4)
+    assert ((fast.tokens >= 0) & (fast.tokens < 66)).all()
+    rel = (fast.first_logits - plain.first_logits).norm() / plain.first_logits.norm()
+    assert float(rel) < 0.05
+    if family == "mixtral":
+        llama.stack_experts(model.llm)
+        sparse_cfg = cfg.replace(llm=dataclasses.replace(cfg.llm, moe_impl="sparse"))
+        sparse = generate(model, sparse_cfg, inputs, plens, max_new_tokens=5, attn_impl="onepass", kv_quant=True)
+        rel = (sparse.first_logits - fast.first_logits).norm() / fast.first_logits.norm()
+        assert float(rel) < 0.05
+
+
+def test_tiny_mixtral_w8a8_generate_runs_k7_to_k9(cuda, monkeypatch):
+    """A tiny W8A8 Mixtral batch on the card: the router and every expert
+    quantized; per MoE layer one K7 over x for the router and the experts'
+    gate and up, and the tokens equal those of K7-K9's plain versions."""
+    from spatialrgpt_tpu_torch.ops import layers
+
+    cfg = _family_cfg("mixtral")
+    inputs, plens = _family_batch(cuda)
+    model = init_random_quantized(cfg, cuda, w8a8=True, seed=2)
+    for name in K789.launches:
+        K789.launches[name] = 0
+    fast = generate(model, cfg, inputs, plens, max_new_tokens=3, attn_impl="onepass", kv_quant=True)
+    # a decoder layer at 32 prefill rows and 2 decode rows: qkv (one K7, q on
+    # K8, k / v contract: K9), o (K8); the MoE: one K7 for the router (it
+    # contracts: K9) and the 4 experts' gate and up (K8 each), each down K9
+    per_layer = {"act_quant_int8": 3, "w8a8_gemm": 1 + 1 + 8, "w8_gemm": 2 + 1 + 4}
+    tower = {"act_quant_int8": 3, "w8a8_gemm": 5, "w8_gemm": 1}
+    want = {n: 2 * tower[n] + 3 * (2 * per_layer[n] + (n != "w8_gemm")) for n in per_layer}
+    want.update(act_quant_dy_int8=0, int8_dx_gemm=0)
+    assert K789.launches == want
+    monkeypatch.setattr(layers, "QUANT_KERNELS", False)
+    plain = generate(model, cfg, inputs, plens, max_new_tokens=3, attn_impl="onepass", kv_quant=True)
+    assert torch.equal(fast.tokens, plain.tokens)

@@ -516,7 +516,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         (6, 4, 64, "dividing 128"),  # Hq / Hk not an integer
         (12, 4, 64, "dividing 128"),  # G = 3
         (256, 1, 64, "dividing 128"),  # G = 256: more heads than the CTA's 128 rows
-        (4, 2, 256, "<= 128"),
+        (4, 2, 264, "<= 256"),  # past K2's second form (D <= 256)
+        (16, 16, 256, "CUDA"),  # gemma-7b: K2's D = 256 form
         (4, 2, 12, "multiple of 8"),
         (4, 2, 128, "CUDA"),
         (32, 8, 128, "CUDA"),  # llama3-8b
@@ -525,10 +526,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
 )
 def test_onepass_wrapper_follows_the_fold_rule(hq, hk, D, match):
     """K2 folds G = Hq / Hk query heads x 128 / G positions into one CTA's
-    128 rows on the Hopper main loop (head dim <= 128, a multiple of 8): a
-    G that does not divide 128 raises before any pointer reaches C, and a
-    call that the kernel takes fails on meta tensors only for not being on
-    a CUDA card."""
+    128 rows (head dim a multiple of 8, <= 128 on the Hopper main loop and
+    <= 256 on its second form): a G that does not divide 128 raises before
+    any pointer reaches C, and a call that the kernel takes fails on meta
+    tensors only for not being on a CUDA card."""
     with pytest.raises(ValueError, match=match):
         K2.onepass_attention(_meta(1, 8, hq, D), _meta(1, 8, hk, D), _meta(1, 8, hk, D))
 
