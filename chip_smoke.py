@@ -125,7 +125,9 @@ Phases, each printed as one JSON line:
    the same figures.
    recipe -- the training entry point, ``train/train.py::main``, from argv
    as ``python -m spatialrgpt_tpu_torch.train.train`` takes it, at the
-   same widths: a composite directory of ``init_random`` weights (seed 0)
+   same widths and RECIPE_LAYERS = 8 of llama3-8b's 32 layers (each run
+   writes or reads a composite of the whole model): a composite directory
+   of ``init_random`` weights (seed 0)
    written first is the base model, a character tokenizer of Llama-3's
    size (``CharTokenizer``; ``<mask>`` / ``<depth>`` added past it grow
    the vocabulary by 2) stands in for the tokenizer files, and the
@@ -212,8 +214,27 @@ Phases, each printed as one JSON line:
    (B8 S320 Hq16 Hk16) and windowed (B1 S4608, window 4096), K3 at D 256
    n_rep 1 (B8 C384 Hq16), K8 and K9 at Mixtral's router (N 8) and Gemma's
    gate and down.
+10. families_train -- the families' training at full width on phase
+   train's batch (``phase_families_train``): gemma-7b's and mistral-7b's
+   bf16 align steps (K4's D = 256 forms and the tied head's backward; K4 at
+   D 128 with Mistral's window), each held to the plain route on one row
+   (Gemma at FAMILY_TRAIN_CHECK_DEPTH layers, its full depth reported),
+   then one QLoRA step each on the decoder quantized to int8; mixtral-8x7b
+   over a frozen W8A8 base at its 32 layers, QUANT=1 then =2, the router
+   aux loss in the loss and the metrics, held bit-equal to K7-K11's plain
+   versions on one row; one Mixtral QLoRA step (LoRA on every expert) at
+   MIXTRAL_QLORA_LAYERS layers; ``train.main`` from argv on
+   ``--llm_preset gemma-7b`` and on ``mistral-7b --lora_enable --bits
+   8``, one micro step each.  Launch counts per step from the config.
+   The kernel phase adds K4's three D = 256 forms at Gemma's B4 S4096
+   Hq16 Hk16 and K10 / K11 at Mixtral's router (N 8).
+11. synth_train -- ``synth/train_calibration.py``'s two trainers on the
+   card (``phase_synth_train``): CameraNet at its widths on warps of the
+   synth path's photos, the metric Depth-Anything ViT-L on an RGBD
+   manifest of them, without and with ``freeze_backbone`` (whose
+   backbone must only decay); loss histories and seconds a step.
 
-The times of phases 5-9 are smoke figures of this card, not a
+The times of phases 5-11 are smoke figures of this card, not a
 benchmark.  Then the ``kernels`` line (one row per kernel at its first
 shape, its later shapes under ``other_shapes``) and, last, ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero before that line; so does a machine
@@ -599,6 +620,58 @@ def sdpa_library(torch, backend: str, q, k, v, mask=None, is_causal=False):
 
 
 
+class Backward:
+    """A library backward's figure: forward + backward minus forward, timed
+    once and shared by the rows that name it (K4's dK/dV and dQ)."""
+
+    def __init__(self, torch, fwd, fwd_bwd):
+        self.torch, self.fwd, self.fwd_bwd, self.value = torch, fwd, fwd_bwd, None
+
+    def ms(self, timer, iters: int) -> float:
+        if self.value is None:
+            self.value = timer(self.torch, self.fwd_bwd, iters) - timer(self.torch, self.fwd, iters)
+        return self.value
+
+
+def sdpa_yardsticks(torch, q, k, v, do, n: int, L: int, mask) -> dict:
+    """K4's library yardsticks at one shape, as its D = 128 rows take them:
+    SDPA's efficient backend with the (B, 1, S, S) causal x segment mask
+    (``fwd``, and ``bwd`` one figure for dK/dV + dQ), and its flash backend
+    with ``is_causal`` over the per-sample view of the rows' ``n`` samples
+    of ``L`` positions (``per_sample_fwd`` / ``per_sample_bwd``).  A backend
+    that refuses the shape gives None and its error as the label."""
+    B = q.shape[0]
+    out = {}
+    for key, backend, ins, kw, dout in (
+            ("", "EFFICIENT_ATTENTION", (q, k, v, do), {"mask": mask}, do),
+            ("per_sample_", "FLASH_ATTENTION",
+             tuple(t[:, : n * L].reshape(B * n, L, *t.shape[2:]) for t in (q, k, v, do)), {"is_causal": True}, None)):
+        view = "(B, 1, S, S) causal x segment mask" if not key else f"the per-sample view ({B * n}, Hq, {L}, D), is_causal"
+        label = f"F.scaled_dot_product_attention, k/v expanded to Hq, {view}, SDPBackend.{backend}"
+        (qt, kt, vt), call = sdpa_library(torch, backend, *ins[:3], **kw)
+        grad_in = tuple(t.detach().clone().requires_grad_() for t in (qt, kt, vt))
+        do_t = ins[3].transpose(1, 2).contiguous()
+
+        def fwd(call=call, qt=qt, kt=kt, vt=vt):
+            with torch.no_grad():
+                return call(qt, kt, vt)
+
+        def fwd_bwd(call=call, grad_in=grad_in, do_t=do_t):
+            return torch.autograd.grad(call(*grad_in), grad_in, do_t)
+
+        try:
+            fwd_bwd()
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            refused = f"{label}; refused at this shape: {e}"[:300]
+            out[key + "fwd"] = out[key + "bwd"] = (refused, None)
+            continue
+        out[key + "fwd"] = (label, fwd)
+        out[key + "bwd"] = (f"the backward of {label}: forward + backward minus forward, one figure for dK/dV + dQ",
+                            Backward(torch, fwd, fwd_bwd))
+    return out
+
+
 def int_mm_library(torch, xq, q):
     """K8's yardstick: ``torch._int_mm``'s int32 product alone (no scales,
     bias or bf16 cast), where it takes the shape (M > 16, K and N multiples
@@ -669,6 +742,8 @@ def phase_kernels(torch):
 
     # extra figures timed beside a case's kernel, by the case's index
     side_timings = {}
+    # a case's per-sample library figure (K4's), by the case's index
+    per_sample_case = {}
     # each case: name, source, replaces, shape, kernel, plain, iterations
     # timed (kernel, plain) and the timer of TIMERS (a graph where one call
     # is shorter than its launch on the host: K1-K3, K6), the work of
@@ -772,8 +847,8 @@ def phase_kernels(torch):
     cases.append((
         "decode_attention_int8_flat", "spatialrgpt_tpu_torch/csrc/decode_attention.cu",
         "spatialrgpt_tpu/ops/decode_attention.py:174", {"B": B, "C": C, "Hq": Hq, "Hk": Hk, "D": D},
-        lambda: K3.decode_attention_int8_flat(q3, kq, ks, vq, vs, lengths, Hk),
-        lambda: K3.decode_attention_int8_flat_plain(q3, kq, ks, vq, vs, lengths, Hk), (200, 20, "graph"),
+        lambda Hk=Hk: K3.decode_attention_int8_flat(q3, kq, ks, vq, vs, lengths, Hk),
+        lambda Hk=Hk: K3.decode_attention_int8_flat_plain(q3, kq, ks, vq, vs, lengths, Hk), (200, 20, "graph"),
         bound(4 * Hq * D * live3, nbytes(q3, lengths, q3) + live3 * Hk * (2 * D + 2 * 4)),
         ("no single call dequantises an int8 cache", None),
     ))
@@ -808,60 +883,52 @@ def phase_kernels(torch):
               "padded_tail": int((seg4 == 0).sum(dim=1).min())}
     src4, fa = "spatialrgpt_tpu_torch/csrc/flash_attention_sm90.cu", "spatialrgpt_tpu/ops/flash_attention.py"
     pairs4 = live_pairs(torch, seg4)
-    lib4_in, lib4_call = sdpa_library(torch, "EFFICIENT_ATTENTION", q4, k4, v4, causal_segment_mask(seg4))
-    lib4_in = tuple(t.requires_grad_() for t in lib4_in)
-    do4_t = do4.transpose(1, 2).contiguous()
-
-    def lib4_fwd():
-        with torch.no_grad():
-            return lib4_call(*lib4_in)
-
-    def lib4_fwd_bwd():
-        return torch.autograd.grad(lib4_call(*lib4_in), lib4_in, do4_t)
-
-    lib4_name = ("the backward of F.scaled_dot_product_attention (k/v expanded to Hq, (B, 1, S, S) causal x segment "
-                 "mask, SDPBackend.EFFICIENT_ATTENTION): forward + backward minus forward, one figure for dK/dV + dQ")
-    # the yardstick that computes only K4's live pairs: the samples of each
-    # row as rows of their own, causal, SDPA's flash backend
-    ps_in = tuple(t[:, : TRAIN_SAMPLES_PER_ROW * L4].reshape(B * TRAIN_SAMPLES_PER_ROW, L4, *t.shape[2:])
-                  for t in (q4, k4, v4, do4))
-    (psq, psk, psv), ps_call = sdpa_library(torch, "FLASH_ATTENTION", *ps_in[:3], is_causal=True)
-    ps_grad_in = tuple(t.detach().clone().requires_grad_() for t in (psq, psk, psv))
-    ps_do = ps_in[3].transpose(1, 2).contiguous()
-
-    def ps_fwd():
-        with torch.no_grad():
-            return ps_call(psq, psk, psv)
-
-    def ps_fwd_bwd():
-        return torch.autograd.grad(ps_call(*ps_grad_in), ps_grad_in, ps_do)
-
-    ps_name = (f"F.scaled_dot_product_attention over the per-sample view ({B * TRAIN_SAMPLES_PER_ROW}, Hq, {L4}, D), "
-               "k/v expanded to Hq, is_causal, SDPBackend.FLASH_ATTENTION")
-    per_sample = {
-        "flash_attention_fwd": (ps_name, ps_fwd),
-        "flash_attention_bwd_dkv": (f"the backward of {ps_name}: forward + backward minus forward, one figure for "
-                                    "dK/dV + dQ", "backward"),
-    }
-    per_sample["flash_attention_bwd_dq"] = per_sample["flash_attention_bwd_dkv"]
+    lib4 = sdpa_yardsticks(torch, q4, k4, v4, do4, TRAIN_SAMPLES_PER_ROW, L4, causal_segment_mask(seg4))
     cases += [
         ("flash_attention_fwd", src4, f"{fa}:226", shape4,
          lambda: K4.flash_attention_fwd(q4, k4, v4, seg4),
          lambda: per_row(torch, K4.flash_attention_fwd_plain, q4, k4, v4, seg4), (10, 1, "events"),
-         bound(4 * D * Hq * pairs4, live_bytes(seg4, q4, k4, v4) + nbytes(seg4, q4, lse4)),
-         ("F.scaled_dot_product_attention, k/v expanded to Hq, (B, 1, S, S) causal x segment mask, "
-          "SDPBackend.EFFICIENT_ATTENTION", lib4_fwd)),
+         bound(4 * D * Hq * pairs4, live_bytes(seg4, q4, k4, v4) + nbytes(seg4, q4, lse4)), lib4["fwd"]),
         ("flash_attention_bwd_dkv", src4, f"{fa}:716", shape4,
          lambda: K4.flash_attention_bwd_dkv(*bwd),
          lambda: per_row(torch, K4.flash_attention_bwd_dkv_plain, *bwd), (10, 1, "events"),
-         bound(8 * D * Hq * pairs4, live_bytes(seg4, *bwd_per_position) + nbytes(seg4, k4, v4)),
-         (lib4_name, "backward")),
+         bound(8 * D * Hq * pairs4, live_bytes(seg4, *bwd_per_position) + nbytes(seg4, k4, v4)), lib4["bwd"]),
         ("flash_attention_bwd_dq", src4, f"{fa}:776", shape4,
          lambda: K4.flash_attention_bwd_dq(*bwd),
          lambda: per_row(torch, K4.flash_attention_bwd_dq_plain, *bwd), (10, 1, "events"),
-         bound(6 * D * Hq * pairs4, live_bytes(seg4, *bwd_per_position) + nbytes(seg4, q4)),
-         (lib4_name, "backward")),
+         bound(6 * D * Hq * pairs4, live_bytes(seg4, *bwd_per_position) + nbytes(seg4, q4)), lib4["bwd"]),
     ]
+    for i_case in range(len(cases) - 3, len(cases)):
+        per_sample_case[i_case] = lib4["per_sample_fwd" if cases[i_case][0] == "flash_attention_fwd"
+                                       else "per_sample_bwd"]
+    # K4's D = 256 forms at Gemma-7B's align step (B4 S4096 Hq16 Hk16 D256,
+    # the same packing); SDPA's yardsticks as at D 128 where they take D 256
+    Hqg, Hkg, Dg = 16, 16, 256
+    q4g, k4g, v4g, do4g = rn(B, S, Hqg, Dg), rn(B, S, Hkg, Dg), rn(B, S, Hkg, Dg), rn(B, S, Hqg, Dg)
+    out4g, lse4g = K4.flash_attention_fwd(q4g, k4g, v4g, seg4)
+    bwdg = (q4g, k4g, v4g, seg4, lse4g, K4.attention_delta(out4g, do4g), do4g)
+    shape4g = {**shape4, "Hq": Hqg, "Hk": Hkg, "D": Dg, "path": "families_train: gemma-7b, the D = 256 forms"}
+    lib4g = sdpa_yardsticks(torch, q4g, k4g, v4g, do4g, TRAIN_SAMPLES_PER_ROW, L4, causal_segment_mask(seg4))
+    cases += [
+        ("flash_attention_fwd", src4, f"{fa}:226", shape4g,
+         lambda: K4.flash_attention_fwd(q4g, k4g, v4g, seg4),
+         lambda: per_row(torch, K4.flash_attention_fwd_plain, q4g, k4g, v4g, seg4), (10, 1, "events"),
+         bound(4 * Dg * Hqg * pairs4, live_bytes(seg4, q4g, k4g, v4g) + nbytes(seg4, q4g, lse4g)),
+         lib4g["fwd"]),
+        ("flash_attention_bwd_dkv", src4, f"{fa}:716", shape4g,
+         lambda: K4.flash_attention_bwd_dkv(*bwdg),
+         lambda: per_row(torch, K4.flash_attention_bwd_dkv_plain, *bwdg), (10, 1, "events"),
+         bound(8 * Dg * Hqg * pairs4, live_bytes(seg4, *bwdg[:3], *bwdg[4:]) + nbytes(seg4, k4g, v4g)),
+         lib4g["bwd"]),
+        ("flash_attention_bwd_dq", src4, f"{fa}:776", shape4g,
+         lambda: K4.flash_attention_bwd_dq(*bwdg),
+         lambda: per_row(torch, K4.flash_attention_bwd_dq_plain, *bwdg), (10, 1, "events"),
+         bound(6 * Dg * Hqg * pairs4, live_bytes(seg4, *bwdg[:3], *bwdg[4:]) + nbytes(seg4, q4g)),
+         lib4g["bwd"]),
+    ]
+    for i_case in range(len(cases) - 3, len(cases)):
+        per_sample_case[i_case] = lib4g["per_sample_fwd" if cases[i_case][0] == "flash_attention_fwd"
+                                        else "per_sample_bwd"]
     # K5: SAM vit_h's global layers, a chunk of 4 images: q/k/v as views into
     # the fused qkv projection, f32 rel-pos bias terms of the 64 x 64 grid
     B, gh, gw, H, D = DEMO_SAM_CHUNK, 64, 64, 16, 80
@@ -1002,7 +1069,22 @@ def phase_kernels(torch):
         bound(8 * m_train * Id, nbytes(dy10, s10) + m_train * Id + 4 * m_train, PEAK_F32_FLOPS),
         ("no single call quantizes rows to int8 with a scale per row", None),
     ))
-    for label, N, K in (("gate / up dx", Id, Hd), ("down dx", Hd, Id)):
+    # K10 at Mixtral's router (N = 8): its output gradient over the same rows
+    mix = preset("mixtral-8x7b").llm
+    dy10r = (torch.randn(m_train, mix.num_experts, generator=g, device=dev) * 1e-3).to(torch.bfloat16)
+    s10r = scales(mix.num_experts, mix.hidden_size)
+    cases.append((
+        "act_quant_dy_int8", "spatialrgpt_tpu_torch/csrc/act_quant.cu", "spatialrgpt_tpu/ops/layers.py:70 (XLA)",
+        {"M": m_train, "N": mix.num_experts, "path": "families_train: mixtral-8x7b's router"},
+        lambda: K789.act_quant_dy_int8(dy10r, s10r), lambda: K789.act_quant_dy_int8_plain(dy10r, s10r),
+        (50, 5, "graph"),
+        bound(8 * m_train * mix.num_experts, nbytes(dy10r, s10r) + m_train * mix.num_experts + 4 * m_train,
+              PEAK_F32_FLOPS),
+        ("no single call quantizes rows to int8 with a scale per row", None),
+    ))
+    for label, N, K in (("gate / up dx", Id, Hd), ("down dx", Hd, Id),
+                        ("families_train: mixtral-8x7b router dx (contracts over its 8 rows)", mix.num_experts,
+                         mix.hidden_size)):
         dyq11, q11 = i8(m_train, N), i8(N, K)
         gs11 = torch.rand(m_train, generator=g, device=dev) * 1e-4 + 1e-6
         # K11 is two launches: its row times both; its first alone beside them
@@ -1017,7 +1099,6 @@ def phase_kernels(torch):
         ))
 
     rows, shapes = [], []
-    library_bwd_ms = ps_bwd_ms = None
     for i_case, (name, source, replaces, shape, kernel, plain, (iters, plain_iters, how), work,
                  (library, lib_fn)) in enumerate(cases):
         out = kernel()
@@ -1038,20 +1119,16 @@ def phase_kernels(torch):
         library_each_ms = None
         plain_ms = timer(torch, plain, plain_iters)
         ms = timer(torch, kernel, iters)
-        if lib_fn == "backward":  # K4's dK/dV and dQ share one figure
-            if library_bwd_ms is None:
-                library_bwd_ms = timer(torch, lib4_fwd_bwd, iters) - timer(torch, lib4_fwd, iters)
-            library_ms = library_bwd_ms
+        if isinstance(lib_fn, Backward):  # K4's dK/dV and dQ share one figure
+            library_ms = lib_fn.ms(timer, iters)
         elif isinstance(lib_fn, dict):  # one call in several layouts: the fastest is the yardstick
             library_each_ms = {layout: timer(torch, fn, iters) for layout, fn in lib_fn.items()}
             library_ms = min(library_each_ms.values())
         else:
             library_ms = timer(torch, lib_fn, iters) if lib_fn is not None else None
-        ps_label, ps_fn = per_sample.get(name, (None, None))
-        if ps_fn == "backward":
-            if ps_bwd_ms is None:
-                ps_bwd_ms = timer(torch, ps_fwd_bwd, iters) - timer(torch, ps_fwd, iters)
-            ps_ms = ps_bwd_ms
+        ps_label, ps_fn = per_sample_case.get(i_case, (None, None))
+        if isinstance(ps_fn, Backward):
+            ps_ms = ps_fn.ms(timer, iters)
         else:
             ps_ms = timer(torch, ps_fn, iters) if ps_fn is not None else None
         row = {
@@ -1074,8 +1151,7 @@ def phase_kernels(torch):
         check(ok, f"{name}: error {ratio} x the per-element bound (max abs err {err}, bit-equal {bit_equal})")
         rows.append(row)
         shapes.append(shape)
-    del bias5, bias5s, lib_in, lib2_in, libe_in, libg_in, libl_in, maskl, lib4_in, lib5_in, lib5s_in, ps_in
-    del ps_grad_in, cases
+    del bias5, bias5s, lib_in, lib2_in, libe_in, libg_in, libl_in, maskl, lib4, lib5_in, lib5s_in, lib4g, cases
     torch.cuda.empty_cache()
     # one row per kernel in the kernels line, at its first shape (K2 the
     # serve's prefill, K5 the demo's B4 chunk, K6 SAM's rows); a kernel's
@@ -1086,7 +1162,8 @@ def phase_kernels(torch):
             first[row["name"]] = dict(row, other_shapes=[])
         else:
             first[row["name"]]["other_shapes"].append({"shape": shape, **{k: row[k] for k in (
-                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err", "share_of_bound")}})
+                "route", "source", "replaces", "ms", "plain_ms", "library_ms", "library", "library_per_sample_ms",
+                "bound_ms", "bound_by", "max_abs_err", "err_over_bound", "share_of_bound")}})
     return list(first.values())
 
 
@@ -1284,8 +1361,12 @@ def recomputed_layer_counts(cfg, m: int) -> dict:
     """A decoder layer's K7-K9 launches in remat's recompute: PyTorch's
     non-reentrant checkpoint stops once the backward's saved tensors are
     made again (its early stop), and the layer's tail, the down projection
-    (whose backward keeps no tensor) and the residual add, is not run."""
+    (whose backward keeps no tensor) and the residual add, is not run.  A
+    MoE layer runs whole: each expert's output is saved for its gate's
+    gradient, and the aux loss at the layer's end saves its token shares."""
     lc = cfg.llm
+    if lc.is_moe:
+        return decoder_layer_counts(cfg, m)
     down = quant_group(m, (lc.intermediate_size, lc.hidden_size))
     return {k: v - down[k] for k, v in decoder_layer_counts(cfg, m).items()}
 
@@ -1314,10 +1395,15 @@ def qlora_quant_counts(cfg, rows: int) -> dict:
     """K7-K11 launches of one QLoRA step (int8 weight-only decoder and
     lm_head, bf16 tower): K9 for every decoder projection in the forward
     and all but the down projection in remat's recompute
-    (``recomputed_layer_counts``), the lm_head twice per CE chunk; the
-    weight-only dx is a plain product."""
+    (``recomputed_layer_counts``), the lm_head twice per CE chunk (a tied
+    head is the float table: none); in a MoE layer the experts take the
+    merged form (a bf16 product), so K9 runs q/k/v/o and the router, in the
+    forward and in the whole layer's recompute.  The weight-only dx is a
+    plain product."""
+    lc = cfg.llm
     chunks = TRAIN_SEQ // CE_CHUNK
-    return {**NO_QUANT, "w8_gemm": cfg.llm.num_hidden_layers * (7 + 6) + 2 * chunks}
+    per_layer = 5 + 5 if lc.is_moe else 7 + 6
+    return {**NO_QUANT, "w8_gemm": lc.num_hidden_layers * per_layer + (0 if lc.tie_word_embeddings else 2 * chunks)}
 
 
 @contextlib.contextmanager
@@ -2160,6 +2246,383 @@ def phase_families(torch, nvidia_smi: str, profile_dir=None) -> dict:
     return add_counts(*totals)
 
 
+# families_train: the depth of the full widths at which the one-row
+# kernel-vs-plain check is held where the full depth amplifies bf16
+# roundings past TRAIN_GRAD_REL_BOUND (the full depth's distance reported)
+FAMILY_TRAIN_CHECK_DEPTH = {"gemma-7b": 2}
+# Mixtral's QLoRA step: its experts take the merged form (a bf16 (out, in)
+# tensor per expert projection, 2.8 GB a layer), so it runs at this depth
+MIXTRAL_QLORA_LAYERS = 4
+# train.main's family runs: 1_mm_align.sh's flags with these cuts, one
+# micro step; --total_time_limit stops the run after it with a checkpoint
+# of the trained tensors, so that no composite of the full model is written
+# (phase recipe writes and reloads one)
+FAMILY_MAIN_CUTS = ["--data_mixture", "dummy", "--per_device_train_batch_size", "8", "--max_steps", "2",
+                    "--gradient_checkpointing", "true", "--total_time_limit", "1", "--pre_terminate_time", "1"]
+
+
+def family_train_cfg(name: str, **llm):
+    """``family_cfg`` with room for the align step's TRAIN_SEQ positions."""
+    cfg = family_cfg(name, **llm)
+    return cfg.replace(model_max_length=max(TRAIN_SEQ, cfg.model_max_length))
+
+
+def phase_families_train(torch, nvidia_smi: str, profile_dir=None) -> dict:
+    """The decoder families' training at full width, on phase train's batch
+    (4 packed rows of 4096 tokens, 4 samples a row, RGB + depth, 2 regions),
+    remat, CE chunks of 1024, attn_impl pallas, weights random from seed 0:
+
+    - gemma-7b bf16: the align step (frozen decoder and tower, tuned
+      projector and region extractor, lr 1e-3) on K4's D = 256 forms and the
+      tied head's backward (``ops/layers.py::MatmulF32``): the kernel route
+      against the plain route on one row (loss within TRAIN_LOSS_REL_BOUND,
+      tuned gradients within TRAIN_GRAD_REL_BOUND), held at
+      FAMILY_TRAIN_CHECK_DEPTH layers of the full widths and reported at the
+      full depth; 3 steps; then the decoder quantized to int8 weight-only
+      and one QLoRA step (r 64, alpha 16, bf16 adapters; K9);
+    - mistral-7b bf16: the same on K4 at D 128 with its 4096 window (held at
+      the full depth), and one QLoRA step;
+    - mixtral-8x7b over a frozen W8A8 base at its 32 layers
+      (``init_random_quantized``, ~47 GB), bench_train.py's
+      SRGPT_TRAIN_BENCH_QUANT=1 then =2 as phase align_w8a8: per setting the
+      quantized route against its plain versions on one row (loss and
+      router aux loss bit-equal, gradients as ``RUN_TO_RUN_FACTOR`` says),
+      3 ``make_frozen_base_train_step`` steps with the aux in the loss and
+      the logged metrics; then one QLoRA step at MIXTRAL_QLORA_LAYERS layers
+      of the full widths, LoRA on every expert (merged) and the attention
+      projections (side branch);
+    - ``train.main`` from argv (``--llm_preset gemma-7b``, and
+      ``--llm_preset mistral-7b --lora_enable true --bits 8``) on the
+      ``dummy`` mixture, one micro step each (FAMILY_MAIN_CUTS).
+
+    Every run's launches are held to the counts worked out from the config;
+    the frozen base stays bit-unchanged.  Per run the step seconds,
+    tokens/s, peak memory, loss and router aux loss.  Returns the summed
+    launch counts."""
+    import numpy as np
+    from torch import nn
+
+    from spatialrgpt_tpu_torch.config import LLAMA_PRESETS
+    from spatialrgpt_tpu_torch.ops import layers
+    from spatialrgpt_tpu_torch.train.lora import LoraConfig, init_lora
+    from spatialrgpt_tpu_torch.train.optimizer import OptimizerConfig, build_optimizer
+    from spatialrgpt_tpu_torch.train.step import (create_train_state, make_frozen_base_train_step,
+                                                  make_lora_train_step, make_train_step)
+    from spatialrgpt_tpu_torch.utils.weights import init_random, init_random_quantized
+
+    dev = torch.device(DEVICE)
+    t_phase = time.perf_counter()
+    checks, runs, totals = {}, {}, []
+    align_ocfg = OptimizerConfig(learning_rate=1e-3, tune_language_model=False, tune_vision_tower=False,
+                                 tune_mm_projector=True, tune_region_extractor=True, total_steps=100)
+
+    def batches(cfg):
+        rng = np.random.default_rng(0)
+        return train_batch(torch, cfg, rng, TRAIN_ROWS), train_batch(torch, cfg, rng, 1)
+
+    def tuned_of(model):
+        return [p for m in (model.mm_projector, model.region_extractor) for p in m.parameters()]
+
+    def stepped(label, cfg, model, step_fn, state, batch, trainable, want, n_steps=TRAIN_STEPS):
+        """``n_steps`` steps with their launches against ``want``; the base
+        (decoder and tower) bit-unchanged; the figures."""
+        base_before = {n: state_fingerprint(torch, getattr(model, n)) for n in ("llm", "vision_tower")}
+        before = state_fingerprint(torch, trainable)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        _, record = run_steps(torch, step_fn, state, batch, lambda: state_fingerprint(torch, trainable) != before,
+                              want, n_steps)
+        counts = read_counts()
+        totals.append(counts)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        checks[f"{label}_launch_counts_every_step"] = all(r["launches_as_expected"] for r in record)
+        checks[f"{label}_losses_finite"] = all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                                               for r in record)
+        checks[f"{label}_base_bit_unchanged"] = all(state_fingerprint(torch, getattr(model, n)) == f
+                                                    for n, f in base_before.items())
+        if cfg.llm.is_moe:
+            checks[f"{label}_router_aux_loss_in_the_metrics"] = all(r.get("router_aux_loss", 0.0) > 0 for r in record)
+        if n_steps > 1:  # the warmup's first update has lr 0
+            checks[f"{label}_trained_moved_after"] = record[-1]["tuned_moved"]
+        step_s = statistics.median(r["seconds"] for r in record[1:]) if n_steps > 1 else record[0]["seconds"]
+        runs[label] = {"layers": cfg.llm.num_hidden_layers, "steps": record, "launches": counts,
+                       "launches_expected_per_step": want,
+                       "smoke_figures_not_a_benchmark": {
+                           "step_s": step_s, "step_s_is": "median of steps 2-3" if n_steps > 1
+                           else "the one step, its first calls' set-up included",
+                           "tokens_per_s": TRAIN_ROWS * TRAIN_SEQ / step_s, "peak_mem_gb": peak, "card": nvidia_smi}}
+
+    def vs_plain(cfg, model, one_row) -> dict:
+        """The align loss and tuned gradients on one row, kernel route
+        (K1, K4) against the plain route."""
+        params = tuned_of(model)
+        loss_k, g_k = loss_and_grads(torch, cfg, model, one_row, params, "pallas")
+        loss_p, g_p = loss_and_grads(torch, cfg, model, one_row, params, "xla")
+        return {"loss_rel": abs(float(loss_k) - float(loss_p)) / abs(float(loss_p)), "grad_rel_l2": rel_l2(g_k, g_p),
+                "loss_bound": TRAIN_LOSS_REL_BOUND, "grad_bound": TRAIN_GRAD_REL_BOUND}
+
+    def held_vs_plain(label, result):
+        checks[f"{label}_loss_vs_plain_one_row"] = result["loss_rel"] <= TRAIN_LOSS_REL_BOUND
+        checks[f"{label}_grads_vs_plain_one_row"] = result["grad_rel_l2"] <= TRAIN_GRAD_REL_BOUND
+
+    def qlora(label, cfg, model, batch):
+        """One QLoRA step over ``model``'s int8 weight-only decoder: bf16
+        adapters r 64 / alpha 16 on the reference's seven targets, projector
+        and region extractor co-trained at lr 2e-5 (bench_train.py's qlora
+        stage)."""
+        lcfg = LoraConfig(r=64, alpha=16.0)
+        model.adapters = init_lora(model.llm, lcfg, torch.Generator(device=dev).manual_seed(1), dtype=torch.bfloat16)
+        names = [n for n, _ in model.adapters.items()]
+        lc = cfg.llm
+        if lc.is_moe:
+            checks[f"{label}_every_expert_adapted_router_not"] = (
+                sum(".experts." in n for n in names) == lc.num_hidden_layers * lc.num_experts * 3
+                and not any(n.endswith("block_sparse_moe.gate") for n in names))
+        trainable = nn.ModuleDict({"adapters": model.adapters, "mm_projector": model.mm_projector,
+                                   "region_extractor": model.region_extractor})
+        optimizer = build_optimizer(trainable, OptimizerConfig(learning_rate=2e-5, total_steps=100))
+        step_fn = make_lora_train_step(cfg, optimizer, lcfg, attn_impl="pallas", remat=True, ce_chunk=CE_CHUNK)
+        want = {**attention_train_counts(cfg), **qlora_quant_counts(cfg, TRAIN_ROWS)}
+        stepped(label, cfg, model, step_fn, create_train_state(model, optimizer), batch, trainable, want, n_steps=1)
+        runs[label]["lora"] = {"r": lcfg.r, "alpha": lcfg.alpha, "adapters": len(names),
+                               "adapter_parameters": sum(p.numel() for p in model.adapters.parameters())}
+        del model.adapters
+
+    # ---- gemma-7b and mistral-7b: bf16 align, then QLoRA ----
+    for name in ("gemma-7b", "mistral-7b"):
+        cfg = family_train_cfg(name)
+        batch, one_row = batches(cfg)
+        t0 = time.perf_counter()
+        model = init_random(cfg, dev, torch.bfloat16, seed=0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        optimizer = build_optimizer(model, align_ocfg)
+        full = vs_plain(cfg, model, one_row)
+        depth = FAMILY_TRAIN_CHECK_DEPTH.get(name)
+        label = f"{name}_bf16_align"
+        step_fn = make_train_step(cfg, optimizer, attn_impl="pallas", remat=True, frozen=("llm", "vision"),
+                                  ce_chunk=CE_CHUNK)
+        trainable = nn.ModuleDict({"mm_projector": model.mm_projector, "region_extractor": model.region_extractor})
+        stepped(label, cfg, model, step_fn, create_train_state(model, optimizer), batch, trainable,
+                {**attention_train_counts(cfg), **NO_QUANT})
+        runs[label]["init_s"] = init_s
+        runs[label]["vs_plain_one_row_full_depth"] = full
+        if depth is None:
+            held_vs_plain(label, full)
+        layers.quantize_model(model, bits=8)  # train.main's --bits 8 (train/train.py:108-109)
+        torch.cuda.empty_cache()
+        qlora(f"{name}_qlora", cfg, model, batch)
+        del model, optimizer, step_fn, trainable
+        release(torch)
+        if depth is not None:
+            short = family_train_cfg(name, num_hidden_layers=depth)
+            model = init_random(short, dev, torch.bfloat16, seed=0)
+            build_optimizer(model, align_ocfg)
+            runs[label]["vs_plain_one_row"] = {**vs_plain(short, model, batches(short)[1]), "layers": depth}
+            held_vs_plain(label, runs[label]["vs_plain_one_row"])
+            del model
+            release(torch)
+        del batch, one_row
+
+    # ---- mixtral-8x7b over a frozen W8A8 base, 32 layers ----
+    cfg = family_train_cfg("mixtral-8x7b")
+    batch, one_row = batches(cfg)
+    t0 = time.perf_counter()
+    model = init_random_quantized(cfg, dev, w8a8=True, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    build_optimizer(model, align_ocfg)
+    tuned = tuned_of(model)
+    tuned_init = {n: {k: v.detach().clone() for k, v in getattr(model, n).state_dict().items()}
+                  for n in ("mm_projector", "region_extractor")}
+    for quant in (1, 2):
+        label = f"mixtral-8x7b_w8a8_quant{quant}"
+        for n, state in tuned_init.items():  # each setting from the same start
+            getattr(model, n).load_state_dict(state)
+        layers.enable_int8_backward(quant == 2)
+        try:
+            m_k, m_p = {}, {}
+            loss_k, g_k = loss_and_grads(torch, cfg, model, one_row, tuned, metrics=m_k)
+            _, g_k2 = loss_and_grads(torch, cfg, model, one_row, tuned)
+            with plain_projections():
+                loss_p, g_p = loss_and_grads(torch, cfg, model, one_row, tuned, metrics=m_p)
+            run_to_run, vs = rel_l2(g_k2, g_k), rel_l2(g_k, g_p)
+            del g_k, g_k2, g_p
+            optimizer = build_optimizer(model, align_ocfg)
+            step_fn = make_frozen_base_train_step(cfg, optimizer, attn_impl="pallas", remat=True, ce_chunk=CE_CHUNK)
+            trainable = nn.ModuleDict({"mm_projector": model.mm_projector, "region_extractor": model.region_extractor})
+            want = {**attention_train_counts(cfg), **align_quant_counts(cfg, TRAIN_ROWS, quant == 2)}
+            stepped(label, cfg, model, step_fn, create_train_state(model, optimizer), batch, trainable, want)
+        finally:
+            layers.enable_int8_backward(False)
+        checks[f"{label}_loss_bit_equal_to_plain_route"] = torch.equal(loss_k, loss_p)
+        checks[f"{label}_router_aux_bit_equal_to_plain_route"] = m_k["router_aux_loss"] == m_p["router_aux_loss"] > 0
+        checks[f"{label}_grads_vs_plain_route"] = vs <= RUN_TO_RUN_FACTOR * run_to_run
+        checks[f"{label}_int8_backward_kernels"] = all(
+            (r["launches"]["int8_dx_gemm"] > 0) == (quant == 2) for r in runs[label]["steps"])
+        runs[label].update(init_s=init_s, vs_plain_route_one_row={
+            "loss_kernel": float(loss_k), "loss_plain": float(loss_p), "router_aux_kernel": m_k["router_aux_loss"],
+            "router_aux_plain": m_p["router_aux_loss"], "grad_rel_l2": vs, "grad_rel_l2_kernel_route_run_to_run": run_to_run})
+        runs[label]["weights_gb"] = sum(t.numel() * t.element_size() for t in model.llm.state_dict().values()) / 1e9
+    del model, optimizer, step_fn, trainable, tuned
+    release(torch)
+    cfg = family_train_cfg("mixtral-8x7b", num_hidden_layers=MIXTRAL_QLORA_LAYERS)
+    model = init_random_quantized(cfg, dev, w8a8=False, seed=0, vision_quant=False)
+    qlora("mixtral-8x7b_qlora", cfg, model, batch)
+    del model, batch, one_row
+    release(torch)
+
+    # ---- train.main from argv ----
+    align = list(ALIGN_FLAGS)
+    for preset_name, label, extra, quant in (
+            ("gemma-7b", "main_gemma-7b_align", [], False),
+            ("mistral-7b", "main_mistral-7b_qlora", ["--lora_enable", "true", "--bits", "8"], True)):
+        argv = align[:]
+        argv[argv.index("--llm_preset") + 1] = preset_name
+        cfg = family_cfg(preset_name)
+        L = cfg.llm.num_hidden_layers
+        want = {**attention_train_counts(cfg), **NO_QUANT}
+        if quant:  # remat recomputes all but down; the lm_head once (no CE chunks)
+            want["w8_gemm"] = L * (7 + 6) + 1
+        counted = {}
+        with tempfile.TemporaryDirectory(prefix="famtrain_", dir=os.path.join(ROOT, "build")) as out:
+            result, run, peak = recipe_main(torch, argv + FAMILY_MAIN_CUTS + ["--output_dir", out] + extra, counted,
+                                            CharTokenizer(LLAMA_PRESETS[preset_name].vocab_size))
+            saved = sorted(os.listdir(out))
+        totals.append(counted)
+        steps_ = run["steps"]
+        checks[f"{label}_one_micro_step"] = result == {"status": "timeout", "step": 1} and len(steps_) == 1
+        checks[f"{label}_launch_counts"] = bool(steps_) and steps_[0]["launches"] == want
+        checks[f"{label}_loss_finite"] = bool(steps_) and math.isfinite(steps_[0]["metrics"]["loss"])
+        checks[f"{label}_checkpoint_only"] = saved == ["checkpoint-1", "metrics.jsonl"]
+        runs[label] = {"argv_extra": extra, "result": result, "steps": steps_, "launches_expected": want,
+                       "saved": saved, "smoke_figures_not_a_benchmark": {
+                           "step_s": steps_[0]["seconds"] if steps_ else None, "peak_mem_gb": peak,
+                           "card": nvidia_smi}}
+        del run
+        release(torch)
+
+    emit({"phase": "families_train", "ok": all(checks.values()), "seconds": time.perf_counter() - t_phase,
+          "checks": checks, "runs": runs,
+          "batch": {"rows": TRAIN_ROWS, "seq": TRAIN_SEQ, "samples_per_row": TRAIN_SAMPLES_PER_ROW,
+                    "regions": N_REGIONS, "rgb_and_depth": True},
+          "model": "gemma-7b, mistral-7b (bf16, then int8 weight-only for QLoRA), mixtral-8x7b (W8A8 base at 32 "
+                   f"layers; QLoRA at {MIXTRAL_QLORA_LAYERS} of 32 layers) at full width + siglip-so400m (26 of 27 "
+                   "layers), random from seed 0"})
+    check(all(checks.values()), f"families_train checks failed: {[k for k, v in checks.items() if not v]}")
+    return add_counts(*totals)
+
+
+# synth_train: steps of each trainer, CameraNet's batch, the metric
+# Depth-Anything's batch and the learning rates (larger than the CLI's, so
+# that the frozen backbone's decay shows in f32)
+SYNTH_TRAIN_STEPS = 4
+SYNTH_CAMERA_BATCH = 32
+SYNTH_DEPTH_BATCH = 2
+SYNTH_DEPTH_LR, SYNTH_DEPTH_WD = 1e-3, 0.05
+
+
+def phase_synth_train(torch, nvidia_smi: str, profile_dir=None) -> dict:
+    """``synth/train_calibration.py`` on the card: SYNTH_TRAIN_STEPS steps of
+    ``train_camera_net`` at ``CameraNetConfig``'s widths on virtual-camera
+    warps of the synth path's photos (``synth_photo``, 480 x 640 and 768 x
+    1024), then of ``train_metric_depth`` at ViT-L widths (the metric head,
+    max depth 20 m) on an RGBD manifest of the same photos with synthetic
+    depths (a tilted plane, a hole of zeros) written as .npy to a temporary
+    directory, without and with ``freeze_backbone``; each from random f32
+    weights, in the default LayerNorm (no kernel of the port runs: the
+    reference runs this module in XLA).  Checks finite losses, that the
+    trained weights move, and that under ``freeze_backbone`` the backbone
+    equals its start times prod(1 - lr_t weight_decay) (the reference's
+    decay of a stopped parameter) while the head learns.  Reports the loss
+    histories, seconds a step and peak memory."""
+    import numpy as np
+    from PIL import Image
+
+    from spatialrgpt_tpu_torch.demo.pipeline import synth_photo
+    from spatialrgpt_tpu_torch.models.depth_anything import DepthAnythingConfig
+    from spatialrgpt_tpu_torch.synth import train_calibration as tc
+    from spatialrgpt_tpu_torch.synth.calibration import CameraNetConfig
+    from spatialrgpt_tpu_torch.utils.weights import init_random_camera_net, init_random_depth_anything
+
+    dev = torch.device(DEVICE)
+    t_phase = time.perf_counter()
+    checks, runs = {}, {}
+    rng = np.random.default_rng(0)
+    photos = [synth_photo(rng, h, w) for h, w in SYNTH_HW[:4]]
+    reset_counts()
+
+    def timed(fn):
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 1e9
+
+    ccfg = CameraNetConfig()
+    cam = init_random_camera_net(ccfg, dev, torch.float32, seed=0)
+    start = cam.head.weight.detach().clone()
+    (_, hist), seconds, peak = timed(lambda: tc.train_camera_net(
+        photos, ccfg, steps=SYNTH_TRAIN_STEPS, batch_size=SYNTH_CAMERA_BATCH, lr=3e-4, warmup=1, log_every=1,
+        model=cam))
+    checks["camera_losses_finite"] = len(hist) == SYNTH_TRAIN_STEPS and all(map(math.isfinite, hist))
+    checks["camera_moved"] = not torch.equal(cam.head.weight, start)
+    runs["camera_net"] = {"config": dataclasses.asdict(ccfg), "batch": SYNTH_CAMERA_BATCH, "losses": hist,
+                          "smoke_figures_not_a_benchmark": {"s_per_step": seconds / SYNTH_TRAIN_STEPS,
+                                                            "peak_mem_gb": peak, "card": nvidia_smi}}
+    del cam
+    release(torch)
+
+    dcfg = DepthAnythingConfig(metric=True, max_depth=20.0)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="synth_train_", dir=os.path.join(ROOT, "build")) as work:
+        lines = []
+        for i, img in enumerate(photos):
+            h, w = img.shape[:2]
+            depth = (2.0 + 8.0 * np.linspace(0, 1, h)[:, None] + 0.5 * np.linspace(0, 1, w)[None]).astype(np.float32)
+            depth[: h // 8, : w // 8] = 0.0
+            Image.fromarray(img).save(os.path.join(work, f"p{i}.png"))
+            np.save(os.path.join(work, f"d{i}.npy"), depth)
+            lines.append(json.dumps({"image": os.path.join(work, f"p{i}.png"), "depth": os.path.join(work, f"d{i}.npy"),
+                                     "fx": 0.8 * w}))
+        manifest = os.path.join(work, "manifest.jsonl")
+        with open(manifest, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        lrs = [0.0] + [SYNTH_DEPTH_LR * 0.5 * (1 + math.cos(math.pi * t / (SYNTH_TRAIN_STEPS - 1)))
+                       for t in range(SYNTH_TRAIN_STEPS - 1)]  # warmup 1, then the cosine
+        shrink = math.prod(1 - lr * SYNTH_DEPTH_WD for lr in lrs)
+        for freeze in (False, True):
+            label = "metric_depth_freeze_backbone" if freeze else "metric_depth"
+            model = init_random_depth_anything(dcfg, dev, torch.float32, seed=2)
+            w_bb = model.backbone.encoder.layer[0].mlp.fc1.weight
+            bb0, head0 = w_bb.detach().clone(), model.head.conv3.weight.detach().clone()
+            (_, hist), seconds, peak = timed(lambda: tc.train_metric_depth(
+                manifest, dcfg, model=model, steps=SYNTH_TRAIN_STEPS, batch_size=SYNTH_DEPTH_BATCH,
+                lr=SYNTH_DEPTH_LR, weight_decay=SYNTH_DEPTH_WD, warmup=1, log_every=1, freeze_backbone=freeze))
+            decayed = (bb0.double() * shrink).float()
+            decay_err = float(((w_bb.detach() - decayed).abs() / decayed.abs().clamp(min=1e-30)).max())
+            checks[f"{label}_losses_finite"] = len(hist) == SYNTH_TRAIN_STEPS and all(map(math.isfinite, hist))
+            checks[f"{label}_head_moved"] = not torch.equal(model.head.conv3.weight, head0)
+            if freeze:
+                checks[f"{label}_backbone_decayed_only"] = decay_err <= 2e-6
+            else:
+                checks[f"{label}_backbone_learned"] = decay_err > 1e-4
+            runs[label] = {"config": "ViT-L (24 layers, 1024 wide), metric head, max depth 20 m, f32",
+                           "batch": SYNTH_DEPTH_BATCH, "lr": SYNTH_DEPTH_LR, "weight_decay": SYNTH_DEPTH_WD,
+                           "losses": hist, "backbone_vs_decay_only_max_rel": decay_err, "decay_factor": shrink,
+                           "smoke_figures_not_a_benchmark": {"s_per_step": seconds / SYNTH_TRAIN_STEPS,
+                                                             "peak_mem_gb": peak, "card": nvidia_smi}}
+            del model, w_bb
+            release(torch)
+    counts = read_counts()
+    checks["no_kernel_launched"] = not any(counts.values())
+    emit({"phase": "synth_train", "ok": all(checks.values()), "seconds": time.perf_counter() - t_phase,
+          "checks": checks, "runs": runs, "photos": [list(p.shape[:2]) for p in photos]})
+    check(all(checks.values()), f"synth_train checks failed: {[k for k, v in checks.items() if not v]}")
+    return counts
+
+
 def serve_runner_lengths(torch, cfg, batch: dict) -> list:
     """The live prompt lengths of ``serve_runner``'s batch."""
     import numpy as np
@@ -2175,14 +2638,17 @@ def state_fingerprint(torch, module) -> list:
     return [int(t.detach().reshape(-1).view(torch.uint8).sum(dtype=torch.int64)) for t in module.state_dict().values()]
 
 
-def loss_and_grads(torch, cfg, model, batch, params, attn_impl: str = "pallas"):
+def loss_and_grads(torch, cfg, model, batch, params, attn_impl: str = "pallas", metrics=None):
     """The align-style loss on ``batch`` (remat, chunked CE) and the
-    gradients of ``params`` concatenated in f32."""
+    gradients of ``params`` concatenated in f32; ``metrics``, a dict, gets
+    the loss's metrics (an MoE decoder's ``router_aux_loss`` among them)."""
     from spatialrgpt_tpu_torch.models import vlm
 
     for p in params:
         p.grad = None
-    loss, _ = vlm.loss_fn(model, cfg, batch, attn_impl=attn_impl, remat=True, ce_chunk=CE_CHUNK)
+    loss, got = vlm.loss_fn(model, cfg, batch, attn_impl=attn_impl, remat=True, ce_chunk=CE_CHUNK)
+    if metrics is not None:
+        metrics.update((k, float(v.detach())) for k, v in got.items())
     loss.backward()
     grads = torch.cat([p.grad.float().flatten() for p in params])
     for p in params:
@@ -2317,12 +2783,13 @@ def cosine(a, b) -> float:
     return float((a.double() @ b.double()) / (a.double().norm() * b.double().norm()))
 
 
-def run_steps(torch, step_fn, state, batch, moved, want_step):
-    """TRAIN_STEPS steps of ``step_fn`` on ``batch``: per step the seconds
-    (host clock around a synchronised step), loss, grad norm, whether the
-    tuned modules have moved (``moved()``) and the kernels' launches."""
+def run_steps(torch, step_fn, state, batch, moved, want_step, n_steps: int = TRAIN_STEPS):
+    """``n_steps`` steps of ``step_fn`` on ``batch``: per step the seconds
+    (host clock around a synchronised step), loss (an MoE decoder's router
+    aux loss too), grad norm, whether the tuned modules have moved
+    (``moved()``) and the kernels' launches."""
     record = []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(n_steps):
         before = read_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2333,7 +2800,9 @@ def run_steps(torch, step_fn, state, batch, moved, want_step):
         launches = {n: after[n] - before[n] for n in after}
         record.append({"seconds": seconds, "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
                        "num_tokens": int(metrics["num_tokens"]), "tuned_moved": moved(),
-                       "launches_as_expected": launches == want_step, "launches": launches})
+                       "launches_as_expected": launches == want_step, "launches": launches,
+                       **({"router_aux_loss": float(metrics["router_aux_loss"])} if "router_aux_loss" in metrics
+                          else {})})
     return state, record
 
 
@@ -2601,6 +3070,9 @@ ALIGN_FLAGS = [
 ]
 RECIPE_CUTS = ["--data_mixture", "dummy", "--gradient_accumulation_steps", "2", "--max_steps", "4", "--save_steps", "2"]
 RECIPE_RESUME_STEPS = 6
+# the recipe phase's depth of llama3-8b's full widths: each of its runs
+# writes or reads a composite of the whole model, 16.6 GB at 32 layers
+RECIPE_LAYERS = 8
 DPO_PAIRS, DPO_BATCH = 4, 2
 
 
@@ -2761,17 +3233,17 @@ def dpo_pairs(out_dir: str) -> str:
     return path
 
 
-def recipe_main(torch, argv, totals: dict):
+def recipe_main(torch, argv, totals: dict, tokenizer=None):
     """``main(argv)`` as a user calls it on the card (the default device),
-    given ``CharTokenizer`` (there are no tokenizer files), with the counts
-    set to 0 before it and added to ``totals`` after; -> (result, the
-    observed run, peak GB)."""
+    given ``tokenizer`` (default ``CharTokenizer()``: there are no tokenizer
+    files), with the counts set to 0 before it and added to ``totals``
+    after; -> (result, the observed run, peak GB)."""
     from spatialrgpt_tpu_torch.train import train as train_mod
 
     torch.cuda.reset_peak_memory_stats()
     with observed_trainers(torch) as runs:
         reset_counts()
-        result = train_mod.main(argv, tokenizer=CharTokenizer())
+        result = train_mod.main(argv, tokenizer=tokenizer or CharTokenizer())
         counts = read_counts()
     for name, n in counts.items():
         totals[name] = totals.get(name, 0) + n
@@ -2790,8 +3262,8 @@ def move_composite(src: str, dst: str) -> None:
 
 
 def phase_recipe(torch, nvidia_smi: str) -> dict:
-    """``python -m spatialrgpt_tpu_torch.train.train`` at llama3-8b through
-    ``train.main`` and argv, on the ``dummy`` mixture (32 samples of one
+    """``python -m spatialrgpt_tpu_torch.train.train`` at llama3-8b's widths
+    (RECIPE_LAYERS of its 32 layers) through ``train.main`` and argv, on the ``dummy`` mixture (32 samples of one
     384 x 384 image, RGB + depth, a region each), with a character
     tokenizer of Llama-3's size and a composite directory of random
     weights (``init_random``, seed 0) as the base model:
@@ -2822,6 +3294,7 @@ def phase_recipe(torch, nvidia_smi: str) -> dict:
     from spatialrgpt_tpu_torch.utils.weights import init_random, save_composite
 
     cfg = preset("llama3-8b")
+    cfg = cfg.replace(llm=dataclasses.replace(cfg.llm, num_hidden_layers=RECIPE_LAYERS))
     dev = torch.device(DEVICE)
     totals, report, checks = {}, {}, {}
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
@@ -2960,8 +3433,8 @@ def phase_recipe(torch, nvidia_smi: str) -> dict:
         del run
         release(torch)
     emit({"phase": "recipe", "ok": all(checks.values()), "checks": checks,
-          "model": "llama3-8b (32 layers, full width) + siglip-so400m (26 of 27 layers), bf16, random from seed 0, "
-                   "through a composite directory; character tokenizer of Llama-3's size",
+          "model": f"llama3-8b ({RECIPE_LAYERS} of 32 layers, full width) + siglip-so400m (26 of 27 layers), bf16, "
+                   "random from seed 0, through a composite directory; character tokenizer of Llama-3's size",
           "data": "dummy mixture: 32 samples of one 384 x 384 image + depth + 1 region, packed into rows of 4096",
           **report, "launches": totals})
     check(all(checks.values()), f"recipe checks failed: {checks}")
@@ -3848,6 +4321,8 @@ PATHS = {
     "demo": lambda torch, smi, prof: phase_demo(torch, prof),
     "synth": phase_synth,
     "families": phase_families,
+    "families_train": phase_families_train,
+    "synth_train": phase_synth_train,
 }
 
 

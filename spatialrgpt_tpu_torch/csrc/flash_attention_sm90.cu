@@ -35,10 +35,16 @@
 //    the G query heads; dK and dV of the whole group accumulate in
 //    registers.  No fold, so any G = Hq / Hk.
 // q/k/v/dO/out go through the caller's (B, S, H, D) strides; any S up to
-// 65,536 (MAX_TILES tiles of 64), D <= 128 with D % 8 == 0 (TMA
-// zero-fills the head dim to 128).
+// 65,536 (MAX_TILES tiles of 64), D <= 256 with D % 8 == 0 (TMA
+// zero-fills the head dim to 128 or 256).
+//
+// At 128 < D <= 256 (Gemma-7B: B4 S4096 Hq16 Hk16 D256) each of the three
+// runs its D = 256 form of attention_d256.cuh: the forward is K2's D = 256
+// kernel in mode FLASH_FWD (64-key tiles, the tile list and the LSE); dQ
+// keeps the same fold and walks the listed 64-key tiles as 32-key halves;
+// dK/dV takes 64 keys a CTA, consumer warpgroup 1 accumulating dV and 2 dK.
 
-#include "attention_sm90.cuh"
+#include "attention_d256.cuh"
 
 using namespace srgpt::sm90;
 
@@ -46,7 +52,7 @@ namespace {
 
 bool fold_ok(int B, int S, int Hq, int Hk, int D) {
   return B > 0 && S > 0 && S <= MAX_TILES * DQ_BN && Hk > 0 && Hq % Hk == 0 && BM % (Hq / Hk) == 0 && D > 0 &&
-         D % 8 == 0 && D <= WIDE;
+         D % 8 == 0 && D <= D256;
 }
 
 Params fold_params(void* out, long long sob, long long sos, long long soh, const void* seg, int S, int Hq, int Hk,
@@ -82,13 +88,21 @@ extern "C" int srgpt_flash_fwd(
   Params p = fold_params(out, sob, sos, soh, seg, S, Hq, Hk, D, window, sm_scale);
   p.lse = static_cast<float*>(lse);
   const int G = p.G;
+  const bool wide = D > WIDE;  // the D = 256 form: 64-key tiles
   CUtensorMap tq, tk, tv;
   cudaError_t err = make_map(&tq, q, B, S, Hq, D, sqb, sqs, sqh, G, BM / G);
-  if (err == cudaSuccess) err = make_map(&tk, k, B, S, Hk, D, skb, sks, skh);
-  if (err == cudaSuccess) err = make_map(&tv, v, B, S, Hk, D, svb, svs, svh);
+  if (err == cudaSuccess) err = make_map(&tk, k, B, S, Hk, D, skb, sks, skh, 1, wide ? D256_BN : BM);
+  if (err == cudaSuccess) err = make_map(&tv, v, B, S, Hk, D, svb, svs, svh, 1, wide ? D256_BN : BM);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + BM / G - 1) / (BM / G), Hk, B);
-  return static_cast<int>(launch_kernel<WIDE, FLASH_FWD>(tq, tk, tv, p, grid, static_cast<cudaStream_t>(stream)));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!wide) return static_cast<int>(launch_kernel<WIDE, FLASH_FWD>(tq, tk, tv, p, grid, st));
+  auto kern = d256_fwd_sm90_kernel<FLASH_FWD>;
+  constexpr int bytes = d256_smem_bytes(FLASH_FWD);
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<grid, NTHREADS, bytes, st>>>(tq, tk, tv, p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // dq: (B, S, Hq, D) bf16, contiguous
@@ -107,17 +121,19 @@ extern "C" int srgpt_flash_bwd_dq(
   p.lse = const_cast<float*>(static_cast<const float*>(lse));
   p.delta = static_cast<const float*>(delta);
   const int G = p.G;
+  const bool wide = D > WIDE;  // the D = 256 form: 32-key stages
   CUtensorMap tq, tdo, tk, tv;
   cudaError_t err = make_map(&tq, q, B, S, Hq, D, sqb, sqs, sqh, G, BM / G);
   if (err == cudaSuccess) err = make_map(&tdo, dout, B, S, Hq, D, sdb, sds, sdh, G, BM / G);
-  if (err == cudaSuccess) err = make_map(&tk, k, B, S, Hk, D, skb, sks, skh, 1, DQ_BN);
-  if (err == cudaSuccess) err = make_map(&tv, v, B, S, Hk, D, svb, svs, svh, 1, DQ_BN);
+  if (err == cudaSuccess) err = make_map(&tk, k, B, S, Hk, D, skb, sks, skh, 1, wide ? DQ256_BN : DQ_BN);
+  if (err == cudaSuccess) err = make_map(&tv, v, B, S, Hk, D, svb, svs, svh, 1, wide ? DQ256_BN : DQ_BN);
   if (err != cudaSuccess) return static_cast<int>(err);
-  auto kern = flash_dq_sm90_kernel<WIDE>;
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, DQ_SMEM_BYTES);
+  auto kern = wide ? flash_dq_d256_sm90_kernel<D256> : flash_dq_sm90_kernel<WIDE>;
+  const int bytes = wide ? DQ256_SMEM_BYTES : DQ_SMEM_BYTES;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + BM / G - 1) / (BM / G), Hk, B);
-  kern<<<grid, NTHREADS, DQ_SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(tq, tdo, tk, tv, p);
+  kern<<<grid, NTHREADS, bytes, static_cast<cudaStream_t>(stream)>>>(tq, tdo, tk, tv, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -131,22 +147,25 @@ extern "C" int srgpt_flash_bwd_dkv(
     long long svb, long long svs, long long svh,
     long long sdb, long long sds, long long sdh,
     int window, float sm_scale, void* stream) {
-  if (!(B > 0 && S > 0 && S <= MAX_TILES * DKV_BQ && Hk > 0 && Hq % Hk == 0 && D > 0 && D % 8 == 0 && D <= WIDE))
+  if (!(B > 0 && S > 0 && S <= MAX_TILES * DKV_BQ && Hk > 0 && Hq % Hk == 0 && D > 0 && D % 8 == 0 && D <= D256))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p = fold_params(dk, static_cast<long long>(S) * Hk * D, static_cast<long long>(Hk) * D, D, seg, S, Hq, Hk,
                          D, window, sm_scale);
   p.lse = const_cast<float*>(static_cast<const float*>(lse));
   p.delta = static_cast<const float*>(delta);
+  const bool wide = D > WIDE;  // the D = 256 form: 64 keys a CTA
+  const int keys = wide ? DKV256_BK : BM;
   CUtensorMap tq, tdo, tk, tv;
   cudaError_t err = make_map(&tq, q, B, S, Hq, D, sqb, sqs, sqh, 1, DKV_BQ);
   if (err == cudaSuccess) err = make_map(&tdo, dout, B, S, Hq, D, sdb, sds, sdh, 1, DKV_BQ);
-  if (err == cudaSuccess) err = make_map(&tk, k, B, S, Hk, D, skb, sks, skh);
-  if (err == cudaSuccess) err = make_map(&tv, v, B, S, Hk, D, svb, svs, svh);
+  if (err == cudaSuccess) err = make_map(&tk, k, B, S, Hk, D, skb, sks, skh, 1, keys);
+  if (err == cudaSuccess) err = make_map(&tv, v, B, S, Hk, D, svb, svs, svh, 1, keys);
   if (err != cudaSuccess) return static_cast<int>(err);
-  auto kern = flash_dkv_sm90_kernel<WIDE>;
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, DKV_SMEM_BYTES);
+  auto kern = wide ? flash_dkv_d256_sm90_kernel<D256> : flash_dkv_sm90_kernel<WIDE>;
+  const int bytes = wide ? DKV256_SMEM_BYTES : DKV_SMEM_BYTES;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + BM - 1) / BM, Hk, B);
-  kern<<<grid, NTHREADS, DKV_SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(tq, tdo, tk, tv, p, static_cast<bf16*>(dv));
+  const dim3 grid((S + keys - 1) / keys, Hk, B);
+  kern<<<grid, NTHREADS, bytes, static_cast<cudaStream_t>(stream)>>>(tq, tdo, tk, tv, p, static_cast<bf16*>(dv));
   return static_cast<int>(cudaGetLastError());
 }

@@ -134,6 +134,7 @@ class _Neck(nn.Module):
 class DepthAnythingModel(nn.Module):
     def __init__(self, cfg: DepthAnythingConfig, dtype=None):
         super().__init__()
+        self.cfg = cfg  # its layout (synth/train_calibration.py's npz keys)
         f = cfg.fusion_hidden_size
         self.backbone = _Backbone(cfg, dtype)
         self.neck = _Neck(cfg, dtype)

@@ -385,8 +385,11 @@ def decoder_layer(
     return x + out, kv, aux
 
 
-def _layer_hidden(*args) -> torch.Tensor:
-    return decoder_layer(*args)[0]
+def _layer_checkpointed(x, layer, cfg, position_ids, segment_ids, attn_impl) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A decoder layer as ``torch.utils.checkpoint`` runs it: (x, the MoE
+    aux loss, an f32 zero without MoE); the K/V are not kept."""
+    x, _, aux = decoder_layer(x, layer, cfg, position_ids, segment_ids, attn_impl)
+    return x, aux if aux is not None else x.new_zeros((), dtype=torch.float32)
 
 
 def forward(
@@ -420,12 +423,11 @@ def forward(
     ``torch.utils.checkpoint``: only its input is kept, and the backward
     runs the layer's forward again (the reference's per-layer
     ``jax.checkpoint``, llama.py:362-371).  The attention kernel's forward
-    therefore launches twice per layer in a training step (MoE layers
-    under remat are not ported: their aux loss waits for the training
-    slice, and ``with_aux`` with ``remat`` raises).
+    therefore launches twice per layer in a training step.  A checkpointed
+    MoE layer returns its aux loss beside its output, so the sum is the
+    one the unchecked layers give, and its gradient reaches the router
+    through the recompute.
     """
-    if remat and with_aux:
-        raise NotImplementedError("forward(remat=True, with_aux=True): the MoE aux loss under remat is not ported")
     x = inputs_embeds
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     if cache is not None:
@@ -438,7 +440,8 @@ def forward(
     for layer in model.model.layers:
         args = (layer, cfg, position_ids, segment_ids, attn_impl)
         if remat and not collect_kv:
-            x = checkpoint(_layer_hidden, x, *args, use_reentrant=False)
+            x, aux = checkpoint(_layer_checkpointed, x, *args, use_reentrant=False)
+            aux_total = aux_total + aux
             continue
         x, (k, v), aux = decoder_layer(x, *args)
         aux_total = aux_total if aux is None else aux_total + aux

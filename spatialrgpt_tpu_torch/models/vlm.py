@@ -192,11 +192,6 @@ def _hidden(model: SpatialRGPT, cfg: SpatialRGPTConfig, inputs: VLMInputs, attn_
     return (out[0], out[2]) if with_aux else out[0]
 
 
-def _training_decoder(cfg: SpatialRGPTConfig) -> None:
-    if cfg.llm.is_moe:
-        raise NotImplementedError("training an MoE decoder (its router aux loss in the loss) is not ported yet")
-
-
 def forward(
     model: SpatialRGPT, cfg: SpatialRGPTConfig, inputs: VLMInputs, attn_impl: str = "xla", remat: bool = False,
     with_aux: bool = False,
@@ -239,8 +234,8 @@ def sequence_logprob(
     """(B,) sum of each row's log p(target) over its supervised targets (the
     port of ``spatialrgpt_tpu/train/dpo.py::sequence_logprob``, which takes
     a log-softmax of ``forward``'s logits; here the lse form of
-    ``loss_fn``, the same function)."""
-    _training_decoder(cfg)
+    ``loss_fn``, the same function).  An MoE decoder's aux loss is left out,
+    as the reference's ``forward`` without ``with_aux`` leaves it."""
     h = _hidden(model, cfg, inputs, attn_impl, remat)
     tgt, valid = _shifted_targets(inputs)
     return _token_logp(h, tgt, valid, model.llm).sum(dim=-1)
@@ -265,9 +260,17 @@ def loss_fn(
     projections and LM head take ``linear``'s quantized branches, whose
     backward carries dx (the W8A8 straight-through estimator; under remat
     the recompute runs K7 + K8 again, as ``jax.checkpoint`` recomputes the
-    W8A8 forward).  MoE decoders raise ``NotImplementedError``."""
-    _training_decoder(cfg)
-    h = _hidden(model, cfg, inputs, attn_impl, remat)
+    W8A8 forward).
+
+    An MoE decoder adds ``router_aux_loss_coef`` x the summed router aux
+    loss (the reference's load-balancing term, under remat too): the
+    metrics hold it as ``router_aux_loss`` and ``loss`` is the total.  The
+    reference runs an MoE decoder's ``ce_chunk`` on its unchunked branch;
+    the chunked CE here has the same value."""
+    moe = cfg.llm.is_moe
+    h = _hidden(model, cfg, inputs, attn_impl, remat, with_aux=moe)
+    if moe:
+        h, aux = h
     tgt, valid = _shifted_targets(inputs)
     w = model.llm
     if ce_chunk:
@@ -282,4 +285,8 @@ def loss_fn(
         total = _token_logp_sum(h, tgt, valid, w)
     n_valid = valid.sum().clamp(min=1)
     loss = -total / n_valid
-    return loss, {"loss": loss, "num_tokens": n_valid}
+    metrics = {"loss": loss, "num_tokens": n_valid}
+    if moe:
+        loss = loss + cfg.llm.router_aux_loss_coef * aux
+        metrics.update(router_aux_loss=aux, loss=loss)
+    return loss, metrics

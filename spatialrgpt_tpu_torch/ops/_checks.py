@@ -14,9 +14,10 @@ GRAD_FLOOR = 2.0**-16
 # the widest head dim of K1 and K5 on the Hopper main loop
 # (csrc/attention_sm90.cuh::NARROW; K2 and K4 run it at WIDE = 128)
 SM90_MAX_HEAD_DIM = 80
-# the widest head dim of K2: its second form (csrc/prefill_attention.cu,
-# Gemma's 256) takes 128 < D <= 256; K4 stops at 128
+# the widest head dim of K2 and K4: their D = 256 forms
+# (csrc/attention_d256.cuh, Gemma's 256) take 128 < D <= 256
 K2_MAX_HEAD_DIM = 256
+K4_MAX_HEAD_DIM = 256
 # query rows of one CTA of the main loop (csrc/attention_sm90.cuh::BM): K2
 # and K4's forward and dQ fold G = Hq / Hk heads x FOLD_ROWS / G positions
 # into them, so G must divide it
@@ -39,7 +40,7 @@ def check_on_cuda(name: str, *tensors: torch.Tensor) -> None:
 def check_bshd(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, max_head_dim: int = 128) -> None:
     """(B, S, H, D) bf16 tensors read through strides: the head dim must be
     contiguous, a multiple of 8 and at most ``max_head_dim`` (the kernels
-    are built for padded widths 80 and 128, K2 also 256); the other strides
+    are built for padded widths 80 and 128, K2 and K4 also 256); the other strides
     and the base pointers must keep 16-byte rows aligned."""
     check_dtype(name, torch.bfloat16, q, k, v)
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:

@@ -7,7 +7,8 @@ Port of the Pallas kernels of
 the two backward kernels of ``_flash_bwd``); the CUDA kernels are launched
 from ``csrc/flash_attention_sm90.cu``: the forward on the Hopper main loop
 of ``csrc/attention_sm90.cuh``, dQ and dK/dV on its query- and
-key-stationary loops.  Layout (B, S, H, D), causal within packed segments
+key-stationary loops; head dims 128 < D <= 256 (Gemma's 256) on the D = 256
+forms of ``csrc/attention_d256.cuh``.  Layout (B, S, H, D), causal within packed segments
 (``segment_ids`` (B, S), 0 = padding), GQA, scale D^-0.5; with ``window``,
 key j is live for query i only if i - j < window (the reference's meaning).
 
@@ -28,7 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from spatialrgpt_tpu_torch.ops import _build
-from spatialrgpt_tpu_torch.ops._checks import FOLD_ROWS, SM90_MAX_HEAD_DIM, check_bshd, check_dtype
+from spatialrgpt_tpu_torch.ops._checks import FOLD_ROWS, K4_MAX_HEAD_DIM, SM90_MAX_HEAD_DIM, check_bshd, check_dtype
 
 NEG_INF = -1e30
 # each of K4's CTAs lists at most 1024 tiles of 64 positions (key tiles for
@@ -150,7 +151,7 @@ def flash_attention_bwd_plain(q, k, v, segment_ids, out, lse, dout, window: Opti
 def _check(name: str, q, k, v, segment_ids, window, extra=(), fold: bool = False) -> None:
     """What the kernels take: bf16 (B, S, H, D) q/k/v read through strides,
     Hk dividing Hq (and, for the forward's and dQ's head fold, Hq/Hk
-    dividing 128), S <= MAX_SEQ, D <= 128, a window >= 1 or none; int32
+    dividing 128), S <= MAX_SEQ, D <= 256, a window >= 1 or none; int32
     (B, S) segment ids and the f32 side tensors contiguous; all on one CUDA
     card (checked last)."""
     if q.dim() != 4 or k.dim() != 4 or k.shape[2] == 0 or q.shape[2] % k.shape[2]:
@@ -168,7 +169,7 @@ def _check(name: str, q, k, v, segment_ids, window, extra=(), fold: bool = False
         check_dtype(name, dtype, t)
         if tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous {shape} {dtype}, got {tuple(t.shape)}")
-    check_bshd(name, q, k, v)
+    check_bshd(name, q, k, v, K4_MAX_HEAD_DIM)
     if any(t.device != q.device for t in (segment_ids, *(e[0] for e in extra))):
         raise ValueError(f"{name}: all tensors must be on {q.device}")
 

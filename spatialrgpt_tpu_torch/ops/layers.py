@@ -252,15 +252,52 @@ def linear(
     return y.to(x.dtype)
 
 
+# rows of w (N, K) widened to f32 at a time in ``MatmulF32``'s backward
+MATMUL_F32_BWD_ROWS = 16384
+
+
+class MatmulF32(torch.autograd.Function):
+    """``matmul_f32`` with JAX's VJP of ``jnp.dot(x, w.T,
+    preferred_element_type=f32)``: for the f32 cotangent g (M, N), dx = g w
+    and dw = g^T x, each an f32 product of g with the other operand widened
+    to f32, rounded once to its operand's dtype.  w is widened
+    ``MATMUL_F32_BWD_ROWS`` rows at a time (the reference's tied head is
+    Gemma's 256,000-row table: no f32 copy of it exists), and dw is computed
+    only where w needs a gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16):
+            return torch.mm(x, w.t(), out_dtype=torch.float32)
+        return torch.matmul(x.float(), w.float().t())
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        n = MATMUL_F32_BWD_ROWS
+        if ctx.needs_input_grad[0]:
+            acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+            for r0 in range(0, w.shape[0], n):
+                acc += g[:, r0 : r0 + n] @ w[r0 : r0 + n].float()
+            dx = acc.to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            xf = x.float()
+            dw = torch.empty_like(w)
+            for r0 in range(0, w.shape[0], n):
+                dw[r0 : r0 + n] = (g[:, r0 : r0 + n].t() @ xf).to(w.dtype)
+        return dx, dw
+
+
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (M, K) @ w.T for w (N, K) of x's dtype, f32 (M, N): f32 sums of the
     products, never rounded to x's dtype (``jnp.dot(...,
     preferred_element_type=f32)``).  On the card one cuBLAS GEMM with an f32
     output; on the CPU an f32 product (exact for the products of bf16
-    values)."""
-    if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16):
-        return torch.mm(x, w.t(), out_dtype=torch.float32)
-    return torch.matmul(x.float(), w.float().t())
+    values).  Differentiable through ``MatmulF32`` (the card's f32-output
+    GEMM has no derivative of its own)."""
+    return MatmulF32.apply(x, w)
 
 
 def qkv_proj(x: torch.Tensor, attn, hq: int, hk: int, d: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -91,9 +91,23 @@ def _projections(root: nn.Module) -> Iterator[Tuple[str, nn.Module]]:
             yield name, mod
 
 
+def _is_expert(name: str) -> bool:
+    """An MoE expert's projection (``...block_sparse_moe.experts.{e}.w1``)."""
+    return name.rpartition(".")[0].rpartition(".")[0].endswith("experts")
+
+
 def _is_target(name: str, targets) -> bool:
+    """The reference's rule (a target among the kernel path's parts) by the
+    port's names: an expert's w1 / w3 / w2 count as its ``gate`` / ``up`` /
+    ``down`` (``utils/weights.py::MOE_PROJECTIONS``); the router
+    (``block_sparse_moe.gate``, the reference's ``router``) is never one."""
+    from spatialrgpt_tpu_torch.utils.weights import MOE_PROJECTIONS
+
+    leaf = name.rpartition(".")[2]
+    if _is_expert(name):
+        return any(MOE_PROJECTIONS.get(t) == leaf for t in targets)
     leaves = {LLAMA_PROJECTIONS[t][1].rpartition(".")[2] if t in LLAMA_PROJECTIONS else t for t in targets}
-    return name.rpartition(".")[2] in leaves
+    return leaf in leaves
 
 
 def _weight(mod: nn.Module) -> torch.Tensor:
@@ -157,14 +171,17 @@ def apply_lora(llm: nn.Module, adapters: LoraAdapters, lcfg: LoraConfig, dtype=N
     projection a ``MergedLinear``, computed here with the adapters'
     gradients) or, with ``merge=False``, as the side branch that ``linear``
     adds (the base weights are never rewritten).  DoRA needs the merged form
-    (its column norms are of W + a b)."""
+    (its column norms are of W + a b).  An MoE expert always takes the merged
+    form, as the reference's (``lora.py:135-139``): a merged expert is a bf16
+    (out, in) tensor per layer and projection, so a decoder whose experts
+    all train holds them all for the step."""
     if not merge and lcfg.use_dora:
         raise ValueError("DoRA requires merged application (merge=True)")
     mods = dict(_projections(llm))
     subs = {}
     for name, pair in adapters.items():
         mod = mods[name]
-        if merge:
+        if merge or _is_expert(name):
             subs[name] = _merged(mod, pair, lcfg, dtype)
         else:
             sub = copy.copy(mod)

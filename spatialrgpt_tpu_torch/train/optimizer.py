@@ -105,6 +105,10 @@ class AdamW(torch.optim.Optimizer):
     def _grads(self, group):
         return [p.grad if p.grad is not None else torch.zeros_like(p) for p in group["params"]]
 
+    def learning_rate(self, group, count: int) -> float:
+        """The group's learning rate at its update ``count`` (0-based)."""
+        return learning_rate(self.ocfg, group["peak_lr"], count)
+
     @torch.no_grad()
     def step(self, closure=None) -> None:
         c = self.ocfg
@@ -118,7 +122,7 @@ class AdamW(torch.optim.Optimizer):
             norm = torch.sqrt(sum(g.float().square().sum() for g in gs))
             keep = norm < c.max_grad_norm
             n = group["count"]
-            lr = learning_rate(c, group["peak_lr"], n)
+            lr = self.learning_rate(group, n)
             # optax forms the bias corrections in f32, then divides in the
             # moment's dtype
             bc1, bc2 = (1 - torch.tensor(b, dtype=torch.float32) ** (n + 1) for b in (c.adam_b1, c.adam_b2))

@@ -361,6 +361,66 @@ def export_depth_anything(p, cfg: DepthAnythingConfig) -> dict:
     return sd
 
 
+def _numpy_state(model: nn.Module) -> dict:
+    return {k: v.detach().float().cpu().numpy() for k, v in model.state_dict().items()}
+
+
+def depth_anything_tree(model: DepthAnythingModel, cfg: DepthAnythingConfig) -> dict:
+    """``export_depth_anything``'s inverse: the model's weights as a
+    ``depth_anything.init_params``-layout pytree of f32 numpy arrays (the
+    neck convs, which have no bias here, get the reference's zero bias)."""
+    sd = _numpy_state(model)
+
+    def dense(name):
+        return {"kernel": sd[name + ".weight"].T, "bias": sd[name + ".bias"]}
+
+    def norm(name):
+        return {"scale": sd[name + ".weight"], "bias": sd[name + ".bias"]}
+
+    def conv(name, transpose=False):
+        # conv (C_out, C_in, kh, kw) or deconv (C_in, C_out, kh, kw) -> HWIO
+        w = sd[name + ".weight"]
+        bias = sd.get(name + ".bias")
+        out_ch = w.shape[1] if transpose else w.shape[0]
+        return {"kernel": w.transpose((2, 3, 0, 1) if transpose else (2, 3, 1, 0)),
+                "bias": np.zeros(out_ch, np.float32) if bias is None else bias}
+
+    layers = []
+    for i in range(cfg.num_hidden_layers):
+        pre = f"backbone.encoder.layer.{i}."
+        layers.append({
+            "norm1": norm(pre + "norm1"), "norm2": norm(pre + "norm2"),
+            "attn": {ours: dense(pre + theirs) for ours, theirs in (
+                ("wq", "attention.attention.query"), ("wk", "attention.attention.key"),
+                ("wv", "attention.attention.value"), ("wo", "attention.output.dense"))},
+            "mlp": {"fc1": dense(pre + "mlp.fc1"), "fc2": dense(pre + "mlp.fc2")},
+            "ls1": sd[pre + "layer_scale1.lambda1"], "ls2": sd[pre + "layer_scale2.lambda1"],
+        })
+    reassemble = []
+    for i, factor in enumerate(cfg.reassemble_factors):
+        pre = f"neck.reassemble_stage.layers.{i}."
+        entry = {"proj": conv(pre + "projection")}
+        if factor != 1:
+            entry["resize"] = conv(pre + "resize", transpose=factor > 1)
+        reassemble.append(entry)
+    fusion = []
+    for i in range(len(cfg.neck_hidden_sizes)):
+        pre = f"neck.fusion_stage.layers.{i}."
+        fusion.append({"proj": conv(pre + "projection"), **{
+            f"res{r}": {f"conv{c}": conv(f"{pre}residual_layer{r}.convolution{c}") for c in (1, 2)} for r in (1, 2)}})
+    return {
+        "cls_token": sd["backbone.embeddings.cls_token"][0, 0],
+        "pos_embed": sd["backbone.embeddings.position_embeddings"][0],
+        "patch_embed": conv("backbone.embeddings.patch_embeddings.projection"),
+        "layers": layers,
+        "final_ln": norm("backbone.layernorm"),
+        "reassemble": reassemble,
+        "neck_convs": [conv(f"neck.convs.{i}") for i in range(len(cfg.neck_hidden_sizes))],
+        "fusion": fusion,
+        "head": {k: conv("head." + k) for k in ("conv1", "conv2", "conv3")},
+    }
+
+
 def load_depth_anything_from_jax(np_params, cfg: DepthAnythingConfig, device, dtype=torch.float32) -> DepthAnythingModel:
     """``depth_anything.init_params``-layout pytree -> ``DepthAnythingModel``
     on ``device`` through the HF names."""
@@ -525,6 +585,30 @@ def load_owl_vit_from_jax(np_params, cfg: OwlViTConfig, device, dtype=torch.floa
     """``owl_vit.init_params``-layout pytree (numpy) -> ``OwlViTModel`` on
     ``device`` through the HF names."""
     return _load_state(OwlViTModel, cfg, export_owlvit(np_params), device, dtype)
+
+
+def camera_net_tree(model: CameraNet) -> dict:
+    """``load_camera_net_from_jax``'s inverse: the model's weights as a
+    ``calibration.init_params``-layout pytree of f32 numpy arrays (its
+    module names are the tree's: a linear is ``{kernel, bias}``, a LayerNorm
+    ``{scale, bias}``)."""
+
+    def tree(module: nn.Module):
+        if isinstance(module, nn.Linear):
+            out = {"kernel": module.weight.detach().float().cpu().numpy().T}
+            if module.bias is not None:
+                out["bias"] = module.bias.detach().float().cpu().numpy()
+            return out
+        if isinstance(module, nn.LayerNorm):
+            return {"scale": module.weight.detach().float().cpu().numpy(),
+                    "bias": module.bias.detach().float().cpu().numpy()}
+        out = {name: p.detach().float().cpu().numpy() for name, p in module.named_parameters(recurse=False)}
+        out.update((name, tree(child)) for name, child in module.named_children())
+        if isinstance(module, nn.ModuleList):
+            return [out[str(i)] for i in range(len(module))]
+        return out
+
+    return tree(model)
 
 
 def load_camera_net_from_jax(np_params, cfg: CameraNetConfig, device, dtype=torch.float32) -> CameraNet:

@@ -275,7 +275,8 @@ def test_router_tie_keeps_every_tied_expert():
 
 def test_forward_with_aux_matches_jax():
     """``forward(with_aux=True)``: the summed router aux loss of both layers
-    equal to the JAX package's, and the composite forward's too."""
+    equal to the JAX package's, and the composite forward's and
+    ``loss_fn``'s (the CE plus 0.02 x the aux) too."""
     jc, tc, params, model = _pair("mixtral")
     ids, pos, seg = _ids(np.random.default_rng(9))
     x = jllama.embed_tokens(params["llm"], jnp.asarray(ids), jc.llm)
@@ -291,8 +292,11 @@ def test_forward_with_aux_matches_jax():
     logits, aux = tvlm.forward(model, tc, inputs, with_aux=True)
     _rel_close(logits, jlogits)
     np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-6)
-    with pytest.raises(NotImplementedError):
-        tvlm.loss_fn(model, tc, inputs._replace(labels=inputs.input_ids))
+    # the loss of a MoE decoder carries the aux loss (the families' training)
+    jloss, jm = jax.jit(lambda p, i: jvlm.loss_fn(p, jc, i))(params, jin._replace(labels=jin.input_ids))
+    loss, m = tvlm.loss_fn(model, tc, inputs._replace(labels=inputs.input_ids))
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    np.testing.assert_allclose(float(m["router_aux_loss"]), float(jm["router_aux_loss"]), rtol=1e-5)
 
 
 # ---------------------------------------------------------------------------

@@ -345,7 +345,11 @@ def _check_flash_kernels(q, k, v, dout, seg, window):
     "B,S,Hq,Hk,D,window",
     [(2, 1024, 8, 2, 128, None), (3, 300, 4, 4, 128, None), (2, 257, 8, 1, 128, None), (2, 1024, 8, 2, 128, 200),
      (3, 300, 8, 2, 64, None), (3, 257, 8, 1, 64, 200), (2, 1000, 8, 2, 128, 50), (3, 700, 8, 1, 128, 200),
-     (2, 300, 16, 2, 64, 50), (2, 129, 4, 4, 128, None)],
+     (2, 300, 16, 2, 64, 50), (2, 129, 4, 4, 128, None),
+     # the D = 256 forms (Gemma's head dim): MHA and G 2, windows, D 136
+     # (TMA's zero fill pads the tiles to 256), a row of padding only
+     (2, 1024, 4, 4, 256, None), (3, 300, 4, 2, 256, None), (2, 1000, 4, 2, 256, 50), (3, 700, 2, 1, 256, 200),
+     (2, 257, 4, 4, 136, None), (2, 129, 4, 2, 256, None)],
 )
 def test_flash_kernels_match_plain(cuda, B, S, Hq, Hk, D, window):
     """K4's forward (out and lse), dK/dV and dQ kernels against their plain
@@ -380,14 +384,15 @@ _SEGMENT_LAYOUTS = {
 @pytest.mark.parametrize(
     "layout,window,G,D",
     [("returning", None, 4, 128), ("returning", 50, 4, 128), ("padding_tile", 200, 1, 64),
-     ("padding_tile", None, 8, 128), ("mid_tile", 50, 8, 128), ("mid_tile", 200, 4, 64)],
+     ("padding_tile", None, 8, 128), ("mid_tile", 50, 8, 128), ("mid_tile", 200, 4, 64),
+     ("returning", 50, 2, 256), ("padding_tile", None, 1, 256), ("mid_tile", 200, 2, 256)],
 )
 def test_flash_kernels_take_any_segment_layout(cuda, layout, window, G, D):
     """The forward and dQ list only the key tiles that hold a key of their
     queries' segment ids, dK/dV only the query tiles that hold a query of
     its keys' ids; the rule holds for any id layout, not only for packed
-    samples (``_SEGMENT_LAYOUTS``), with G 1, 4 and 8, D 64 and 128 and
-    windows of 50 and 200."""
+    samples (``_SEGMENT_LAYOUTS``), with G 1, 2, 4 and 8, D 64, 128 and
+    256 and windows of 50 and 200."""
     rng = np.random.default_rng(7)
     B, S, Hk = 2, 700, 2
     Hq = G * Hk
@@ -875,10 +880,11 @@ def test_w8_large_form_within_bound(cuda, monkeypatch, M, K, bias, with_add, N):
     _bf16_close(out, K789.w8_gemm_plain(x, q, scale, b, add))
 
 
-@pytest.mark.parametrize("N", [100, 300, 1129])
+@pytest.mark.parametrize("N", [100, 300, 1129, 8])
 def test_w8_large_form_odd_channel_tiles(cuda, monkeypatch, N):
     """An odd count of 128-channel tiles (1, 3, 9), the last one ragged:
-    the large form stores nothing past N."""
+    the large form stores nothing past N (8: Mixtral's router, which QLoRA
+    leaves on K9)."""
     monkeypatch.setattr(K789, "W8_DECODE_MAX_M", 0)
     rng = np.random.default_rng(N)
     x, q, scale, b = _w8_case(rng, 1000, N, 1040, torch.float32, cuda)
@@ -972,13 +978,14 @@ def _dy_rows(rng, M, N, device):
 # of dyq: llama3-8b's lm_head contracts over 128,264), then the align step's:
 # K11 for gate / up (14,336 -> 4096) and for down (4096 -> 14,336)
 _DX_CASES = [(1, 16, 16), (1, 8, 16), (37, 1040, 4304), (200, 4112, 1024), (129, 1032, 64), (129, 128264, 64),
-             (16384, 14336, 4096), (16384, 4096, 14336)]
+             (16384, 14336, 4096), (16384, 4096, 14336), (16384, 8, 4096)]  # the last: Mixtral's router dx
 
 
-@pytest.mark.parametrize("M,N", [(1, 8), (37, 1040), (200, 4104), (16384, 14336)])
+@pytest.mark.parametrize("M,N", [(1, 8), (37, 1040), (200, 4104), (16384, 14336), (16384, 8)])
 def test_act_quant_dy_kernel_bit_equal(cuda, M, N):
     """K10 equals its plain version bit for bit: a zero row, large and tiny
-    rows, ragged N and the align step's largest shape."""
+    rows, ragged N, the align step's largest shape and Mixtral's router (N
+    = 8) over its rows."""
     dy, scale = _dy_rows(np.random.default_rng(M + N), M, N, cuda)
     dyq, gs = _launched("act_quant_dy_int8", K789.act_quant_dy_int8, dy, scale)
     pq, ps = K789.act_quant_dy_int8_plain(dy, scale)
@@ -1661,3 +1668,44 @@ def test_tiny_mixtral_w8a8_generate_runs_k7_to_k9(cuda, monkeypatch):
     monkeypatch.setattr(layers, "QUANT_KERNELS", False)
     plain = generate(model, cfg, inputs, plens, max_new_tokens=3, attn_impl="onepass", kv_quant=True)
     assert torch.equal(fast.tokens, plain.tokens)
+
+
+# ---------------------------------------------------------------------------
+# the families' training: Gemma's tied head backward
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("grads", ["x", "x_and_w"])
+def test_matmul_f32_backward_on_the_card(cuda, monkeypatch, grads):
+    """Gemma's tied head on the card (``ops/layers.py::matmul_f32``): the
+    f32-output GEMM of bf16 operands and ``MatmulF32``'s backward against
+    the f32 products of the same operands, y within f32 summation order
+    (1e-5 of its largest value), dx and dw each within one bf16 rounding of the f32 product (its sums run
+    in another order).  The table is widened 7000 rows at a time (the last
+    chunk ragged); with only dx to make, the backward's peak stays below an
+    f32 copy of the table."""
+    from spatialrgpt_tpu_torch.ops import layers
+
+    monkeypatch.setattr(layers, "MATMUL_F32_BWD_ROWS", 7000)
+    rng = np.random.default_rng(17)
+    x = _rand(rng, 300, 1024, device=cuda).requires_grad_()
+    w = _rand(rng, 40000, 1024, device=cuda).requires_grad_(grads == "x_and_w")
+    g = torch.tensor(rng.standard_normal((300, 40000)).astype(np.float32), device=cuda)
+    y = layers.matmul_f32(x, w)
+    assert y.dtype == torch.float32
+    ref = x.detach().float() @ w.detach().float().t()
+    torch.testing.assert_close(y, ref, rtol=1e-5, atol=1e-5 * float(ref.abs().max()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    y.backward(g)
+    peak = torch.cuda.max_memory_allocated() - base
+    for got, want in ((x.grad, g @ w.detach().float()), (w.grad, g.t() @ x.detach().float())):
+        if got is None:
+            continue
+        assert got.dtype == torch.bfloat16
+        diff = (got.float() - want).abs()
+        assert bool((diff <= 2.0**-8 * want.abs() + 1e-6 * float(want.abs().max())).all())
+    assert (w.grad is None) == (grads == "x")
+    if grads == "x":
+        assert peak < w.numel() * 4, peak

@@ -206,6 +206,9 @@ COPIED_HELPERS = {
                           "OWLVIT_STD", "preprocess_image"),
     "synth/calibration.py": ("CameraNetConfig", "_prep", "intrinsics_from_vfov"),
     "synth/models.py": ("SAM_MEAN", "SAM_STD", "_to_uint8", "_resize"),
+    # the calibration trainer's numpy data paths
+    "synth/train_calibration.py": ("_k_matrix", "_rotation", "warp_virtual_camera", "warp_batches", "_load_image_dir",
+                                   "canonicalize_depth"),
 }
 
 

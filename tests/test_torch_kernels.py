@@ -478,7 +478,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         K4.flash_attention_fwd(q, k, k, _meta(B, S, dtype=torch.int64))
     with pytest.raises(ValueError, match="must divide 128"):
         K4.flash_attention_fwd(_meta(B, S, 3 * 128, D), _meta(B, S, 1, D), _meta(B, S, 1, D), seg)
-    with pytest.raises(ValueError, match="at most 128|<= 128"):
+    # K4 takes head dims up to 256 (its D = 256 forms, Gemma's), not past them
+    with pytest.raises(ValueError, match="<= 256"):
+        K4.flash_attention_fwd(_meta(B, S, Hq, 264), _meta(B, S, Hk, 264), _meta(B, S, Hk, 264), seg)
+    with pytest.raises(ValueError, match="CUDA"):
         K4.flash_attention_fwd(_meta(B, S, Hq, 256), _meta(B, S, Hk, 256), _meta(B, S, Hk, 256), seg)
     with pytest.raises(ValueError, match="CUDA"):
         K4.flash_attention_fwd(q, k, k, seg)

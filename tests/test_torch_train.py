@@ -33,7 +33,7 @@ from spatialrgpt_tpu_torch.ops import flash_attention as K4
 from spatialrgpt_tpu_torch.train import optimizer as topt
 from spatialrgpt_tpu_torch.train import step as tstep
 from spatialrgpt_tpu_torch.train import trainer as ttrainer
-from spatialrgpt_tpu_torch.utils.weights import load_from_jax
+from spatialrgpt_tpu_torch.utils.weights import init_random, load_from_jax
 
 
 
@@ -319,7 +319,8 @@ def test_unported_training_options_raise(weights):
         ttrainer.TrainerConfig(ckpt_backend="orbax")
     with pytest.raises(ValueError, match="unknown frozen"):
         tstep.make_train_step(TINY_T, None, frozen=("tower",))
+    # a MoE decoder trains (the families' training): its loss carries the aux
     moe = TINY_T.replace(llm=TINY_T.llm.__class__(**{**TINY_T.llm.__dict__, "num_experts": 2}))
-    with pytest.raises(NotImplementedError):
-        tvlm.loss_fn(_model(weights[1]), moe, _batch(0)[0])
+    loss, metrics = tvlm.loss_fn(init_random(moe, "cpu", torch.float32, seed=0), moe, _batch(0)[0], attn_impl="pallas")
+    assert np.isfinite(float(loss)) and float(metrics["router_aux_loss"]) > 0
     assert K4.launches == {"flash_attention_fwd": 0, "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0}
