@@ -233,8 +233,22 @@ Phases, each printed as one JSON line:
    synth path's photos, the metric Depth-Anything ViT-L on an RGBD
    manifest of them, without and with ``freeze_backbone`` (whose
    backbone must only decay); loss histories and seconds a step.
+12. towers -- the other vision towers and the MPT decoder
+   (``phase_towers``), full width, bf16, random from fixed seeds, each
+   built from ``build_vision_tower``'s config: CLIP ViT-L/14-336 on 16
+   images (23 of 24 layers), CLIP-S² at 336 / 672 / 1008 on 4 images (56
+   crops in one tower pass, hidden 3072), InternViT-6B on 4 images at 448
+   px (48 layers, K1's D = 128 form), RADIO ViT-H/16 through
+   ``RadioVisionTower`` on 2 photos at the 768-pixel longest edge in
+   ``patch`` and ``dense``, ``vlm.forward_mpt`` on MPT-7B behind
+   SigLIP-so400m over phase main's 8 rows and over the same samples packed
+   2 a row.  Checks K1's launches (once a tower layer, nothing else) and
+   the kernel route against K1's plain version (features and logits within
+   0.05, or each layer's update within 0.02 where random depth amplifies);
+   reports a forward's device ms and peak GB per model.  The kernel phase
+   adds K1 at CLIP's B16 S577 H16 D64 and InternViT-6B's B4 S1025 H25 D128.
 
-The times of phases 5-11 are smoke figures of this card, not a
+The times of phases 5-12 are smoke figures of this card, not a
 benchmark.  Then the ``kernels`` line (one row per kernel at its first
 shape, its later shapes under ``other_shapes``) and, last, ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero before that line; so does a machine
@@ -761,6 +775,23 @@ def phase_kernels(torch):
         bound(4 * B * H * S * S * D, nbytes(q, k, v, q)),
         ("F.scaled_dot_product_attention, (B, H, S, D) copies, SDPBackend.FLASH_ATTENTION", lambda: lib_call(*lib_in)),
     ))
+    # K1 at the towers path's shapes: CLIP ViT-L/14-336 over 16 images (D 64,
+    # the narrow form) and InternViT-6B over 4 images at 448 px (S 1025, 25
+    # heads of D 128: the wide form)
+    k1_towers = []
+    for B, S, H, D in ((TOWER_CLIP_IMAGES, 577, 16, 64), (TOWER_INTERN_IMAGES, 1025, 25, 128)):
+        qt, kt, vt = rn(B, S, H, D), rn(B, S, H, D), rn(B, S, H, D)
+        libt_in, libt_call = sdpa_library(torch, "FLASH_ATTENTION", qt, kt, vt)
+        k1_towers.append(libt_in)
+        cases.append((
+            "vit_attention", "spatialrgpt_tpu_torch/csrc/vit_attention.cu",
+            "spatialrgpt_tpu/ops/vit_attention.py:196", {"B": B, "S": S, "H": H, "D": D},
+            lambda qt=qt, kt=kt, vt=vt: K1.vit_attention(qt, kt, vt),
+            lambda qt=qt, kt=kt, vt=vt: K1.vit_attention_plain(qt, kt, vt), (50, 5, "graph"),
+            bound(4 * B * H * S * S * D, nbytes(qt, kt, vt, qt)),
+            ("F.scaled_dot_product_attention, (B, H, S, D) copies, SDPBackend.FLASH_ATTENTION",
+             lambda libt_in=libt_in, libt_call=libt_call: libt_call(*libt_in)),
+        ))
     # K2: llama3-8b prefill over the 320 bucket, right-padded rows; the
     # Hopper main loop at D 128 with G = 4 heads x 32 positions per CTA
     B, S, Hq, Hk, D = N_ROWS, PAD_BUCKET, 32, 8, 128
@@ -1151,7 +1182,7 @@ def phase_kernels(torch):
         check(ok, f"{name}: error {ratio} x the per-element bound (max abs err {err}, bit-equal {bit_equal})")
         rows.append(row)
         shapes.append(shape)
-    del bias5, bias5s, lib_in, lib2_in, libe_in, libg_in, libl_in, maskl, lib4, lib5_in, lib5s_in, lib4g, cases
+    del bias5, bias5s, lib_in, k1_towers, lib2_in, libe_in, libg_in, libl_in, maskl, lib4, lib5_in, lib5s_in, lib4g, cases
     torch.cuda.empty_cache()
     # one row per kernel in the kernels line, at its first shape (K2 the
     # serve's prefill, K5 the demo's B4 chunk, K6 SAM's rows); a kernel's
@@ -4269,6 +4300,246 @@ def phase_synth(torch, nvidia_smi: str, profile_dir=None) -> dict:
     return counts
 
 
+# the towers path: CLIP ViT-L/14-336 on 16 images at select_layer -2, CLIP-S²
+# at 336 / 672 / 1008 on 4 images (14 crops an image, all in one tower pass),
+# InternViT-6B on 4 images at 448 px (all 48 layers), RADIO ViT-H/16 on 2
+# square photos resized to the 768-pixel longest edge (48 x 48 patches + 4
+# summary tokens), MPT-7B behind SigLIP-so400m on phase main's rows; bf16,
+# random from fixed seeds
+TOWER_CLIP = "openai/clip-vit-large-patch14-336"
+TOWER_INTERN = "OpenGVLab/InternViT-6B-448px-V1-5"
+TOWER_RADIO = "radio:768:radio_v2.5-h:"
+TOWER_CLIP_IMAGES = 16
+TOWER_S2_IMAGES = 4
+TOWER_S2_SCALES = "336,672,1008"
+TOWER_INTERN_IMAGES = 4
+TOWER_RADIO_IMAGES = 2
+TOWER_RADIO_PHOTO = 640  # square photos, their longest edge resized to 768 by the tower's processor
+# MPT-7B's table has 50,432 rows (its tokenizer's 50,277 ids and room to
+# grow): <mask> and <depth> take two of its last rows
+MPT_MASK_TOKEN, MPT_DEPTH_TOKEN = 50430, 50431
+
+
+def layer_updates(torch, x, layers, step) -> list:
+    """Per layer: the relative L2 distance of the layer's update (output
+    less input) on the kernel route from the plain route's, both from the
+    plain route's input to that layer (``step(x, layer, attn_impl)``)."""
+    rels = []
+    with torch.no_grad():
+        for layer in layers:
+            plain = step(x, layer, "xla")
+            rels.append(rel_l2(step(x, layer, "onepass") - x, plain - x))
+            x = plain
+    return rels
+
+
+def tower_run(torch, fn, plain_fn, nvidia_smi: str) -> tuple:
+    """One model of the towers path: a warm-up call, the counted call (the
+    launch counts reset just before it and read just after), the device
+    ms of one call (CUDA events, median of 3) and its peak GB, and the plain
+    route's output.  Returns (output, plain output, counts, figures)."""
+    with torch.no_grad():
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        ms = event_ms(torch, fn, 1)
+        ref = plain_fn()
+    figures = {"forward_device_ms": ms, "peak_mem_gb": peak_gb, "card": nvidia_smi,
+               "timing": "CUDA events around one call after a warm-up, median of 3"}
+    return out, ref, counts, figures
+
+
+def phase_towers(torch, nvidia_smi: str, profile_dir=None) -> dict:
+    """The other vision towers and the MPT decoder at full width
+    (``build_vision_tower``'s configs, ``init_random_*`` on the card, bf16):
+    CLIP ViT-L/14-336 (23 of 24 layers, K1's narrow form at D 64), CLIP-S²
+    (one tower pass over 56 crops, hidden 3072), InternViT-6B (48 layers,
+    K1's wide form at D 128), RADIO ViT-H/16 through ``RadioVisionTower``
+    in ``patch`` and ``dense`` (plain attention, as the reference's), and
+    ``forward_mpt`` on MPT-7B behind SigLIP-so400m over phase main's 8 rows
+    (320 bucket, RGB + depth, 2 regions), then the same 8 samples packed 2
+    a row.  Checks each run's launch counts (K1 once a tower layer, nothing
+    else) and the kernel route against the plain route (K1's plain
+    version): the features and logits within LOGITS_REL_BOUND, or, where
+    random depth amplifies bf16 roundings past it, each layer's update
+    within LAYER_REL_BOUND with the full-depth figure reported; RADIO's
+    dense features end in its patch features, bit for bit (its bf16
+    features' distance from an f32 copy's is reported)."""
+    import numpy as np
+
+    from spatialrgpt_tpu_torch import NUM_TOKENS_PER_IMAGE, expand_rows, pack_rows
+    from spatialrgpt_tpu_torch.models import clip, intern_vit, mpt, radio, s2, siglip, vlm
+    from spatialrgpt_tpu_torch.models.tower_builder import build_vision_tower
+    from spatialrgpt_tpu_torch.models.vlm import VLMInputs
+    from spatialrgpt_tpu_torch.ops.layers import layer_norm
+    from spatialrgpt_tpu_torch.utils.weights import init_random, init_random_clip, init_random_intern_vit, init_random_radio
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(7)
+    checks, runs, totals = {}, {}, []
+
+    def pixels(n, size):
+        return torch.randn(n, size, size, 3, generator=g, device=dev).to(torch.bfloat16)
+
+    def k1_only(counts, n):
+        want = {k: 0 for k in counts}
+        want["vit_attention"] = n
+        return want
+
+    def record(label, counts, want, figures, **fields):
+        totals.append(counts)
+        checks[f"{label}_launch_counts"] = counts == want
+        runs[label] = {"launches": counts if counts != want else "as expected", "k1_launches": counts["vit_attention"],
+                       **fields, "smoke_figures_not_a_benchmark": figures}
+
+    def held(label, out, ref, shape, layer_rels=None):
+        rel = rel_l2(out, ref)
+        checks[f"{label}_shape_finite"] = list(out.shape) == shape and bool(torch.isfinite(out).all())
+        fields = {"shape": list(out.shape), "rel_l2_vs_plain": rel, "rel_bound": LOGITS_REL_BOUND}
+        if rel <= LOGITS_REL_BOUND or layer_rels is None:
+            checks[f"{label}_vs_plain"] = rel <= LOGITS_REL_BOUND
+        else:  # the full depth amplifies: each layer's update is held instead
+            rels = layer_rels()
+            checks[f"{label}_layer_updates_vs_plain"] = max(rels) <= LAYER_REL_BOUND
+            fields.update(layer_update_rel_l2=rels, layer_rel_bound=LAYER_REL_BOUND,
+                          held="layer by layer: the full depth amplifies bf16 roundings past rel_bound")
+        return fields
+
+    # CLIP ViT-L/14-336, then CLIP-S² on the same weights
+    h = build_vision_tower(TOWER_CLIP)
+    cfg = h.config
+    model = init_random_clip(cfg, dev, torch.bfloat16, seed=0)
+    layers = cfg.num_hidden_layers + 1 + cfg.select_layer
+    pre = model.vision_model.pre_layrnorm
+
+    def clip_layers(x):
+        return layer_updates(torch, layer_norm(clip.embed(model, x, cfg), pre.weight, pre.bias, cfg.layer_norm_eps),
+                             model.vision_model.encoder.layers[:layers],
+                             lambda x, layer, impl: clip.encoder_layer(x, layer, cfg, impl))
+
+    px = pixels(TOWER_CLIP_IMAGES, cfg.image_size)
+    out, ref, counts, figures = tower_run(torch, lambda: clip.forward_features(model, px, cfg),
+                                          lambda: clip.forward_features(model, px, cfg, "xla"), nvidia_smi)
+    fields = held("clip", out, ref, [TOWER_CLIP_IMAGES, cfg.num_patches, cfg.hidden_size], lambda: clip_layers(px))
+    record("clip", counts, k1_only(counts, layers), figures, images=TOWER_CLIP_IMAGES, layers=layers, **fields)
+
+    hs = build_vision_tower(TOWER_CLIP, use_s2=True, s2_scales=TOWER_S2_SCALES)
+    crops = sum((s // cfg.image_size) ** 2 for s in hs.s2_scales)
+    px = pixels(TOWER_S2_IMAGES, max(hs.s2_scales))
+    calls, seen = [], {}
+
+    def s2_route(impl):
+        def tower(x):
+            calls.append(int(x.shape[0]))
+            seen["crops"] = x
+            return clip.forward_features(model, x, cfg, impl)
+        return lambda: s2.multiscale_forward(tower, px, hs.s2_scales, cfg.image_size)
+
+    out, ref, counts, figures = tower_run(torch, s2_route("onepass"), s2_route("xla"), nvidia_smi)
+    checks["clip_s2_one_tower_pass"] = set(calls) == {TOWER_S2_IMAGES * crops}
+    fields = held("clip_s2", out, ref, [TOWER_S2_IMAGES, cfg.num_patches, hs.mm_hidden_size],
+                  lambda: clip_layers(seen["crops"]))
+    record("clip_s2", counts, k1_only(counts, layers), figures, images=TOWER_S2_IMAGES, scales=list(hs.s2_scales),
+           crops_per_tower_pass=TOWER_S2_IMAGES * crops, mm_hidden_size=hs.mm_hidden_size, **fields)
+    del model, out, ref, px
+    release(torch)
+
+    # InternViT-6B at 448 px, all 48 layers
+    h = build_vision_tower(TOWER_INTERN, select_layer=-1)
+    cfg = h.config
+    t0 = time.perf_counter()
+    model = init_random_intern_vit(cfg, dev, torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    px = pixels(TOWER_INTERN_IMAGES, cfg.image_size)
+    out, ref, counts, figures = tower_run(torch, lambda: intern_vit.forward_features(model, px, cfg),
+                                          lambda: intern_vit.forward_features(model, px, cfg, "xla"), nvidia_smi)
+    fields = held("intern_vit", out, ref, [TOWER_INTERN_IMAGES, cfg.num_patches, cfg.hidden_size], lambda: layer_updates(
+        torch, intern_vit.embed(model, px, cfg), model.encoder.layer,
+        lambda x, layer, impl: intern_vit.encoder_layer(x, layer, cfg, impl)))
+    weights_gb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+    record("intern_vit", counts, k1_only(counts, cfg.num_hidden_layers), figures, images=TOWER_INTERN_IMAGES,
+           layers=cfg.num_hidden_layers, heads=cfg.num_attention_heads, head_dim=cfg.hidden_size // cfg.num_attention_heads,
+           weights_gb=weights_gb, init_s=init_s, **fields)
+    del model, out, ref, px
+    release(torch)
+
+    # RADIO ViT-H/16 on 2 square photos through the tower's own processor
+    h = build_vision_tower(TOWER_RADIO)
+    rcfg = radio.RadioBackboneConfig()
+    model = init_random_radio(rcfg, dev, torch.bfloat16, seed=0)
+    towers = {sel: radio.RadioVisionTower(TOWER_RADIO, model=model, backbone_cfg=rcfg, select_feature=sel)
+              for sel in ("patch", "dense")}
+    rng = np.random.default_rng(8)
+    photos = [rng.integers(0, 256, (TOWER_RADIO_PHOTO, TOWER_RADIO_PHOTO, 3), dtype=np.uint8)
+              for _ in range(TOWER_RADIO_IMAGES)]
+    px = torch.as_tensor(np.stack([towers["patch"].processor(p)["pixel_values"] for p in photos]), device=dev)
+    grid = (px.shape[1] // rcfg.patch_size) * (px.shape[2] // rcfg.patch_size)
+    feats = {}
+    for sel, tower in towers.items():
+        feats[sel], _, counts, figures = tower_run(torch, lambda: tower(px.to(torch.bfloat16)), lambda: None, nvidia_smi)
+        want_shape = [TOWER_RADIO_IMAGES, grid, tower.hidden_size]
+        checks[f"radio_{sel}_shape_finite"] = list(feats[sel].shape) == want_shape and bool(torch.isfinite(feats[sel]).all())
+        record(f"radio_{sel}", counts, k1_only(counts, 0), figures, images=TOWER_RADIO_IMAGES,
+               input_hw=list(px.shape[1:3]), tokens=grid + rcfg.num_skip, shape=list(feats[sel].shape),
+               hidden_size=tower.hidden_size, features_rms=float(feats[sel].float().square().mean().sqrt()))
+    checks["radio_dense_ends_in_patch"] = torch.equal(feats["dense"][..., -rcfg.hidden_size:], feats["patch"])
+    with torch.no_grad():  # reported: the same weights in f32
+        runs["radio_patch"]["rel_l2_vs_f32_copy"] = rel_l2(feats["patch"], radio.radio_forward(model.float(), rcfg, px)[1])
+    runs["radio"] = {"h_family": h.family, "mm_hidden_size": h.mm_hidden_size, "spec": h.config.checkpoint}
+    del model, towers, feats, px
+    release(torch)
+
+    # forward_mpt: MPT-7B behind SigLIP-so400m on phase main's rows, then packed
+    mcfg = mpt.MPTConfig()
+    vcfg = llama3_8b_cfg().replace(mask_token_id=MPT_MASK_TOKEN, depth_token_id=MPT_DEPTH_TOKEN)
+    t0 = time.perf_counter()
+    model = init_random(vcfg, dev, torch.bfloat16, seed=0, mpt_cfg=mcfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rows, pix = draw_rows(vcfg, np.random.default_rng(0), N_ROWS)
+    spliced = [expand_rows([r], None, max_len=vcfg.model_max_length, tokens_per_image=NUM_TOKENS_PER_IMAGE,
+                           mask_token_id=MPT_MASK_TOKEN, depth_token_id=MPT_DEPTH_TOKEN, regions_per_image=N_REGIONS,
+                           pad_to=PAD_BUCKET) for r in rows]
+    batches = {
+        "mpt": splice(torch, vcfg, rows, pix)[0],
+        "mpt_packed": VLMInputs.from_spliced(pack_rows(spliced, max_len=2 * PAD_BUCKET), *pix, device=DEVICE,
+                                             dtype=torch.bfloat16),
+    }
+    tower_layers_n = vcfg.vision.num_hidden_layers + 1 + vcfg.vision.select_layer
+    for label, inputs in batches.items():
+        out, ref, counts, figures = tower_run(torch, lambda: vlm.forward_mpt(model, vcfg, mcfg, inputs),
+                                              lambda: vlm.forward_mpt(model, vcfg, mcfg, inputs, "xla"), nvidia_smi)
+
+        def tower_layers(inputs=inputs):
+            x = siglip.embed(model.vision_tower, torch.cat([inputs.images, inputs.depths]), vcfg.vision)
+            return layer_updates(torch, x, model.vision_tower.vision_model.encoder.layers[:tower_layers_n],
+                                 lambda x, layer, impl: siglip._encoder_layer(x, layer, vcfg.vision, impl))
+
+        B, S = inputs.input_ids.shape
+        fields = held(label, out, ref, [B, S, mcfg.vocab_size], tower_layers)
+        live = inputs.segment_ids != 0
+        fields["greedy_agreement_vs_plain_live_positions"] = float((out.argmax(-1) == ref.argmax(-1))[live].float().mean())
+        segs = [len(set(r) - {0}) for r in inputs.segment_ids.tolist()]
+        record(label, counts, k1_only(counts, tower_layers_n), figures, rows=B, bucket=S, segments_per_row=segs,
+               init_s=init_s, **fields)
+    checks["mpt_packed_two_samples_a_row"] = runs["mpt_packed"]["segments_per_row"] == [2] * (N_ROWS // 2)
+    del model, batches, out, ref
+    release(torch)
+
+    emit({"phase": "towers", "ok": all(checks.values()), "seconds": time.perf_counter() - t_phase, "checks": checks,
+          "runs": runs, "model": "clip vit-l/14-336 (+ S² 336/672/1008), internvit-6b (448 px, 48 layers), "
+                                 "radio vit-h/16 (768 px), mpt-7b + siglip-so400m; bf16, random from fixed seeds"})
+    check(all(checks.values()), f"towers checks failed: {[k for k, v in checks.items() if not v]}")
+    return add_counts(*totals)
+
+
 def release(torch) -> None:
     """Between phases: free what the last phase left (its model may sit in
     a reference cycle until the collector runs), so that the next phase's
@@ -4323,6 +4594,7 @@ PATHS = {
     "families": phase_families,
     "families_train": phase_families_train,
     "synth_train": phase_synth_train,
+    "towers": phase_towers,
 }
 
 

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) main loop of the attention kernels: K1 (vit_attention.cu,
-// SigLIP's D = 72) and K5 (grid_bias_attention.cu, SAM vit_h's D = 80 and
-// vit_b's 64) at a head-dim width DMAX of 80, and K2 (prefill_attention.cu,
-// llama's D = 128: causal x packed segment x window, GQA) and K4's forward
+// SigLIP's D = 72, CLIP's 64) and K5 (grid_bias_attention.cu, SAM vit_h's D =
+// 80 and vit_b's 64) at a head-dim width DMAX of 80, K1 also at DMAX = 128
+// (InternViT-6B's D = 128), and K2 (prefill_attention.cu, llama's D = 128:
+// causal x packed segment x window, GQA) and K4's forward
 // (flash_attention_sm90.cu: K2's function plus the LSE) at DMAX = 128; then
 // K4's dQ kernel (flash_dq_sm90_kernel), the same loop with one product
 // more, and K4's dK/dV kernel (flash_dkv_sm90_kernel, end of the file), its
@@ -1257,17 +1258,25 @@ cudaError_t launch_kernel(const CUtensorMap& tq, const CUtensorMap& tk, const CU
   return cudaGetLastError();
 }
 
-// K1 and K5: q, k, v (B, S, H, D) through their strides, D % 8 == 0 and D <= 80
+// K1 and K5: q, k, v (B, S, H, D) through their strides, D % 8 == 0 and D <= 80; K1
+// (NO_BIAS) also takes 80 < D <= 128 on the WIDE form (InternViT-6B's 128), whose
+// O and S fill the consumers' registers as K2's do and whose shared memory is
+// K2's less the segment ids
 template <int MODE>
 cudaError_t launch(Operand q, Operand k, Operand v, Params p, int B, cudaStream_t stream) {
-  if (p.D <= 0 || p.D % 8 != 0 || p.D > NARROW || p.S <= 0 || p.kv_len <= 0 || p.kv_len > p.S)
+  constexpr int dmax = MODE == NO_BIAS ? WIDE : NARROW;
+  if (p.D <= 0 || p.D % 8 != 0 || p.D > dmax || p.S <= 0 || p.kv_len <= 0 || p.kv_len > p.S)
     return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
   cudaError_t err = make_map(&tq, q.ptr, B, p.S, p.H, p.D, q.sb, q.ss, q.sh);
   if (err == cudaSuccess) err = make_map(&tk, k.ptr, B, p.S, p.H, p.D, k.sb, k.ss, k.sh);
   if (err == cudaSuccess) err = make_map(&tv, v.ptr, B, p.S, p.H, p.D, v.sb, v.ss, v.sh);
   if (err != cudaSuccess) return err;
-  return launch_kernel<NARROW, MODE>(tq, tk, tv, p, dim3((p.S + BM - 1) / BM, p.H, B), stream);
+  const dim3 grid((p.S + BM - 1) / BM, p.H, B);
+  if constexpr (MODE == NO_BIAS) {
+    if (p.D > NARROW) return launch_kernel<WIDE, MODE>(tq, tk, tv, p, grid, stream);
+  }
+  return launch_kernel<NARROW, MODE>(tq, tk, tv, p, grid, stream);
 }
 
 }  // namespace sm90

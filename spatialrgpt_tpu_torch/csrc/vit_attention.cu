@@ -14,9 +14,12 @@
 // warpgroups, softmax and O in registers).  q/k/v are read through their
 // (B, S, H, D) strides by 4-D tensor maps -- no transpose and no pad copy
 // in device memory, which is what the Pallas version needed two kernels
-// for.  D = 72 is padded to 80 by TMA's zero fill.  Keys >= valid_len are
-// masked on the last key tile only (the ragged 729, and callers that
-// pre-pad); at S = 729 that is 6 key tiles per CTA and a grid of 6 x 16 x 16.
+// for.  D = 72 (and CLIP's 64) is padded to 80 by TMA's zero fill; 80 < D
+// <= 128 (InternViT-6B's 128) runs the loop at its 128-wide form, K2's
+// width.  Keys >= valid_len are masked on the last key tile only (the
+// ragged 729, and callers that pre-pad); at S = 729 that is 6 key tiles per
+// CTA and a grid of 6 x 16 x 16; at InternViT's S = 1025 the last tile holds
+// one live key.
 
 #include "attention_sm90.cuh"
 

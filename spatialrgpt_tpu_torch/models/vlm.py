@@ -15,7 +15,9 @@ reference chunks ``_refine_and_pool`` only to bound TPU memory at batch
 room to spare.  Raw uint8 pixels, depths and masks are accepted, as the
 reference accepts them: pixels at the tower resolution are normalized on
 the device (``data/device_preprocess.py::device_siglip_normalize``) into
-the tower's dtype, masks are cast.
+the tower's dtype, masks are cast.  Built with ``mpt_cfg``, the model's
+decoder is an MPT (``models/mpt.py``), which ``forward_mpt`` runs after
+the same encode and splice.
 """
 
 from __future__ import annotations
@@ -30,20 +32,25 @@ from torch.utils.checkpoint import checkpoint
 from spatialrgpt_tpu_torch.config import SpatialRGPTConfig
 from spatialrgpt_tpu_torch.constants import IGNORE_INDEX
 from spatialrgpt_tpu_torch.data.device_preprocess import device_siglip_normalize
-from spatialrgpt_tpu_torch.models import llama, projector, region_extractor, siglip
+from spatialrgpt_tpu_torch.models import llama, mpt, projector, region_extractor, siglip
 
 
 class SpatialRGPT(nn.Module):
     """Parameter holder; sub-module names follow the reference's split
     checkpoint directories (llm/, vision_tower/, mm_projector/,
-    region_extractor/)."""
+    region_extractor/).  With ``mpt_cfg`` the decoder is an MPT
+    (``models/mpt.py``; the reference's LlavaMPT, run by ``forward_mpt``)
+    instead of ``cfg.llm``'s Llama."""
 
-    def __init__(self, cfg: SpatialRGPTConfig, dtype=None):
+    def __init__(self, cfg: SpatialRGPTConfig, dtype=None, mpt_cfg: Optional[mpt.MPTConfig] = None):
         super().__init__()
         self.vision_tower = siglip.SiglipVisionModel(cfg.vision, dtype)
         self.mm_projector = projector.MultimodalProjector(cfg.projector, dtype)
         self.region_extractor = region_extractor.RegionExtractor(cfg.region, dtype) if cfg.enable_region else None
-        self.llm = llama.LlamaForCausalLM(cfg.llm, cfg.num_extra_tokens, dtype)
+        if mpt_cfg is not None:
+            self.llm = mpt.MptForCausalLM(mpt_cfg, dtype)
+        else:
+            self.llm = llama.LlamaForCausalLM(cfg.llm, cfg.num_extra_tokens, dtype)
 
 
 class VLMInputs(NamedTuple):
@@ -156,7 +163,10 @@ def splice_embeds(
     """(B, S, H) input embeddings: text from the table, <mask>/<depth>
     positions overwritten by region embeds, image slots by projected image
     tokens."""
-    embeds = llama.embed_tokens(model.llm, inputs.input_ids)
+    if isinstance(model.llm, mpt.MptForCausalLM):
+        embeds = mpt.embed_tokens(model.llm, inputs.input_ids)
+    else:
+        embeds = llama.embed_tokens(model.llm, inputs.input_ids)
     H = embeds.shape[-1]
     if mask_embeds is not None:
         got = _gather_rows(mask_embeds.reshape(-1, H), inputs.mask_slot)
@@ -202,6 +212,18 @@ def forward(
         h, aux = _hidden(model, cfg, inputs, attn_impl, remat, with_aux=True)
         return llama.logits(model.llm, h), aux
     return llama.logits(model.llm, _hidden(model, cfg, inputs, attn_impl, remat))
+
+
+def forward_mpt(
+    model: SpatialRGPT, cfg: SpatialRGPTConfig, mpt_cfg: mpt.MPTConfig, inputs: VLMInputs, attn_impl: str = "onepass"
+) -> torch.Tensor:
+    """Composite forward with an MPT decoder (the reference's LlavaMPT):
+    the same vision encode and splice (the tower on K1 unless
+    ``attn_impl="xla"``), the ALiBi decoder stack, the tied head in f32 ->
+    logits (B, S, V)."""
+    embeds = prepare_embeds(model, cfg, inputs, attn_impl)
+    h = mpt.forward_embeds(model.llm, mpt_cfg, embeds, inputs.segment_ids)
+    return mpt.logits(model.llm, h)
 
 
 def _shifted_targets(inputs: VLMInputs) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -11,9 +11,12 @@ import torch
 # ``bf16_err_over_bound``'s floor for attention gradients: 1/256 of one
 # bf16 ulp of the tensor's largest value
 GRAD_FLOOR = 2.0**-16
-# the widest head dim of K1 and K5 on the Hopper main loop
+# the widest head dim of K5 on the Hopper main loop
 # (csrc/attention_sm90.cuh::NARROW; K2 and K4 run it at WIDE = 128)
 SM90_MAX_HEAD_DIM = 80
+# the widest head dim of K1: its D <= 80 form at NARROW, then its form at
+# WIDE for 80 < D <= 128 (InternViT-6B's 128)
+K1_MAX_HEAD_DIM = 128
 # the widest head dim of K2 and K4: their D = 256 forms
 # (csrc/attention_d256.cuh, Gemma's 256) take 128 < D <= 256
 K2_MAX_HEAD_DIM = 256

@@ -2,7 +2,8 @@
 
 Port of the Pallas kernel ``spatialrgpt_tpu/ops/vit_attention.py::vit_attention``;
 the CUDA kernel is ``csrc/vit_attention.cu`` on the Hopper main loop of
-``csrc/attention_sm90.cuh`` (TMA + wgmma, head dims up to 80).  ``vit_attention`` launches it
+``csrc/attention_sm90.cuh`` (TMA + wgmma; head dims up to 80 on its narrow
+form, 80 < D <= 128 on its wide one).  ``vit_attention`` launches it
 for CUDA tensors and takes the plain version ``vit_attention_plain`` only
 for tensors on the CPU.  ``launches`` counts kernel launches.  The kernel
 route is differentiable: its backward recomputes the plain version and
@@ -18,7 +19,7 @@ import torch
 
 from spatialrgpt_tpu_torch.ops import _build
 from spatialrgpt_tpu_torch.ops._autograd import KernelForwardPlainGrad
-from spatialrgpt_tpu_torch.ops._checks import SM90_MAX_HEAD_DIM, check_bshd
+from spatialrgpt_tpu_torch.ops._checks import K1_MAX_HEAD_DIM, check_bshd
 
 NEG_INF = -1e30
 
@@ -58,9 +59,9 @@ def vit_attention(
         return vit_attention_plain(q, k, v, valid_len)
     if k.shape != q.shape:
         raise ValueError(f"vit_attention: k/v shape {tuple(k.shape)} != q shape {tuple(q.shape)}")
-    if q.dim() == 4 and q.shape[3] > SM90_MAX_HEAD_DIM:
-        raise ValueError(f"vit_attention: head dim {q.shape[3]} > {SM90_MAX_HEAD_DIM}, the kernel's widest")
-    check_bshd("vit_attention", q, k, v)
+    if q.dim() == 4 and q.shape[3] > K1_MAX_HEAD_DIM:
+        raise ValueError(f"vit_attention: head dim {q.shape[3]} > {K1_MAX_HEAD_DIM}, the kernel's widest")
+    check_bshd("vit_attention", q, k, v, K1_MAX_HEAD_DIM)
     S = q.shape[1]
     vl = S if valid_len is None else int(valid_len)
     if not 1 <= vl <= S:

@@ -21,10 +21,17 @@ HF-named ``state_dict()`` through the JAX ``convert_sam_hq``).
 The synth pipeline's models: ``init_random_{ram,owl_vit,camera_net}`` on the
 device and ``load_{ram,owl_vit,camera_net}_from_jax``, which carry the JAX
 package's parameter trees (numpy) across by the names of the port's modules.
+The other vision towers and MPT: ``init_random_{clip,intern_vit,radio,mpt}``
+on the device and ``load_{clip,intern_vit,radio,mpt}_from_jax``, each through
+the HF / timm names of its converter (``export_*`` writes them from the JAX
+tree, the model module's ``convert_*`` reads them); ``load_from_jax`` and
+``init_random`` build a composite whose decoder is an MPT when given
+``mpt_cfg``.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Callable, Optional, Tuple
 
@@ -34,8 +41,12 @@ from torch import nn
 
 from spatialrgpt_tpu_torch.config import SpatialRGPTConfig
 from spatialrgpt_tpu_torch.utils import export
+from spatialrgpt_tpu_torch.models.clip import CLIPVisionConfig, ClipVisionModel, convert_clip
 from spatialrgpt_tpu_torch.models.depth_anything import DepthAnythingConfig, DepthAnythingModel, LayerScale
+from spatialrgpt_tpu_torch.models.intern_vit import InternVisionConfig, InternVisionModel, convert_intern_vit
+from spatialrgpt_tpu_torch.models.mpt import MPTConfig, MptForCausalLM, convert_mpt
 from spatialrgpt_tpu_torch.models.owl_vit import OwlViTConfig, OwlViTModel
+from spatialrgpt_tpu_torch.models.radio import RadioBackboneConfig, RadioModel, convert_radio_state_dict
 from spatialrgpt_tpu_torch.models.ram import RamConfig, RamModel
 from spatialrgpt_tpu_torch.models.sam import SamConfig, SamHQModel
 from spatialrgpt_tpu_torch.models.vlm import SpatialRGPT
@@ -93,15 +104,17 @@ def export_llama_families(params) -> dict:
     return sd
 
 
-def load_from_jax(np_params, cfg: SpatialRGPTConfig, device, dtype=torch.float32) -> SpatialRGPT:
+def load_from_jax(np_params, cfg: SpatialRGPTConfig, device, dtype=torch.float32,
+                  mpt_cfg: Optional[MPTConfig] = None) -> SpatialRGPT:
     """JAX ``vlm.init_params``-layout pytree -> ``SpatialRGPT`` on ``device``.
     Entries quantized by ``quantize_llm`` (``kernel_q``) load into
     ``QuantLinear``s: int8 (or packed int4) ``q`` and f32 ``scale`` as they
-    are, the W8A8 marker as ``a8``."""
+    are, the W8A8 marker as ``a8``.  With ``mpt_cfg`` the tree's ``llm`` is
+    an ``mpt.init_params`` tree and the decoder an MPT."""
     parts = {
         "vision_tower.": export.export_siglip(np_params["vision"]),
         "mm_projector.": export.export_projector(np_params["projector"], cfg.projector.projector_type),
-        "llm.": export_llama_families(np_params["llm"]),
+        "llm.": export_llama_families(np_params["llm"]) if mpt_cfg is None else export_mpt(np_params["llm"]),
     }
     if cfg.enable_region:
         parts["region_extractor."] = export.export_region_extractor(np_params["region"])
@@ -121,7 +134,7 @@ def load_from_jax(np_params, cfg: SpatialRGPTConfig, device, dtype=torch.float32
             state[name] = t.to(device=device, dtype=torch.float32)
         else:
             state[name] = t.to(device=device, dtype=dtype)
-    model = _empty_model(SpatialRGPT, cfg, device, dtype, quant.get)
+    model = _empty_model(functools.partial(SpatialRGPT, mpt_cfg=mpt_cfg), cfg, device, dtype, quant.get)
     model.load_state_dict(state, strict=True)
     return model
 
@@ -147,12 +160,14 @@ def _init_random_modules(model: nn.Module, g: torch.Generator) -> None:
 
 
 @torch.no_grad()
-def init_random(cfg: SpatialRGPTConfig, device, dtype=torch.bfloat16, seed: int = 0) -> SpatialRGPT:
+def init_random(cfg: SpatialRGPTConfig, device, dtype=torch.bfloat16, seed: int = 0,
+                mpt_cfg: Optional[MPTConfig] = None) -> SpatialRGPT:
     """Random weights made on ``device`` from ``seed``: dense and deconv
     kernels N(0, fan_in^-1/2), patch kernel and embedding tables N(0, 0.02),
-    norm scales 1, biases 0 (the JAX ``init_params`` recipe)."""
+    norm scales 1, biases 0 (the JAX ``init_params`` recipe); an MPT
+    decoder in ``cfg.llm``'s place with ``mpt_cfg``."""
     g = torch.Generator(device=device).manual_seed(seed)
-    model = _empty_model(SpatialRGPT, cfg, device, dtype)
+    model = _empty_model(functools.partial(SpatialRGPT, mpt_cfg=mpt_cfg), cfg, device, dtype)
     _init_random_modules(model, g)
     return model
 
@@ -617,3 +632,178 @@ def load_camera_net_from_jax(np_params, cfg: CameraNetConfig, device, dtype=torc
     sd = {}
     _export_tree(sd, np_params, "")
     return _load_state(CameraNet, cfg, sd, device, dtype)
+
+
+# ---------------------------------------------------------------------------
+# the other vision towers (CLIP, InternViT, RADIO) and the MPT decoder
+# ---------------------------------------------------------------------------
+
+
+def export_clip(p) -> dict:
+    """``clip.init_params``-layout pytree (numpy) -> the HF ``CLIPVisionModel``
+    names that ``convert_clip`` reads (its inverse)."""
+    vm = "vision_model."
+    sd = {
+        vm + "embeddings.class_embedding": np.asarray(p["class_embed"]),
+        vm + "embeddings.patch_embedding.weight": np.asarray(p["patch_embed"]["kernel"]).transpose(3, 2, 0, 1),
+        vm + "embeddings.position_embedding.weight": np.asarray(p["pos_embed"]),
+    }
+    _norm(sd, vm + "pre_layrnorm", p["pre_ln"])
+    for i, lp in enumerate(p["layers"]):
+        b = f"{vm}encoder.layers.{i}."
+        _norm(sd, b + "layer_norm1", lp["ln1"])
+        _norm(sd, b + "layer_norm2", lp["ln2"])
+        for ours, theirs in (("wq", "q_proj"), ("wk", "k_proj"), ("wv", "v_proj"), ("wo", "out_proj")):
+            _dense(sd, b + "self_attn." + theirs, lp["attn"][ours])
+        _dense(sd, b + "mlp.fc1", lp["mlp"]["fc1"])
+        _dense(sd, b + "mlp.fc2", lp["mlp"]["fc2"])
+    _norm(sd, vm + "post_layernorm", p["post_ln"])
+    return sd
+
+
+def export_intern_vit(p) -> dict:
+    """``intern_vit.init_params``-layout pytree (numpy) -> HF
+    ``InternVLVisionModel`` names, its qkv kept fused as ``attention.qkv``
+    (rows [q | k | v]), which ``convert_intern_vit`` splits."""
+    sd = {
+        "embeddings.cls_token": np.asarray(p["class_embed"])[None, None],
+        "embeddings.patch_embeddings.projection.weight": np.asarray(p["patch_embed"]["kernel"]).transpose(3, 2, 0, 1),
+        "embeddings.patch_embeddings.projection.bias": np.asarray(p["patch_embed"]["bias"]),
+        "embeddings.position_embeddings": np.asarray(p["pos_embed"])[None],
+    }
+    for i, lp in enumerate(p["layers"]):
+        b = f"encoder.layer.{i}."
+        sd[b + "layernorm_before.weight"] = np.asarray(lp["norm1"])
+        sd[b + "layernorm_after.weight"] = np.asarray(lp["norm2"])
+        _dense(sd, b + "attention.qkv", lp["qkv"])
+        _dense(sd, b + "attention.projection_layer", lp["proj"])
+        _dense(sd, b + "mlp.fc1", lp["mlp"]["fc1"])
+        _dense(sd, b + "mlp.fc2", lp["mlp"]["fc2"])
+        sd[b + "lambda_1"], sd[b + "lambda_2"] = np.asarray(lp["ls1"]), np.asarray(lp["ls2"])
+        for n in ("q_norm", "k_norm"):
+            if n in lp:
+                sd[b + f"attention.{n}.weight"] = np.asarray(lp[n])
+    return sd
+
+
+def export_radio(p) -> dict:
+    """``radio.init_radio_params``-layout pytree (numpy) -> the released
+    checkpoints' timm names that ``convert_radio_state_dict`` reads: the
+    patch kernel ((py, px, channel) rows) as timm's (H, channel * P * P)
+    linear."""
+    kernel = np.asarray(p["patch_embed"]["kernel"])
+    H = kernel.shape[1]
+    P = int(round((kernel.shape[0] // 3) ** 0.5))
+    pg = "model.patch_generator."
+    sd = {
+        pg + "embedder.weight": kernel.reshape(P, P, 3, H).transpose(3, 2, 0, 1).reshape(H, -1),
+        pg + "embedder.bias": np.asarray(p["patch_embed"]["bias"]),
+        pg + "cls_token.token": np.asarray(p["cls_tokens"]),
+        pg + "pos_embed": np.asarray(p["pos_embed"])[None],
+    }
+    for i, lp in enumerate(p["layers"]):
+        b = f"model.blocks.{i}."
+        _norm(sd, b + "norm1", lp["ln1"])
+        _norm(sd, b + "norm2", lp["ln2"])
+        _dense(sd, b + "attn.qkv", lp["attn"]["qkv"])
+        _dense(sd, b + "attn.proj", lp["attn"]["proj"])
+        _dense(sd, b + "mlp.fc1", lp["mlp"]["fc1"])
+        _dense(sd, b + "mlp.fc2", lp["mlp"]["fc2"])
+    _norm(sd, "model.norm", p["norm"])
+    return sd
+
+
+def export_mpt(p) -> dict:
+    """``mpt.init_params``-layout pytree (numpy) -> the HF ``MptForCausalLM``
+    names that ``convert_mpt`` reads (its inverse)."""
+    sd = {"transformer.wte.weight": np.asarray(p["wte"]), "transformer.norm_f.weight": np.asarray(p["norm_f"])}
+    for i, lp in enumerate(p["layers"]):
+        b = f"transformer.blocks.{i}."
+        sd[b + "norm_1.weight"], sd[b + "norm_2.weight"] = np.asarray(lp["norm1"]), np.asarray(lp["norm2"])
+        for ours, theirs in (("wqkv", "attn.Wqkv"), ("out_proj", "attn.out_proj"), ("up", "ffn.up_proj"),
+                             ("down", "ffn.down_proj")):
+            _dense(sd, b + theirs, lp[ours])
+    return sd
+
+
+def load_clip_from_jax(np_params, cfg: CLIPVisionConfig, device, dtype=torch.float32) -> ClipVisionModel:
+    """``clip.init_params``-layout pytree (numpy) -> ``ClipVisionModel`` on
+    ``device`` through the HF names."""
+    return _load_state(ClipVisionModel, cfg, convert_clip(export_clip(np_params), cfg.num_hidden_layers), device,
+                       dtype)
+
+
+def load_intern_vit_from_jax(np_params, cfg: InternVisionConfig, device, dtype=torch.float32) -> InternVisionModel:
+    """``intern_vit.init_params``-layout pytree (numpy) -> ``InternVisionModel``
+    on ``device`` through the HF names (the fused qkv split by the
+    converter)."""
+    return _load_state(InternVisionModel, cfg, convert_intern_vit(export_intern_vit(np_params), cfg), device, dtype)
+
+
+def load_radio_from_jax(np_params, cfg: RadioBackboneConfig, device, dtype=torch.float32) -> RadioModel:
+    """``radio.init_radio_params``-layout pytree (numpy) -> ``RadioModel`` on
+    ``device`` through the timm names."""
+    return _load_state(RadioModel, cfg, convert_radio_state_dict(export_radio(np_params), cfg), device, dtype)
+
+
+def load_mpt_from_jax(np_params, cfg: MPTConfig, device, dtype=torch.float32) -> MptForCausalLM:
+    """``mpt.init_params``-layout pytree (numpy) -> ``MptForCausalLM`` on
+    ``device`` through the HF names."""
+    return _load_state(MptForCausalLM, cfg, convert_mpt(export_mpt(np_params), cfg), device, dtype)
+
+
+@torch.no_grad()
+def init_random_clip(cfg: CLIPVisionConfig, device, dtype=torch.bfloat16, seed: int = 0) -> ClipVisionModel:
+    """Random CLIP tower made on ``device`` from ``seed``, with the JAX
+    ``clip.init_params`` recipe: dense kernels N(0, fan_in^-1/2), patch
+    kernel, class embedding and position table N(0, 0.02), norm scales 1,
+    biases 0."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    model = _empty_model(ClipVisionModel, cfg, device, dtype)
+    _init_random_modules(model, g)
+    model.vision_model.embeddings.class_embedding.normal_(0.0, 0.02, generator=g)
+    return model
+
+
+@torch.no_grad()
+def init_random_intern_vit(cfg: InternVisionConfig, device, dtype=torch.bfloat16, seed: int = 0) -> InternVisionModel:
+    """Random InternViT made on ``device`` from ``seed``, with the JAX
+    ``intern_vit.init_params`` recipe: dense kernels N(0, fan_in^-1/2),
+    patch kernel, class token and position table N(0, 0.02), RMSNorm
+    scales and layer scales 1, biases 0."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    model = _empty_model(InternVisionModel, cfg, device, dtype)
+    _init_random_modules(model, g)
+    emb = model.embeddings
+    for t in (emb.cls_token, emb.position_embeddings):
+        t.normal_(0.0, 0.02, generator=g)
+    for layer in model.encoder.layer:
+        layer.lambda_1.fill_(1.0)
+        layer.lambda_2.fill_(1.0)
+    return model
+
+
+@torch.no_grad()
+def init_random_radio(cfg: RadioBackboneConfig, device, dtype=torch.bfloat16, seed: int = 0) -> RadioModel:
+    """Random RADIO backbone made on ``device`` from ``seed``, with the JAX
+    ``init_radio_params`` recipe: dense kernels (the patch embedder is one)
+    N(0, fan_in^-1/2), summary tokens and the CPE table N(0, 0.02), norm
+    scales 1, biases 0."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    model = _empty_model(RadioModel, cfg, device, dtype)
+    _init_random_modules(model, g)
+    pg = model.model.patch_generator
+    for t in (pg.cls_token.token, pg.pos_embed):
+        t.normal_(0.0, 0.02, generator=g)
+    return model
+
+
+@torch.no_grad()
+def init_random_mpt(cfg: MPTConfig, device, dtype=torch.bfloat16, seed: int = 0) -> MptForCausalLM:
+    """Random MPT made on ``device`` from ``seed``, with the JAX
+    ``mpt.init_params`` recipe: dense kernels N(0, fan_in^-1/2), the
+    embedding table N(0, 0.02), norm scales 1."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    model = _empty_model(MptForCausalLM, cfg, device, dtype)
+    _init_random_modules(model, g)
+    return model

@@ -12,7 +12,9 @@ and the synth pipeline's models (Swin, RAM, OWL-ViT, CameraNet) in bf16
 against f32 on the CPU, with the SAM segmenter's K5 launches at B1; and
 the decoder families: K2's D = 256 form, K3 at Gemma's cache, K8 / K9 at
 Mixtral's router (N = 8) and Gemma's widths, tiny Mistral, Gemma and
-Mixtral region-QA batches through the kernels.
+Mixtral region-QA batches through the kernels; and K1's wide form (D 128,
+InternViT-6B) beside CLIP's D 64, and narrow CLIP, InternViT, RADIO and MPT
+models in bf16 against f32 on the CPU.
 
 Every test here is marked ``gpu`` and skips where there is no CUDA card
 (the kernels are CUDA C++ for sm_90a and have no CPU mode).  The file
@@ -82,11 +84,12 @@ _VIT_CASES = [(S, None) for S in (1, 63, 64, 65, 127, 128, 129, 729, 4096)] + [
     (65, 1), (129, 100), (256, 200), (729, 700), (4096, 4000)]
 
 
-@pytest.mark.parametrize("D", [64, 72, 80])
+@pytest.mark.parametrize("D", [64, 72, 80, 96, 128])
 @pytest.mark.parametrize("S,valid_len", _VIT_CASES)
 def test_vit_kernel_matches_plain(cuda, S, valid_len, D):
     """K1 on the Hopper main loop against its plain version: head dims 64
-    (one swizzle atom), 72 (SigLIP) and 80 (both atoms full); S around the
+    (one swizzle atom; CLIP), 72 (SigLIP) and 80 (both atoms full) on its
+    narrow form, 96 and 128 (InternViT-6B) on its wide one; S around the
     128-row tiles (a ragged last query and key tile, a single token,
     SigLIP's 729, SAM's 4096), and keys masked from valid_len < S on."""
     rng = np.random.default_rng(S * 100 + D)
@@ -99,7 +102,7 @@ def test_vit_kernel_matches_plain(cuda, S, valid_len, D):
     _bf16_close(out, K1.vit_attention_plain(q, k, v, valid_len=valid_len))
 
 
-@pytest.mark.parametrize("S,D", [(100, 72), (729, 72), (300, 64), (129, 80)])
+@pytest.mark.parametrize("S,D", [(100, 72), (729, 72), (300, 64), (129, 80), (1025, 128), (200, 104)])
 def test_vit_kernel_reads_strided_heads(cuda, S, D):
     """q/k/v as views into a fused (B, S, 3, H, D) projection: the tensor
     maps read through strides, no copy."""
@@ -125,6 +128,44 @@ def test_vit_bound_separates_a_skipped_key_tile(cuda):
 
     assert bf16_err_over_bound(K1.vit_attention(q, moved(k), moved(v)), ref) <= 1.0
     assert bf16_err_over_bound(K1.vit_attention(q, moved(k), moved(v), valid_len=S - 128), ref) > 1.0
+
+
+@pytest.mark.parametrize("B,S,H,D", [(16, 577, 16, 64), (4, 1025, 25, 128)])
+def test_vit_kernel_at_the_towers_shapes(cuda, B, S, H, D):
+    """K1 at the new towers' shapes: CLIP ViT-L/14-336 (16 images, S 577,
+    D 64, the narrow form) and InternViT-6B at 448 px (4 images, S 1025 =
+    8 x 128 + 1, so the last key tile holds one live key; 25 heads, D 128,
+    the wide form), one launch each."""
+    rng = np.random.default_rng(S + D)
+    q, k, v = (_rand(rng, B, S, H, D, device=cuda) for _ in range(3))
+    before = K1.launches
+    out = K1.vit_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert K1.launches == before + 1
+    _bf16_close(out, K1.vit_attention_plain(q, k, v))
+
+
+def test_vit_wide_bound_separates_a_skipped_key_tile(cuda):
+    """The wide form (D 128) meets the bound that a kernel skipping one
+    128-key tile fails (the moved-tile construction of the narrow form's
+    test), and the last tile's single live key at S 1025 counts: leaving
+    it out fails the bound too."""
+    rng = np.random.default_rng(5)
+    B, S, H, D = 1, 1025, 5, 128
+    q, k, v = (_rand(rng, B, S, H, D, device=cuda) for _ in range(3))
+    ref = K1.vit_attention_plain(q, k, v)
+    tile = slice(256, 384)
+
+    def moved(t):
+        return torch.cat([t[:, : tile.start], t[:, tile.stop :], t[:, tile]], dim=1)
+
+    assert bf16_err_over_bound(K1.vit_attention(q, moved(k), moved(v)), ref) <= 1.0
+    assert bf16_err_over_bound(K1.vit_attention(q, moved(k), moved(v), valid_len=S - 128), ref) > 1.0
+    v_big = v.clone()
+    v_big[:, -1] = 64.0  # the lone key of the last tile carries a value no other key has
+    ref_big = K1.vit_attention_plain(q, k, v_big)
+    assert bf16_err_over_bound(K1.vit_attention(q, k, v_big), ref_big) <= 1.0
+    assert bf16_err_over_bound(K1.vit_attention(q, k, v_big, valid_len=S - 1), ref_big) > 1.0
 
 
 def _causal_segment_live(seg):
@@ -409,14 +450,15 @@ def test_flash_kernels_take_any_segment_layout(cuda, layout, window, G, D):
 
 
 def test_kernel_gradients_match_plain(cuda):
-    """The CUDA routes of K1 and K2 carry gradients to q, k and v, equal to
-    the plain path's within the per-element bound (their backward
-    recomputes the plain version)."""
+    """The CUDA routes of K1 (both forms) and K2 carry gradients to q, k
+    and v, equal to the plain path's within the per-element bound (their
+    backward recomputes the plain version)."""
     rng = np.random.default_rng(6)
     S = 200
     seg = _packed(2, S, cuda)
     cases = [
         (K1.vit_attention, K1.vit_attention_plain, (2, 100, 4, 72), (2, 100, 4, 72), ()),
+        (K1.vit_attention, K1.vit_attention_plain, (2, 150, 3, 128), (2, 150, 3, 128), ()),
         (K2.onepass_attention, K2.onepass_attention_plain, (2, S, 8, 128), (2, S, 2, 128), (seg,)),
     ]
 
@@ -1709,3 +1751,58 @@ def test_matmul_f32_backward_on_the_card(cuda, monkeypatch, grads):
     assert (w.grad is None) == (grads == "x")
     if grads == "x":
         assert peak < w.numel() * 4, peak
+
+
+def _tower(which, device, dtype):
+    """A narrow model of each new family at a head dim of its full width
+    (CLIP 64, InternViT 128, RADIO 80, MPT 128), its forward, its input's
+    shape and its K1 launches (one a layer for CLIP and InternViT)."""
+    from spatialrgpt_tpu_torch.config import SiglipVisionConfig as ClipCfg
+    from spatialrgpt_tpu_torch.models import clip, intern_vit, mpt, radio
+    from spatialrgpt_tpu_torch.utils import weights
+
+    if which == "clip":
+        cfg = ClipCfg(hidden_size=256, intermediate_size=512, num_hidden_layers=3, num_attention_heads=4,
+                      image_size=336, patch_size=14, select_layer=-2, select_feature="patch")
+        return weights.init_random_clip(cfg, device, dtype, 1), lambda m, x: clip.forward_features(m, x, cfg), (
+            2, 336, 336, 3), 2
+    if which == "intern_vit":
+        cfg = intern_vit.InternVisionConfig(hidden_size=384, intermediate_size=768, num_hidden_layers=2,
+                                            num_attention_heads=3)
+        return weights.init_random_intern_vit(cfg, device, dtype, 1), lambda m, x: intern_vit.forward_features(
+            m, x, cfg), (2, 448, 448, 3), 2
+    if which == "radio":
+        cfg = radio.RadioBackboneConfig(hidden_size=160, num_hidden_layers=4, num_attention_heads=2,
+                                        intermediate_size=320)
+        return weights.init_random_radio(cfg, device, dtype, 1), lambda m, x: radio.radio_forward_dense(
+            m, cfg, x)[1], (2, 256, 384, 3), 0
+    cfg = mpt.MPTConfig(d_model=256, n_heads=2, n_layers=2, vocab_size=512)
+    ids = torch.tensor(np.random.default_rng(3).integers(0, 512, (2, 40)))
+    seg = torch.tensor([[1] * 20 + [2] * 15 + [0] * 5, [1] * 40])
+
+    def fwd(m, x):
+        dev = m.transformer.wte.weight.device
+        return mpt.forward_logits(m, cfg, ids.to(dev), seg.to(dev))
+
+    return weights.init_random_mpt(cfg, device, dtype, 1), fwd, (1,), 0
+
+
+@pytest.mark.parametrize("which", ["clip", "intern_vit", "radio", "mpt"])
+def test_tower_forward_card_bf16_vs_cpu_f32(cuda, which):
+    """The new towers and MPT on the card in bf16 (CLIP and InternViT
+    through K1) against the same (bf16-rounded) weights in f32 on the
+    CPU: relative L2 < 0.05."""
+    model, fwd, shape, k1_layers = _tower(which, "cpu", torch.float32)
+    card = model.to(cuda, torch.bfloat16)
+    model_cpu, _, _, _ = _tower(which, "cpu", torch.float32)
+    model_cpu.load_state_dict({k: t.detach().float().cpu() for k, t in card.state_dict().items()})
+    x = torch.tensor(np.random.default_rng(2).standard_normal(shape).astype(np.float32))
+    before = K1.launches
+    with torch.no_grad():
+        got = fwd(card, x.to(cuda))
+        torch.cuda.synchronize()
+        assert K1.launches == before + k1_layers
+        want = fwd(model_cpu, x)
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    rel = float((got.float().cpu() - want).norm() / want.norm())
+    assert rel < 0.05, (which, rel)

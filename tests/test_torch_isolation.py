@@ -4,11 +4,14 @@ package, and the port's copies of the JAX package's framework-free
 modules (``config``, ``constants``, ``conversation``, ``data/splice``,
 ``demo/engine``, the ``utils/export`` name maps, Pillow's bicubic
 coefficients) give what the originals give.  The data layer,
-``train/args.py``, the judge modules, ``demo/server.py`` and the synth
+``train/args.py``, the judge modules, ``demo/server.py``, the synth
 pipeline's framework-free stages (``synth/{geometry,prompts,pipeline,
-rephrase,visualize}``) are verbatim copies: their code equals the originals'
+rephrase,visualize}``), the tower builder and ``utils/{native,
+visualize_features}`` are verbatim copies: their code equals the originals'
 (``tests/test_torch_data.py`` runs the data layer side by side); so do the
-framework-free helpers of the eval runners and of the synth models.
+framework-free helpers of the eval runners, of the synth models and of the
+other towers and MPT (their configs, RADIO's spec and processor, MPT's
+ALiBi slopes).
 """
 
 import ast
@@ -188,7 +191,8 @@ VERBATIM_COPIES = {
     "data/dataset.py": ("to_vlm_inputs",),  # the one JAX function: models/vlm.py::VLMInputs.from_spliced
     "eval/judge.py": (), "eval/judge_prompts.py": (), "eval/judge_calibration.py": (), "demo/server.py": (),
     "synth/geometry.py": (), "synth/prompts.py": (), "synth/pipeline.py": (), "synth/rephrase.py": (),
-    "synth/visualize.py": (),
+    "synth/visualize.py": (), "models/tower_builder.py": (), "utils/native.py": (),
+    "utils/visualize_features.py": (),
 }
 
 # the framework-free helpers of the port's eval runners and synth models,
@@ -209,6 +213,10 @@ COPIED_HELPERS = {
     # the calibration trainer's numpy data paths
     "synth/train_calibration.py": ("_k_matrix", "_rotation", "warp_virtual_camera", "warp_batches", "_load_image_dir",
                                    "canonicalize_depth"),
+    # the other towers' and MPT's configs, RADIO's spec and processor, MPT's slopes
+    "models/intern_vit.py": ("InternVisionConfig",),
+    "models/radio.py": ("RadioSpec", "parse_radio_spec", "RadioImageProcessor", "RadioBackboneConfig"),
+    "models/mpt.py": ("MPTConfig", "alibi_slopes"),
 }
 
 

@@ -538,14 +538,16 @@ def test_onepass_wrapper_follows_the_fold_rule(hq, hk, D, match):
 
 
 def test_hopper_wrappers_reject_wide_heads_and_grids():
-    """K1 and K5 run on the Hopper main loop (head dims up to 80, K5's bias
+    """K1 and K5 run on the Hopper main loop (K1 at head dims up to 80 on
+    its narrow form and up to 128 on its wide one, K5 up to 80, K5's bias
     rows for grids up to 64 per side in shared memory): wider raises
     before any pointer reaches C; the widest that fits fails only for not
     being on a CUDA card."""
-    with pytest.raises(ValueError, match="head dim 96 > 80"):
-        K1.vit_attention(*(_meta(1, 8, 2, 96),) * 3)
-    with pytest.raises(ValueError, match="CUDA"):
-        K1.vit_attention(*(_meta(1, 8, 2, 80),) * 3)
+    with pytest.raises(ValueError, match="head dim 136 > 128"):
+        K1.vit_attention(*(_meta(1, 8, 2, 136),) * 3)
+    for D in (80, 96, 128):
+        with pytest.raises(ValueError, match="CUDA"):
+            K1.vit_attention(*(_meta(1, 8, 2, D),) * 3)
     for (gh, gw, D), match in (((2, 65, 64), "at most 64"), ((65, 2, 64), "at most 64"),
                                ((8, 8, 96), "head dim 96 > 80"), ((64, 64, 80), "CUDA")):
         S, H = gh * gw, 2
