@@ -247,8 +247,28 @@ Phases, each printed as one JSON line:
    0.05, or each layer's update within 0.02 where random depth amplifies);
    reports a forward's device ms and peak GB per model.  The kernel phase
    adds K1 at CLIP's B16 S577 H16 D64 and InternViT-6B's B4 S1025 H25 D128.
+13. parallel -- the parallel stack (``parallel/``) on a one-rank NCCL
+   process group made from a ``FileStore`` in a temporary directory
+   (``phase_parallel``; the card has one rank: a larger group's collectives
+   run in the CPU tests over gloo): (a) the llama3-8b + SigLIP-so400m align
+   step at full width wrapped in FSDP2 by ``shard_state`` (its parameters
+   DTensors), Ulysses at degree 1 with K4 as its local attention, held to
+   the unwrapped step's loss and gradients (TRAIN_LOSS_REL_BOUND,
+   TRAIN_GRAD_REL_BOUND); (b) ``generate`` through the tensor-parallel code
+   path (``tp_shard_model`` on a one-rank tp dim: its all-reduces and the
+   logits all-gather over that rank) on bf16 and on W8A8 weights, greedy
+   tokens equal to the plain serve's; (c) the ``ServingEngine`` with a
+   one-rank ``mesh``, its wave's tokens equal to (b)'s; (e) ``train.main``
+   from argv (1_mm_align.sh's flags, ``--ckpt_backend orbax``) stopped after
+   one micro step with a sharded checkpoint, then resumed from it for one
+   more.  Launch counts of every run from the config.  The kernel phase
+   adds (d): K2, K3, K4 (all three), K7's split form (a fan-in slice
+   quantized by the whole rows' scales) and K8 / K9 at the shapes a rank
+   of a degree-4 run hands them (llama3-8b's Hq 8, Hk 2, intermediate
+   3584, a quarter of the vocabulary; K4 also at sp 8 and at one row of
+   16,384 positions).
 
-The times of phases 5-12 are smoke figures of this card, not a
+The times of phases 5-13 are smoke figures of this card, not a
 benchmark.  Then the ``kernels`` line (one row per kernel at its first
 shape, its later shapes under ``other_shapes``) and, last, ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero before that line; so does a machine
@@ -726,6 +746,157 @@ def dx_int_mm_library(torch, dyq, q):
     return label, layouts
 
 
+# the parallel path's rank-local shapes: llama3-8b at degree 4 (Hq 32 / 4,
+# Hk 8 / 4, intermediate 14,336 / 4, vocab 128,256 / 4); K4 also at sp 8
+PARALLEL_DEGREE = 4
+PARALLEL_LONG_SEQ = 16384
+
+
+def parallel_kernel_cases(torch, rn, i8, scales, causal_segment_mask):
+    """The kernel phase's cases at the shapes a rank of a degree-4 run
+    hands the kernels (tensor-parallel prefill and decode, Ulysses' local
+    attention, the tensor-parallel W8A8 projections): a list of (case, its
+    per-sample yardstick or None), each case in ``phase_kernels``' form."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from spatialrgpt_tpu_torch.ops import decode_attention as K3
+    from spatialrgpt_tpu_torch.ops import flash_attention as K4
+    from spatialrgpt_tpu_torch.ops import int8_linear as K789
+    from spatialrgpt_tpu_torch.ops import prefill_attention as K2
+    from spatialrgpt_tpu_torch.ops.quant import dequantize, quantize_kv
+
+    dev = torch.device(DEVICE)
+    n = PARALLEL_DEGREE
+    cfg = llama3_8b_cfg()
+    lc = cfg.llm
+    Hq, Hk, D = lc.num_attention_heads // n, lc.num_key_value_heads // n, lc.head_dim
+    out = []
+    # K2: the tensor-parallel prefill of phase main's 8 rows, right-padded
+    B, S = N_ROWS, PAD_BUCKET
+    q2, k2, v2 = rn(B, S, Hq, D), rn(B, S, Hk, D), rn(B, S, Hk, D)
+    seg = torch.zeros(B, S, dtype=torch.int32, device=dev)
+    for b in range(B):
+        seg[b, : S - 3 * b - 15] = 1
+    lib2_in, lib2_call = sdpa_library(torch, "EFFICIENT_ATTENTION", q2, k2, v2, causal_segment_mask(seg))
+    shape = {"B": B, "S": S, "Hq": Hq, "Hk": Hk, "D": D, "path": f"parallel: tp={n} prefill, a rank's heads"}
+    out.append(((
+        "onepass_attention", "spatialrgpt_tpu_torch/csrc/prefill_attention.cu",
+        "spatialrgpt_tpu/ops/prefill_attention.py:228", shape,
+        lambda: K2.onepass_attention(q2, k2, v2, seg), lambda: K2.onepass_attention_plain(q2, k2, v2, seg),
+        (50, 5, "graph"),
+        bound(4 * D * Hq * live_pairs(torch, seg), live_bytes(seg, q2, k2, v2) + nbytes(seg, q2)),
+        ("F.scaled_dot_product_attention, k/v expanded to Hq, (B, 1, S, S) causal x segment mask, "
+         "SDPBackend.EFFICIENT_ATTENTION", lambda: lib2_call(*lib2_in)),
+    ), None))
+    # K3: the tensor-parallel decode against a rank's kv heads of the int8 cache
+    C = PAD_BUCKET + MAX_NEW
+    q3 = rn(B, Hq, D)
+    kq, ks = quantize_kv(rn(B, C, Hk, D))
+    vq, vs = quantize_kv(rn(B, C, Hk, D))
+    kq, vq = kq.reshape(B, C, Hk * D), vq.reshape(B, C, Hk * D)
+    lengths = torch.tensor([0, C - 1, 5, 63, 64, 200, 305, 330], dtype=torch.int32, device=dev)
+    live3 = int(torch.clamp(lengths + 1, max=C).sum())
+    out.append(((
+        "decode_attention_int8_flat", "spatialrgpt_tpu_torch/csrc/decode_attention.cu",
+        "spatialrgpt_tpu/ops/decode_attention.py:174",
+        {"B": B, "C": C, "Hq": Hq, "Hk": Hk, "D": D, "path": f"parallel: tp={n} decode, a rank's kv heads"},
+        lambda: K3.decode_attention_int8_flat(q3, kq, ks, vq, vs, lengths, Hk),
+        lambda: K3.decode_attention_int8_flat_plain(q3, kq, ks, vq, vs, lengths, Hk), (200, 20, "graph"),
+        bound(4 * Hq * D * live3, nbytes(q3, lengths, q3) + live3 * Hk * (2 * D + 2 * 4)),
+        ("no single call dequantises an int8 cache", None),
+    ), None))
+    # K4 (forward, dK/dV, dQ): Ulysses' local attention over the whole
+    # sequence at a rank's heads: the align step's 4 packed rows at sp 4 and
+    # at sp 8, and one long row of PARALLEL_LONG_SEQ positions at sp 4
+    src4, fa = "spatialrgpt_tpu_torch/csrc/flash_attention_sm90.cu", "spatialrgpt_tpu/ops/flash_attention.py"
+    seg_train = torch.as_tensor(train_spliced(cfg, np.random.default_rng(0), TRAIN_ROWS).segment_ids, device=dev)
+    seg_long = torch.ones(1, PARALLEL_LONG_SEQ, dtype=torch.int32, device=dev)
+    for seg4, sp, samples in ((seg_train, n, TRAIN_SAMPLES_PER_ROW), (seg_train, 2 * n, TRAIN_SAMPLES_PER_ROW),
+                              (seg_long, n, 1)):
+        B4, S4 = seg4.shape
+        hq, hk = lc.num_attention_heads // sp, lc.num_key_value_heads // sp
+        q4, k4, v4, do4 = rn(B4, S4, hq, D), rn(B4, S4, hk, D), rn(B4, S4, hk, D), rn(B4, S4, hq, D)
+        out4, lse4 = K4.flash_attention_fwd(q4, k4, v4, seg4)
+        bwd = (q4, k4, v4, seg4, lse4, K4.attention_delta(out4, do4), do4)
+        per_position = (q4, k4, v4, lse4, bwd[5], do4)
+        shape4 = {"B": B4, "S": S4, "Hq": hq, "Hk": hk, "D": D, "samples_per_row": samples,
+                  "path": f"parallel: Ulysses sp={sp}, the local attention at a rank's heads"}
+        L = per_sample_length(seg4, samples)
+        lib = sdpa_yardsticks(torch, q4, k4, v4, do4, samples, L, causal_segment_mask(seg4))
+        pairs = live_pairs(torch, seg4)
+        out += [
+            (("flash_attention_fwd", src4, f"{fa}:226", shape4,
+              lambda q=q4, k=k4, v=v4, s=seg4: K4.flash_attention_fwd(q, k, v, s),
+              lambda q=q4, k=k4, v=v4, s=seg4: per_row(torch, K4.flash_attention_fwd_plain, q, k, v, s),
+              (10, 1, "events"), bound(4 * D * hq * pairs, live_bytes(seg4, q4, k4, v4) + nbytes(seg4, q4, lse4)),
+              lib["fwd"]), lib["per_sample_fwd"]),
+            (("flash_attention_bwd_dkv", src4, f"{fa}:716", shape4,
+              lambda b=bwd: K4.flash_attention_bwd_dkv(*b),
+              lambda b=bwd: per_row(torch, K4.flash_attention_bwd_dkv_plain, *b), (10, 1, "events"),
+              bound(8 * D * hq * pairs, live_bytes(seg4, *per_position) + nbytes(seg4, k4, v4)), lib["bwd"]),
+             lib["per_sample_bwd"]),
+            (("flash_attention_bwd_dq", src4, f"{fa}:776", shape4,
+              lambda b=bwd: K4.flash_attention_bwd_dq(*b),
+              lambda b=bwd: per_row(torch, K4.flash_attention_bwd_dq_plain, *b), (10, 1, "events"),
+              bound(6 * D * hq * pairs, live_bytes(seg4, *per_position) + nbytes(seg4, q4)), lib["bwd"]),
+             lib["per_sample_bwd"]),
+        ]
+    # K8 / K9: the tensor-parallel W8A8 projections of a rank (bench.py's
+    # default serve, SERVE_ROWS rows in the 320 bucket): the fan-out slices
+    # of q, k / v, gate / up and the head, the fan-in slices of wo and down,
+    # and the decode's weight-only down (a contracting slice under 2048 rows)
+    H, I = lc.hidden_size, lc.intermediate_size
+    kvd = lc.num_key_value_heads * lc.head_dim
+    V = lc.vocab_size + cfg.num_extra_tokens
+    m_pf = SERVE_ROWS * PAD_BUCKET
+    # K7's split form on a rank's fan-in slice of down (the first I / n
+    # columns of the prefill's rows): pass 1, the rows' maxima reduced with
+    # the other slices' (the all-reduce MAX of a tp group; here a maximum
+    # with theirs, found beforehand), pass 2
+    x7 = rn(m_pf, I)
+    mine7, others7 = x7[:, : I // n].contiguous(), x7[:, I // n :].float().abs().amax(dim=1)
+    del x7
+
+    def reduce7(amax, others=others7):
+        torch.maximum(amax, others, out=amax)
+
+    out.append(((
+        "act_quant_int8", "spatialrgpt_tpu_torch/csrc/act_quant.cu", "spatialrgpt_tpu/ops/layers.py:30 (XLA)",
+        {"M": m_pf, "K": I // n, "path": f"parallel: tp={n} prefill down (fan-in slice), split form"},
+        lambda: K789.act_quant_int8(mine7, reduce7), lambda: K789.act_quant_int8_plain(mine7, reduce7),
+        (20, 2, "events"), bound(6 * m_pf * (I // n), nbytes(mine7) + m_pf * (I // n) + 3 * 4 * m_pf, PEAK_F32_FLOPS),
+        ("no single call quantizes rows to int8 with a scale per row", None),
+    ), None))
+    for label, M, N, K in (("prefill q", m_pf, H // n, H), ("prefill k / v", m_pf, kvd // n, H),
+                           ("prefill gate / up", m_pf, I // n, H), ("prefill wo (fan-in slice)", m_pf, H, H // n),
+                           ("prefill down (fan-in slice)", m_pf, H, I // n),
+                           ("decode lm_head (vocab slice)", SERVE_ROWS, -(-V // n), H)):
+        xq8, q8 = i8(M, K), i8(N, K)
+        as8 = torch.rand(M, generator=torch.Generator(device=dev).manual_seed(M + N), device=dev) * 0.05 + 1e-3
+        s8 = scales(N, K)
+        out.append(((
+            "w8a8_gemm", "spatialrgpt_tpu_torch/csrc/int8_gemm.cu", "spatialrgpt_tpu/ops/layers.py:36 (XLA)",
+            {"projection": f"parallel: tp={n} {label}", "M": M, "N": N, "K": K},
+            lambda a=xq8, s=as8, q=q8, w=s8: K789.w8a8_gemm(a, s, q, w),
+            lambda a=xq8, s=as8, q=q8, w=s8: K789.w8a8_gemm_plain(a, s, q, w), (20, 2, "events"),
+            bound(2 * M * N * K, nbytes(xq8, q8, as8, s8) + 2 * M * N, PEAK_INT8_OPS),
+            int_mm_library(torch, xq8, q8),
+        ), None))
+    M, N, K = SERVE_ROWS, H, I // n
+    x9, q9, s9 = rn(M, K), i8(N, K), scales(N, K)
+    w9 = dequantize(q9, s9)
+    out.append(((
+        "w8_gemm", "spatialrgpt_tpu_torch/csrc/int8_gemm.cu", "spatialrgpt_tpu/ops/layers.py:123 (XLA)",
+        {"projection": f"parallel: tp={n} decode down (fan-in slice)", "M": M, "N": N, "K": K,
+         "f32_addend": False, "form": "decode" if K789.w8_gemm_form(M) == K789.FORM_DECODE else "large"},
+        lambda: K789.w8_gemm(x9, q9, s9), lambda: K789.w8_gemm_plain(x9, q9, s9), (100, 10, "graph"),
+        bound(2 * M * N * K, nbytes(x9, q9, s9) + 2 * M * N),
+        ("F.linear on the weight dequantized to bf16 beforehand", lambda: F.linear(x9, w9)),
+    ), None))
+    return out
+
+
 def phase_kernels(torch):
     import numpy as np
     import torch.nn.functional as F
@@ -1128,6 +1299,11 @@ def phase_kernels(torch):
             bound(2 * m_train * N * K, nbytes(dyq11, q11, gs11) + 2 * m_train * K, PEAK_INT8_OPS),
             dx_int_mm_library(torch, dyq11, q11),
         ))
+
+    for case, per_sample in parallel_kernel_cases(torch, rn, i8, scales, causal_segment_mask):
+        if per_sample is not None:
+            per_sample_case[len(cases)] = per_sample
+        cases.append(case)
 
     rows, shapes = [], []
     for i_case, (name, source, replaces, shape, kernel, plain, (iters, plain_iters, how), work,
@@ -2663,10 +2839,17 @@ def serve_runner_lengths(torch, cfg, batch: dict) -> list:
     return plens.tolist()
 
 
+def local_tensor(t):
+    """A DTensor's local shard (an FSDP-sharded model's parameter; the whole
+    tensor on one rank), a plain tensor itself."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
 def state_fingerprint(torch, module) -> list:
     """Per tensor of the module's state (parameters and buffers: int8
     weights and their scales too), the int64 sum of its bytes."""
-    return [int(t.detach().reshape(-1).view(torch.uint8).sum(dtype=torch.int64)) for t in module.state_dict().values()]
+    return [int(local_tensor(t).detach().reshape(-1).view(torch.uint8).sum(dtype=torch.int64))
+            for t in module.state_dict().values()]
 
 
 def loss_and_grads(torch, cfg, model, batch, params, attn_impl: str = "pallas", metrics=None):
@@ -3178,7 +3361,7 @@ def observed_trainers(torch):
     base_cls, runs = train_mod.Trainer, []
 
     def trained_fp(state):
-        return [int(p.detach().reshape(-1).view(torch.uint8).sum(dtype=torch.int64))
+        return [int(local_tensor(p).detach().reshape(-1).view(torch.uint8).sum(dtype=torch.int64))
                 for g in state.optimizer.param_groups for p in g["params"]]
 
     class Observed(base_cls):
@@ -4540,6 +4723,177 @@ def phase_towers(torch, nvidia_smi: str, profile_dir=None) -> dict:
     return add_counts(*totals)
 
 
+PARALLEL_STORE_TIMEOUT_S = 300
+
+
+def phase_parallel(torch, nvidia_smi: str, profile_dir=None) -> dict:
+    """The parallel path (see the module docstring, 13): (a), (b), (c) and
+    (e) on a one-rank NCCL group, torn down at the end.  Returns the summed
+    launch counts of the parallel runs (the unwrapped and plain reference
+    runs are not counted)."""
+    import datetime
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from spatialrgpt_tpu_torch.parallel import mesh as mesh_lib
+    from spatialrgpt_tpu_torch.parallel.context import SPContext, set_sp_context
+    from spatialrgpt_tpu_torch.serving.engine import ServingEngine
+    from spatialrgpt_tpu_torch.serving.generate import generate
+    from spatialrgpt_tpu_torch.train.optimizer import OptimizerConfig, build_optimizer
+    from spatialrgpt_tpu_torch.train.step import create_train_state, make_train_step, shard_state
+    from spatialrgpt_tpu_torch.utils.weights import init_random, init_random_quantized
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    checks, runs, totals = {}, {}, []
+    # one host and no network: NCCL's bootstrap and the checkpoint's gloo
+    # group on the loopback interface
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(work, "store"), 1), rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=PARALLEL_STORE_TIMEOUT_S),
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        checks["nccl_group"] = dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        mesh = mesh_lib.make_mesh(1, 1, 1, 1)
+        cfg = llama3_8b_cfg()
+
+        # (a) the align step under FSDP2, Ulysses (degree 1) on K4
+        t0 = time.perf_counter()
+        model = init_random(cfg, dev, torch.bfloat16, seed=0)
+        ocfg = OptimizerConfig(learning_rate=1e-3, tune_language_model=False, tune_vision_tower=False,
+                               tune_mm_projector=True, tune_region_extractor=True, total_steps=100)
+        optimizer = build_optimizer(model, ocfg)
+        batch = train_batch(torch, cfg, np.random.default_rng(0), TRAIN_ROWS)
+        tuned = [n for n, p in model.named_parameters() if n.startswith(("mm_projector.", "region_extractor."))]
+        params = dict(model.named_parameters())
+        ref_loss, ref_grads = loss_and_grads(torch, cfg, model, batch, [params[n] for n in tuned])
+        state = shard_state(create_train_state(model, optimizer), mesh)
+        set_sp_context(SPContext(mesh=mesh, ulysses_axis="sp", inner_impl="pallas"))
+        step_fn = make_train_step(cfg, state.optimizer, attn_impl="ulysses", remat=True, frozen=("llm", "vision"),
+                                  ce_chunk=CE_CHUNK)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t1 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t1
+        counts = read_counts()
+        set_sp_context(None)
+        totals.append(counts)
+        params = dict(state.model.named_parameters())
+        grads = torch.cat([local_tensor(params[n].grad).float().flatten() for n in tuned])  # one rank: whole
+        loss_rel = abs(float(metrics["loss"]) - float(ref_loss)) / abs(float(ref_loss))
+        grad_rel = rel_l2(grads, ref_grads)
+        n_dtensors = sum(hasattr(p, "device_mesh") for p in params.values())
+        checks.update(a_parameters_are_dtensors=n_dtensors > 0, a_loss_vs_unwrapped=loss_rel <= TRAIN_LOSS_REL_BOUND,
+                      a_grads_vs_unwrapped=grad_rel <= TRAIN_GRAD_REL_BOUND,
+                      a_launch_counts=counts == {**attention_train_counts(cfg), **NO_QUANT})
+        runs["a_align_step_fsdp2"] = {
+            "loss": float(metrics["loss"]), "unwrapped_loss": float(ref_loss), "loss_rel": loss_rel,
+            "loss_rel_bound": TRAIN_LOSS_REL_BOUND, "grad_rel_l2": grad_rel, "grad_rel_bound": TRAIN_GRAD_REL_BOUND,
+            "grad_norm": float(metrics["grad_norm"]), "dtensor_parameters": n_dtensors,
+            "parameters": len(params), "launches": counts,
+            "smoke_figures_not_a_benchmark": {"step_s": step_s, "phase_a_s": time.perf_counter() - t0,
+                                              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                                              "card": nvidia_smi}}
+        del model, state, optimizer, step_fn, params, grads, ref_grads, batch
+        release(torch)
+
+        # (b) generate through the tensor-parallel path, bf16 and W8A8; (c)
+        # the engine with the mesh on (b)'s bf16 model
+        rows, pixels = draw_rows(cfg, np.random.default_rng(0), N_ROWS)
+        inputs, plens = splice(torch, cfg, rows, pixels)
+        for label, make in (("bf16", lambda: init_random(cfg, dev, torch.bfloat16, seed=0)),
+                            ("w8a8", lambda: init_random_quantized(cfg, dev, w8a8=True, seed=0))):
+            model = make()
+
+            def serve(m=None):
+                out = generate(model, cfg, inputs, plens, max_new_tokens=MAX_NEW, eos_token_id=-1, kv_quant=True)
+                torch.cuda.synchronize()
+                return out
+
+            plain = serve()
+            mesh_lib.tp_shard_model(model, mesh)
+            reset_counts()
+            t1 = time.perf_counter()
+            got = serve()
+            gen_s = time.perf_counter() - t1
+            counts = read_counts()
+            totals.append(counts)
+            quantized = label == "w8a8"
+            want = serve_counts(cfg, N_ROWS, PAD_BUCKET, MAX_NEW, quantized)
+            checks[f"b_{label}_tp_path"] = model.llm.tp is not None and model.llm.tp.size == 1
+            checks[f"b_{label}_tokens_equal_plain_serve"] = torch.equal(got.tokens, plain.tokens)
+            checks[f"b_{label}_launch_counts"] = counts == want
+            runs[f"b_generate_tp_{label}"] = {
+                "rows": N_ROWS, "bucket": PAD_BUCKET, "max_new": MAX_NEW, "tokens_row0": got.tokens[0, :8].tolist(),
+                "first_logits_max_abs_diff": float((got.first_logits - plain.first_logits).abs().max()),
+                "launches": counts if counts != want else "as expected",
+                "smoke_figures_not_a_benchmark": {"generate_s": gen_s, "card": nvidia_smi}}
+            if label == "bf16":
+                requests = [splice(torch, cfg, [rows[i]], tuple(a[i : i + 1] for a in pixels), host_index_fields=True)
+                            for i in range(N_ROWS)]
+                eng = ServingEngine(model, cfg, num_slots=N_ROWS, prompt_bucket=PAD_BUCKET, max_new_tokens=MAX_NEW,
+                                    kv_quant=True, admit_width=N_ROWS, mesh=mesh)
+                log = record_engine(eng)
+                reset_counts()
+                ids = [eng.submit(x, int(p[0]), max_new_tokens=MAX_NEW) for x, p in requests]
+                done = {r.request_id: r.tokens for r in eng.run_until_drained(num_steps=ENGINE_MULTI)}
+                torch.cuda.synchronize()
+                counts = read_counts()
+                totals.append(counts)
+                ref_toks = got.tokens.tolist()
+                equal = sum(done.get(i) == ref_toks[b] for b, i in enumerate(ids))
+                want = engine_counts(cfg, log, N_ROWS, PAD_BUCKET, quantized=False)
+                checks["c_engine_tokens_equal_tp_generate"] = equal == N_ROWS
+                checks["c_engine_one_admission"] = log["admissions"] == [N_ROWS]
+                checks["c_engine_launch_counts"] = counts == want
+                checks["c_engine_cache_heads"] = eng.cache.k_s.shape[-1] == cfg.llm.num_key_value_heads
+                runs["c_engine_mesh"] = {"rows_equal_to_tp_generate": equal, "admissions": log["admissions"],
+                                         "windows": log["windows"], "launches": counts if counts != want else
+                                         "as expected"}
+                del eng
+            del model, plain, got
+            release(torch)
+
+        # (e) train.main from argv on the group, the orbax backend: one micro
+        # step stopped by the time limit with a checkpoint, then resumed
+        out_dir = os.path.join(work, "main")
+        argv = ALIGN_FLAGS + FAMILY_MAIN_CUTS + ["--ckpt_backend", "orbax", "--output_dir", out_dir]
+        main_totals = {}
+        first, run1, peak1 = recipe_main(torch, argv, main_totals)
+        ckpt1 = os.path.join(out_dir, "checkpoint-1", "state_orbax", ".metadata")
+        saved_first = os.path.exists(ckpt1)
+        second, run2, peak2 = recipe_main(torch, argv, main_totals)
+        ckpt2 = os.path.join(out_dir, "checkpoint-2", "state_orbax", ".metadata")
+        totals.append(main_totals)
+        want = times(2, {**attention_train_counts(cfg), **NO_QUANT})
+        checks.update(e_first_run_stopped_after_one_step=first == {"status": "timeout", "step": 1},
+                      e_orbax_checkpoint_written=saved_first, e_resumed_to_step_2=second == {"status": "timeout",
+                                                                                              "step": 2},
+                      e_second_checkpoint=os.path.exists(ckpt2) and not os.path.exists(ckpt1),
+                      e_losses_finite=all(np.isfinite(s["metrics"]["loss"]) for s in run1["steps"] + run2["steps"]),
+                      e_launch_counts=main_totals == want)
+        runs["e_train_main_orbax"] = {"results": [first, second], "steps": [run1["steps"], run2["steps"]],
+                                      "launches": main_totals if main_totals != want else "as expected",
+                                      "smoke_figures_not_a_benchmark": {"peak_mem_gb": [peak1, peak2],
+                                                                        "card": nvidia_smi}}
+    finally:
+        set_sp_context(None)
+        dist.destroy_process_group()
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "parallel", "ok": all(checks.values()), "seconds": time.perf_counter() - t_phase,
+          "checks": checks, "runs": runs,
+          "model": "llama3-8b + siglip-so400m, bf16 (b: also W8A8), random from fixed seeds; one NCCL rank"})
+    check(all(checks.values()), f"parallel checks failed: {[k for k, v in checks.items() if not v]}")
+    return add_counts(*totals)
+
+
 def release(torch) -> None:
     """Between phases: free what the last phase left (its model may sit in
     a reference cycle until the collector runs), so that the next phase's
@@ -4595,6 +4949,7 @@ PATHS = {
     "families_train": phase_families_train,
     "synth_train": phase_synth_train,
     "towers": phase_towers,
+    "parallel": phase_parallel,
 }
 
 

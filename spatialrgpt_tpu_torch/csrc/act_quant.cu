@@ -29,6 +29,15 @@
 // 16-byte aligned rows and scale (the wrappers' rule).  K10 writes its rows
 // ld_out bytes apart (a multiple of 8): ops/int8_linear.py gives it rows of
 // N rounded up to 16, whose 16-byte stride K11's tensor map needs.
+//
+// K7's split form, for the fan-in slice of a tensor-parallel projection
+// (wo, down), whose rows lie across the ranks, K / tp columns each: the
+// reference quantizes the whole rows.  Pass 1 alone (AQ_MAX) writes each
+// row's max |x| over this rank's columns; the caller reduces those maxima
+// over the ranks in place (an all-reduce MAX of M floats); pass 2 alone
+// (AQ_GIVEN_MAX) reads the whole row's max, writes the scale over it and
+// quantizes this rank's columns.  The max is exact, so the int8 columns and
+// the scales are bit-equal to K7 over the whole rows, sliced.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -37,6 +46,8 @@
 namespace srgpt {
 
 constexpr int AQ_THREADS = 128;
+// which passes a launch runs: both, pass 1 alone, pass 2 alone (from a given max)
+enum AqPass { AQ_BOTH = 0, AQ_MAX = 1, AQ_GIVEN_MAX = 2 };
 
 __device__ __forceinline__ int8_t aq_quant(float x, float ascale) {
   float r = rintf(__fdiv_rn(x, ascale));
@@ -66,8 +77,10 @@ __device__ __forceinline__ void aq_load8(const uint4* __restrict__ xr, const flo
 }
 
 // DY = false: K7 (x, no column scale, floor 1e-12); DY = true: K10 (dy,
-// the weight's scale per column, floor 1e-30)
-template <bool DY>
+// the weight's scale per column, floor 1e-30).  PASS: AQ_MAX writes the row
+// max into ascale and stops; AQ_GIVEN_MAX reads the row max from ascale,
+// writes the scale over it and runs pass 2.
+template <bool DY, int PASS = AQ_BOTH>
 __global__ void __launch_bounds__(AQ_THREADS) act_quant_kernel(const __nv_bfloat16* __restrict__ x,
                                                                 const float* __restrict__ col_scale,
                                                                 int8_t* __restrict__ xq,
@@ -79,19 +92,28 @@ __global__ void __launch_bounds__(AQ_THREADS) act_quant_kernel(const __nv_bfloat
   const int vecs = K / 8;
 
   float m = 0.0f;
-  for (int c = threadIdx.x; c < vecs; c += AQ_THREADS) {
-    float f[8];
-    aq_load8<DY>(xr, cs, c, f);
+  if constexpr (PASS == AQ_GIVEN_MAX) {
+    m = ascale[row];
+    __syncthreads();  // every thread holds the max before thread 0 writes the scale over it
+  } else {
+    for (int c = threadIdx.x; c < vecs; c += AQ_THREADS) {
+      float f[8];
+      aq_load8<DY>(xr, cs, c, f);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) m = fmaxf(m, fabsf(f[i]));
+      for (int i = 0; i < 8; ++i) m = fmaxf(m, fabsf(f[i]));
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
+    __syncthreads();
+    m = warp_max[0];
+#pragma unroll
+    for (int w = 1; w < AQ_THREADS / 32; ++w) m = fmaxf(m, warp_max[w]);
+    if constexpr (PASS == AQ_MAX) {
+      if (threadIdx.x == 0) ascale[row] = m;
+      return;
+    }
   }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
-  __syncthreads();
-  m = warp_max[0];
-#pragma unroll
-  for (int w = 1; w < AQ_THREADS / 32; ++w) m = fmaxf(m, warp_max[w]);
   const float s = fmaxf(__fmul_rn(m, 1.0f / 127.0f), DY ? 1e-30f : 1e-12f);
   if (threadIdx.x == 0) ascale[row] = s;
 
@@ -116,6 +138,27 @@ extern "C" int srgpt_act_quant(const void* x, void* xq, void* ascale, long long 
   if (M <= 0) return static_cast<int>(cudaGetLastError());
   srgpt::act_quant_kernel<false><<<static_cast<unsigned>(M), srgpt::AQ_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), nullptr, static_cast<int8_t*>(xq), static_cast<float*>(ascale), K, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K7's split form, pass 1: x (M, K) bf16 -> amax (M,) f32, each row's max |x|
+extern "C" int srgpt_act_absmax(const void* x, void* amax, long long M, int K, void* stream) {
+  if (M <= 0) return static_cast<int>(cudaGetLastError());
+  srgpt::act_quant_kernel<false, srgpt::AQ_MAX>
+      <<<static_cast<unsigned>(M), srgpt::AQ_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const __nv_bfloat16*>(x), nullptr, nullptr, static_cast<float*>(amax), K, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K7's split form, pass 2: x (M, K) bf16 and each whole row's max |x| (M,)
+// f32 -> xq (M, K) int8; the maxima are overwritten by the rows' scales
+extern "C" int srgpt_act_quant_given_max(const void* x, void* xq, void* amax_to_scale, long long M, int K,
+                                         void* stream) {
+  if (M <= 0) return static_cast<int>(cudaGetLastError());
+  srgpt::act_quant_kernel<false, srgpt::AQ_GIVEN_MAX>
+      <<<static_cast<unsigned>(M), srgpt::AQ_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const __nv_bfloat16*>(x), nullptr, static_cast<int8_t*>(xq),
+          static_cast<float*>(amax_to_scale), K, K);
   return static_cast<int>(cudaGetLastError());
 }
 

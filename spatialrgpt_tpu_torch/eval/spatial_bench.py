@@ -222,10 +222,13 @@ def run_bench(bcfg: BenchConfig, model=None, depth_model=None, *, device=None) -
     (else ``models/builder.py::load_pretrained_model`` of
     ``bcfg.model_path`` on ``device``); ``depth_model`` a
     ``DepthPredictor``.  The model runs where its tensors lie; the inputs
-    go to ``device`` (the card unless given)."""
-    if bcfg.tp > 1:
-        raise NotImplementedError("tensor-parallel serving (BenchConfig.tp > 1) is not ported yet: it waits for "
-                                  "the port of parallel/mesh.py")
+    go to ``device`` (the card unless given).
+
+    ``bcfg.tp > 1`` serves tensor parallel (the reference's
+    ``spatial_bench.py:197-200``) over a process group of ``tp`` ranks, each
+    running this function on its own device: a view of the model keeps this
+    rank's slice of the decoder (``parallel/mesh.py::tp_shard_model``; the
+    caller's model is unchanged) and rank 0 writes the answers."""
     dev = eval_device(device)
     if model is None:
         from spatialrgpt_tpu_torch.models.builder import load_pretrained_model
@@ -234,13 +237,21 @@ def run_bench(bcfg: BenchConfig, model=None, depth_model=None, *, device=None) -
     tokenizer, net, cfg, processor = model
     if bcfg.w8a8:
         net = quantized_view(net)
+    writer = True
+    if bcfg.tp > 1:
+        import torch.distributed as dist
+
+        from spatialrgpt_tpu_torch.parallel.mesh import make_mesh, tp_shard_model
+
+        net = tp_shard_model(_module_view(net), make_mesh(tp=bcfg.tp))
+        writer = dist.get_rank() == 0
 
     with open(bcfg.annotation_file) as f:
         questions = json.load(f)
     questions = get_chunk(questions, bcfg.num_chunks, bcfg.chunk_idx)
 
     os.makedirs(os.path.dirname(bcfg.answers_file) or ".", exist_ok=True)
-    ans_file = open(bcfg.answers_file, "w")
+    ans_file = open(bcfg.answers_file if writer else os.devnull, "w")
     stop_str = stop_str_for(bcfg.conv_mode)
 
     # one record per (question, conversation round); round i's prompt

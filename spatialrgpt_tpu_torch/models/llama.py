@@ -27,7 +27,9 @@ The MoE block runs densely by default, as the reference's ``_moe_block``
 the k-th probability keeps every tied expert), or, with ``moe_impl =
 "sparse"`` and experts stacked by ``stack_experts``, top-k routed over
 contiguous expert slices (``moe_block_sparse``).  Both return the
-router's load-balancing aux loss; ``forward(..., with_aux=True)`` sums it.
+router's load-balancing aux loss; ``forward(..., with_aux=True)`` sums it,
+over the whole step's tokens when the ranks of a process group share them
+out (``router_aux``).
 
 The sliding window binds in every prefill route (``causal_attention``);
 attention against a cache (decode, incremental prefill) ignores it, as the
@@ -36,6 +38,7 @@ reference's ``decode_attention`` does.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
@@ -127,6 +130,12 @@ class LlamaDecoderLayer(nn.Module):
         self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.norm_plus_one, dtype)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.norm_plus_one, dtype)
 
+    def forward(self, x, cfg, position_ids, segment_ids, attn_impl, cache=None, layer_idx=0, tp=None,
+                aux_group=None):
+        """``decoder_layer`` on this layer, as a module call (FSDP gathers a
+        sharded layer's parameters around it)."""
+        return decoder_layer(x, self, cfg, position_ids, segment_ids, attn_impl, cache, layer_idx, tp, aux_group)
+
 
 class LlamaModel(nn.Module):
     def __init__(self, cfg: LlamaConfig, extra_vocab: int = 0, dtype=None):
@@ -139,7 +148,11 @@ class LlamaModel(nn.Module):
 class LlamaForCausalLM(nn.Module):
     """The decoder and its head; ``lm_head`` is None where the head is tied
     to the embedding table (``tie_word_embeddings``, Gemma).  ``cfg`` is
-    kept for ``embed_tokens`` and ``logits``."""
+    kept for ``embed_tokens`` and ``logits``.  A tensor-parallel decoder
+    (``parallel/mesh.py::tp_shard_model``) holds its group as ``tp``; the
+    config of its slice is ``rank_cfg``'s."""
+
+    tp = None
 
     def __init__(self, cfg: LlamaConfig, extra_vocab: int = 0, dtype=None):
         super().__init__()
@@ -267,21 +280,38 @@ def router_gates(x: torch.Tensor, moe: MixtralSparseMoe, cfg: LlamaConfig, xq=No
     return probs, gates / gates.sum(dim=-1, keepdim=True).clamp(min=1e-9)
 
 
-def moe_block(x: torch.Tensor, moe: MixtralSparseMoe, cfg: LlamaConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+def router_aux(frac_tokens: torch.Tensor, mean_probs: torch.Tensor, cfg: LlamaConfig, group=None) -> torch.Tensor:
+    """The switch-style aux loss E * sum_e f_e P_e of one MoE layer from
+    its per-expert means over this rank's tokens: f, the share of tokens
+    routed to each expert, and P, the mean router probability.  ``group``:
+    the ranks that share out the step's tokens in equal parts (the data and
+    sequence-parallel ranks of a train step), over which both means are
+    averaged first, so that every rank holds the aux of the whole step, as
+    the reference takes it over its global arrays.  The average's backward
+    is the identity: a rank's P enters the global mean with weight 1 /
+    world, and the ranks' gradients are summed."""
+    stats = torch.stack([frac_tokens, mean_probs])
+    if group is not None:
+        from spatialrgpt_tpu_torch.parallel.comm import AllReduceSum, group_size
+
+        stats = AllReduceSum.apply(stats, group) / group_size(group)
+    return cfg.num_experts * (stats[0] * stats[1]).sum()
+
+
+def moe_block(x: torch.Tensor, moe: MixtralSparseMoe, cfg: LlamaConfig, aux_group=None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The reference's dense ``_moe_block``: every expert on every token,
     weighted by ``router_gates``, the outputs added in expert order in x's
-    dtype; returns (output, the switch-style aux loss E * sum_e f_e P_e).
-    The router and every expert's gate and up read x's int8 rows once where
-    any of them takes W8A8."""
+    dtype; returns (output, the switch-style aux loss, ``router_aux`` over
+    ``aux_group``).  The router and every expert's gate and up read x's
+    int8 rows once where any of them takes W8A8."""
     experts = moe.experts
     xq = quantized_input(x, moe.gate, *(e.w1 for e in experts), *(e.w3 for e in experts))
     probs, gates = router_gates(x, moe, cfg, xq)
     out = torch.zeros_like(x)
     for i, e in enumerate(experts):
         out = out + _ffn(x, e.w1, e.w3, e.w2, "silu", xq) * gates[..., i : i + 1].to(x.dtype)
-    frac_tokens = (gates > 0).float().mean(dim=(0, 1))
-    aux = cfg.num_experts * (frac_tokens * probs.mean(dim=(0, 1))).sum()
-    return out, aux
+    return out, router_aux((gates > 0).float().mean(dim=(0, 1)), probs.mean(dim=(0, 1)), cfg, aux_group)
 
 
 @torch.no_grad()
@@ -321,14 +351,15 @@ def _grouped_f32(xs: torch.Tensor, w: torch.Tensor, sizes: List[int]) -> torch.T
     return out
 
 
-def moe_block_sparse(x: torch.Tensor, moe: MixtralSparseMoe, cfg: LlamaConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_block_sparse(x: torch.Tensor, moe: MixtralSparseMoe, cfg: LlamaConfig, aux_group=None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The reference's ``_moe_block_sparse``: each token copied per top-k
     choice, the copies sorted stably by expert, every expert's contiguous
     slice through its (gate, up, down) with f32 sums, the outputs weighted
     and index-added in f32; the aux loss as the dense block's.  Without
     stacked experts it is the dense block."""
     if moe.stacked is None:
-        return moe_block(x, moe, cfg)
+        return moe_block(x, moe, cfg, aux_group)
     B, S, H = x.shape
     E, K = cfg.num_experts, cfg.num_experts_per_tok
     T = B * S
@@ -345,16 +376,57 @@ def moe_block_sparse(x: torch.Tensor, moe: MixtralSparseMoe, cfg: LlamaConfig) -
     outs = _grouped_f32(mid, w2, sizes) * gates.reshape(-1)[order][:, None]
     combined = torch.zeros((T, H), dtype=torch.float32, device=x.device).index_add_(0, token_idx, outs)
     sel = F.one_hot(top_e, E).float().sum(dim=1)
-    aux = E * (sel.mean(dim=0) * probs.mean(dim=0)).sum()
-    return combined.to(x.dtype).reshape(B, S, H), aux
+    return combined.to(x.dtype).reshape(B, S, H), router_aux(sel.mean(dim=0), probs.mean(dim=0), cfg, aux_group)
 
 
-def ffn_block(x: torch.Tensor, layer: LlamaDecoderLayer, cfg: LlamaConfig) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+def ffn_block(x: torch.Tensor, layer: LlamaDecoderLayer, cfg: LlamaConfig, aux_group=None
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """A layer's FFN over its normed input: (output, MoE aux loss or None)."""
     if not cfg.is_moe:
         return mlp_block(x, layer.mlp), None
     block = moe_block_sparse if cfg.moe_impl == "sparse" else moe_block
-    return block(x, layer.block_sparse_moe, cfg)
+    return block(x, layer.block_sparse_moe, cfg, aux_group)
+
+
+def tp_sum(y: torch.Tensor, tp) -> torch.Tensor:
+    """A row-parallel projection's partial sums added over the
+    tensor-parallel group (the all-reduce GSPMD puts after wo and down in
+    the reference); y itself without a group."""
+    if tp is None:
+        return y
+    from spatialrgpt_tpu_torch.parallel.comm import AllReduceSum
+
+    return AllReduceSum.apply(y, tp.group)
+
+
+def tp_slice_cfg(cfg: LlamaConfig, n: int) -> LlamaConfig:
+    """The config of one rank's slice of a decoder split over n
+    tensor-parallel ranks: Hq / n and Hk / n heads of the same head dim and
+    intermediate / n neurons (the vocab is kept: the head's slices are
+    gathered to the whole vocab)."""
+    for what, width in (("query heads", cfg.num_attention_heads), ("kv heads", cfg.num_key_value_heads),
+                        ("the intermediate size", cfg.intermediate_size)):
+        if width % n:
+            raise ValueError(f"tp={n} must divide {what} ({width})")
+    return dataclasses.replace(cfg, num_attention_heads=cfg.num_attention_heads // n,
+                               num_key_value_heads=cfg.num_key_value_heads // n,
+                               intermediate_size=cfg.intermediate_size // n, explicit_head_dim=cfg.head_dim)
+
+
+def rank_cfg(model: LlamaForCausalLM, cfg: LlamaConfig) -> LlamaConfig:
+    """The config this rank's slice of the decoder runs: ``tp_slice_cfg``
+    under tensor parallelism, else ``cfg``.  Callers hand ``forward``, the
+    cache builders (``new_cache``, ``serving/generate.py::new_quant_cache``)
+    and the decode step the model's whole config; those read the rank's
+    widths here, and nowhere else."""
+    return cfg if model.tp is None else tp_slice_cfg(cfg, model.tp.size)
+
+
+def new_cache(model: LlamaForCausalLM, cfg: LlamaConfig, batch: int, capacity: int, dtype=torch.bfloat16,
+              device=None) -> KVCache:
+    """A zeroed ``KVCache`` for ``model`` (whose whole config is ``cfg``):
+    the kv heads of this rank's slice under tensor parallelism."""
+    return KVCache.init(rank_cfg(model, cfg), batch, capacity, dtype, device)
 
 
 def embed_tokens(model: LlamaForCausalLM, input_ids: torch.Tensor) -> torch.Tensor:
@@ -375,21 +447,35 @@ def decoder_layer(
     attn_impl: str,
     cache: Optional[KVCache] = None,
     layer_idx: int = 0,
+    tp=None,
+    aux_group=None,
 ):
     """One pre-norm decoder layer; returns (x, this layer's (k, v), its MoE
-    aux loss or None)."""
+    aux loss or None).  ``tp``: the layer's tensor-parallel group, whose
+    partial sums after wo and after the FFN are added up; ``aux_group``:
+    the ranks the aux loss is taken over (``router_aux``)."""
     h = norm(x, layer.input_layernorm)
     attn_out, kv = attention_block(h, layer.self_attn, cfg, position_ids, segment_ids, attn_impl, cache, layer_idx)
-    x = x + attn_out
-    out, aux = ffn_block(norm(x, layer.post_attention_layernorm), layer, cfg)
-    return x + out, kv, aux
+    x = x + tp_sum(attn_out, tp)
+    out, aux = ffn_block(norm(x, layer.post_attention_layernorm), layer, cfg, aux_group)
+    return x + tp_sum(out, tp), kv, aux
 
 
-def _layer_checkpointed(x, layer, cfg, position_ids, segment_ids, attn_impl) -> Tuple[torch.Tensor, torch.Tensor]:
+def _layer_checkpointed(x, layer, cfg, position_ids, segment_ids, attn_impl, tp, aux_group=None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """A decoder layer as ``torch.utils.checkpoint`` runs it: (x, the MoE
     aux loss, an f32 zero without MoE); the K/V are not kept."""
-    x, _, aux = decoder_layer(x, layer, cfg, position_ids, segment_ids, attn_impl)
+    x, _, aux = layer(x, cfg, position_ids, segment_ids, attn_impl, tp=tp, aux_group=aux_group)
     return x, aux if aux is not None else x.new_zeros((), dtype=torch.float32)
+
+
+def _token_group():
+    """Every rank of the process group when there are several, else None."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        return dist.group.WORLD
+    return None
 
 
 def forward(
@@ -408,7 +494,10 @@ def forward(
 ):
     """Run the decoder stack; returns (final-normed hidden states, kv), and
     with ``with_aux`` the summed MoE router aux loss (f32, 0 without MoE)
-    as a third value.
+    as a third value.  In a process group of several ranks each layer's aux
+    is taken over every rank's tokens (``router_aux``): the ranks then hold
+    equal shares of one step's tokens, as a train step's data and
+    sequence-parallel ranks do.
 
     With ``cache`` the tokens are written into it in place and attend to
     it (segment ids and ``attn_impl`` are not used); the second value is
@@ -427,23 +516,29 @@ def forward(
     MoE layer returns its aux loss beside its output, so the sum is the
     one the unchecked layers give, and its gradient reaches the router
     through the recompute.
+
+    Each layer runs as a module call (``LlamaDecoderLayer.forward``), so an
+    FSDP-sharded layer is gathered around it; a tensor-parallel decoder
+    runs its slice (``rank_cfg``) and adds its partial sums up.
     """
     x = inputs_embeds
+    cfg, tp = rank_cfg(model, cfg), model.tp
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux_group = _token_group() if with_aux else None
     if cache is not None:
         for li, layer in enumerate(model.model.layers):
-            x, _, aux = decoder_layer(x, layer, cfg, position_ids, None, attn_impl, cache, li)
+            x, _, aux = layer(x, cfg, position_ids, None, attn_impl, cache, li, tp, aux_group)
             aux_total = aux_total if aux is None else aux_total + aux
         out = norm(x, model.model.norm), cache._replace(length=cache.length + x.shape[1])
         return out + (aux_total,) if with_aux else out
     kv = [] if collect_kv else None
     for layer in model.model.layers:
-        args = (layer, cfg, position_ids, segment_ids, attn_impl)
         if remat and not collect_kv:
-            x, aux = checkpoint(_layer_checkpointed, x, *args, use_reentrant=False)
+            x, aux = checkpoint(_layer_checkpointed, x, layer, cfg, position_ids, segment_ids, attn_impl, tp,
+                                aux_group, use_reentrant=False)
             aux_total = aux_total + aux
             continue
-        x, (k, v), aux = decoder_layer(x, *args)
+        x, (k, v), aux = layer(x, cfg, position_ids, segment_ids, attn_impl, tp=tp, aux_group=aux_group)
         aux_total = aux_total if aux is None else aux_total + aux
         if collect_kv:
             kv.append((quantize_kv(k), quantize_kv(v)) if kv_quant else (k, v))
@@ -456,11 +551,17 @@ def logits(model: LlamaForCausalLM, hidden: torch.Tensor) -> torch.Tensor:
     tied head is the embedding table (its extra rows included) in the
     hidden dtype, with f32 sums and an f32 result, never rounded to the
     hidden dtype (the reference's ``logits``, a product outside any
-    kernel)."""
+    kernel).  A tensor-parallel head holds a slice of the vocab: the
+    slices are gathered (the reference's logits all-gather)."""
     if model.lm_head is None:
         w = model.model.embed_tokens.weight.to(hidden.dtype)
         return matmul_f32(hidden.reshape(-1, hidden.shape[-1]), w).reshape(*hidden.shape[:-1], w.shape[0])
-    return linear(hidden, model.lm_head).float()
+    y = linear(hidden, model.lm_head).float()
+    if model.tp is None:
+        return y
+    from spatialrgpt_tpu_torch.parallel.comm import GatherLastDim
+
+    return GatherLastDim.apply(y, model.tp.group)[..., : model.model.embed_tokens.num_embeddings]
 
 
 def forward_logits(model: LlamaForCausalLM, cfg: LlamaConfig, *, input_ids: torch.Tensor, position_ids: torch.Tensor,

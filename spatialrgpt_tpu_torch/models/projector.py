@@ -41,6 +41,11 @@ class MultimodalProjector(nn.Module):
             ]
         )
 
+    def forward(self, x, cfg: ProjectorConfig):
+        """``forward`` as a module call (FSDP gathers a sharded projector
+        around it)."""
+        return forward(self, x, cfg)
+
 
 def flat_square(x: torch.Tensor) -> torch.Tensor:
     """(N, W, H, C) -> (N, H/2, W/2, 4C), zero-padding odd W/H by one."""

@@ -85,6 +85,11 @@ class SiglipVisionModel(nn.Module):
         super().__init__()
         self.vision_model = SiglipVisionTransformer(cfg, dtype)
 
+    def forward(self, pixel_values, cfg: SiglipVisionConfig, attn_impl: str = "onepass"):
+        """``forward_features`` as a module call (FSDP gathers a sharded
+        tower around it)."""
+        return forward_features(self, pixel_values, cfg, attn_impl)
+
 
 def _attention(x: torch.Tensor, attn: SiglipAttention, num_heads: int, attn_impl: str) -> torch.Tensor:
     B, S, C = x.shape

@@ -18,6 +18,21 @@ the device (``data/device_preprocess.py::device_siglip_normalize``) into
 the tower's dtype, masks are cast.  Built with ``mpt_cfg``, the model's
 decoder is an MPT (``models/mpt.py``), which ``forward_mpt`` runs after
 the same encode and splice.
+
+Sequence parallelism (``attn_impl`` "ulysses", "ring" or "hybrid", with
+the ambient ``parallel/context.py::SPContext``): every rank of an sp group
+holds the same rows whole, images included; the tower, the projector and
+the splice run on them, and the decoder then runs on this rank's chunk of
+the sequence (``seq_shard``).  The loss shifts the labels before the
+chunking, so every target is the next token of the whole row.
+
+Under a process group of several ranks the loss is normalised by the
+global number of targets (summed over every rank): the rank's loss is its
+own targets' share of the reference's global loss, the gradients of the
+ranks add up to the reference's, and ``metrics["loss"]`` is the global
+value.  FSDP (``parallel/mesh.py::shard_model``) sums gradients, so it
+does not rescale this.  A MoE decoder's router aux loss is each rank's
+own.
 """
 
 from __future__ import annotations
@@ -33,6 +48,8 @@ from spatialrgpt_tpu_torch.config import SpatialRGPTConfig
 from spatialrgpt_tpu_torch.constants import IGNORE_INDEX
 from spatialrgpt_tpu_torch.data.device_preprocess import device_siglip_normalize
 from spatialrgpt_tpu_torch.models import llama, mpt, projector, region_extractor, siglip
+from spatialrgpt_tpu_torch.parallel.context import SP_IMPLS, seq_shard, sp_context, sp_sum
+from spatialrgpt_tpu_torch.parallel.mesh import world_sum
 
 
 class SpatialRGPT(nn.Module):
@@ -51,6 +68,13 @@ class SpatialRGPT(nn.Module):
             self.llm = mpt.MptForCausalLM(mpt_cfg, dtype)
         else:
             self.llm = llama.LlamaForCausalLM(cfg.llm, cfg.num_extra_tokens, dtype)
+
+    def forward(self, fn, *args, **kwargs):
+        """``fn(self, *args, **kwargs)`` as the module's forward: the
+        functions of this module (``loss_fn``, ``sequence_logprob``) run
+        through it where FSDP must gather the whole model's own parameters
+        around them (``train/step.py``)."""
+        return fn(self, *args, **kwargs)
 
 
 class VLMInputs(NamedTuple):
@@ -124,7 +148,7 @@ def encode_images(
         depths = device_siglip_normalize(depths, act_dtype)
     if masks is not None and masks.dtype == torch.uint8:
         masks = masks.to(act_dtype)
-    tower_fn = lambda x: siglip.forward_features(model.vision_tower, x, cfg.vision, attn_impl)  # noqa: E731
+    tower_fn = lambda x: model.vision_tower(x, cfg.vision, attn_impl)  # noqa: E731
     mask_embeds = depth_embeds = None
     if cfg.enable_region:
         depth_feats = None
@@ -140,7 +164,7 @@ def encode_images(
             )
     else:
         lres = tower_fn(images)
-    image_features = projector.forward(model.mm_projector, lres, cfg.projector)
+    image_features = model.mm_projector(lres, cfg.projector)
     return image_features, mask_embeds, depth_embeds
 
 
@@ -195,9 +219,13 @@ def _hidden(model: SpatialRGPT, cfg: SpatialRGPTConfig, inputs: VLMInputs, attn_
     # the plain path stays plain; every kernel route runs the tower on K1,
     # as the reference's tower takes its Pallas kernel whatever the decoder uses
     embeds = prepare_embeds(model, cfg, inputs, "xla" if attn_impl == "xla" else "onepass")
+    pos, seg = inputs.position_ids, inputs.segment_ids
+    if attn_impl in SP_IMPLS:  # the decoder runs this rank's chunk of the sequence
+        ctx = sp_context(attn_impl)
+        embeds, pos, seg = (seq_shard(t, ctx) for t in (embeds, pos, seg))
     out = llama.forward(
-        model.llm, cfg.llm, inputs_embeds=embeds, position_ids=inputs.position_ids,
-        segment_ids=inputs.segment_ids, attn_impl=attn_impl, remat=remat, with_aux=with_aux,
+        model.llm, cfg.llm, inputs_embeds=embeds, position_ids=pos,
+        segment_ids=seg, attn_impl=attn_impl, remat=remat, with_aux=with_aux,
     )
     return (out[0], out[2]) if with_aux else out[0]
 
@@ -226,14 +254,18 @@ def forward_mpt(
     return mpt.logits(model.llm, h)
 
 
-def _shifted_targets(inputs: VLMInputs) -> Tuple[torch.Tensor, torch.Tensor]:
+def _shifted_targets(inputs: VLMInputs, attn_impl: str = "xla") -> Tuple[torch.Tensor, torch.Tensor]:
     """(targets, valid), (B, S): the target at position t is labels[t + 1];
-    the last position, padding and segment ends are not valid."""
+    the last position, padding and segment ends are not valid.  Under
+    sequence parallelism, this rank's chunk of both (shifted first)."""
     labels, seg = inputs.labels, inputs.segment_ids
     B = labels.shape[0]
     tgt = torch.cat([labels[:, 1:], labels.new_full((B, 1), IGNORE_INDEX)], dim=1)
     nxt = torch.cat([seg[:, 1:], seg.new_zeros((B, 1))], dim=1)
     valid = (tgt != IGNORE_INDEX) & (nxt != 0) & (nxt == seg)
+    if attn_impl in SP_IMPLS:
+        ctx = sp_context(attn_impl)
+        return seq_shard(tgt, ctx), seq_shard(valid, ctx)
     return tgt, valid
 
 
@@ -259,8 +291,9 @@ def sequence_logprob(
     ``loss_fn``, the same function).  An MoE decoder's aux loss is left out,
     as the reference's ``forward`` without ``with_aux`` leaves it."""
     h = _hidden(model, cfg, inputs, attn_impl, remat)
-    tgt, valid = _shifted_targets(inputs)
-    return _token_logp(h, tgt, valid, model.llm).sum(dim=-1)
+    tgt, valid = _shifted_targets(inputs, attn_impl)
+    rows = _token_logp(h, tgt, valid, model.llm).sum(dim=-1)
+    return sp_sum(rows, sp_context(attn_impl)) if attn_impl in SP_IMPLS else rows
 
 
 def loss_fn(
@@ -288,12 +321,20 @@ def loss_fn(
     loss (the reference's load-balancing term, under remat too): the
     metrics hold it as ``router_aux_loss`` and ``loss`` is the total.  The
     reference runs an MoE decoder's ``ce_chunk`` on its unchunked branch;
-    the chunked CE here has the same value."""
+    the chunked CE here has the same value.
+
+    On a rank of a train step's process group the returned loss is this
+    rank's share: its tokens' cross entropy over the global target count,
+    plus the aux of the whole step (every rank's router statistics
+    averaged, ``llama.router_aux``), whose backward reaches this rank's
+    router only with its tokens' part.  The ranks' gradients summed are
+    then the reference's gradient of its global loss; the metrics hold the
+    global values."""
     moe = cfg.llm.is_moe
     h = _hidden(model, cfg, inputs, attn_impl, remat, with_aux=moe)
     if moe:
         h, aux = h
-    tgt, valid = _shifted_targets(inputs)
+    tgt, valid = _shifted_targets(inputs, attn_impl)
     w = model.llm
     if ce_chunk:
         S = tgt.shape[1]
@@ -305,10 +346,11 @@ def loss_fn(
             total = total + checkpoint(_token_logp_sum, h[:, c], tgt[:, c], valid[:, c], w, use_reentrant=False)
     else:
         total = _token_logp_sum(h, tgt, valid, w)
-    n_valid = valid.sum().clamp(min=1)
+    n_valid = world_sum(valid.sum()).clamp(min=1)
     loss = -total / n_valid
-    metrics = {"loss": loss, "num_tokens": n_valid}
+    metrics = {"loss": -world_sum(total.detach()) / n_valid, "num_tokens": n_valid}
     if moe:
-        loss = loss + cfg.llm.router_aux_loss_coef * aux
-        metrics.update(router_aux_loss=aux, loss=loss)
+        coef = cfg.llm.router_aux_loss_coef
+        loss = loss + coef * aux
+        metrics.update(router_aux_loss=aux.detach(), loss=metrics["loss"] + coef * aux.detach())
     return loss, metrics

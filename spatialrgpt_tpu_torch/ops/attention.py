@@ -9,8 +9,11 @@ tensors, as the reference runs its Pallas kernel on a TPU and XLA
 elsewhere.  ``impl="pallas"`` (the training path, the name
 ``train/args.py`` uses) runs kernel K4 (``ops/flash_attention.py``,
 differentiable) on CUDA tensors and K4's plain versions on CPU tensors.
-Any other ``impl`` raises.  ``window`` (key j is live for query i only if
-i - j < window) goes to every route, as in the reference.
+``impl`` "ulysses", "ring" and "hybrid" are the sequence-parallel routes
+of ``parallel/`` over the groups of the ambient ``SPContext``
+(``_sp_attention``).  Any other ``impl`` raises.  ``window`` (key j is
+live for query i only if i - j < window) goes to every single-device
+route, as in the reference, whose sequence-parallel routes do not take it.
 
 ``decode_attention`` is the attention of new tokens against a KV cache in
 the activation dtype (``models/llama.py::forward(cache=...)``, the
@@ -43,7 +46,31 @@ def causal_attention(
         return onepass_attention(q, k, v, segment_ids=segment_ids, window=window)
     if impl == "xla":
         return onepass_attention_plain(q, k, v, segment_ids=segment_ids, window=window)
+    if impl in ("ulysses", "ring", "hybrid"):
+        return _sp_attention(q, k, v, segment_ids, impl)
     raise ValueError(f"unknown attention impl: {impl}")
+
+
+def _sp_attention(q, k, v, segment_ids, impl: str) -> torch.Tensor:
+    """Sequence-parallel attention over the groups of the ambient
+    ``SPContext`` (``parallel/context.py``).  The inputs are this rank's
+    chunk of the sequence: the caller slices it (``seq_shard``; the
+    reference's ``shard_map`` over the global arrays does the slicing
+    there), ring-major for ``hybrid``."""
+    from spatialrgpt_tpu_torch.parallel.context import sp_context
+
+    ctx = sp_context(impl)
+    if impl == "hybrid":
+        from spatialrgpt_tpu_torch.parallel.hybrid import hybrid_attention
+
+        return hybrid_attention(q, k, v, segment_ids, ctx.group(ctx.ulysses_axis), ctx.group(ctx.ring_axis))
+    if impl == "ulysses":
+        from spatialrgpt_tpu_torch.parallel.ulysses import ulysses_attention
+
+        return ulysses_attention(q, k, v, segment_ids, ctx.group(ctx.ulysses_axis), impl=ctx.inner_impl)
+    from spatialrgpt_tpu_torch.parallel.ring import ring_attention
+
+    return ring_attention(q, k, v, segment_ids, group=ctx.group(ctx.ring_axis))
 
 
 NEG_INF = -1e30

@@ -9,7 +9,9 @@ has no integer matrix product of its own, and because an eager
 weight at every call.
 
 - K7 ``act_quant_int8`` (``csrc/act_quant.cu``): per-token int8
-  quantization of the activations, ``_w8a8_dot``'s prologue.
+  quantization of the activations, ``_w8a8_dot``'s prologue.  Its split
+  form (``reduce_max``) quantizes a tensor-parallel fan-in slice by the
+  whole rows' scales: two launches, one count.
 - K8 ``w8a8_gemm`` (``csrc/int8_gemm.cu``): int8 x int8 -> int32, then
   ``f32(acc) * (ascale * scale)``, the f32 bias and one cast.  At most
   ``DECODE_MAX_M`` rows it runs the decode form (the weight as wgmma's A,
@@ -89,22 +91,25 @@ def _pad16(n: int) -> int:
     return -(-n // 16) * 16
 
 
-def _quant_rows(xf: torch.Tensor, floor: float) -> Tuple[torch.Tensor, torch.Tensor]:
+def _quant_rows(xf: torch.Tensor, floor: float, reduce_max=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row int8 of the f32 rows xf: ``s = max(max|xf| * f32(1 / 127),
-    floor)``, ``clip(round(xf / s), -127, 127)``; returns (int8, s (M,))."""
-    amax = xf.abs().amax(dim=-1, keepdim=True)
-    s = torch.clamp(amax * (1.0 / 127.0), min=floor)
+    floor)``, ``clip(round(xf / s), -127, 127)``; returns (int8, s (M,)).
+    ``reduce_max`` first reduces the rows' maxima (M,) in place."""
+    amax = xf.abs().amax(dim=-1)
+    if reduce_max is not None:
+        reduce_max(amax)
+    s = torch.clamp(amax[..., None] * (1.0 / 127.0), min=floor)
     return torch.round(xf / s).clamp(-127, 127).to(torch.int8), s[..., 0]
 
 
-def act_quant_int8_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def act_quant_int8_plain(x: torch.Tensor, reduce_max=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """``_w8a8_dot``'s activation quantizer over the rows of x (M, K), as
     the reference runs it (under jit): ``ascale = max(max|x| * f32(1 / 127),
     1e-12)`` -- XLA folds the division by the constant 127 into a multiply
     by its f32 reciprocal -- and ``xq = clip(round(x / ascale), -127, 127)``
     in f32 with an IEEE division, rounded half to even, clipped before the
-    cast."""
-    return _quant_rows(x.float(), 1e-12)
+    cast.  ``reduce_max``, as ``act_quant_int8``'s."""
+    return _quant_rows(x.float(), 1e-12, reduce_max)
 
 
 def act_quant_dy_int8_plain(dy: torch.Tensor, scale: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -203,11 +208,19 @@ def _bias_kind(name: str, bias: Optional[torch.Tensor], N: int) -> int:
     return 1 if bias.dtype == torch.bfloat16 else 2
 
 
-def act_quant_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def act_quant_int8(x: torch.Tensor, reduce_max=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """K7: bf16 x (M, K) on the card -> (int8 xq (M, K), f32 ascale (M,)),
-    bit-equal to ``act_quant_int8_plain``.  K % 8 == 0."""
+    bit-equal to ``act_quant_int8_plain``.  K % 8 == 0.
+
+    ``reduce_max``: x holds some columns of longer rows (a tensor-parallel
+    fan-in slice), and ``reduce_max(amax)`` reduces an f32 (M,) vector of
+    the rows' max |x| over these columns in place to the whole rows' maxima
+    (an all-reduce MAX over the ranks that hold the other columns).  Pass 1
+    runs alone first, then pass 2 quantizes these columns by the whole
+    rows' scales: bit-equal to K7 over the whole rows, sliced.  Two
+    launches, counted as one."""
     if x.device.type == "cpu":
-        return act_quant_int8_plain(x)
+        return act_quant_int8_plain(x, reduce_max)
     name = "act_quant_int8"
     check_dtype(name, torch.bfloat16, x)
     _check_2d(name, x=x)
@@ -218,7 +231,13 @@ def act_quant_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     _check_aligned(name, x)
     xq = torch.empty((M, K), dtype=torch.int8, device=x.device)
     ascale = torch.empty((M,), dtype=torch.float32, device=x.device)
-    err = _build.lib().srgpt_act_quant(x.data_ptr(), xq.data_ptr(), ascale.data_ptr(), M, K, _build.stream_ptr(x))
+    lib, stream = _build.lib(), _build.stream_ptr(x)
+    if reduce_max is None:
+        err = lib.srgpt_act_quant(x.data_ptr(), xq.data_ptr(), ascale.data_ptr(), M, K, stream)
+    else:  # ascale holds the rows' maxima until pass 2 writes the scales over them
+        _build.check(lib.srgpt_act_absmax(x.data_ptr(), ascale.data_ptr(), M, K, stream), name)
+        reduce_max(ascale)
+        err = lib.srgpt_act_quant_given_max(x.data_ptr(), xq.data_ptr(), ascale.data_ptr(), M, K, stream)
     _build.check(err, name)
     launches[name] += 1
     return xq, ascale

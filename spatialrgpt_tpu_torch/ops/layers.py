@@ -73,7 +73,14 @@ class QuantLinear(nn.Module):
     """A projection with a quantized weight: the twin of the reference's
     ``kernel_q`` entry.  Buffers ``q`` (int8 (out, in), or two int4 nibbles
     packed per byte along in: (out, ceil(in / 2))) and ``scale`` (f32
-    (out,)); ``a8`` is the reference's W8A8 marker; ``bias`` stays float."""
+    (out,)); ``a8`` is the reference's W8A8 marker; ``bias`` stays float.
+
+    A tensor-parallel slice (``parallel/mesh.py::tp_shard_model``) keeps the
+    whole weight's (in, out) as ``a8_rule`` for the call-site rule, and a
+    slice of the fan-in its group as ``tp_fan_in``."""
+
+    a8_rule = None
+    tp_fan_in = None
 
     def __init__(self, in_features: int, out_features: int, bits: int = 8, a8: bool = False, bias: bool = False,
                  dtype=None, device=None):
@@ -102,7 +109,8 @@ class QuantLinear(nn.Module):
         """The reference's per-call-site rule (``layers.py:114-120``): int8
         activations for an int8 W8A8 weight when it expands (in <= out) or
         at ``A8_MIN_ROWS`` rows and more."""
-        return self.a8 and self.bits == 8 and (self.in_features <= self.out_features or rows >= A8_MIN_ROWS)
+        fan_in, fan_out = self.a8_rule or (self.in_features, self.out_features)
+        return self.a8 and self.bits == 8 and (fan_in <= fan_out or rows >= A8_MIN_ROWS)
 
     def dequantized(self, dtype=torch.bfloat16) -> torch.Tensor:
         """The dequantized (out, in) weight."""
@@ -206,11 +214,29 @@ def _lora_add(x2: torch.Tensor, lora: LoraBranch) -> torch.Tensor:
     return torch.matmul(h.float(), lora.b.to(x2.dtype).float()) * lora.scale
 
 
+def _fan_in_quantized(x2: torch.Tensor, p: QuantLinear) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The int8 rows of a fan-in slice x2 (M, K / tp) with the whole rows'
+    scales, as the reference's GSPMD program quantizes the unsharded rows:
+    K7's split form finds each row's max |x| over this rank's columns, an
+    all-reduce MAX over the tp group makes them the whole rows' maxima
+    (M floats a rank cross the group, not the rows), and this rank's
+    columns are quantized by the whole rows' scales."""
+    import torch.distributed as dist
+
+    def reduce_max(amax):
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=p.tp_fan_in.group)
+
+    quant = int8_linear.act_quant_int8 if _on_kernels(x2) else int8_linear.act_quant_int8_plain
+    with torch.no_grad():
+        return quant(x2.contiguous(), reduce_max)
+
+
 def _quant_linear(x: torch.Tensor, p: QuantLinear, xq, add: Optional[torch.Tensor]) -> torch.Tensor:
     K = x.shape[-1]
     x2 = x.reshape(-1, K)
     if p.takes_a8(x2.shape[0]):  # W8A8: K7 (unless the siblings' xq is given) + K8
-        xq = quantized_input(x, p) if xq is None else xq
+        if xq is None:
+            xq = quantized_input(x, p) if p.tp_fan_in is None else _fan_in_quantized(x2, p)
         y = _W8A8Linear.apply(x2, add, xq, p, _on_kernels(x2))
     elif p.bits == 8:  # int8 weight-only: the scale folds into the f32 sums (K9)
         y = _W8Linear.apply(x2.contiguous(), add, p, _on_kernels(x2))

@@ -57,8 +57,16 @@ Where it differs from the reference:
   - ``attn_impl`` defaults to ``"onepass"`` (the kernels), as the port's
     ``generate`` does; ``"xla"`` takes K1-K3's plain versions.
   - Not ported: the fused mixed-batch chunked prefill (``prefill_chunk >
-    0``) and the tensor-parallel ``mesh``; both raise
-    ``NotImplementedError``.
+    0``), which raises ``NotImplementedError``.
+
+Tensor parallelism (``mesh`` with a tp dim above 1, the reference's
+``engine.py:110-125``): the model is placed by
+``parallel/mesh.py::tp_shard_model`` (its decoder keeps this rank's slice
+of every projection and adds the collectives), and either cache holds this
+rank's kv heads: the bf16 cache's (L, B, C, Hk / tp, D), the flat int8
+cache's (L, B, C, Hk / tp * D) rows and (L, B, C, Hk / tp) scales.  tp must
+divide the kv-head count.  Every rank runs the same scheduler on the same
+requests and samples the same tokens from the gathered logits.
 
 The engine runs on the device of the model it is given; pixel fields go
 to that device in the dtype of the model's weights, once per admission
@@ -80,6 +88,7 @@ from spatialrgpt_tpu_torch.config import SpatialRGPTConfig
 from spatialrgpt_tpu_torch.models import llama, vlm
 from spatialrgpt_tpu_torch.ops import decode_attention
 from spatialrgpt_tpu_torch.ops.quant import quantize_kv
+from spatialrgpt_tpu_torch.parallel.mesh import mesh_size, tp_shard_model
 from spatialrgpt_tpu_torch.serving.generate import _decode_step, new_quant_cache
 
 
@@ -124,19 +133,22 @@ class ServingEngine:
         kv_quant: bool = False,  # the int8 KV cache (K3)
         prefix_bucket: int = 0,  # cache room for a shared prefix (register_prefix); 0 disables it
         admit_width: int = 8,  # most requests per batched admission prefill
-        mesh=None,  # tensor-parallel serving: not ported
+        mesh=None,  # tensor-parallel serving over the mesh's tp dim
         prefill_chunk: int = 0,  # fused mixed-batch chunked prefill: not ported
         topk_sampling: int = 64,  # top-k prefilter of sampled decode; 0 = the exact full sort
         async_readback: bool = False,  # read each window's tokens one step() late
     ):
         if mesh is not None:
-            raise NotImplementedError("tensor-parallel serving (mesh) is not ported yet: it waits for the port of "
-                                      "parallel/mesh.py")
+            tp = mesh_size(mesh, "tp")
+            if cfg.llm.num_key_value_heads % tp:
+                raise ValueError(f"tp={tp} must divide the kv-head count {cfg.llm.num_key_value_heads} (the KV "
+                                 "cache shards its head axis)")
+            tp_shard_model(model, mesh)
+        self.mesh = mesh
         if prefill_chunk:
             raise NotImplementedError("the fused mixed-batch chunked prefill (prefill_chunk > 0) is not ported yet")
         if attn_impl not in ("onepass", "xla"):
             raise ValueError(f"unknown attention impl: {attn_impl}")
-        lc = cfg.llm
         self.model, self.cfg = model, cfg
         self.device = model.llm.model.embed_tokens.weight.device
         self.act_dtype = model.llm.model.embed_tokens.weight.dtype
@@ -144,12 +156,15 @@ class ServingEngine:
         self.capacity = prefix_bucket + prompt_bucket + max_new_tokens
         self.attn_impl, self.kv_quant = attn_impl, kv_quant
         self.admit_width, self.topk_sampling = admit_width, topk_sampling
-        if kv_quant and attn_impl == "onepass" and self.device.type == "cuda":
-            decode_attention.check_shape(self.capacity, lc.num_attention_heads, lc.num_key_value_heads, lc.head_dim)
         if kv_quant:
-            self.cache = new_quant_cache(cfg, self.B, self.capacity, self.device)
+            self.cache = new_quant_cache(model.llm, cfg.llm, self.B, self.capacity, self.device)
         else:
-            self.cache = llama.KVCache.init(lc, self.B, self.capacity, dtype, self.device)
+            self.cache = llama.new_cache(model.llm, cfg.llm, self.B, self.capacity, dtype, self.device)
+        if kv_quant and attn_impl == "onepass" and self.device.type == "cuda":
+            hk = self.cache.k_s.shape[-1]  # this rank's kv heads; their query heads keep the model's ratio
+            lc = cfg.llm
+            decode_attention.check_shape(self.capacity, hk * (lc.num_attention_heads // lc.num_key_value_heads), hk,
+                                         lc.head_dim)
         # per slot: the position its next token is written at (int32, in [0, C))
         self.lengths = torch.zeros(self.B, dtype=torch.int32, device=self.device)
         self.last_token = torch.zeros(self.B, dtype=torch.int64, device=self.device)
@@ -273,7 +288,8 @@ class ServingEngine:
         token, sampled at position ``plen + suffix_len - 1``."""
         embeds = vlm.prepare_embeds(self.model, self.cfg, inputs, self.attn_impl)
         PB = pk.shape[2]
-        cache = llama.KVCache.init(self.cfg.llm, 1, self.capacity, pk.dtype, self.device)._replace(length=plen)
+        cache = llama.new_cache(self.model.llm, self.cfg.llm, 1, self.capacity, pk.dtype, self.device)
+        cache = cache._replace(length=plen)
         cache.k[:, :, :PB] = pk
         cache.v[:, :, :PB] = pv
         h, cache = llama.forward(

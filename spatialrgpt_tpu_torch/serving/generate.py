@@ -26,6 +26,21 @@ slot.
 ``attn_impl="onepass"`` runs the three kernels (K1 in the tower, K2 in
 prefill, K3 in int8-cache decode) on CUDA tensors; ``attn_impl="xla"``
 runs their plain versions.
+
+Parallel serving (``parallel/``):
+
+- ``attn_impl`` "ring", "ulysses" or "hybrid" runs the prefill sequence
+  parallel over the ambient ``SPContext``: every rank of the sp group
+  holds the whole prompt batch, the decoder runs this rank's chunk of the
+  sequence, and the hidden states and K/V are gathered back to the whole
+  prompt, so decode runs on the replicated cached path (the kernels' route)
+  as in the reference;
+- a tensor-parallel model (``parallel/mesh.py::tp_shard_model``) runs its
+  slice of the heads and neurons, both caches hold this rank's kv heads,
+  and the decoder adds its partial sums up and gathers its logits
+  (``models/llama.py``);
+- an FSDP-sharded model (``parallel/mesh.py::shard_model``) is gathered
+  whole for the call.
 """
 
 from __future__ import annotations
@@ -34,12 +49,14 @@ from typing import NamedTuple, Optional, Union
 
 import torch
 
-from spatialrgpt_tpu_torch.config import SpatialRGPTConfig
+from spatialrgpt_tpu_torch.config import LlamaConfig, SpatialRGPTConfig
 from spatialrgpt_tpu_torch.models import llama, vlm
 from spatialrgpt_tpu_torch.ops.attention import decode_attention
 from spatialrgpt_tpu_torch.ops.decode_attention import decode_attention_int8_flat, decode_attention_int8_flat_plain
 from spatialrgpt_tpu_torch.ops.layers import linear, qkv_proj
 from spatialrgpt_tpu_torch.ops.quant import quantize_kv
+from spatialrgpt_tpu_torch.parallel.context import SP_IMPLS, gather_sequence, seq_shard, sp_context
+from spatialrgpt_tpu_torch.parallel.mesh import gathered
 
 
 class GenerateResult(NamedTuple):
@@ -85,9 +102,13 @@ def _sample_token(
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
-def new_quant_cache(cfg: SpatialRGPTConfig, batch: int, capacity: int, device) -> QuantKVCache:
-    """A zeroed int8 cache of ``batch`` rows and ``capacity`` positions."""
-    L, Hk, D = cfg.llm.num_hidden_layers, cfg.llm.num_key_value_heads, cfg.llm.head_dim
+def new_quant_cache(llm: llama.LlamaForCausalLM, cfg: LlamaConfig, batch: int, capacity: int,
+                    device) -> QuantKVCache:
+    """A zeroed int8 cache of ``batch`` rows and ``capacity`` positions for
+    the decoder ``llm`` (whose whole config is ``cfg``): the kv heads of
+    this rank's slice under tensor parallelism."""
+    lc = llama.rank_cfg(llm, cfg)
+    L, Hk, D = lc.num_hidden_layers, lc.num_key_value_heads, lc.head_dim
     return QuantKVCache(
         torch.zeros((L, batch, capacity, Hk * D), dtype=torch.int8, device=device),
         torch.zeros((L, batch, capacity, Hk), dtype=torch.float32, device=device),
@@ -100,23 +121,35 @@ def _prefill(model, cfg: SpatialRGPTConfig, inputs: vlm.VLMInputs, prompt_length
              kv_quant: bool):
     """Spliced embeddings -> decoder over the padded prompt; returns the
     first-token logits (B, V) and the cache (int8 with ``kv_quant``, else
-    in the activation dtype) with the prompt in slots [0, S)."""
-    embeds = vlm.prepare_embeds(model, cfg, inputs, attn_impl)
+    in the activation dtype) with the prompt in slots [0, S).  A
+    sequence-parallel ``attn_impl`` runs this rank's chunk and gathers the
+    hidden states and the K/V of the whole prompt."""
+    sp = attn_impl in SP_IMPLS
+    embeds = vlm.prepare_embeds(model, cfg, inputs, "onepass" if sp else attn_impl)
+    pos, seg = inputs.position_ids, inputs.segment_ids
+    if sp:
+        ctx = sp_context(attn_impl)
+        embeds, pos, seg = (seq_shard(t, ctx) for t in (embeds, pos, seg))
     h, kv = llama.forward(
-        model.llm, cfg.llm, inputs_embeds=embeds, position_ids=inputs.position_ids,
-        segment_ids=inputs.segment_ids, attn_impl=attn_impl, collect_kv=True, kv_quant=kv_quant,
+        model.llm, cfg.llm, inputs_embeds=embeds, position_ids=pos,
+        segment_ids=seg, attn_impl=attn_impl, collect_kv=True, kv_quant=kv_quant and not sp,
     )
+    if sp:
+        h = gather_sequence(h, ctx)
+        kv = [(gather_sequence(k, ctx), gather_sequence(v, ctx)) for k, v in kv]
+        if kv_quant:
+            kv = [(quantize_kv(k), quantize_kv(v)) for k, v in kv]
     B, S = inputs.input_ids.shape
     dev = h.device
     if kv_quant:
-        cache = new_quant_cache(cfg, B, capacity, dev)
+        cache = new_quant_cache(model.llm, cfg.llm, B, capacity, dev)
         for li, ((kq, ks), (vq, vs)) in enumerate(kv):
             cache.k_q[li, :, :S] = kq.reshape(B, S, -1)
             cache.k_s[li, :, :S] = ks
             cache.v_q[li, :, :S] = vq.reshape(B, S, -1)
             cache.v_s[li, :, :S] = vs
     else:
-        cache = llama.KVCache.init(cfg.llm, B, capacity, kv[0][0].dtype, dev)
+        cache = llama.new_cache(model.llm, cfg.llm, B, capacity, kv[0][0].dtype, dev)
         for li, (k, v) in enumerate(kv):
             cache.k[li, :, :S] = k
             cache.v[li, :, :S] = v
@@ -169,8 +202,9 @@ def _decode_step(model, cfg: SpatialRGPTConfig, x, lengths, cache: Union[QuantKV
     ``lengths`` (B,); writes each row's K/V at slot ``lengths[b]`` and
     attends to slots ``<= lengths[b]`` (a sliding window is not applied
     here, as the reference's cached decode does not apply it).  Returns the
-    final-normed hidden (B, 1, H)."""
-    lc = cfg.llm
+    final-normed hidden (B, 1, H).  A tensor-parallel decoder runs its
+    slice and adds its partial sums up."""
+    lc, tp = llama.rank_cfg(model.llm, cfg.llm), model.llm.tp
     rows = torch.arange(x.shape[0], device=x.device)
     pos = lengths.long()
     lengths32 = lengths.to(torch.int32)
@@ -179,10 +213,11 @@ def _decode_step(model, cfg: SpatialRGPTConfig, x, lengths, cache: Union[QuantKV
     for li, layer in enumerate(model.llm.model.layers):
         hn = llama.norm(h, layer.input_layernorm)
         if quant:
-            h = h + _per_slot_attention_quant(hn, layer.self_attn, lc, rows, pos, lengths32, cache, li, attn_impl)
+            a = _per_slot_attention_quant(hn, layer.self_attn, lc, rows, pos, lengths32, cache, li, attn_impl)
         else:
-            h = h + _per_slot_attention(hn, layer.self_attn, lc, rows, pos, cache, li)
-        h = h + llama.ffn_block(llama.norm(h, layer.post_attention_layernorm), layer, lc)[0]
+            a = _per_slot_attention(hn, layer.self_attn, lc, rows, pos, cache, li)
+        h = h + llama.tp_sum(a, tp)
+        h = h + llama.tp_sum(llama.ffn_block(llama.norm(h, layer.post_attention_layernorm), layer, lc)[0], tp)
     return llama.norm(h, model.llm.model.norm)
 
 
@@ -205,9 +240,17 @@ def generate(
 ) -> GenerateResult:
     """Multimodal generate over a right-padded prompt batch.  A row stops
     after emitting eos, a stop id, or the last token of a stop sequence;
-    it then emits eos padding."""
-    if attn_impl not in ("onepass", "xla"):
+    it then emits eos padding.  ``attn_impl`` "ring" / "ulysses" /
+    "hybrid": the sequence-parallel prefill, then the kernels' decode."""
+    if attn_impl not in ("onepass", "xla") + SP_IMPLS:
         raise ValueError(f"unknown attention impl: {attn_impl}")
+    with gathered(model):
+        return _generate(model, cfg, inputs, prompt_lengths, max_new_tokens, temperature, top_p, eos_token_id,
+                         stop_token_ids, stop_sequences, generator, attn_impl, kv_quant)
+
+
+def _generate(model, cfg, inputs, prompt_lengths, max_new_tokens, temperature, top_p, eos_token_id, stop_token_ids,
+              stop_sequences, generator, attn_impl, kv_quant) -> GenerateResult:
     B, S = inputs.input_ids.shape
     dev = inputs.input_ids.device
     eos = cfg.llm.eos_token_id if eos_token_id is None else eos_token_id
@@ -236,7 +279,7 @@ def generate(
         # such as -1; its outputs are discarded, so any in-range id will do
         x = llama.embed_tokens(model.llm, tokens[:, t - 1 : t].clamp(0, vocab - 1))
         lengths = prompt_lengths + t - 1  # this token's position and cache slot
-        h = _decode_step(model, cfg, x, lengths, cache, attn_impl)
+        h = _decode_step(model, cfg, x, lengths, cache, "onepass" if attn_impl in SP_IMPLS else attn_impl)
         logits = llama.logits(model.llm, h)[:, 0]
         tok = _sample_token(logits, generator, temperature, top_p)
         tok = torch.where(done, torch.full_like(tok, eos), tok)

@@ -14,6 +14,12 @@ the model, the policy's multimodal forward reused as it is.
   ``DPOState`` is a ``Trainer`` state: a resumed run restores the policy and
   the optimizer from the checkpoint and keeps the live reference copy, which
   ``main`` rebuilds from the starting weights as the reference does.
+- Under a process group of several ranks (an FSDP-sharded model, whose
+  reference copy is sharded the same way by ``train/step.py::
+  shard_state``), both models run as module calls, the loss and the
+  metrics are means over the global rows (a rank's rows are its share of
+  the sum; sp ranks hold the same rows), and the replicated parameters'
+  gradients are summed.
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ import torch.nn.functional as F
 from spatialrgpt_tpu_torch.config import SpatialRGPTConfig
 from spatialrgpt_tpu_torch.models import vlm
 from spatialrgpt_tpu_torch.models.vlm import sequence_logprob
+from spatialrgpt_tpu_torch.parallel import mesh as mesh_lib
+from spatialrgpt_tpu_torch.parallel.context import SP_IMPLS, sp_context
 from spatialrgpt_tpu_torch.train.step import _freeze_untrained, _trained
 
 __all__ = ["DPOState", "dpo_loss", "make_dpo_step", "reference_copy", "sequence_logprob"]
@@ -44,19 +52,37 @@ def dpo_loss(
     remat: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """sigmoid DPO: -log sigma(beta [(pi_c - pi_r) - (ref_c - ref_r)])."""
-    pol_c = sequence_logprob(policy, cfg, chosen, attn_impl, remat)
-    pol_r = sequence_logprob(policy, cfg, rejected, attn_impl, remat)
+    pol_c = policy(sequence_logprob, cfg, chosen, attn_impl, remat)
+    pol_r = policy(sequence_logprob, cfg, rejected, attn_impl, remat)
     with torch.no_grad():
-        ref_c = sequence_logprob(ref, cfg, chosen, attn_impl)
-        ref_r = sequence_logprob(ref, cfg, rejected, attn_impl)
+        ref_c = ref(sequence_logprob, cfg, chosen, attn_impl)
+        ref_r = ref(sequence_logprob, cfg, rejected, attn_impl)
     logits = beta * ((pol_c - pol_r) - (ref_c - ref_r))
-    loss = -F.logsigmoid(logits).mean()
+    mean, metric = _row_means(attn_impl)
+    loss = mean(-F.logsigmoid(logits))
     return loss, {
-        "dpo_loss": loss,
-        "reward_accuracy": (logits > 0).float().mean(),
-        "chosen_reward": (beta * (pol_c - ref_c)).mean(),
-        "rejected_reward": (beta * (pol_r - ref_r)).mean(),
+        "dpo_loss": metric(loss),
+        "reward_accuracy": metric(mean((logits > 0).float())),
+        "chosen_reward": metric(mean(beta * (pol_c - ref_c))),
+        "rejected_reward": metric(mean(beta * (pol_r - ref_r))),
     }
+
+
+def _row_means(attn_impl: str):
+    """(mean, metric): on one process the mean over the rows and the value
+    itself.  In a process group ``mean`` is the rank's share of the mean
+    over the global rows (its rows' sum over their global count: the sp
+    ranks of a group hold the same rows and, through ``sp_sum``, each the
+    whole row's gradient of its own chunk), and ``metric`` adds the shares
+    of the ranks, each row once."""
+    if mesh_lib.world_size() == 1:
+        return (lambda x: x.mean()), (lambda x: x.detach())
+    sp = sp_context(attn_impl).sp_degree if attn_impl in SP_IMPLS else 1
+
+    def mean(x):
+        return x.sum() / (mesh_lib.world_sum(torch.tensor(float(x.shape[0]), device=x.device)) / sp)
+
+    return mean, lambda x: mesh_lib.world_sum(x.detach()) / sp
 
 
 class DPOState(NamedTuple):
@@ -91,6 +117,7 @@ def make_dpo_step(cfg: SpatialRGPTConfig, optimizer, beta: float = 0.1, attn_imp
         model.zero_grad(set_to_none=True)
         loss, metrics = dpo_loss(model, state.ref_model, cfg, chosen, rejected, beta, attn_impl, remat)
         loss.backward()
+        mesh_lib.sync_replicated_grads(model)
         optimizer.step()
         return state._replace(step=state.step + 1), {k: v.detach() for k, v in metrics.items()}
 

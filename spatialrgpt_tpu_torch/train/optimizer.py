@@ -24,6 +24,11 @@ frozen group ``set_to_zero``; ``skip_nonfinite_updates`` wraps the whole in
   non-finite value changes nothing, unless it is the (n + 1)-th such step
   in a row.
 
+FSDP-sharded parameters (DTensors, ``parallel/mesh.py::shard_model``): a
+group's norm sums the squares over the shards, the moments are DTensors of
+the parameter's sharding, and the elementwise update runs on the local
+shards.
+
 ``MultiSteps`` is gradient accumulation with ``optax.MultiSteps``' meaning
 (``train/train.py:165-168`` wraps the optimizer in it): the gradients of k
 micro steps are averaged, and the wrapped ``AdamW`` updates on every k-th
@@ -37,6 +42,20 @@ from dataclasses import dataclass
 from typing import Dict, Optional
 
 import torch
+
+
+def local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (its storage: in-place updates reach the
+    DTensor), a plain tensor itself."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def sq_sum(t: torch.Tensor) -> torch.Tensor:
+    """The f32 sum of squares of every element of t, a plain 0-dim tensor;
+    a sharded DTensor's is reduced over its shards (a collective every
+    rank takes)."""
+    s = t.float().square().sum()
+    return s.full_tensor() if hasattr(s, "full_tensor") else s
 
 
 @dataclass(frozen=True)
@@ -114,12 +133,15 @@ class AdamW(torch.optim.Optimizer):
         c = self.ocfg
         grads = [self._grads(group) for group in self.param_groups]
         if c.skip_nonfinite_updates > 0:
-            finite = bool(torch.stack([torch.isfinite(g).all() for gs in grads for g in gs]).all())
+            from spatialrgpt_tpu_torch.parallel.mesh import world_sum
+
+            bad = sum(int((~torch.isfinite(local(g))).sum()) for gs in grads for g in gs)
+            finite = int(world_sum(torch.tensor(bad))) == 0
             self.notfinite_count = 0 if finite else self.notfinite_count + 1
             if not finite and self.notfinite_count <= c.skip_nonfinite_updates:
                 return
         for group, gs in zip(self.param_groups, grads):
-            norm = torch.sqrt(sum(g.float().square().sum() for g in gs))
+            norm = torch.sqrt(sum(sq_sum(g) for g in gs))
             keep = norm < c.max_grad_norm
             n = group["count"]
             lr = self.learning_rate(group, n)
@@ -127,17 +149,19 @@ class AdamW(torch.optim.Optimizer):
             # moment's dtype
             bc1, bc2 = (1 - torch.tensor(b, dtype=torch.float32) ** (n + 1) for b in (c.adam_b1, c.adam_b2))
             for p, g in zip(group["params"], gs):
-                g = torch.where(keep, g, g / norm.to(g.dtype) * c.max_grad_norm)
                 st = self.state[p]
                 if not st:
                     st["mu"], st["nu"] = torch.zeros_like(p), torch.zeros_like(p)
-                mu = (1 - c.adam_b1) * g + c.adam_b1 * st["mu"]
-                nu = (1 - c.adam_b2) * (g * g) + c.adam_b2 * st["nu"]
-                mu_hat = mu / bc1.to(p.device, mu.dtype)
-                nu_hat = nu / bc2.to(p.device, nu.dtype)
-                u = mu_hat / (torch.sqrt(nu_hat) + c.adam_eps) + c.weight_decay * p
-                p.add_(u * -lr)
-                st["mu"], st["nu"] = mu, nu
+                pl, g, mu0, nu0 = local(p), local(g), local(st["mu"]), local(st["nu"])
+                g = torch.where(keep, g, g / norm.to(g.dtype) * c.max_grad_norm)
+                mu = (1 - c.adam_b1) * g + c.adam_b1 * mu0
+                nu = (1 - c.adam_b2) * (g * g) + c.adam_b2 * nu0
+                mu_hat = mu / bc1.to(pl.device, mu.dtype)
+                nu_hat = nu / bc2.to(pl.device, nu.dtype)
+                u = mu_hat / (torch.sqrt(nu_hat) + c.adam_eps) + c.weight_decay * pl
+                pl.add_(u * -lr)
+                mu0.copy_(mu)
+                nu0.copy_(nu)
             group["count"] = n + 1
 
     def state_dict(self):

@@ -28,6 +28,17 @@ holds every module and ``requires_grad`` decides, so the steps take
 ``(state, batch)``.  ``donate`` has no counterpart: PyTorch updates the
 parameters and the optimizer state in place, so no second copy of either
 exists to give back.
+
+Meshes (``step.py:49`` and ``:221``): ``shard_state`` wraps the model in
+FSDP2 over a mesh (``parallel/mesh.py::shard_model``) and points the
+optimizer at the sharded parameters, whose moments then follow their
+sharding; ``batch_shardings`` gives a rank its rows of a global batch over
+(dp, fsdp) with the images they use.  The sequence stays whole there: the
+model cuts this rank's chunk after the splice (``models/vlm.py``), so the
+images of a row stay whole on every sp rank of that row.  Every step runs
+the loss as a module call of the model (``SpatialRGPT.forward``), so FSDP
+gathers and reduce-scatters around it, and then sums the gradients of the
+parameters FSDP leaves replicated.
 """
 
 from __future__ import annotations
@@ -39,8 +50,9 @@ import torch
 from spatialrgpt_tpu_torch.config import SpatialRGPTConfig
 from spatialrgpt_tpu_torch.models import vlm
 from spatialrgpt_tpu_torch.ops.layers import QuantLinear
+from spatialrgpt_tpu_torch.parallel import mesh as mesh_lib
 from spatialrgpt_tpu_torch.train.lora import LoraConfig, apply_lora, replace_modules
-from spatialrgpt_tpu_torch.train.optimizer import MODULES, AdamW
+from spatialrgpt_tpu_torch.train.optimizer import MODULES, AdamW, MultiSteps, sq_sum
 
 
 class TrainState(NamedTuple):
@@ -64,8 +76,58 @@ def create_train_state(model: vlm.SpatialRGPT, optimizer: AdamW) -> TrainState:
 
 
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in f32."""
-    return torch.sqrt(sum((t.float().square().sum() for t in tensors), torch.zeros(())))
+    """sqrt of the sum of squares of every element, in f32 (over every
+    shard of a sharded gradient)."""
+    return torch.sqrt(sum((sq_sum(t) for t in tensors), torch.zeros(())))
+
+
+def shard_state(state, mesh):
+    """``state`` (a ``TrainState`` or ``DPOState`` before its first step)
+    with its model under FSDP2 over ``mesh`` (``parallel/mesh.py::
+    shard_model``) and its optimizer's parameter groups pointing at the
+    sharded parameters, by name (a ``MultiSteps`` accumulator is made
+    anew).  A DPO state's frozen reference copy is sharded the same way."""
+    model, optimizer = state.model, state.optimizer
+    inner = optimizer.inner if isinstance(optimizer, MultiSteps) else optimizer
+    if inner.state:
+        raise ValueError("shard_state takes a state before its first step (its optimizer holds no moments)")
+    names = {id(p): n for n, p in model.named_parameters()}
+    held = [[names[id(p)] for p in group["params"]] for group in inner.param_groups]
+    mesh_lib.shard_model(model, mesh)
+    params = dict(model.named_parameters())
+    for group, group_names in zip(inner.param_groups, held):
+        group["params"] = [params[n] for n in group_names]
+    if isinstance(optimizer, MultiSteps):
+        optimizer.acc = [torch.zeros_like(p) for p in optimizer._params()]
+    ref = getattr(state, "ref_model", None)
+    if ref is not None:
+        mesh_lib.shard_model(ref, mesh)
+    return state
+
+
+def batch_shardings(mesh, inputs: vlm.VLMInputs, tokens_per_image: int) -> vlm.VLMInputs:
+    """This rank's rows of a global batch (``batch_spec``'s (dp, fsdp)
+    dim: contiguous blocks of rows) and the images, depths and masks they
+    use, their indices rebased.  The images a row uses are a contiguous
+    run (the collator's order); ``tokens_per_image`` is the width of an
+    image's run of tokens in ``image_gather_idx``."""
+    rows = mesh_lib.local_rows(inputs.input_ids.shape[0], mesh)
+    picked = {f: v[rows] if f not in ("images", "depths", "masks", "mask_valid") and v is not None else v
+              for f, v in inputs._asdict().items()}
+    R = inputs.masks.shape[1] if inputs.masks is not None else 1
+    used = [picked["image_gather_idx"][picked["is_image"]] // tokens_per_image,
+            picked["mask_slot"][picked["is_mask"]] // R, picked["depth_slot"][picked["is_depth"]] // R]
+    used = torch.cat(used)
+    if used.numel() == 0:
+        raise ValueError(f"rows {rows.start}:{rows.stop} use no image")
+    lo, hi = int(used.min()), int(used.max()) + 1
+    for f in ("images", "depths", "masks", "mask_valid"):
+        if picked[f] is not None:
+            picked[f] = picked[f][lo:hi]
+    picked["image_gather_idx"] = picked["image_gather_idx"] - lo * tokens_per_image
+    picked["mask_slot"] = picked["mask_slot"] - lo * R
+    picked["depth_slot"] = picked["depth_slot"] - lo * R
+    return vlm.VLMInputs(**picked)
 
 
 def _run(state: TrainState, batch: vlm.VLMInputs, optimizer: AdamW,
@@ -75,8 +137,9 @@ def _run(state: TrainState, batch: vlm.VLMInputs, optimizer: AdamW,
     parameter's is zero in the reference's norm)."""
     model = state.model
     model.zero_grad(set_to_none=True)
-    loss, metrics = loss_fn(model, batch)
+    loss, metrics = model(loss_fn, batch)
     loss.backward()
+    mesh_lib.sync_replicated_grads(model)
     grad_norm = global_norm(p.grad for p in model.parameters() if p.grad is not None)
     optimizer.step()
     metrics = {k: v.detach() for k, v in metrics.items()}

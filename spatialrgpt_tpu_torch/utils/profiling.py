@@ -61,13 +61,19 @@ def device_memory_report() -> Dict:
     return out
 
 
-# rank-aware printing (the reference's mprint / rprint): the port runs one
-# process, rank 0, until parallel/ is ported
+def _rank() -> int:
+    """This process's rank in the process group (0 without one)."""
+    dist = torch.distributed
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
+# rank-aware printing (the reference's mprint / rprint)
 def mprint(*args, **kwargs):
     """Print only on rank 0."""
-    print(*args, **kwargs)
+    if _rank() == 0:
+        print(*args, **kwargs)
 
 
 def rprint(*args, **kwargs):
     """Print with the rank as a prefix."""
-    print("[rank 0]", *args, **kwargs)
+    print(f"[rank {_rank()}]", *args, **kwargs)

@@ -234,10 +234,12 @@ def load_adapters_from_jax(np_adapters, device, dtype=None) -> LoraAdapters:
 SPLIT_DIRS = ("vision_tower", "mm_projector", "region_extractor", "llm")
 
 
-def save_composite(root: str, model: SpatialRGPT, cfg: SpatialRGPTConfig) -> None:
+def save_composite(root: str, model: SpatialRGPT, cfg: SpatialRGPTConfig, state: Optional[dict] = None) -> None:
     """The reference's split composite checkpoint: ``config.json`` at
     ``root`` and one directory per sub-module holding its HF-named state
-    dict (the names ``utils/export.py`` writes) as ``pytorch_model.bin``."""
+    dict (the names ``utils/export.py`` writes) as ``pytorch_model.bin``.
+    ``state``: the model's whole state dict where the model's own is
+    sharded (``train/trainer.py`` gathers it)."""
     os.makedirs(root, exist_ok=True)
     cfg.save(root)
     for name in SPLIT_DIRS:
@@ -245,8 +247,11 @@ def save_composite(root: str, model: SpatialRGPT, cfg: SpatialRGPTConfig) -> Non
         if module is None:
             continue
         os.makedirs(os.path.join(root, name), exist_ok=True)
-        state = {k: v.detach().contiguous() for k, v in module.state_dict().items()}
-        torch.save(state, os.path.join(root, name, "pytorch_model.bin"))
+        if state is None:
+            part = {k: v.detach().contiguous() for k, v in module.state_dict().items()}
+        else:
+            part = {k[len(name) + 1 :]: v.contiguous() for k, v in state.items() if k.startswith(name + ".")}
+        torch.save(part, os.path.join(root, name, "pytorch_model.bin"))
 
 
 # ---------------------------------------------------------------------------

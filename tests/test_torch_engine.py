@@ -513,12 +513,21 @@ def test_near_greedy_matches_greedy_in_mixed_pool(model):
 
 
 def test_unported_arguments_and_k3_shapes_raise(model):
-    """The tensor-parallel mesh and the fused chunked prefill raise
+    """A tensor-parallel mesh whose tp does not divide the kv heads raises
+    the reference's ``ValueError`` (the mesh itself runs in
+    tests/test_torch_tp.py); the fused chunked prefill raises
     ``NotImplementedError``; an unknown attention impl ``ValueError``; and
     the shape rule an engine checks at construction on the card refuses a
     capacity whose scores overflow K3's shared memory at llama3-8b's heads."""
-    with pytest.raises(NotImplementedError, match="mesh"):
-        _engine(model, mesh=object())
+
+    class TP3:  # the two DeviceMesh methods the engine reads, tp = 3
+        mesh_dim_names = ("tp",)
+
+        def size(self, dim):
+            return 3
+
+    with pytest.raises(ValueError, match="must divide the kv-head count"):
+        _engine(model, mesh=TP3())
     with pytest.raises(NotImplementedError, match="chunked prefill"):
         _engine(model, prefill_chunk=64)
     with pytest.raises(ValueError, match="attention impl"):

@@ -209,12 +209,14 @@ def test_score_file_matches_jax(env, jax_bench):
 
 def test_run_bench_refusals(env):
     """No predictor for ``depth_source="model"`` raises ``ValueError`` (no
-    silent RGB fallback); ``tp > 1`` raises ``NotImplementedError``."""
+    silent RGB fallback); ``tp > 1`` without a process group of tp ranks
+    raises ``RuntimeError`` (tensor-parallel ``run_bench`` itself runs in
+    tests/test_torch_tp.py)."""
     root, _, tmodel, _, _ = env
     bcfg = _bench_cfg(tsb.BenchConfig, root, "model_depth", "torch_refusals")
     with pytest.raises(ValueError, match="depth_source"):
         tsb.run_bench(bcfg, model=tmodel, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(RuntimeError, match="process group"):
         tsb.run_bench(dataclasses.replace(bcfg, tp=2), model=tmodel, device="cpu")
 
 

@@ -1806,3 +1806,216 @@ def test_tower_forward_card_bf16_vs_cpu_f32(cuda, which):
     assert got.shape == want.shape and bool(torch.isfinite(got).all())
     rel = float((got.float().cpu() - want).norm() / want.norm())
     assert rel < 0.05, (which, rel)
+
+
+# ---------------------------------------------------------------------------
+# the parallel stack: the kernels at a rank's shapes, and NCCL groups
+# ---------------------------------------------------------------------------
+
+# llama3-8b at degree 4: Hq 8, Hk 2, D 128 a rank (K4 also at sp 8: Hq 4, Hk 1)
+
+
+@pytest.mark.parametrize("S,Hq,Hk", [(4096, 8, 2), (16384, 8, 2), (4096, 4, 1)])
+def test_flash_kernels_at_rank_local_shapes(cuda, S, Hq, Hk):
+    """K4's three kernels at Ulysses' local shapes (one row of the align
+    step's packed rows at sp 4 and 8, one long row at sp 4) against their
+    plain versions."""
+    rng = np.random.default_rng(11)
+    q, dout = _rand(rng, 1, S, Hq, 128, device=cuda), _rand(rng, 1, S, Hq, 128, device=cuda)
+    k, v = (_rand(rng, 1, S, Hk, 128, device=cuda) for _ in range(2))
+    seg = torch.ones(1, S, dtype=torch.int32, device=cuda)
+    if S == 4096:
+        for i in range(4):
+            seg[0, i * 1000 : (i + 1) * 1000] = i + 1
+        seg[0, 4000:] = 0
+    _check_flash_kernels(q, k, v, dout, seg, None)
+
+
+def test_onepass_and_decode_kernels_at_rank_local_shapes(cuda):
+    """K2 at the tensor-parallel prefill (B8 S320 Hq8 Hk2 D128) and K3 at the
+    tensor-parallel decode against a rank's kv heads of the int8 cache (B8
+    C352 Hq8 Hk2 D128) against their plain versions."""
+    from spatialrgpt_tpu_torch.ops.quant import quantize_kv
+
+    rng = np.random.default_rng(12)
+    B, S, Hq, Hk, D = 8, 320, 8, 2, 128
+    q, k, v = _rand(rng, B, S, Hq, D, device=cuda), _rand(rng, B, S, Hk, D, device=cuda), _rand(rng, B, S, Hk, D,
+                                                                                                  device=cuda)
+    seg = torch.zeros(B, S, dtype=torch.int32, device=cuda)
+    for b in range(B):
+        seg[b, : S - 3 * b - 15] = 1
+    _bf16_close(K2.onepass_attention(q, k, v, seg), K2.onepass_attention_plain(q, k, v, seg))
+    C = 352
+    q3 = _rand(rng, B, Hq, D, device=cuda)
+    kq, ks = quantize_kv(_rand(rng, B, C, Hk, D, device=cuda))
+    vq, vs = quantize_kv(_rand(rng, B, C, Hk, D, device=cuda))
+    kq, vq = kq.reshape(B, C, Hk * D), vq.reshape(B, C, Hk * D)
+    lengths = torch.tensor([0, C - 1, 5, 63, 64, 200, 305, 330], dtype=torch.int32, device=cuda)
+    K3.check_shape(C, Hq, Hk, D)
+    _bf16_close(K3.decode_attention_int8_flat(q3, kq, ks, vq, vs, lengths, Hk),
+                K3.decode_attention_int8_flat_plain(q3, kq, ks, vq, vs, lengths, Hk))
+
+
+@pytest.mark.parametrize("M,N,K", [(2560, 1024, 4096), (2560, 256, 4096), (2560, 3584, 4096), (2560, 4096, 1024),
+                                   (2560, 4096, 3584), (64, 32065, 4096), (64, 1024, 4096), (64, 4096, 1024)])
+def test_w8a8_kernel_at_rank_local_shapes(cuda, M, N, K):
+    """K8 at the tensor-parallel W8A8 projections' slices (fan-out q, k / v,
+    gate / up and the vocabulary's quarter with its two extra rows; fan-in
+    wo and down), prefill and decode rows: bit-equal to its plain
+    version."""
+    g = torch.Generator(device=cuda).manual_seed(M + N + K)
+    xq = torch.randint(-127, 128, (M, K), generator=g, device=cuda, dtype=torch.int8)
+    q = torch.randint(-127, 128, (N, K), generator=g, device=cuda, dtype=torch.int8)
+    ascale = torch.rand(M, generator=g, device=cuda) * 0.05 + 1e-3
+    scale = torch.full((N,), K**-0.5 * 3.0 / 127.0, device=cuda)
+    assert torch.equal(K789.w8a8_gemm(xq, ascale, q, scale), K789.w8a8_gemm_plain(xq, ascale, q, scale))
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("M,K", [(37, 4096), (2560, 4096), (2560, 14336)])
+def test_act_quant_split_form_at_rank_local_shapes(cuda, M, K, tp):
+    """K7's split form on the tensor-parallel fan-in slices of wo (K 4096)
+    and down (K 14,336) at tp 2 and 4: each slice's row maxima (pass 1)
+    are this slice's, and after their maximum over the slices (the
+    all-reduce MAX, here a local maximum) pass 2 gives each slice K7's int8
+    columns and scales of the whole rows, bit for bit, and its plain
+    version the same; one count a call."""
+    x = _quant_rows(np.random.default_rng(K + M + tp), M, K, cuda)
+    whole_q, whole_s = K789.act_quant_int8(x)
+    parts = x.chunk(tp, dim=1)
+    row_max = torch.stack([p.float().abs().amax(dim=1) for p in parts]).amax(dim=0)
+    for i, part in enumerate(parts):
+        part = part.contiguous()
+        seen = []
+
+        def reduce_max(amax):
+            seen.append(amax.clone())
+            amax.copy_(torch.maximum(amax, row_max))
+
+        before = K789.launches["act_quant_int8"]
+        xq, s = K789.act_quant_int8(part, reduce_max)
+        assert K789.launches["act_quant_int8"] == before + 1
+        assert torch.equal(seen[0], part.float().abs().amax(dim=1))
+        cols = slice(i * part.shape[1], (i + 1) * part.shape[1])
+        assert torch.equal(xq, whole_q[:, cols]) and torch.equal(s, whole_s)
+        pq, ps = K789.act_quant_int8_plain(part, lambda a: a.copy_(torch.maximum(a, row_max)))
+        assert torch.equal(xq, pq) and torch.equal(s, ps)
+
+
+@pytest.mark.parametrize("M,N,K", [(64, 4096, 3584), (2560, 4096, 3584)])
+def test_w8_kernel_at_rank_local_shapes(cuda, M, N, K):
+    """K9 at the tensor-parallel decode's down slice (and an admission's)
+    within the bf16 bound of its plain version."""
+    g = torch.Generator(device=cuda).manual_seed(M + K)
+    x = torch.randn(M, K, generator=g, device=cuda).to(torch.bfloat16)
+    q = torch.randint(-127, 128, (N, K), generator=g, device=cuda, dtype=torch.int8)
+    scale = torch.full((N,), K**-0.5 * 3.0 / 127.0, device=cuda)
+    _bf16_close(K789.w8_gemm(x, q, scale), K789.w8_gemm_plain(x, q, scale))
+
+
+def _cards(world):
+    n = torch.cuda.device_count()
+    if n < world:
+        pytest.skip(f"needs {world} CUDA cards for {world} NCCL ranks; this machine has {n}")
+
+
+def _nccl_sp_case(kind, q, k, v, seg):
+    """On each NCCL rank: ``kind`` attention over the whole group on the
+    rank's contiguous chunk (f32 on its card, Ulysses' local attention the
+    plain route); the chunk's output and the gradients of sum(out**2)."""
+    import torch.distributed as dist
+
+    from spatialrgpt_tpu_torch.parallel import ring, ulysses
+
+    r, n = dist.get_rank(), dist.get_world_size()
+    dev = torch.device("cuda", r)
+    sl = slice(r * q.shape[1] // n, (r + 1) * q.shape[1] // n)
+    ins = [torch.tensor(t[:, sl], device=dev).requires_grad_() for t in (q, k, v)]
+    s = torch.tensor(seg[:, sl], device=dev)
+    if kind == "ring":
+        out = ring.ring_attention(*ins, s, group=dist.group.WORLD)
+    else:
+        out = ulysses.ulysses_attention(*ins, s, dist.group.WORLD)
+    out.square().sum().backward()
+    return [t.detach().cpu().numpy() for t in (out, *(i.grad for i in ins))]
+
+
+@pytest.mark.parametrize("kind", ["ring", "ulysses"])
+@pytest.mark.parametrize("world", [2, 4])
+def test_nccl_sequence_parallel_matches_one_card(world, kind):
+    """Ring and Ulysses attention over 2 and 4 NCCL ranks, one card each:
+    the assembled output and gradients equal the one-card plain attention
+    (f32, atol 1e-4)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs CUDA cards")
+    _cards(world)
+    from spatialrgpt_tpu_torch.ops.prefill_attention import onepass_attention_plain
+    from spatialrgpt_tpu_torch.parallel.launch import run_ranks
+
+    rng = np.random.default_rng(13)
+    q = rng.standard_normal((2, 256, 8, 64)).astype(np.float32)
+    k, v = (rng.standard_normal((2, 256, 4, 64)).astype(np.float32) for _ in range(2))
+    seg = np.ones((2, 256), np.int32)
+    seg[0, 128:] = 2
+    seg[1, -16:] = 0
+    results = run_ranks(_nccl_sp_case, world, kind, q, k, v, seg, device="cuda", timeout_s=300)
+    ins = [torch.tensor(t, device="cuda").requires_grad_() for t in (q, k, v)]
+    ref = onepass_attention_plain(*ins, segment_ids=torch.tensor(seg, device="cuda"))
+    ref.square().sum().backward()
+    want = [t.detach().cpu().numpy() for t in (ref, *(i.grad for i in ins))]
+    for i, w in enumerate(want):
+        got = np.concatenate([r[i] for r in results], axis=1)
+        np.testing.assert_allclose(got, w, atol=1e-4, rtol=1e-4)
+
+
+def _nccl_tp_case(cfg):
+    """On each NCCL rank: greedy tokens of a tiny bf16 model's ``generate``
+    (the int8 cache, the kernels) on the rank's slice of the decoder."""
+    import torch.distributed as dist
+
+    from spatialrgpt_tpu_torch.parallel.mesh import make_mesh, tp_shard_model
+
+    dev = torch.device("cuda", dist.get_rank())
+    model = tp_shard_model(init_random(cfg, dev, torch.bfloat16, seed=0), make_mesh(tp=dist.get_world_size()))
+    return _tiny_generate_tokens(model, cfg, dev)
+
+
+def _tiny_generate_tokens(model, cfg, dev):
+    rng = np.random.default_rng(14)
+    size = cfg.vision.image_size
+    rows = [np.asarray([1, 5, IMAGE_TOKEN_INDEX, cfg.mask_token_id] + list(rng.integers(3, 60, 20)), np.int64)
+            for _ in range(2)]
+    sb = expand_rows(rows, None, max_len=128, tokens_per_image=cfg.tokens_per_image,
+                     mask_token_id=cfg.mask_token_id, depth_token_id=cfg.depth_token_id, regions_per_image=1,
+                     pad_to=64)
+    inputs = VLMInputs.from_spliced(sb, rng.standard_normal((2, size, size, 3)).astype(np.float32),
+                                    rng.standard_normal((2, size, size, 3)).astype(np.float32),
+                                    (rng.random((2, 1, size, size)) > 0.5).astype(np.float32), np.ones((2, 1), bool),
+                                    dev, dtype=torch.bfloat16)
+    out = generate(model, cfg, inputs, inputs.segment_ids.sum(dim=1), max_new_tokens=6, eos_token_id=-1,
+                   kv_quant=True)
+    return out.tokens.cpu().numpy()
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_nccl_tensor_parallel_generate_matches_one_card(world):
+    """``generate`` at tp = 2 and 4 over NCCL ranks, one card each (K1-K3 on
+    each rank's heads): every rank's greedy tokens equal the one-card
+    run's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs CUDA cards")
+    _cards(world)
+    from spatialrgpt_tpu_torch.parallel.launch import run_ranks
+
+    cfg = SpatialRGPTConfig(
+        llm=LlamaConfig(vocab_size=64, hidden_size=512, intermediate_size=1024, num_hidden_layers=2,
+                        num_attention_heads=8, num_key_value_heads=4, max_position_embeddings=256),
+        vision=SiglipVisionConfig(hidden_size=144, intermediate_size=256, num_hidden_layers=2,
+                                  num_attention_heads=2, image_size=56, patch_size=14),
+        projector=ProjectorConfig(mm_hidden_size=144, hidden_size=512),
+        region=RegionExtractorConfig(mm_hidden_size=144, hidden_size=512, ada_pool_size=4),
+        mask_token_id=60, depth_token_id=61)
+    want = _tiny_generate_tokens(init_random(cfg, torch.device("cuda"), torch.bfloat16, seed=0), cfg,
+                                 torch.device("cuda"))
+    for got in run_ranks(_nccl_tp_case, world, cfg, device="cuda", timeout_s=300):
+        np.testing.assert_array_equal(got, want)

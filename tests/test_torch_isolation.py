@@ -11,7 +11,9 @@ visualize_features}`` are verbatim copies: their code equals the originals'
 (``tests/test_torch_data.py`` runs the data layer side by side); so do the
 framework-free helpers of the eval runners, of the synth models and of the
 other towers and MPT (their configs, RADIO's spec and processor, MPT's
-ALiBi slopes).
+ALiBi slopes), and the sharding rules of ``parallel/mesh.py``
+(``param_spec``, ``tp_param_spec``).  The walk covers the parallel stack
+(``parallel/*``, ``dryrun.py``, ``utils/orbax_io.py``) by name.
 """
 
 import ast
@@ -53,6 +55,10 @@ import spatialrgpt_tpu_torch
 names = ["spatialrgpt_tpu_torch"] + [m.name for m in pkgutil.walk_packages(spatialrgpt_tpu_torch.__path__, "spatialrgpt_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+parallel = {"spatialrgpt_tpu_torch." + m for m in ("dryrun", "utils.orbax_io", "parallel.comm", "parallel.context",
+            "parallel.hybrid", "parallel.launch", "parallel.mesh", "parallel.pipeline", "parallel.ring",
+            "parallel.ulysses")}
+assert parallel <= set(names), sorted(parallel - set(names))
 importlib.import_module("chip_smoke")
 spec = importlib.util.spec_from_file_location("test_torch_gpu", ROOT + "/tests/test_torch_gpu.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -217,6 +223,8 @@ COPIED_HELPERS = {
     "models/intern_vit.py": ("InternVisionConfig",),
     "models/radio.py": ("RadioSpec", "parse_radio_spec", "RadioImageProcessor", "RadioBackboneConfig"),
     "models/mpt.py": ("MPTConfig", "alibi_slopes"),
+    # the sharding rules (functions of a path and a shape)
+    "parallel/mesh.py": ("param_spec", "_path_name_tokens", "tp_param_spec"),
 }
 
 

@@ -123,7 +123,8 @@ def test_decode_plain_rounds_p_as_pallas():
 def test_causal_attention_routes_match_jax_xla():
     """ops/attention.py: "xla", "onepass" and "pallas" (each the plain path
     on a CPU tensor) all equal the reference's XLA path; an unknown impl
-    raises."""
+    raises, and so does a sequence-parallel one without an ``SPContext``
+    (as the reference's; the routes run in tests/test_torch_sp.py)."""
     from spatialrgpt_tpu_torch.ops.attention import causal_attention
 
     q, k, v = _qkv(np.random.default_rng(11), 2, 40, 4, 2, 16)
@@ -134,6 +135,8 @@ def test_causal_attention_routes_match_jax_xla():
         got = causal_attention(*_t(q, k, v), segment_ids=torch.tensor(seg), impl=impl).detach().numpy()
         np.testing.assert_allclose(got, want, atol=ATOL, rtol=1e-4)
     with pytest.raises(ValueError, match="unknown attention impl"):
+        causal_attention(*_t(q, k, v), impl="flash")
+    with pytest.raises(RuntimeError, match="requires set_sp_context"):
         causal_attention(*_t(q, k, v), impl="ring")
 
 

@@ -538,7 +538,9 @@ def test_main_without_model_dir_initialises_from_preset(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("flag", ttrain.PARALLEL_FLAGS)
 def test_main_refuses_meshes(flag):
-    with pytest.raises(NotImplementedError, match="item 8"):
+    """A degree above 1 in one process without a process group (the mesh
+    itself runs in tests/test_torch_parallel_train.py)."""
+    with pytest.raises(RuntimeError, match="needs a process group"):
         ttrain.main(STAGE1 + [f"--{flag}", "2"], device="cpu")
 
 

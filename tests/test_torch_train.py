@@ -315,8 +315,8 @@ def test_trainer_resume_is_bit_exact(weights, tmp_path):
 
 
 def test_unported_training_options_raise(weights):
-    with pytest.raises(NotImplementedError):
-        ttrainer.TrainerConfig(ckpt_backend="orbax")
+    with pytest.raises(NotImplementedError):  # "orbax" is ported (utils/orbax_io.py); others are not
+        ttrainer.TrainerConfig(ckpt_backend="npz")
     with pytest.raises(ValueError, match="unknown frozen"):
         tstep.make_train_step(TINY_T, None, frozen=("tower",))
     # a MoE decoder trains (the families' training): its loss carries the aux
