@@ -38,7 +38,8 @@ Phases, each printed as one JSON line:
    causal x segment mask built in the kernel; K4 walks only the tiles of
    its rows' segments, dK/dV key-stationary: 128 keys per CTA, the G heads'
    dK and dV summed in registers); K3 is one launch of a thread-block
-   cluster per (row, kv head); K6 is a streaming kernel that takes the
+   cluster per (row, kv head), also at the W8A8 serve's 64 rows and there
+   in its packed-int4 form (listed under K3's ``other_shapes``); K6 is a streaming kernel that takes the
    models' bf16 weights as they are (one launch per LayerNorm).  Per row:
    the device time of the kernel (``ms``), of its plain version
    (``plain_ms``) and of one PyTorch call of the same function
@@ -89,7 +90,20 @@ Phases, each printed as one JSON line:
    requests prefills n x 384 rows: W8A8 throughout from n = 8, K9 for the
    contracting projections below), the cache's and the run's peak GB, and
    bench_engine.py's figures (tokens/s, wall, latency p50 / p95, scheduler
-   syncs).
+   syncs); (c) the fused mixed-batch chunked prefill on (b)'s model and
+   requests (chunks of 64 tokens, 2 admissions in flight, all submitted
+   at t0): every request's tokens, the launch counts from the fused steps
+   by their live rows, the same figures, the chunk attention's device ms
+   per fused step and its share of the fused windows; part (a) runs the
+   same fused engine on its bf16 model, every admission's first-token
+   logits within LOGITS_REL_BOUND of its unchunked admission and of the
+   fused engine on K1-K3's plain versions.  serve_w8a8 adds two runs on
+   its model: ``generate(kv_bits=4)`` on K3's packed-int4 form (its
+   launches; the cache's GB against int8's; the int4 form against its plain
+   version through ``generate`` on bf16 weights, as the attention kernels
+   are held there) and ``fuse_serving_kernels`` (first-token logits
+   bit-equal to the unfused run; with every projection on W8A8 the fused
+   and unfused runs bit-equal).
 6. train   -- the stage-1 align step at the full width of llama3-8b and
    SigLIP-so400m (frozen decoder and tower, tuned projector and region
    extractor, lr 1e-3, remat, chunked CE over 1024 positions,
@@ -125,7 +139,7 @@ Phases, each printed as one JSON line:
    the same figures.
    recipe -- the training entry point, ``train/train.py::main``, from argv
    as ``python -m spatialrgpt_tpu_torch.train.train`` takes it, at the
-   same widths and RECIPE_LAYERS = 8 of llama3-8b's 32 layers (each run
+   same widths and RECIPE_LAYERS = 4 of llama3-8b's 32 layers (each run
    writes or reads a composite of the whole model): a composite directory
    of ``init_random`` weights (seed 0)
    written first is the base model, a character tokenizer of Llama-3's
@@ -279,7 +293,7 @@ working on one path, without the kernel phase and the last two lines.
 ``--profile DIR`` (the recipe phase is not profiled: its steps are the
 align and QLoRA steps' own) also profiles the W8A8 serve's first token and its
 whole ``generate``, one wave of the engine's phase (b) (32 requests
-through the 32 slots), one align step, one W8A8 align step under each
+through the 32 slots) and one of its part (c), the fused chunked prefill, one align step, one W8A8 align step under each
 backward, one QLoRA step, one demo pipeline run and one synth image with
 ``torch.profiler`` and writes their operator tables to DIR.
 """
@@ -315,6 +329,8 @@ MAX_NEW = 32
 # (bench_engine.py:31-38); (a) takes its windows of 8 and admission width 8
 ENGINE_SLOTS, ENGINE_REQS, ENGINE_BUCKET, ENGINE_MAX_NEW, ENGINE_MULTI, ENGINE_ADMIT = 32, 64, 384, 64, 8, 8
 ENGINE_TEXT_TOKENS = (48, 128)  # rng.integers' range of text tokens per request
+# the fused chunked prefill's prompt tokens a chunk and admissions in flight (engine parts (a) and (c))
+ENGINE_CHUNK, ENGINE_CHUNK_ROWS = 64, 2
 # relative L2 distance allowed between the logits of the kernel path and of
 # the plain path (first token, and last of the 32 steps): both run bf16
 # through 26 ViT and 32 decoder layers, and each of the ~60 layers may round
@@ -910,7 +926,7 @@ def phase_kernels(torch):
     from spatialrgpt_tpu_torch.ops import prefill_attention as K2
     from spatialrgpt_tpu_torch.ops import vit_attention as K1
     from spatialrgpt_tpu_torch.ops._checks import GRAD_FLOOR, bf16_err_over_bound
-    from spatialrgpt_tpu_torch.ops.quant import dequantize, quantize_kv
+    from spatialrgpt_tpu_torch.ops.quant import dequantize, quantize_kv, quantize_kv4
 
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(0)
@@ -1053,6 +1069,43 @@ def phase_kernels(torch):
         lambda Hk=Hk: K3.decode_attention_int8_flat_plain(q3, kq, ks, vq, vs, lengths, Hk), (200, 20, "graph"),
         bound(4 * Hq * D * live3, nbytes(q3, lengths, q3) + live3 * Hk * (2 * D + 2 * 4)),
         ("no single call dequantises an int8 cache", None),
+    ))
+    # K3 at the W8A8 serve's 64 rows (320 + 32 slots), then its packed-int4
+    # form at the same shape (generate(kv_bits=4)): half the payload bytes,
+    # the same scales; the kernels line lists the int4 form under K3's
+    # other_shapes, with its own launches ("counted_as")
+    B, C, Hq, Hk, D = SERVE_ROWS, PAD_BUCKET + MAX_NEW, 32, 8, 128
+    q64 = rn(B, Hq, D)
+    k64, v64 = rn(B, C, Hk, D), rn(B, C, Hk, D)
+    (kq64, ks64), (vq64, vs64) = quantize_kv(k64), quantize_kv(v64)
+    (kq4, ks4), (vq4, vs4) = quantize_kv4(k64), quantize_kv4(v64)
+    kq64, vq64, kq4, vq4 = (t.reshape(B, C, -1) for t in (kq64, vq64, kq4, vq4))
+    lengths64 = torch.as_tensor(np.random.default_rng(4).integers(PAD_BUCKET - 250, C, B), dtype=torch.int32,
+                                device=dev)
+    lengths64[:2] = torch.tensor([0, C - 1], dtype=torch.int32)
+    live64 = int(torch.clamp(lengths64 + 1, max=C).sum())
+    del k64, v64
+    cases.append((
+        "decode_attention_int8_flat", "spatialrgpt_tpu_torch/csrc/decode_attention.cu",
+        "spatialrgpt_tpu/ops/decode_attention.py:174",
+        {"B": B, "C": C, "Hq": Hq, "Hk": Hk, "D": D, "path": "serve_w8a8: the int8 cache at 64 rows"},
+        lambda Hk=Hk: K3.decode_attention_int8_flat(q64, kq64, ks64, vq64, vs64, lengths64, Hk),
+        lambda Hk=Hk: K3.decode_attention_int8_flat_plain(q64, kq64, ks64, vq64, vs64, lengths64, Hk),
+        (200, 20, "graph"),
+        bound(4 * Hq * D * live64, nbytes(q64, lengths64, q64) + live64 * Hk * (2 * D + 2 * 4)),
+        ("no single call dequantises an int8 cache", None),
+    ))
+    cases.append((
+        "decode_attention_int8_flat", "spatialrgpt_tpu_torch/csrc/decode_attention.cu",
+        "spatialrgpt_tpu/serving/generate.py:341 (generate(kv_bits=4)'s decode, XLA; the form of K3 for "
+        "spatialrgpt_tpu/ops/decode_attention.py:174's function over quantize_kv4's cache)",
+        {"B": B, "C": C, "Hq": Hq, "Hk": Hk, "D": D, "form": "int4", "counted_as": "decode_attention_int4_flat",
+         "path": "serve_w8a8: generate(kv_bits=4)"},
+        lambda Hk=Hk: K3.decode_attention_int4_flat(q64, kq4, ks4, vq4, vs4, lengths64, Hk),
+        lambda Hk=Hk: K3.decode_attention_int4_flat_plain(q64, kq4, ks4, vq4, vs4, lengths64, Hk),
+        (200, 20, "graph"),
+        bound(4 * Hq * D * live64, nbytes(q64, lengths64, q64) + live64 * Hk * (D + 2 * 4)),
+        ("no single call dequantises a packed int4 cache", None),
     ))
     # K3 at Gemma-7B's decode (the families path): n_rep 1, D 256, the cache
     # of 320 + 64 slots
@@ -1471,6 +1524,7 @@ def reset_counts():
 
     for m in (K1, K2, K3, K6):
         m.launches = 0
+    K3.launches_int4 = 0
     for counts in (K4.launches, K789.launches):
         for name in counts:
             counts[name] = 0
@@ -1486,7 +1540,7 @@ def read_counts() -> dict:
     from spatialrgpt_tpu_torch.ops import vit_attention as K1
 
     return {"vit_attention": K1.launches, "onepass_attention": K2.launches,
-            "decode_attention_int8_flat": K3.launches, **K4.launches,
+            "decode_attention_int8_flat": K3.launches, "decode_attention_int4_flat": K3.launches_int4, **K4.launches,
             "grid_bias_attention": K4.grid_bias_launches, "fused_layer_norm": K6.launches, **K789.launches}
 
 
@@ -1502,11 +1556,12 @@ def times(n: int, part: dict) -> dict:
     return {k: n * v for k, v in part.items()}
 
 
-def quant_expected_counts(cfg, rows: int, bucket: int, max_new: int) -> dict:
+def quant_expected_counts(cfg, rows: int, bucket: int, max_new: int, fused: bool = False) -> dict:
     """K7-K9 launches of one W8A8 ``generate`` (llm and vision tower
-    quantized): the prefill of ``rows`` rows, then ``max_new - 1`` decode
-    steps of ``rows`` rows (``quant_phase_counts``)."""
-    prefill, step = quant_phase_counts(cfg, rows, bucket, rows)
+    quantized; ``fused``: by ``fuse_serving_kernels``): the prefill of
+    ``rows`` rows, then ``max_new - 1`` decode steps of ``rows`` rows
+    (``quant_phase_counts``)."""
+    prefill, step = quant_phase_counts(cfg, rows, bucket, rows, fused)
     return add_counts(prefill, times(max_new - 1, step))
 
 
@@ -1521,24 +1576,30 @@ def quant_group(m: int, *shapes) -> dict:
     return {**NO_QUANT, "act_quant_int8": int(any(a8)), "w8a8_gemm": sum(a8), "w8_gemm": len(a8) - sum(a8)}
 
 
-def tower_layer_counts(cfg, m: int) -> dict:
+def tower_layer_counts(cfg, m: int, fused: bool = False) -> dict:
+    """A SigLIP layer's K7-K11 launches at ``m`` rows; ``fused``: q/k/v as
+    one (C, 3C) projection (``fuse_serving_kernels``)."""
     C, Iv = cfg.vision.hidden_size, cfg.vision.intermediate_size
-    return add_counts(quant_group(m, (C, C), (C, C), (C, C)), quant_group(m, (C, C)), quant_group(m, (C, Iv)),
-                      quant_group(m, (Iv, C)))
+    qkv = quant_group(m, (C, 3 * C)) if fused else quant_group(m, (C, C), (C, C), (C, C))
+    return add_counts(qkv, quant_group(m, (C, C)), quant_group(m, (C, Iv)), quant_group(m, (Iv, C)))
 
 
-def decoder_layer_counts(cfg, m: int) -> dict:
+def decoder_layer_counts(cfg, m: int, fused: bool = False) -> dict:
     """A decoder layer's K7-K11 launches at ``m`` rows: q/k/v, o, then the
     MLP's gate and up and its down, or a MoE layer's router with every
-    expert's gate and up (all read one x: one K7) and each expert's down."""
+    expert's gate and up (all read one x: one K7) and each expert's down.
+    ``fused`` (``fuse_serving_kernels``): q/k/v one expanding projection,
+    gate / up one, each taking W8A8 at every row count."""
     lc = cfg.llm
     H, I = lc.hidden_size, lc.intermediate_size
     q_out, kv_out = lc.num_attention_heads * lc.head_dim, lc.num_key_value_heads * lc.head_dim
-    attn = add_counts(quant_group(m, (H, q_out), (H, kv_out), (H, kv_out)), quant_group(m, (q_out, H)))
+    qkv = quant_group(m, (H, q_out + 2 * kv_out)) if fused else quant_group(m, (H, q_out), (H, kv_out), (H, kv_out))
+    attn = add_counts(qkv, quant_group(m, (q_out, H)))
     if lc.is_moe:
         E = lc.num_experts
         return add_counts(attn, quant_group(m, (H, E), *[(H, I)] * (2 * E)), times(E, quant_group(m, (I, H))))
-    return add_counts(attn, quant_group(m, (H, I), (H, I)), quant_group(m, (I, H)))
+    gate_up = quant_group(m, (H, 2 * I)) if fused else quant_group(m, (H, I), (H, I))
+    return add_counts(attn, gate_up, quant_group(m, (I, H)))
 
 
 def tower_layers(cfg) -> int:
@@ -1546,21 +1607,31 @@ def tower_layers(cfg) -> int:
     return cfg.vision.num_hidden_layers + 1 + cfg.vision.select_layer
 
 
-def quant_phase_counts(cfg, rows: int, bucket: int, decode_rows: int) -> tuple:
+def lm_head_counts(cfg, m: int) -> dict:
+    """The lm_head's K7-K11 launches at ``m`` rows (a tied head is the float
+    embedding table: none)."""
+    lc = cfg.llm
+    if lc.tie_word_embeddings:
+        return dict(NO_QUANT)
+    return quant_group(m, (lc.hidden_size, lc.vocab_size + cfg.num_extra_tokens))
+
+
+def tower_counts(cfg, requests: int, fused: bool = False) -> dict:
+    """K7-K11 launches of the tower over ``requests`` requests' images and
+    depths."""
+    v = cfg.vision
+    return times(tower_layers(cfg), tower_layer_counts(cfg, 2 * requests * (v.image_size // v.patch_size) ** 2, fused))
+
+
+def quant_phase_counts(cfg, rows: int, bucket: int, decode_rows: int, fused: bool = False) -> tuple:
     """(K7-K11 launches of the prefill of ``rows`` rows of ``bucket``
     positions with their tower and lm_head, of one decode step of
-    ``decode_rows`` rows), from the config (``quant_group``)."""
-    v, lc = cfg.vision, cfg.llm
-    tower_rows = 2 * rows * (v.image_size // v.patch_size) ** 2  # [images; depths]
-    vocab = lc.vocab_size + cfg.num_extra_tokens
-
-    def head(m):  # a tied head is the float embedding table: no quantized kernel
-        return dict(NO_QUANT) if lc.tie_word_embeddings else quant_group(m, (lc.hidden_size, vocab))
-
-    lm_head = head(rows)  # the last position of every row
-    step = add_counts(times(lc.num_hidden_layers, decoder_layer_counts(cfg, decode_rows)), head(decode_rows))
-    prefill = add_counts(times(tower_layers(cfg), tower_layer_counts(cfg, tower_rows)),
-                         times(lc.num_hidden_layers, decoder_layer_counts(cfg, rows * bucket)), lm_head)
+    ``decode_rows`` rows), from the config (``quant_group``); ``fused``:
+    after ``fuse_serving_kernels``."""
+    L = cfg.llm.num_hidden_layers
+    step = add_counts(times(L, decoder_layer_counts(cfg, decode_rows, fused)), lm_head_counts(cfg, decode_rows))
+    prefill = add_counts(tower_counts(cfg, rows, fused), times(L, decoder_layer_counts(cfg, rows * bucket, fused)),
+                         lm_head_counts(cfg, rows))  # the head at the last position of every row
     return prefill, step
 
 
@@ -1626,6 +1697,35 @@ def plain_projections():
         yield
     finally:
         layers.QUANT_KERNELS = before
+
+
+@contextlib.contextmanager
+def int4_decode_plain():
+    """``generate``'s int4-cache decode on K3's int4 form's plain version
+    (on the card too) inside the block; the rest of the route unchanged."""
+    from spatialrgpt_tpu_torch.ops import decode_attention as K3
+    from spatialrgpt_tpu_torch.serving import generate as gen
+
+    gen.decode_attention_int4_flat = K3.decode_attention_int4_flat_plain
+    try:
+        yield
+    finally:
+        gen.decode_attention_int4_flat = K3.decode_attention_int4_flat
+
+
+@contextlib.contextmanager
+def w8a8_at_every_row_count():
+    """Every W8A8 projection takes int8 activations whatever its rows
+    (``layers.A8_MIN_ROWS`` 0) inside the block: the unfused and the fused
+    model then run the same routes."""
+    from spatialrgpt_tpu_torch.ops import layers
+
+    before = layers.A8_MIN_ROWS
+    layers.A8_MIN_ROWS = 0
+    try:
+        yield
+    finally:
+        layers.A8_MIN_ROWS = before
 
 
 # the running sum of K9_PLAIN_VARIANTS["bf16_sums"] is rounded to bf16 after
@@ -1744,7 +1844,7 @@ def dx_depth_witness(torch, cfg, model, batch, params) -> dict:
 
 
 def serve_runner(torch, cfg, model, n_rows: int, text_tokens: int = PROMPT_TEXT_TOKENS, bucket: int = PAD_BUCKET):
-    """``run(max_new, impl="onepass", model_cfg=cfg)``: region-QA ``generate``
+    """``run(max_new, impl="onepass", model_cfg=cfg, kv_bits=8)``: region-QA ``generate``
     of ``model`` over ``n_rows`` rows of bench.py's batch (``text_tokens``
     of question, padded to ``bucket``), drawn from seed 0."""
     import numpy as np
@@ -1753,9 +1853,9 @@ def serve_runner(torch, cfg, model, n_rows: int, text_tokens: int = PROMPT_TEXT_
 
     inputs, plens = splice(torch, cfg, *draw_rows(cfg, np.random.default_rng(0), n_rows, text_tokens), bucket)
 
-    def run(max_new, impl="onepass", model_cfg=cfg):
+    def run(max_new, impl="onepass", model_cfg=cfg, kv_bits=8):
         out = generate(model, model_cfg, inputs, plens, max_new_tokens=max_new, temperature=0.0,
-                       eos_token_id=-1, attn_impl=impl, kv_quant=True)  # bench.py's SRGPT_BENCH_KV_INT8=1
+                       eos_token_id=-1, attn_impl=impl, kv_quant=True, kv_bits=kv_bits)  # SRGPT_BENCH_KV_INT8=1
         torch.cuda.synchronize()
         return out
 
@@ -1915,13 +2015,22 @@ def phase_serve_w8a8(torch, nvidia_smi: str, profile_dir=None) -> dict:
     _, vs_all_plain = logits_vs(torch, res, all_plain, vocab)
     projections_bit_equal = torch.equal(res.first_logits, proj_plain.first_logits)
     del proj_plain, all_plain
+    checks4, out4, counts4 = serve_int4_kv(torch, cfg, run, res)
+    checks_f, out_f, counts_f = serve_fused_kernels(torch, cfg, model, run, res)
     dequantize_model(model)
     deq, deq_plain = run(1), run(1, "xla")
     del model, run
     torch.cuda.empty_cache()
     bf16_run = serve_runner(torch, cfg, init_random(cfg, torch.device(DEVICE), torch.bfloat16, seed=0), SERVE_ROWS)
     attn_checks, vs_attn_plain = logits_vs(torch, bf16_run(MAX_NEW), bf16_run(MAX_NEW, "xla"), vocab, 1)
-    del bf16_run
+    # K3's int4 form against its plain version through generate, on the same bf16 weights
+    res4 = bf16_run(MAX_NEW, kv_bits=4)
+    with int4_decode_plain():
+        res4_plain = bf16_run(MAX_NEW, kv_bits=4)
+    int4_checks, vs_int4_plain = logits_vs(torch, res4, res4_plain, vocab, 1)
+    checks4.update({f"bf16_weights_{k}": v for k, v in int4_checks.items()})
+    out4["bf16_weights_int4_kernel_vs_plain"] = vs_int4_plain
+    del bf16_run, res4, res4_plain
     torch.cuda.empty_cache()
     k3_ratio = decode_kernel_ratio(torch, cfg, build_batch(torch, cfg, np.random.default_rng(0), SERVE_ROWS)[1])
     checks = {
@@ -1932,6 +2041,8 @@ def phase_serve_w8a8(torch, nvidia_smi: str, profile_dir=None) -> dict:
         "first_logits_bit_equal_to_plain_projections": projections_bit_equal,
         **{f"attention_bf16_{k}": v for k, v in attn_checks.items()},
         "decode_attention_kernel_at_serve_shape": k3_ratio <= 1.0,
+        **{f"kv_bits_4_{k}": v for k, v in checks4.items()},
+        **{f"fused_kernels_{k}": v for k, v in checks_f.items()},
     }
     emit({"phase": "serve_w8a8", "ok": all(checks.values()), "checks": checks,
           "model": "llama3-8b (32 layers, full width) + siglip-so400m (26 of 27 layers), W8A8 llm and vision "
@@ -1945,10 +2056,106 @@ def phase_serve_w8a8(torch, nvidia_smi: str, profile_dir=None) -> dict:
           "first_logits_rel_l2_w8a8_vs_dequantized_bf16": rel_l2(res.first_logits, deq.first_logits),
           "first_logits_rel_l2_dequantized_bf16_kernel_vs_plain_attention": rel_l2(deq.first_logits,
                                                                                    deq_plain.first_logits),
+          "kv_bits_4": out4, "fuse_serving_kernels": out_f,
           "smoke_figures_not_a_benchmark": {**figures, "init_s": init_s, "card": nvidia_smi},
           "first_tokens_row0": res.tokens[0, :8].tolist()})
     check(all(checks.values()), f"serve_w8a8 checks failed: {checks}")
-    return counts
+    return add_counts(counts, counts4, counts_f)
+
+
+def quant_cache_gb(cfg, rows: int, capacity: int, kv_bits: int) -> float:
+    """GB of ``generate``'s quantized cache from the config: per layer, row
+    and position K and V payloads of Hk * D * kv_bits / 8 bytes and their
+    f32 scales per kv head."""
+    lc = cfg.llm
+    Hk = lc.num_key_value_heads
+    return lc.num_hidden_layers * rows * capacity * 2 * (Hk * lc.head_dim * kv_bits // 8 + 4 * Hk) / 1e9
+
+
+def serve_int4_kv(torch, cfg, run, res) -> tuple:
+    """The W8A8 serve with ``generate(kv_bits=4)``: the packed-int4 cache
+    on K3's int4 form, SERVE_ROWS rows, MAX_NEW tokens.  Checks the launch
+    counts (the int4 form at every decode step and layer, the int8 form
+    never) and the tokens' shape and vocabulary; reports the cache's GB
+    against the int8 cache's, the peak GB of both runs, the share of
+    tokens equal to the int8-KV run ``res`` (lossy by design), and the run
+    against the same run on the int4 form's plain version (unbounded: the
+    random W8A8 weights' chaos; ``phase_serve_w8a8`` bounds it on bf16
+    weights)."""
+    vocab = cfg.llm.vocab_size + cfg.num_extra_tokens
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    res4 = run(MAX_NEW, kv_bits=4)
+    e2e_s = time.perf_counter() - t0
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = serve_counts(cfg, SERVE_ROWS, PAD_BUCKET, MAX_NEW, quantized=True, kv_bits=4)
+    with int4_decode_plain():
+        plain = run(MAX_NEW, kv_bits=4)
+    _, vs_plain = logits_vs(torch, res4, plain, vocab)
+    capacity = PAD_BUCKET + MAX_NEW
+    checks = {
+        "launch_counts": counts == want,
+        "tokens_shape": list(res4.tokens.shape) == [SERVE_ROWS, MAX_NEW],
+        "tokens_in_vocab": bool(((res4.tokens >= 0) & (res4.tokens < vocab)).all()),
+        "logits_finite": bool(torch.isfinite(res4.first_logits).all() and torch.isfinite(res4.last_logits).all()),
+        "first_logits_equal_int8_kv_run": torch.equal(res4.first_logits, res.first_logits),
+    }
+    out = {
+        "launches": counts, "launches_expected": want,
+        "cache_gb_from_shapes": {"int4": quant_cache_gb(cfg, SERVE_ROWS, capacity, 4),
+                                 "int8": quant_cache_gb(cfg, SERVE_ROWS, capacity, 8)},
+        "tokens_agreement_vs_int8_kv_run": float((res4.tokens == res.tokens).float().mean()),
+        "w8a8_int4_kernel_vs_plain_unbounded": vs_plain,
+        "smoke_figures_not_a_benchmark": {"e2e_s": e2e_s, "tok_s": SERVE_ROWS * MAX_NEW / e2e_s,
+                                          "peak_mem_gb": peak_gb},
+    }
+    return checks, out, counts
+
+
+def serve_fused_kernels(torch, cfg, model, run, res) -> tuple:
+    """The W8A8 serve after ``fuse_serving_kernels`` (in place; the model
+    stays fused): q/k/v one product in the decoder and the tower, gate/up
+    one.  Checks the launch counts by the fused shapes and the first-token
+    logits bit-equal to the unfused run ``res`` (its prefill takes W8A8 in
+    every projection, and K8's int32 sums are exact per column, so only
+    K8's launch count changes).  The decode is not the same function: the
+    fused (expanding) q/k/v take W8A8 at every row count, where the unfused
+    k and v run K9 below 2048 rows, as in the reference; so with every
+    projection on W8A8 in both (``w8a8_at_every_row_count``) the fused and
+    the unfused runs must give bit-equal tokens and last-step logits, and
+    at the reference's rule the tokens' agreement is reported."""
+    from spatialrgpt_tpu_torch.ops.layers import fuse_serving_kernels
+
+    with w8a8_at_every_row_count():
+        unfused_a8 = run(MAX_NEW)
+    fuse_serving_kernels(model)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    fused = run(MAX_NEW)
+    e2e_s = time.perf_counter() - t0
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = serve_counts(cfg, SERVE_ROWS, PAD_BUCKET, MAX_NEW, quantized=True, fused=True)
+    with w8a8_at_every_row_count():
+        fused_a8 = run(MAX_NEW)
+    checks = {
+        "launch_counts": counts == want,
+        "first_logits_bit_equal_to_unfused": torch.equal(fused.first_logits, res.first_logits),
+        "first_tokens_equal_to_unfused": torch.equal(fused.tokens[:, 0], res.tokens[:, 0]),
+        "all_w8a8_tokens_bit_equal_to_unfused": torch.equal(fused_a8.tokens, unfused_a8.tokens),
+        "all_w8a8_last_logits_bit_equal_to_unfused": torch.equal(fused_a8.last_logits, unfused_a8.last_logits),
+    }
+    out = {
+        "launches": counts, "launches_expected": want,
+        "tokens_agreement_vs_unfused": float((fused.tokens == res.tokens).float().mean()),
+        "rows_with_all_tokens_equal_to_unfused": int((fused.tokens == res.tokens).all(dim=1).sum()),
+        "smoke_figures_not_a_benchmark": {"e2e_s": e2e_s, "tok_s": SERVE_ROWS * MAX_NEW / e2e_s,
+                                          "peak_mem_gb": peak_gb},
+    }
+    return checks, out, counts
 
 
 def engine_request(torch, cfg, rng, n_text: int):
@@ -1971,10 +2178,17 @@ def engine_request(torch, cfg, rng, n_text: int):
 
 
 def record_engine(eng) -> dict:
-    """Wrap an engine's admission prefill and decode window to record each
-    admission's width and first-token logits and each window's steps."""
-    log = {"admissions": [], "windows": [], "first_logits": []}
-    prefill, window = eng._prefill_batch, eng._decode_window
+    """Wrap an engine's device work to record each unchunked admission's
+    width and first-token logits, each window's steps, the plain decode
+    steps, and of the fused chunked prefill: the chunked admissions, each
+    fused step's live rows, each fused window's completing rows, their
+    first-token logits by request id, and the fused windows' wall s (the
+    engine reads their tokens right after, so a synchronize here costs
+    nothing)."""
+    log = {"admissions": [], "windows": [], "first_logits": [], "plain_steps": 0, "chunk_admissions": 0,
+           "fused_steps": [], "completions": [], "chunk_first_logits": {}, "fused_window_s": []}
+    prefill, window, once = eng._prefill_batch, eng._decode_window, eng._decode_once
+    fused_once, fused_window, start_row = eng._fused_once, eng._run_fused_window, eng._start_row
 
     def prefill_recorded(inputs, *args):
         kv, toks, logits = prefill(inputs, *args)
@@ -1986,24 +2200,69 @@ def record_engine(eng) -> dict:
         log["windows"].append(k)
         return window(k, *args)
 
-    eng._prefill_batch, eng._decode_window = prefill_recorded, window_recorded
+    def once_recorded(*args):
+        log["plain_steps"] += 1
+        return once(*args)
+
+    def fused_once_recorded(live, *args):
+        log["fused_steps"].append(len(live))
+        return fused_once(live, *args)
+
+    def start_row_recorded(*args):
+        log["chunk_admissions"] += 1
+        return start_row(*args)
+
+    def fused_window_recorded(k, *args):
+        ids = {r: rs["req"].request_id for r, rs in enumerate(eng._rows) if rs is not None}
+        log["windows"].append(k)
+        t0 = time.perf_counter()
+        out = fused_window(k, *args)
+        torch_sync()
+        log["fused_window_s"].append(time.perf_counter() - t0)
+        _, done, _, logits = out
+        if done:
+            log["completions"].append(len(done))
+            for i, r in enumerate(done):
+                log["chunk_first_logits"][ids[r]] = logits[i]
+        return out
+
+    eng._prefill_batch, eng._decode_window, eng._decode_once = prefill_recorded, window_recorded, once_recorded
+    eng._fused_once, eng._run_fused_window, eng._start_row = fused_once_recorded, fused_window_recorded, \
+        start_row_recorded
     return log
 
 
-def engine_counts(cfg, log: dict, slots: int, bucket: int, quantized: bool, kv_quant: bool = True) -> dict:
-    """The launches of an engine run from the admissions and windows it ran:
-    K1 per tower layer and K2 per decoder layer at each admission, K3 per
-    decoder layer and decode step, K7-K9 per admission prefill (its width x
-    bucket rows) and per decode step of all the slots."""
+def torch_sync():
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def engine_counts(cfg, log: dict, slots: int, bucket: int, quantized: bool, kv_quant: bool = True,
+                  chunk: int = 0) -> dict:
+    """The launches of an engine run from what it ran (``record_engine``):
+    K1 per tower layer at each admission, chunked or not, K2 per decoder
+    layer at each unchunked one, K3 per decoder layer and decode step
+    (plain or fused), and K7-K9 per admission prefill (its width x bucket
+    rows), per plain decode step of all the slots, per fused step (the
+    slots plus ``chunk`` rows per live chunk row through every decoder
+    layer, the head over the slots), per chunked admission's tower, and per
+    fused window's head over its completing rows."""
     L, T = cfg.llm.num_hidden_layers, cfg.vision.num_hidden_layers + 1 + cfg.vision.select_layer
-    n_adm, steps = len(log["admissions"]), sum(log["windows"])
+    n_adm, n_chunked = len(log["admissions"]), log["chunk_admissions"]
+    steps = log["plain_steps"] + len(log["fused_steps"])
     quant = NO_QUANT
     if quantized:
         step = quant_phase_counts(cfg, 1, bucket, slots)[1]
-        prefills = [quant_phase_counts(cfg, n, bucket, slots)[0] for n in log["admissions"]]
-        quant = add_counts(*prefills, times(steps, step))
-    return {"vit_attention": T * n_adm, "onepass_attention": L * n_adm,
-            "decode_attention_int8_flat": L * steps if kv_quant else 0,
+        parts = [quant_phase_counts(cfg, n, bucket, slots)[0] for n in log["admissions"]]
+        parts += [times(log["plain_steps"], step), times(n_chunked, tower_counts(cfg, 1))]
+        parts += [add_counts(times(L, decoder_layer_counts(cfg, slots + n * chunk)), lm_head_counts(cfg, slots))
+                  for n in log["fused_steps"]]
+        parts += [lm_head_counts(cfg, n) for n in log["completions"]]
+        quant = add_counts(*parts)
+    return {"vit_attention": T * (n_adm + n_chunked), "onepass_attention": L * n_adm,
+            "decode_attention_int8_flat": L * steps if kv_quant else 0, "decode_attention_int4_flat": 0,
             "flash_attention_fwd": 0, "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
             "grid_bias_attention": 0, "fused_layer_norm": 0, **quant}
 
@@ -2017,7 +2276,17 @@ def engine_vs_lockstep(torch, cfg) -> dict:
     wave's greedy tokens must equal ``generate`` on its 8 rows with the same
     kernels and capacity, with the int8 cache (K3) and with the bf16 cache
     (plain decode attention); the int8 run's first-token logits must lie
-    within LOGITS_REL_BOUND of the same engine on K1-K3's plain versions."""
+    within LOGITS_REL_BOUND of the same engine on K1-K3's plain versions.
+    Then the fused chunked prefill (ENGINE_CHUNK, ENGINE_CHUNK_ROWS rows in
+    flight) on the same requests with the int8 cache: every admission's
+    first-token logits within LOGITS_REL_BOUND of the same request's
+    unchunked admission, and of the same fused engine on K1-K3's plain
+    versions; launch counts from what it ran; its tokens' agreement with
+    the unchunked run reported (the chunk attention rounds elsewhere than
+    K2).  These bounds hold here, on bf16 weights: on phase (b)'s random
+    W8A8 weights one bf16 rounding moves first-token logits ~0.33 (the
+    W8A8 route against the whole plain route, ``phase_serve_w8a8``), so
+    part (c) there reports the same distances unbounded."""
     import numpy as np
 
     from spatialrgpt_tpu_torch.serving.engine import ServingEngine
@@ -2029,21 +2298,26 @@ def engine_vs_lockstep(torch, cfg) -> dict:
     requests = [splice(torch, cfg, [rows[i]], tuple(a[i : i + 1] for a in pixels), host_index_fields=True)
                 for rows, pixels in waves for i in range(N_ROWS)]
 
-    def engine_run(kv_quant: bool, impl: str):
+    def engine_run(kv_quant: bool, impl: str, chunk: int = 0):
         eng = ServingEngine(model, cfg, num_slots=N_ROWS, prompt_bucket=PAD_BUCKET, max_new_tokens=MAX_NEW,
-                            attn_impl=impl, kv_quant=kv_quant, admit_width=N_ROWS)
+                            attn_impl=impl, kv_quant=kv_quant, admit_width=N_ROWS, prefill_chunk=chunk,
+                            chunk_rows=ENGINE_CHUNK_ROWS)
         log = record_engine(eng)
         reset_counts()
         ids = [eng.submit(x, int(p[0]), max_new_tokens=MAX_NEW) for x, p in requests]
         done = {r.request_id: r.tokens for r in eng.run_until_drained(num_steps=ENGINE_MULTI)}
         torch.cuda.synchronize()
         counts = read_counts()
+        if chunk:  # first-token logits in submission order
+            log["first_logits"] = [torch.stack([log["chunk_first_logits"][i] for i in ids])]
         return [done.get(i) for i in ids], log, counts, eng.capacity
 
     out, checks, logs = {}, {}, {}
     for kv_quant in (True, False):
         toks, log, counts, capacity = engine_run(kv_quant, "onepass")
         logs[kv_quant] = log
+        if kv_quant:
+            logs["tokens"] = toks
         want = engine_counts(cfg, log, N_ROWS, PAD_BUCKET, quantized=False, kv_quant=kv_quant)
         cache = "int8" if kv_quant else "bf16"
         equal_rows = 0
@@ -2065,6 +2339,25 @@ def engine_vs_lockstep(torch, cfg) -> dict:
     out["int8_first_logits_rel_l2_vs_plain"] = rel
     out["int8_first_logits_finite"] = bool(torch.isfinite(first).all())
     checks["int8_first_logits_finite"] = out["int8_first_logits_finite"]
+    # the fused chunked prefill on the same requests
+    ftoks, flog, fcounts, _ = engine_run(True, "onepass", ENGINE_CHUNK)
+    _, fplain_log, _, _ = engine_run(True, "xla", ENGINE_CHUNK)
+    ffirst = flog["first_logits"][0]
+    fwant = engine_counts(cfg, flog, N_ROWS, PAD_BUCKET, quantized=False, chunk=ENGINE_CHUNK)
+    rel_unchunked, rel_fplain = rel_l2(ffirst, first), rel_l2(ffirst, fplain_log["first_logits"][0])
+    checks["fused_all_tokens"] = all(t is not None and len(t) == MAX_NEW for t in ftoks)
+    checks["fused_first_logits_vs_unchunked_admission"] = rel_unchunked <= LOGITS_REL_BOUND
+    checks["fused_first_logits_vs_plain"] = rel_fplain <= LOGITS_REL_BOUND
+    checks["fused_launch_counts"] = fcounts == fwant
+    out["fused"] = {
+        "prefill_chunk": ENGINE_CHUNK, "chunk_rows": ENGINE_CHUNK_ROWS, "chunked_admissions": flog["chunk_admissions"],
+        "fused_steps_by_live_rows": {n: flog["fused_steps"].count(n) for n in sorted(set(flog["fused_steps"]))},
+        "plain_steps": flog["plain_steps"], "windows": flog["windows"],
+        "first_logits_rel_l2_vs_unchunked_admission": rel_unchunked, "first_logits_rel_l2_vs_plain": rel_fplain,
+        "tokens_agreement_vs_unchunked": float(np.mean([a == b for ta, tb in zip(ftoks, logs["tokens"])
+                                                        for a, b in zip(ta, tb)])),
+        "launches": fcounts, "launches_expected": fwant,
+    }
     del model
     torch.cuda.empty_cache()
     return checks, out
@@ -2098,32 +2391,12 @@ def engine_bench(torch, cfg, nvidia_smi: str, profile_dir=None) -> tuple:
     warm = eng.run_until_drained(num_steps=ENGINE_MULTI)
     torch.cuda.synchronize()
     log = record_engine(eng)
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    t0 = time.perf_counter()
-    submit_t, finish_t = {}, {}
-    for i, (x, plen) in enumerate(reqs):
-        submit_t[eng.submit(x, plen, max_new_tokens=ENGINE_MAX_NEW, seed=i)] = time.perf_counter()
-    done, n_syncs = [], 0
-    while len(done) < ENGINE_REQS and n_syncs < 10 * ENGINE_REQS:
-        fin = eng.step(ENGINE_MULTI)
-        n_syncs += 1
-        now = time.perf_counter()
-        for r in fin:
-            finish_t[r.request_id] = now
-        done.extend(fin)
-        if not eng.queue and not eng.active.any():
-            break
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = read_counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    done, ids, counts, run_figures = engine_timed_run(torch, eng, reqs)
+    peak_gb = run_figures["peak_mem_gb"]
     cache_gb = sum(t.numel() * t.element_size() for t in eng.cache) / 1e9
     total_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
     want = engine_counts(cfg, log, ENGINE_SLOTS, ENGINE_BUCKET, quantized=True)
     vocab = cfg.llm.vocab_size + cfg.num_extra_tokens
-    lat = sorted(finish_t[r.request_id] - submit_t[r.request_id] for r in done)
-    total_tokens = sum(len(r.tokens) for r in done)
     checks = {
         "warm_up_drained": len(warm) == len(warm_reqs) and all(len(r.tokens) == 4 for r in warm),
         "all_requests_64_tokens": len(done) == ENGINE_REQS and all(len(r.tokens) == ENGINE_MAX_NEW for r in done),
@@ -2141,9 +2414,7 @@ def engine_bench(torch, cfg, nvidia_smi: str, profile_dir=None) -> tuple:
         "admissions": log["admissions"], "windows": log["windows"], "launches": counts, "launches_expected": want,
         "cache_gb": cache_gb, "peak_mem_gb": peak_gb, "device_mem_gb": total_gb,
         "smoke_figures_not_a_benchmark": {
-            "tok_s": total_tokens / wall, "wall_s": wall, "latency_p50_s": lat[len(lat) // 2] if lat else None,
-            "latency_p95_s": lat[int(len(lat) * 0.95)] if lat else None,
-            "n_scheduler_syncs": n_syncs + len(log["admissions"]), "total_tokens": total_tokens,
+            **run_figures, "n_scheduler_syncs": run_figures["n_scheduler_syncs"] + len(log["admissions"]),
             "init_s": init_s, "card": nvidia_smi,
         },
     }
@@ -2156,13 +2427,143 @@ def engine_bench(torch, cfg, nvidia_smi: str, profile_dir=None) -> tuple:
             torch.cuda.synchronize()
 
         profile_run(torch, wave, profile_dir, "engine_w8a8_wave")
+    unchunked_first = torch.cat(log["first_logits"])  # the admissions take the requests in submission order
+    checks_c, out["c_fused_chunked_prefill"], counts_c = engine_fused(
+        torch, cfg, model, reqs, {i: unchunked_first[k] for k, i in enumerate(ids)}, ids, done, nvidia_smi,
+        profile_dir)
+    checks.update({f"c_{k}": v for k, v in checks_c.items()})
+    return checks, out, add_counts(counts, counts_c)
+
+
+def engine_timed_run(torch, eng, reqs) -> tuple:
+    """``reqs`` submitted to ``eng`` at t0 (seed i each), then ``step(ENGINE_MULTI)``
+    until they are done, with the launch counts read around it.  Returns
+    (the finished requests, their ids in submission order, the counts,
+    bench_engine.py's figures)."""
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    submit_t, finish_t, ids = {}, {}, []
+    for i, (x, plen) in enumerate(reqs):
+        ids.append(eng.submit(x, plen, max_new_tokens=ENGINE_MAX_NEW, seed=i))
+        submit_t[ids[-1]] = time.perf_counter()
+    done, n_syncs = [], 0
+    while len(done) < len(reqs) and n_syncs < 10 * len(reqs):
+        fin = eng.step(ENGINE_MULTI)
+        n_syncs += 1
+        now = time.perf_counter()
+        for r in fin:
+            finish_t[r.request_id] = now
+        done.extend(fin)
+        if not eng.queue and not eng.active.any() and all(rs is None for rs in eng._rows):
+            break
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    lat = sorted(finish_t[r.request_id] - submit_t[r.request_id] for r in done)
+    total_tokens = sum(len(r.tokens) for r in done)
+    figures = {"tok_s": total_tokens / wall, "wall_s": wall, "latency_p50_s": lat[len(lat) // 2] if lat else None,
+               "latency_p95_s": lat[int(len(lat) * 0.95)] if lat else None, "n_scheduler_syncs": n_syncs,
+               "total_tokens": total_tokens, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    return done, ids, counts, figures
+
+
+def chunk_attention_ms(torch, cfg) -> float:
+    """Device ms of one ``streamed_position_attention`` call at part (c)'s
+    shapes: a chunk of ENGINE_CHUNK queries (the prompt's last, attending
+    to the whole staging row) of one row, llama3-8b's heads, bf16 staging
+    of the bucket in whole chunks (one CUDA graph of 20 calls)."""
+    from spatialrgpt_tpu_torch.ops.attention import streamed_position_attention
+
+    lc, c = cfg.llm, ENGINE_CHUNK
+    Sp = -(-ENGINE_BUCKET // c) * c
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    q = torch.randn(1, c, lc.num_attention_heads, lc.head_dim, generator=g, device=DEVICE).to(torch.bfloat16)
+    k, v = (torch.randn(1, Sp, lc.num_key_value_heads, lc.head_dim, generator=g, device=DEVICE).to(torch.bfloat16)
+            for _ in range(2))
+    q_idx = torch.arange(Sp - c, Sp, device=DEVICE)[None]
+    return graph_ms(torch, lambda: streamed_position_attention(q, k, v, q_idx, 512), 20)
+
+
+def engine_fused(torch, cfg, model, reqs, unchunked_first: dict, unchunked_ids, unchunked_done, nvidia_smi: str,
+                 profile_dir=None) -> tuple:
+    """(c) The fused mixed-batch chunked prefill on part (b)'s model and
+    requests: ENGINE_CHUNK-token chunks, ENGINE_CHUNK_ROWS admissions in
+    flight, the rest of (b)'s configuration; a warm-up of 2 requests, then
+    all of them at t0.  Checks every request's tokens and the launch
+    counts from what ran (``engine_counts``: the fused steps by their live
+    rows).  Reports (b)'s figures, the agreement of the tokens with (b)'s
+    (not gated: the chunk attention rounds elsewhere than K2), the
+    first-token logits of four fused admissions against the same requests'
+    unchunked admission in (b) (unbounded here: random W8A8 weights, see
+    ``engine_vs_lockstep``), and the chunk attention's device ms a call,
+    per fused step and as a share of the fused windows' wall."""
+    import numpy as np
+
+    from spatialrgpt_tpu_torch.serving.engine import ServingEngine
+
+    eng = ServingEngine(model, cfg, num_slots=ENGINE_SLOTS, prompt_bucket=ENGINE_BUCKET, max_new_tokens=ENGINE_MAX_NEW,
+                        kv_quant=True, admit_width=ENGINE_ADMIT, attn_impl="onepass", prefill_chunk=ENGINE_CHUNK,
+                        chunk_rows=ENGINE_CHUNK_ROWS)
+    warm = [eng.submit(x, plen, max_new_tokens=4, seed=i) for i, (x, plen) in enumerate(reqs[:2])]
+    warm_done = eng.run_until_drained(num_steps=ENGINE_MULTI)
+    log = record_engine(eng)
+    done, ids, counts, figures = engine_timed_run(torch, eng, reqs)
+    want = engine_counts(cfg, log, ENGINE_SLOTS, ENGINE_BUCKET, quantized=True, chunk=ENGINE_CHUNK)
+    vocab = cfg.llm.vocab_size + cfg.num_extra_tokens
+    by_id = {r.request_id: r.tokens for r in done}
+    b_tokens = {r.request_id: r.tokens for r in unchunked_done}
+    agree = [a == b for i, j in zip(ids, unchunked_ids) for a, b in zip(by_id.get(i, []), b_tokens.get(j, []))]
+    first = [rel_l2(log["chunk_first_logits"][i], unchunked_first[j]) for i, j in list(zip(ids, unchunked_ids))[:4]]
+    call_ms = chunk_attention_ms(torch, cfg)
+    n_live = statistics.mean(log["fused_steps"]) if log["fused_steps"] else 0.0
+    per_step_ms = call_ms * n_live * cfg.llm.num_hidden_layers
+    fused_windows = len(log["fused_window_s"])
+    checks = {
+        "warm_up_drained": len(warm_done) == len(warm),
+        "all_requests_64_tokens": len(done) == len(reqs) and all(len(r.tokens) == ENGINE_MAX_NEW for r in done),
+        "tokens_in_vocab": all(0 <= t < vocab for r in done for t in r.tokens),
+        "all_admissions_chunked": log["chunk_admissions"] == len(reqs) and not log["admissions"],
+        "launch_counts": counts == want,
+        "first_logits_finite": all(bool(torch.isfinite(t).all()) for t in log["chunk_first_logits"].values()),
+    }
+    out = {
+        "config": {"prefill_chunk": ENGINE_CHUNK, "chunk_rows": ENGINE_CHUNK_ROWS, "staging_length": eng.Sp,
+                   "chunk_attention_block": eng._chunk_block, "slots": ENGINE_SLOTS, "requests": len(reqs),
+                   "max_new_tokens": ENGINE_MAX_NEW, "num_steps": ENGINE_MULTI, "submitted": "all at t0"},
+        "fused_windows": fused_windows, "plain_steps": log["plain_steps"],
+        "fused_steps_by_live_rows": {n: log["fused_steps"].count(n) for n in sorted(set(log["fused_steps"]))},
+        "launches": counts, "launches_expected": want,
+        "tokens_agreement_vs_unchunked_b": float(np.mean(agree)) if agree else None,
+        "first_logits_rel_l2_vs_unchunked_b_first_4_unbounded": first,
+        "chunk_attention": {
+            "device_ms_per_call": call_ms, "calls_per_fused_step": n_live * cfg.llm.num_hidden_layers,
+            "device_ms_per_fused_step": per_step_ms,
+            "fused_window_wall_s_mean": statistics.mean(log["fused_window_s"]) if fused_windows else None,
+            "share_of_fused_window_wall": (per_step_ms * len(log["fused_steps"]) / 1e3 / sum(log["fused_window_s"])
+                                           if fused_windows else None),
+        },
+        "smoke_figures_not_a_benchmark": {**figures, "card": nvidia_smi},
+    }
+    if profile_dir:  # one wave: the first 32 requests through the 32 slots, chunked
+
+        def wave():
+            for i, (x, plen) in enumerate(reqs[:ENGINE_SLOTS]):
+                eng.submit(x, plen, max_new_tokens=ENGINE_MAX_NEW, seed=i)
+            eng.run_until_drained(num_steps=ENGINE_MULTI)
+            torch.cuda.synchronize()
+
+        profile_run(torch, wave, profile_dir, "engine_w8a8_fused_wave")
+    del eng
+    torch.cuda.empty_cache()
     return checks, out, counts
 
 
 def phase_engine(torch, nvidia_smi: str, profile_dir=None) -> dict:
     """The continuous-batching ``ServingEngine`` at the full width of
-    llama3-8b: (a) ``engine_vs_lockstep``, (b) ``engine_bench``; eos at -1,
-    so every request runs its full budget.  Returns (b)'s launch counts."""
+    llama3-8b: (a) ``engine_vs_lockstep``, (b) ``engine_bench`` and its part
+    (c), ``engine_fused``; eos at -1, so every request runs its full budget.
+    Returns the launch counts of (b) and (c)."""
     import dataclasses
 
     cfg = llama3_8b_cfg()
@@ -2193,17 +2594,21 @@ def family_cfg(name: str, **llm):
     )
 
 
-def serve_counts(cfg, rows: int, bucket: int, max_new: int, quantized: bool) -> dict:
-    """The launches of one region-QA ``generate`` with the int8 cache: K1
-    per tower layer, K2 per decoder layer, K3 per decoder layer and decode
-    step, K7-K9 by ``quant_expected_counts`` when the llm and tower are
-    W8A8."""
+def serve_counts(cfg, rows: int, bucket: int, max_new: int, quantized: bool, kv_bits: int = 8,
+                 fused: bool = False) -> dict:
+    """The launches of one region-QA ``generate`` with the int8 cache (or
+    the packed-int4 one): K1 per tower layer, K2 per decoder layer, K3 (or
+    its int4 form) per decoder layer and decode step, K7-K9 by
+    ``quant_expected_counts`` when the llm and tower are W8A8 (``fused``:
+    by ``fuse_serving_kernels``)."""
     L = cfg.llm.num_hidden_layers
+    k3 = {"decode_attention_int8_flat": 0, "decode_attention_int4_flat": 0}
+    k3["decode_attention_int4_flat" if kv_bits == 4 else "decode_attention_int8_flat"] = L * (max_new - 1)
     return {
-        "vit_attention": tower_layers(cfg), "onepass_attention": L, "decode_attention_int8_flat": L * (max_new - 1),
+        "vit_attention": tower_layers(cfg), "onepass_attention": L, **k3,
         "flash_attention_fwd": 0, "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
         "grid_bias_attention": 0, "fused_layer_norm": 0,
-        **(quant_expected_counts(cfg, rows, bucket, max_new) if quantized else NO_QUANT),
+        **(quant_expected_counts(cfg, rows, bucket, max_new, fused) if quantized else NO_QUANT),
     }
 
 
@@ -2875,6 +3280,7 @@ def attention_train_counts(cfg) -> dict:
     forward, K4's forward twice per decoder layer and its backward once."""
     L = cfg.llm.num_hidden_layers
     return {"vit_attention": tower_layers(cfg), "onepass_attention": 0, "decode_attention_int8_flat": 0,
+            "decode_attention_int4_flat": 0,
             "flash_attention_fwd": 2 * L, "flash_attention_bwd_dkv": L, "flash_attention_bwd_dq": L,
             "grid_bias_attention": 0, "fused_layer_norm": 0}
 
@@ -3285,8 +3691,9 @@ ALIGN_FLAGS = [
 RECIPE_CUTS = ["--data_mixture", "dummy", "--gradient_accumulation_steps", "2", "--max_steps", "4", "--save_steps", "2"]
 RECIPE_RESUME_STEPS = 6
 # the recipe phase's depth of llama3-8b's full widths: each of its runs
-# writes or reads a composite of the whole model, 16.6 GB at 32 layers
-RECIPE_LAYERS = 8
+# writes or reads a composite of the whole model, 16.6 GB at 32 layers; 4
+# layers keep the whole script well inside its time limit
+RECIPE_LAYERS = 4
 DPO_PAIRS, DPO_BATCH = 4, 2
 
 
@@ -3841,6 +4248,7 @@ def eval_counts(cfg, batches, quantized: bool, kv_quant: bool) -> dict:
     L = cfg.llm.num_hidden_layers
     want = {"vit_attention": tower_layers(cfg) * len(batches), "onepass_attention": L * len(batches),
             "decode_attention_int8_flat": L * sum(b["decode_steps"] for b in batches) if kv_quant else 0,
+            "decode_attention_int4_flat": 0,
             "flash_attention_fwd": 0, "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
             "grid_bias_attention": 0, "fused_layer_norm": 0, **NO_QUANT}
     if quantized:  # the bench's tower runs over [images; depths], as quant_phase_counts counts it
@@ -4087,6 +4495,7 @@ def demo_expected_counts(vlm_cfg, sam_cfg, da_cfg, n_images: int, chunk: int, hw
     L = vlm_cfg.llm.num_hidden_layers
     counts = {
         "vit_attention": layers_run, "onepass_attention": L, "decode_attention_int8_flat": L * (MAX_NEW - 1),
+        "decode_attention_int4_flat": 0,
         "flash_attention_fwd": 0, "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
         "grid_bias_attention": len(v.global_attn_indexes) * len(chunks), "fused_layer_norm": depth + sam + vlm,
         **quant_expected_counts(vlm_cfg, n_images, PAD_BUCKET, MAX_NEW),  # the VLM is W8A8, as bench_demo.py's
@@ -4927,9 +5336,11 @@ def profile_run(torch, fn, out_dir, name):
     with open(os.path.join(out_dir, f"{name}_ops.txt"), "w") as f:
         f.write(events.table(sort_by="self_device_time_total", row_limit=60))
     top = sorted(device, key=lambda e: -e.self_device_time_total)[:25]
+    spans = [e for e in events if e.device_type == DeviceType.CUDA and e.is_user_annotation]
     emit({"phase": "profile", "ok": True, "run": name, "wall_s": wall, "device_busy_s": busy_us / 1e6,
           "device_idle_share": max(0.0, 1 - busy_us / 1e6 / wall),
-          "top_kernels_ms_calls": {e.key[:120]: [e.self_device_time_total / 1e3, e.count] for e in top}})
+          "top_kernels_ms_calls": {e.key[:120]: [e.self_device_time_total / 1e3, e.count] for e in top},
+          "spans_device_ms_calls": {e.key[:120]: [e.device_time_total / 1e3, e.count] for e in spans}})
 
 
 # the paths after the kernel phase, in order: name -> its phase (each
@@ -4997,6 +5408,9 @@ def main() -> int:
         by_path = {path: part[row["name"]] for path, part in counts.items()}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
+        for other in row["other_shapes"]:  # a form with a count of its own (K3's int4 form)
+            if "counted_as" in other["shape"]:
+                other["launches"] = sum(part[other["shape"]["counted_as"]] for part in counts.values())
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({
         "ok": True,

@@ -45,6 +45,18 @@
 // in device memory and no second launch.  The block-diagonal Q and the (F,
 // Hq) accumulator of the Pallas kernel were workarounds for the TPU's
 // matrix unit and are not carried over.
+//
+// The packed-int4 form (INT4, srgpt_decode_attention_int4): the same
+// function over a cache of two int4 nibbles a byte along D (the reference's
+// ops/quant.py::quantize_kv4; k_q / v_q (B, C, Hk * D / 2), the scales as
+// above; generate(kv_bits=4) in the reference, serving/generate.py:341-393,
+// which XLA runs there).  Rows are copied as packed bytes, half the int8
+// slab, and each nibble is sign-extended into a bf16 in registers where the
+// int8 form converts a byte: in pass 1 a thread's four consecutive columns
+// are two bytes (low nibble first), in pass 2 its column is one nibble of
+// each position's byte.  An int4 value is exact in bf16, so the products,
+// the mask and P's rounding are the int8 form's.  Bound: bytes again, the
+// payload halved and the scales the same (B64 C352 Hk8 D128: ~24.5 MB).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -75,12 +87,13 @@ struct DecLayout {
   int stride, rows, per16;  // bytes per cached row; rows per slab; positions per CTA rounded up to 16
   int off_ks, off_vs, off_s, off_ml, off_k, off_v, bytes;
 };
+// A cached row of one kv head: D bytes of int8, or D / 2 of packed int4.
 
 __host__ __device__ inline int dec_round16(int x) { return (x + 15) / 16 * 16; }
 
-__host__ __device__ inline DecLayout dec_layout(int per_cta, int n_rep, int D, int cluster) {
+__host__ __device__ inline DecLayout dec_layout(int per_cta, int n_rep, int D, int row_bytes, int cluster) {
   DecLayout L;
-  L.stride = dec_round16(D) + 16;
+  L.stride = dec_round16(row_bytes) + 16;
   L.per16 = dec_round16(per_cta);
   const int fit = DEC_SLAB_BYTES / L.stride / 16 * 16;
   L.rows = L.per16 < fit ? L.per16 : fit;
@@ -147,6 +160,18 @@ __device__ __forceinline__ uint32_t dec_pack(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// the int4 nibble of `bits` at bit `shift` (0 or 4 of a byte, ... 12),
+// sign-extended
+__device__ __forceinline__ float dec_nibble(uint32_t bits, int shift) {
+  return static_cast<float>(static_cast<int>(bits << (28 - shift)) >> 28);
+}
+
+// 2 bytes of packed int4 (4 values, low nibble first) -> two bf16x2; exact
+__device__ __forceinline__ void dec_i4x4_bf16(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  lo = dec_pack(dec_nibble(w, 0), dec_nibble(w, 4));
+  hi = dec_pack(dec_nibble(w, 8), dec_nibble(w, 12));
+}
+
 // C (16 x 8, f32) += A (16 x 16, bf16, row) * B (16 x 8, bf16, col)
 __device__ __forceinline__ void dec_mma(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
                                         uint32_t b0, uint32_t b1) {
@@ -158,10 +183,10 @@ __device__ __forceinline__ void dec_mma(float (&c)[4], uint32_t a0, uint32_t a1,
 }
 
 // grid (n, Hk, B), clusters of (n, 1, 1)
-template <int GRAN>
+template <int GRAN, bool INT4>
 __global__ void __launch_bounds__(DEC_THREADS, 1)
 decode_attention_kernel(const bf16* __restrict__ q,       // (B, Hq, D)
-                        const int8_t* __restrict__ kq,    // (B, C, Hk * D)
+                        const int8_t* __restrict__ kq,    // (B, C, Hk * D), INT4: (B, C, Hk * D / 2)
                         const float* __restrict__ ks,     // (B, C, Hk)
                         const int8_t* __restrict__ vq,    // (B, C, Hk * D)
                         const float* __restrict__ vs,     // (B, C, Hk)
@@ -172,8 +197,9 @@ decode_attention_kernel(const bf16* __restrict__ q,       // (B, Hq, D)
   cg::cluster_group cluster = cg::this_cluster();
   const int n = static_cast<int>(cluster.num_blocks()), rank = static_cast<int>(cluster.block_rank());
   const int h = blockIdx.y, b = blockIdx.z;
-  const int Hq = Hk * n_rep, F = Hk * D;
-  const DecLayout L = dec_layout(per_cta, n_rep, D, n);
+  const int Db = INT4 ? D / 2 : D;  // bytes of a kv head's cached row
+  const int Hq = Hk * n_rep, F = Hk * Db;
+  const DecLayout L = dec_layout(per_cta, n_rep, D, Db, n);
   float* sks = reinterpret_cast<float*>(smem + L.off_ks);
   float* svs = reinterpret_cast<float*>(smem + L.off_vs);
   float* ss = reinterpret_cast<float*>(smem + L.off_s);
@@ -207,15 +233,15 @@ decode_attention_kernel(const bf16* __restrict__ q,       // (B, Hq, D)
   const int cnt = min(c_begin + share, n_live) - c_begin;  // <= per_cta
   const bool whole = cnt <= L.rows;
   const long long row0 = static_cast<long long>(b) * C + c_begin;
-  const int8_t* kbase = kq + row0 * F + h * D;
-  const int8_t* vbase = vq + row0 * F + h * D;
+  const int8_t* kbase = kq + row0 * F + h * Db;
+  const int8_t* vbase = vq + row0 * F + h * Db;
 
   // every load of the CTA in flight before the first use
   if (cnt > 0) {
-    dec_copy_rows<GRAN>(sk, kbase, min(cnt, L.rows), D, F, L.stride);
+    dec_copy_rows<GRAN>(sk, kbase, min(cnt, L.rows), Db, F, L.stride);
     dec_commit();
     if (whole) {
-      dec_copy_rows<GRAN>(sv, vbase, cnt, D, F, L.stride);
+      dec_copy_rows<GRAN>(sv, vbase, cnt, Db, F, L.stride);
       dec_commit();
     }
   }
@@ -229,7 +255,7 @@ decode_attention_kernel(const bf16* __restrict__ q,       // (B, Hq, D)
     const int rows = min(L.rows, cnt - c0);
     if (c0 > 0) {
       __syncthreads();  // the previous chunk is consumed
-      dec_copy_rows<GRAN>(sk, kbase + static_cast<long long>(c0) * F, rows, D, F, L.stride);
+      dec_copy_rows<GRAN>(sk, kbase + static_cast<long long>(c0) * F, rows, Db, F, L.stride);
       dec_commit();
     }
     if (whole)
@@ -239,14 +265,20 @@ decode_attention_kernel(const bf16* __restrict__ q,       // (B, Hq, D)
     __syncthreads();
     for (int m0 = 16 * warp; m0 < rows; m0 += 16 * NWARPS) {
       float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      const unsigned char* r_lo = sk + (m0 + group) * L.stride + 4 * tig;  // rows past `rows` are never stored
+      // this thread's columns 16 kk + 4 tig .. + 3: 4 bytes, or 2 of packed int4
+      const unsigned char* r_lo = sk + (m0 + group) * L.stride + (INT4 ? 2 : 4) * tig;  // rows past `rows` are never stored
       const unsigned char* r_hi = r_lo + 8 * L.stride;
 #pragma unroll
       for (int kk = 0; kk < DEC_MAXD / 16; ++kk) {
         if (kk < ksteps) {
           uint32_t a0, a1, a2, a3;
-          dec_i8x4_bf16(*reinterpret_cast<const int*>(r_lo + 16 * kk), a0, a2);
-          dec_i8x4_bf16(*reinterpret_cast<const int*>(r_hi + 16 * kk), a1, a3);
+          if constexpr (INT4) {
+            dec_i4x4_bf16(*reinterpret_cast<const unsigned short*>(r_lo + 8 * kk), a0, a2);
+            dec_i4x4_bf16(*reinterpret_cast<const unsigned short*>(r_hi + 8 * kk), a1, a3);
+          } else {
+            dec_i8x4_bf16(*reinterpret_cast<const int*>(r_lo + 16 * kk), a0, a2);
+            dec_i8x4_bf16(*reinterpret_cast<const int*>(r_hi + 16 * kk), a1, a3);
+          }
           dec_mma(acc, a0, a1, a2, a3, qb[kk][0], qb[kk][1]);
         }
       }
@@ -296,7 +328,7 @@ decode_attention_kernel(const bf16* __restrict__ q,       // (B, Hq, D)
     const int rows = min(L.rows, cnt - c0);
     if (!whole) {
       __syncthreads();  // the previous chunk is consumed
-      dec_copy_rows<GRAN>(sv, vbase + static_cast<long long>(c0) * F, rows, D, F, L.stride);
+      dec_copy_rows<GRAN>(sv, vbase + static_cast<long long>(c0) * F, rows, Db, F, L.stride);
       dec_commit();
       dec_wait<0>();
       __syncthreads();
@@ -309,16 +341,26 @@ decode_attention_kernel(const bf16* __restrict__ q,       // (B, Hq, D)
         a0 = dec_pack(pv.x, pv.y);
         a2 = dec_pack(pv.z, pv.w);
       }
-      const unsigned char* vr = sv + p0 * L.stride + group;
+      // column 8 nt + group: byte 8 nt + group, or of packed int4 the nibble
+      // (group & 1) of byte 4 nt + group / 2
+      const unsigned char* vr = sv + p0 * L.stride + (INT4 ? group / 2 : group);
+      const int shift = 4 * (group & 1);
 #pragma unroll
       for (int j = 0; j < DEC_MAXD / 8 / NWARPS; ++j) {
         const int nt = warp + NWARPS * j;
         if (nt < ntiles) {
-          const unsigned char* v = vr + 8 * nt;  // column 8 nt + group
-          const uint32_t b0 = dec_pack(static_cast<float>(static_cast<int8_t>(v[0])),
-                                       static_cast<float>(static_cast<int8_t>(v[L.stride])));
-          const uint32_t b1 = dec_pack(static_cast<float>(static_cast<int8_t>(v[2 * L.stride])),
-                                       static_cast<float>(static_cast<int8_t>(v[3 * L.stride])));
+          uint32_t b0, b1;
+          if constexpr (INT4) {
+            const unsigned char* v = vr + 4 * nt;
+            b0 = dec_pack(dec_nibble(v[0], shift), dec_nibble(v[L.stride], shift));
+            b1 = dec_pack(dec_nibble(v[2 * L.stride], shift), dec_nibble(v[3 * L.stride], shift));
+          } else {
+            const unsigned char* v = vr + 8 * nt;
+            b0 = dec_pack(static_cast<float>(static_cast<int8_t>(v[0])),
+                          static_cast<float>(static_cast<int8_t>(v[L.stride])));
+            b1 = dec_pack(static_cast<float>(static_cast<int8_t>(v[2 * L.stride])),
+                          static_cast<float>(static_cast<int8_t>(v[3 * L.stride])));
+          }
           dec_mma(o[j], a0, 0u, a2, 0u, b0, b1);
         }
       }
@@ -346,11 +388,11 @@ decode_attention_kernel(const bf16* __restrict__ q,       // (B, Hq, D)
   }
 }
 
-template <int GRAN>
+template <int GRAN, bool INT4>
 cudaError_t dec_launch(const DecLayout& L, int cluster, const void* q, const void* kq, const void* ks,
                        const void* vq, const void* vs, const void* lengths, void* out, int B, int C, int Hk, int D,
                        int n_rep, int per_cta, float sm_scale, cudaStream_t stream) {
-  auto kern = decode_attention_kernel<GRAN>;
+  auto kern = decode_attention_kernel<GRAN, INT4>;
   static int smem_set = 48 * 1024;  // the most dynamic shared memory this instantiation was allowed
   if (L.bytes > smem_set) {
     cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
@@ -376,28 +418,42 @@ cudaError_t dec_launch(const DecLayout& L, int cluster, const void* q, const voi
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-}  // namespace srgpt
-
 // cluster: CTAs per (row, kv head), 1-8; each takes ceil(C / cluster)
 // positions at most, and their scores must fit DEC_MAX_SCORES
-extern "C" int srgpt_decode_attention(
-    const void* q, const void* kq, const void* ks, const void* vq, const void* vs,
-    const void* lengths, void* out,
-    int B, int C, int Hq, int Hk, int D, int cluster, float sm_scale, void* stream) {
-  using namespace srgpt;
-  if (B <= 0 || Hk <= 0 || Hq % Hk != 0 || Hq / Hk > DEC_MAXREP || D <= 0 || D % 4 != 0 || D > DEC_MAXD ||
-      C <= 0 || cluster < 1 || cluster > DEC_MAXCLUSTER)
+template <bool INT4>
+int dec_dispatch(const void* q, const void* kq, const void* ks, const void* vq, const void* vs, const void* lengths,
+                 void* out, int B, int C, int Hq, int Hk, int D, int cluster, float sm_scale, void* stream) {
+  const int Db = INT4 ? D / 2 : D;
+  if (B <= 0 || Hk <= 0 || Hq % Hk != 0 || Hq / Hk > DEC_MAXREP || D <= 0 || D % (INT4 ? 8 : 4) != 0 ||
+      D > DEC_MAXD || C <= 0 || cluster < 1 || cluster > DEC_MAXCLUSTER)
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_rep = Hq / Hk, per_cta = (C + cluster - 1) / cluster;
   const uintptr_t addr = reinterpret_cast<uintptr_t>(kq) | reinterpret_cast<uintptr_t>(vq);
   if (per_cta * n_rep > DEC_MAX_SCORES || addr % 4 != 0 || reinterpret_cast<uintptr_t>(q) % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool wide = D % 16 == 0 && addr % 16 == 0;  // 16-byte copies
-  const DecLayout L = dec_layout(per_cta, n_rep, D, cluster);
+  const bool wide = Db % 16 == 0 && addr % 16 == 0;  // 16-byte copies
+  const DecLayout L = dec_layout(per_cta, n_rep, D, Db, cluster);
   if (L.bytes > DEC_MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(wide ? dec_launch<16>(L, cluster, q, kq, ks, vq, vs, lengths, out, B, C, Hk, D, n_rep,
-                                                per_cta, sm_scale, st)
-                               : dec_launch<4>(L, cluster, q, kq, ks, vq, vs, lengths, out, B, C, Hk, D, n_rep,
-                                               per_cta, sm_scale, st));
+  return static_cast<int>(wide ? dec_launch<16, INT4>(L, cluster, q, kq, ks, vq, vs, lengths, out, B, C, Hk, D,
+                                                      n_rep, per_cta, sm_scale, st)
+                               : dec_launch<4, INT4>(L, cluster, q, kq, ks, vq, vs, lengths, out, B, C, Hk, D,
+                                                     n_rep, per_cta, sm_scale, st));
+}
+
+}  // namespace srgpt
+
+extern "C" int srgpt_decode_attention(
+    const void* q, const void* kq, const void* ks, const void* vq, const void* vs,
+    const void* lengths, void* out,
+    int B, int C, int Hq, int Hk, int D, int cluster, float sm_scale, void* stream) {
+  return srgpt::dec_dispatch<false>(q, kq, ks, vq, vs, lengths, out, B, C, Hq, Hk, D, cluster, sm_scale, stream);
+}
+
+// the packed-int4 form: kq / vq (B, C, Hk * D / 2), D a multiple of 8
+extern "C" int srgpt_decode_attention_int4(
+    const void* q, const void* kq, const void* ks, const void* vq, const void* vs,
+    const void* lengths, void* out,
+    int B, int C, int Hq, int Hk, int D, int cluster, float sm_scale, void* stream) {
+  return srgpt::dec_dispatch<true>(q, kq, ks, vq, vs, lengths, out, B, C, Hq, Hk, D, cluster, sm_scale, stream);
 }

@@ -51,7 +51,7 @@ from spatialrgpt_tpu_torch.ops.attention import causal_attention, decode_attenti
 from spatialrgpt_tpu_torch.ops.layers import (
     QuantLinear, gelu_tanh, linear, matmul_f32, qkv_proj, quantized_input, rms_norm, silu,
 )
-from spatialrgpt_tpu_torch.ops.quant import quantize_kv
+from spatialrgpt_tpu_torch.ops.quant import quantize_kv, quantize_kv4
 
 ACTIVATIONS = {"silu": silu, "gelu_tanh": gelu_tanh}
 MOE_IMPLS = ("dense", "sparse")
@@ -76,6 +76,8 @@ class RMSNorm(nn.RMSNorm):
 
 
 class LlamaAttention(nn.Module):
+    qkv_fusable = True  # served by qkv_proj: fuse_serving_kernels may fuse q/k/v into wqkv
+
     def __init__(self, cfg: LlamaConfig, dtype=None):
         super().__init__()
         h, d, bias = cfg.hidden_size, cfg.head_dim, cfg.attention_bias
@@ -265,7 +267,12 @@ def _ffn(x: torch.Tensor, gate: nn.Module, up: nn.Module, down: nn.Module, act: 
 
 def mlp_block(x: torch.Tensor, mlp: LlamaMLP) -> torch.Tensor:
     """The dense MLP (SiLU, or Gemma's GeLU-tanh); gate and up share x's
-    int8 rows where they take W8A8."""
+    int8 rows where they take W8A8, or are one product where
+    ``fuse_serving_kernels`` fused them into ``gu`` (the reference's
+    ``llama.py:190-193``)."""
+    if hasattr(mlp, "gu"):
+        gate, up = linear(x, mlp.gu).chunk(2, dim=-1)
+        return linear(ACTIVATIONS[mlp.act](gate) * up, mlp.down_proj)
     return _ffn(x, mlp.gate_proj, mlp.up_proj, mlp.down_proj, mlp.act,
                 quantized_input(x, mlp.gate_proj, mlp.up_proj))
 
@@ -489,6 +496,7 @@ def forward(
     attn_impl: str = "xla",
     collect_kv: bool = False,
     kv_quant: bool = False,
+    kv_bits: int = 8,
     remat: bool = False,
     with_aux: bool = False,
 ):
@@ -505,8 +513,9 @@ def forward(
 
     With ``collect_kv`` the per-layer K/V of this pass come back as a list
     of ``(k, v)``; with ``kv_quant`` too, each is quantized per layer as it
-    is collected (``((k_q, k_s), (v_q, v_s))``), so the full-precision K/V
-    of a layer die with it.
+    is collected (``((k_q, k_s), (v_q, v_s))``: int8, or with ``kv_bits=4``
+    two int4 nibbles a byte along D), so the full-precision K/V of a layer
+    die with it.
 
     With ``remat`` (and no KV collection) each layer runs under
     ``torch.utils.checkpoint``: only its input is kept, and the backward
@@ -532,6 +541,7 @@ def forward(
         out = norm(x, model.model.norm), cache._replace(length=cache.length + x.shape[1])
         return out + (aux_total,) if with_aux else out
     kv = [] if collect_kv else None
+    qfn = quantize_kv4 if kv_bits == 4 else quantize_kv
     for layer in model.model.layers:
         if remat and not collect_kv:
             x, aux = checkpoint(_layer_checkpointed, x, layer, cfg, position_ids, segment_ids, attn_impl, tp,
@@ -541,7 +551,7 @@ def forward(
         x, (k, v), aux = layer(x, cfg, position_ids, segment_ids, attn_impl, tp=tp, aux_group=aux_group)
         aux_total = aux_total if aux is None else aux_total + aux
         if collect_kv:
-            kv.append((quantize_kv(k), quantize_kv(v)) if kv_quant else (k, v))
+            kv.append((qfn(k), qfn(v)) if kv_quant else (k, v))
     out = norm(x, model.model.norm), kv
     return out + (aux_total,) if with_aux else out
 

@@ -32,6 +32,8 @@ from spatialrgpt_tpu_torch.ops.vit_attention import vit_attention, vit_attention
 
 
 class SiglipAttention(nn.Module):
+    qkv_fusable = True  # served by qkv_proj: fuse_serving_kernels may fuse q/k/v into wqkv
+
     def __init__(self, c: int, dtype=None):
         super().__init__()
         self.q_proj = nn.Linear(c, c, dtype=dtype)

@@ -19,7 +19,8 @@ route, as in the reference, whose sequence-parallel routes do not take it.
 the activation dtype (``models/llama.py::forward(cache=...)``, the
 engine's prefix path; with one length per row, the decode step of
 ``serving/generate.py`` and of the engine): plain PyTorch, as the
-reference runs it in XLA.
+reference runs it in XLA.  So is ``streamed_position_attention``, the
+chunk side of the serving engine's fused mixed-batch chunked prefill.
 """
 
 from __future__ import annotations
@@ -101,3 +102,60 @@ def decode_attention(
     s = torch.where(live, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1).to(v_cache.dtype)
     return torch.einsum("bhgqk,bkhd->bqhgd", p, v_cache).reshape(B, S, Hq, D)
+
+
+def streamed_position_attention(
+    q: torch.Tensor,  # (R, c, Hq, D): one prompt chunk per row
+    k_buf: torch.Tensor,  # (R, Sp, Hk, D): a row's staged prompt K (earlier chunks and this one)
+    v_buf: torch.Tensor,  # (R, Sp, Hk, D)
+    q_idx: torch.Tensor,  # (R, c) int: the buffer index of each query token
+    block: int = 512,
+    n_blocks: Optional[int] = None,
+) -> torch.Tensor:
+    """Chunked-prefill attention (the reference's
+    ``ops/attention.py::streamed_position_attention``, XLA there, plain
+    PyTorch here on either device): each row's chunk attends to its own
+    staged buffer at the positions ``<=`` each token's buffer index.
+
+    - ``Sp <= block``: one masked softmax in the op order of
+      ``decode_attention`` (f32 scores, probabilities normalized and cast to
+      the buffer's dtype before PV), so that a chunked admission equals an
+      unchunked one at fp32.
+    - else an online softmax over blocks of ``block`` keys (``block`` must
+      divide ``Sp``): f32 running max, sum and PV of P in the buffer's
+      dtype, divided at the end.  The loop stops after the block of the
+      furthest attended key, ``max(q_idx) // block + 1`` blocks; a caller
+      that knows that bound on the host passes ``n_blocks`` (on the card,
+      reading it from ``q_idx`` waits for the device)."""
+    R, c, hq, d = q.shape
+    Sp, hk = k_buf.shape[1], k_buf.shape[2]
+    g = hq // hk
+    qg = q.reshape(R, c, hk, g, d).float()
+    q_idx = q_idx.to(q.device)
+    if Sp <= block:
+        live = torch.arange(Sp, device=q.device)[None, None, :] <= q_idx[:, :, None]  # (R, c, Sp)
+        s = torch.einsum("rchgd,rkhd->rhgck", qg, k_buf.float()) * d**-0.5
+        s = torch.where(live[:, None, None], s, torch.full_like(s, NEG_INF))
+        p = torch.softmax(s, dim=-1).to(v_buf.dtype)
+        return torch.einsum("rhgck,rkhd->rchgd", p, v_buf).reshape(R, c, hq, d)
+    if Sp % block:
+        raise ValueError(f"block {block} must divide the staging length {Sp}")
+    if n_blocks is None:
+        n_blocks = int(q_idx.max()) // block + 1
+    m = torch.full((R, hk, g, c), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((R, hk, g, c), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((R, hk, g, c, d), dtype=torch.float32, device=q.device)
+    for j in range(n_blocks):
+        kb, vb = k_buf[:, j * block : (j + 1) * block], v_buf[:, j * block : (j + 1) * block]
+        s = torch.einsum("rchgd,rkhd->rhgck", qg, kb.float()) * d**-0.5
+        live = (j * block + torch.arange(block, device=q.device))[None, None, :] <= q_idx[:, :, None]
+        s = torch.where(live[:, None, None], s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("rhgck,rkhd->rhgcd", p.to(vb.dtype).float(), vb.float())
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / l.clamp(min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(R, c, hq, d).to(v_buf.dtype)

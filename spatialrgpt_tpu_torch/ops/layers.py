@@ -329,14 +329,88 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def qkv_proj(x: torch.Tensor, attn, hq: int, hk: int, d: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """q/k/v projections over (B, S, C) from a module holding ``q_proj``,
     ``k_proj`` and ``v_proj`` linears (float or quantized; x is quantized
-    once for those that take W8A8).  Returns (B,S,hq,d), (B,S,hk,d),
-    (B,S,hk,d)."""
+    once for those that take W8A8), or their fusion ``wqkv``
+    (``fuse_serving_kernels``): one product, its columns split (the
+    reference's ``layers.py:158-162``).  Returns (B,S,hq,d), (B,S,hk,d),
+    (B,S,hk,d), contiguous."""
     B, S = x.shape[0], x.shape[1]
+    if hasattr(attn, "wqkv"):
+        q, k, v = linear(x, attn.wqkv).split([hq * d, hk * d, hk * d], dim=-1)
+        return (q.reshape(B, S, hq, d).contiguous(), k.reshape(B, S, hk, d).contiguous(),
+                v.reshape(B, S, hk, d).contiguous())
     xq = quantized_input(x, attn.q_proj, attn.k_proj, attn.v_proj)
     q = linear(x, attn.q_proj, xq=xq)
     k = linear(x, attn.k_proj, xq=xq)
     v = linear(x, attn.v_proj, xq=xq)
     return q.view(B, S, hq, d), k.view(B, S, hk, d), v.view(B, S, hk, d)
+
+
+def _fused_linear(mods) -> Optional[nn.Module]:
+    """Sibling projections of one input concatenated along their outputs
+    (the reference's ``_try_fuse``, ``quant.py:116-152``): float
+    ``nn.Linear``s into one, int8 ``QuantLinear``s with their per-channel
+    scales (W8A8 where all of them are).  None where they do not fuse: a
+    packed int4 weight, mixed kinds, a bias on some but not all, or a LoRA
+    branch on any of them (the reference's ``_try_fuse`` would drop a
+    ``lora`` entry; the port leaves such projections as they are)."""
+    if any(getattr(m, "lora", None) is not None for m in mods):
+        return None
+    has_bias = [m.bias is not None for m in mods]
+    if any(has_bias) != all(has_bias):
+        return None
+    bias = torch.cat([m.bias.detach() for m in mods]) if all(has_bias) else None
+    out_features = sum(m.out_features for m in mods)
+    if all(type(m) is nn.Linear for m in mods):
+        w = mods[0].weight
+        out = nn.Linear(w.shape[1], out_features, bias=bias is not None, dtype=w.dtype, device=w.device)
+        with torch.no_grad():
+            out.weight.copy_(torch.cat([m.weight.detach() for m in mods]))
+            if bias is not None:
+                out.bias.copy_(bias)
+        return out.requires_grad_(False)
+    if all(isinstance(m, QuantLinear) and m.bits == 8 and m.a8_rule is None for m in mods):
+        q = mods[0].q
+        out = QuantLinear(mods[0].in_features, out_features, 8, all(m.a8 for m in mods), bias is not None,
+                          dtype=None if bias is None else bias.dtype, device=q.device)
+        out.q = torch.cat([m.q for m in mods])
+        out.scale = torch.cat([m.scale for m in mods])
+        if bias is not None:
+            out.bias = nn.Parameter(bias, requires_grad=False)
+        return out
+    return None
+
+
+@torch.no_grad()
+def fuse_serving_kernels(model: nn.Module) -> nn.Module:
+    """Serving transform, in place (the reference's
+    ``ops/quant.py::fuse_serving_kernels``): the q/k/v projections of every
+    attention that ``qkv_proj`` serves (the decoder's and SigLIP's: classes
+    marked ``qkv_fusable``) become one ``wqkv``, and a dense MLP's
+    ``gate_proj`` / ``up_proj`` one ``gu``, each where ``_fused_linear``
+    fuses them (MoE experts keep their own names and stay apart).  One
+    product over x in place of two or three, and with W8A8 one K7 and one
+    K8 launch.  Single-card serving only: ``tp_shard_model`` refuses a
+    fused model, as the fused columns interleave the head groups that its
+    rules shard (the reference's ``quant.py:165-167``)."""
+    if getattr(getattr(model, "llm", model), "tp", None) is not None:
+        raise ValueError("fuse_serving_kernels: the model is tensor-parallel; fuse only single-card models")
+    for mod in list(model.modules()):
+        if getattr(type(mod), "qkv_fusable", False) and all(hasattr(mod, n) for n in ("q_proj", "k_proj", "v_proj")):
+            fused = _fused_linear([mod.q_proj, mod.k_proj, mod.v_proj])
+            if fused is not None:
+                del mod.q_proj, mod.k_proj, mod.v_proj
+                mod.wqkv = fused
+        if all(hasattr(mod, n) for n in ("gate_proj", "up_proj", "down_proj")):
+            fused = _fused_linear([mod.gate_proj, mod.up_proj])
+            if fused is not None:
+                del mod.gate_proj, mod.up_proj
+                mod.gu = fused
+    return model
+
+
+def is_fused(model: nn.Module) -> bool:
+    """Whether ``fuse_serving_kernels`` fused any projections of ``model``."""
+    return any(hasattr(m, "wqkv") or hasattr(m, "gu") for m in model.modules())
 
 
 def _swap_linears(root: nn.Module, make) -> None:

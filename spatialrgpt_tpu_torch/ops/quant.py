@@ -9,7 +9,9 @@ over a pytree are ``ops/layers.py::quantize_model`` /
 ``dequantize_model`` over a module.
 
 KV cache: per-position-per-head symmetric int8 over the head dim
-(``quantize_kv`` / ``dequantize_kv``).
+(``quantize_kv`` / ``dequantize_kv``), or int4 with two nibbles a byte
+along it (``quantize_kv4`` / ``unpack_kv4``).  The serving transform
+``fuse_serving_kernels`` works on modules and lives in ``ops/layers.py``.
 
 ``torch.round`` rounds half to even, as ``jnp.round`` does; values are
 clipped before the cast, never truncated by it.
@@ -80,3 +82,29 @@ def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def dequantize_kv(q: torch.Tensor, s: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
     return (q.float() * s.unsqueeze(-1)).to(dtype)
+
+
+def quantize_kv4(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-position-per-head symmetric int4 over the head dim, two nibbles
+    a byte: (..., D) -> (int8 (..., D / 2), f32 scale (...)); scale =
+    max(max |x| / 7, 1e-8), values clipped to [-7, 7].  Byte j holds
+    ``x[..., 2j]`` in its low nibble and ``x[..., 2j + 1]`` in its high one.
+    The division by 7 is a multiply by f32(1 / 7), as XLA compiles the
+    reference's under jit (its ``generate`` and engine), so payload and
+    scales are bit-equal to the jitted reference's."""
+    if x.shape[-1] % 2:
+        raise ValueError(f"quantize_kv4: the head dim must be even, got {x.shape[-1]}")
+    xf = x.float()
+    s = torch.clamp(xf.abs().amax(dim=-1) * (1.0 / 7.0), min=1e-8)
+    q = torch.clamp(torch.round(xf / s.unsqueeze(-1)), -7, 7).to(torch.int16)
+    packed = (q[..., 0::2] & 0x0F) | ((q[..., 1::2] & 0x0F) << 4)  # 0..255
+    return torch.where(packed > 127, packed - 256, packed).to(torch.int8), s
+
+
+def unpack_kv4(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``quantize_kv4``'s packing: (..., D / 2) -> the int4
+    values (..., D) as int8, sign-extended, low nibble first."""
+    p = packed.to(torch.int32)
+    lo = ((p & 0x0F) ^ 8) - 8
+    hi = p >> 4  # arithmetic shift of the sign-extended byte
+    return torch.stack([lo, hi], dim=-1).reshape(*p.shape[:-1], -1).to(torch.int8)

@@ -446,11 +446,15 @@ def tp_shard_model(model: nn.Module, mesh) -> nn.Module:
     logits.  Returns the model; a mesh without a tp dim changes nothing (one
     of one rank keeps every slice whole and runs the collectives over that
     rank)."""
+    from spatialrgpt_tpu_torch.ops.layers import QuantLinear, is_fused
+
+    if mesh is not None and "tp" in mesh.mesh_dim_names and is_fused(model):
+        raise ValueError("tp_shard_model: the model's projections are fused (fuse_serving_kernels); its tp rules "
+                         "shard q/k/v and gate/up apart, so fuse only single-card serving models")
     tp = tp_group(mesh)
     llm = getattr(model, "llm", model)
     if tp is None or getattr(llm, "tp", None) is not None:
         return model
-    from spatialrgpt_tpu_torch.ops.layers import QuantLinear
 
     from spatialrgpt_tpu_torch.models.llama import tp_slice_cfg
 

@@ -23,13 +23,37 @@ into free slots while the other slots keep decoding:
     K/V (``llama.forward(cache=...)``);
   - ``sample_tokens``: greedy rows take the argmax; sampled rows draw from
     the nucleus within a top-k prefilter, keyed per request by (seed,
-    position).
+    position);
+  - ``prefill_chunk > 0``: the fused mixed-batch chunked prefill (below).
 
 The decode step is ``serving/generate.py::_decode_step``, the lockstep
-``generate``'s own: its per-slot write and attention
-(``_per_slot_attention`` on the activation-dtype cache, plain PyTorch as
-the reference runs it in XLA; ``_per_slot_attention_quant`` on the int8
-cache, kernel K3 for every CUDA decode with ``attn_impl="onepass"``).
+``generate``'s own: its per-slot write and attention (``_slot_attend``:
+plain PyTorch on the activation-dtype cache, as the reference runs it in
+XLA; kernel K3 on the int8 cache for every CUDA decode with
+``attn_impl="onepass"``).
+
+The fused mixed-batch chunked prefill (``prefill_chunk`` = c > 0, the
+reference's ``engine.py:81-96``, ``:595-946``, ``:1175-1222``,
+``:1397-1475``): a plain request takes a free chunk row (at most
+``chunk_rows`` in flight) and a reserved slot.  ``_start_row`` encodes its
+images and splices the prompt once (K1), pads the embeddings and positions
+to the staging length ``Sp`` (the prompt bucket rounded up to whole
+chunks) and allocates the row's staging K/V, (L, Sp, Hk, D) in the
+activation dtype (this rank's kv heads under tensor parallelism).  Each
+decode step of a window then runs the B decode tokens and one chunk of c
+prompt tokens of every row still prefilling as one flat token batch
+through every projection and norm (``_fused_once``): the decode side
+writes and attends as ``_decode_step`` does, the chunk side writes its
+staging rows and attends to them through
+``ops/attention.py::streamed_position_attention`` (plain PyTorch, XLA in
+the reference).  At the window's end each row whose prompt completed
+samples its first token from its hidden state at ``plen - 1`` (keyed at
+that position, as an unchunked admission), its staged K/V are written
+whole into its slot (quantized once with ``kv_quant``), and the slot is
+armed (``lengths`` = plen, ``last_token``); the host then activates it
+(``_complete_rows``; with ``async_readback`` optimistically, its first
+token read one ``step()`` later from a ``"chunk"`` entry).  Prefix-cached
+requests keep the immediate ``_admit_prefix_head`` path.
 Where the reference's jits return a new cache (donating the old one),
 this engine updates the cache, ``lengths`` and ``last_token`` in place; an
 inserted slot row is written whole (the prompt, then zeros to the
@@ -48,6 +72,13 @@ Where it differs from the reference:
   - A row that finished mid-window advances ``lengths`` only up to ``C -
     1``: JAX drops an out-of-range scatter, while a CUDA index past the
     cache would be a device-side assert.  Its tokens are truncated anyway.
+  - The fused window's writes that the reference drops by an out-of-range
+    index (``mode="drop"``) are not made out of range here: the decode side
+    of an idle or reserved slot writes inside its own cache row, at its
+    ``lengths`` (the row is written whole when a request lands in the
+    slot), and a chunk row whose prompt completed earlier in the window
+    leaves the flat batch (the host knows each row's chunks), so it writes
+    no staging and adds no rows to the window's later steps.
   - Sampling draws Gumbel-max noise from a counter-based hash of (seed,
     position, token id) computed on the device, not from JAX's threefry
     bits: the port's sampled tokens are not JAX's sampled tokens (greedy
@@ -56,8 +87,6 @@ Where it differs from the reference:
     requests are greedy (the tokens are the argmax either way).
   - ``attn_impl`` defaults to ``"onepass"`` (the kernels), as the port's
     ``generate`` does; ``"xla"`` takes K1-K3's plain versions.
-  - Not ported: the fused mixed-batch chunked prefill (``prefill_chunk >
-    0``), which raises ``NotImplementedError``.
 
 Tensor parallelism (``mesh`` with a tp dim above 1, the reference's
 ``engine.py:110-125``): the model is placed by
@@ -87,9 +116,11 @@ import torch
 from spatialrgpt_tpu_torch.config import SpatialRGPTConfig
 from spatialrgpt_tpu_torch.models import llama, vlm
 from spatialrgpt_tpu_torch.ops import decode_attention
+from spatialrgpt_tpu_torch.ops.attention import streamed_position_attention
+from spatialrgpt_tpu_torch.ops.layers import linear, qkv_proj
 from spatialrgpt_tpu_torch.ops.quant import quantize_kv
 from spatialrgpt_tpu_torch.parallel.mesh import mesh_size, tp_shard_model
-from spatialrgpt_tpu_torch.serving.generate import _decode_step, new_quant_cache
+from spatialrgpt_tpu_torch.serving.generate import _decode_step, _slot_attend, new_quant_cache
 
 
 @dataclass
@@ -134,7 +165,8 @@ class ServingEngine:
         prefix_bucket: int = 0,  # cache room for a shared prefix (register_prefix); 0 disables it
         admit_width: int = 8,  # most requests per batched admission prefill
         mesh=None,  # tensor-parallel serving over the mesh's tp dim
-        prefill_chunk: int = 0,  # fused mixed-batch chunked prefill: not ported
+        prefill_chunk: int = 0,  # fused mixed-batch chunked prefill: prompt tokens a chunk; 0 = off
+        chunk_rows: int = 4,  # most admissions in flight in the fused mode, each a staging row
         topk_sampling: int = 64,  # top-k prefilter of sampled decode; 0 = the exact full sort
         async_readback: bool = False,  # read each window's tokens one step() late
     ):
@@ -145,8 +177,6 @@ class ServingEngine:
                                  "cache shards its head axis)")
             tp_shard_model(model, mesh)
         self.mesh = mesh
-        if prefill_chunk:
-            raise NotImplementedError("the fused mixed-batch chunked prefill (prefill_chunk > 0) is not ported yet")
         if attn_impl not in ("onepass", "xla"):
             raise ValueError(f"unknown attention impl: {attn_impl}")
         self.model, self.cfg = model, cfg
@@ -156,6 +186,19 @@ class ServingEngine:
         self.capacity = prefix_bucket + prompt_bucket + max_new_tokens
         self.attn_impl, self.kv_quant = attn_impl, kv_quant
         self.admit_width, self.topk_sampling = admit_width, topk_sampling
+        self.prefill_chunk = prefill_chunk
+        self.chunk_rows = chunk_rows if prefill_chunk else 0
+        # the staging length: the prompt bucket in whole chunks, so no chunk's slice is cut short
+        self.Sp = -(-prompt_bucket // prefill_chunk) * prefill_chunk if prefill_chunk else 0
+        # the chunk attention's block: the single-shot softmax up to 512 staged
+        # positions, else the online softmax over blocks that divide Sp
+        if self.Sp > 512:
+            self._chunk_block = next(b for b in (512, 256, 128, 64, prefill_chunk, self.Sp) if self.Sp % b == 0)
+        else:
+            self._chunk_block = 512
+        # per chunk row: the admission in flight (req, slot, off, rem, plen and
+        # its device buffers), or None
+        self._rows: List[Optional[dict]] = [None] * self.chunk_rows
         if kv_quant:
             self.cache = new_quant_cache(model.llm, cfg.llm, self.B, self.capacity, self.device)
         else:
@@ -171,6 +214,7 @@ class ServingEngine:
         self.prefixes: Dict[int, tuple] = {}
         self._prefix_ids = itertools.count()
         self.active = np.zeros((self.B,), bool)  # host-side slot occupancy
+        self._reserved = np.zeros((self.B,), bool)  # held by a chunked admission in flight
         self.slot_req: List[Optional[Request]] = [None] * self.B
         # per-slot sampling state (host side; on the device while unchanged)
         self.slot_temp = np.zeros((self.B,), np.float32)
@@ -182,8 +226,9 @@ class ServingEngine:
         # requests whose prefill token already ended them; returned by the next step()
         self._admit_finished: List[Request] = []
         self.async_readback = async_readback
-        # launched, not yet read: ("prefill", readback, reqs, slots) and
-        # ("decode", readback, active snapshot, slot_req snapshot)
+        # launched, not yet read: admissions' first tokens ("prefill" or
+        # "chunk", readback, [(index into the tokens, req, slot)], None) and
+        # windows' ("decode", readback, active snapshot, slot_req snapshot)
         self._pending: collections.deque = collections.deque()
 
     # ------------------------------------------------------------------
@@ -333,6 +378,108 @@ class ServingEngine:
         scheduling); returns the (B, k) tokens."""
         return torch.stack([self._decode_once(active, temps, top_ps, keys, all_greedy) for _ in range(k)], dim=1)
 
+    def _fused_once(self, live, active, temps, top_ps, keys, all_greedy: bool) -> torch.Tensor:
+        """One decode step of every slot fused with one prompt chunk of each
+        row in ``live`` ((row state, offset) pairs): the B decode tokens
+        and the chunks' tokens as one flat batch of B + n c rows through
+        every projection and norm.  Writes the decode side's K/V into the
+        cache and each chunk's into its row's staging, advances the
+        decode state as ``_decode_once`` does, and returns the chunks'
+        final-normed hidden states (n, c, H)."""
+        llm = self.model.llm
+        lc, tp = llama.rank_cfg(llm, self.cfg.llm), llm.tp
+        B, c, n = self.B, self.prefill_chunk, len(live)
+        Hq, Hk, D = lc.num_attention_heads, lc.num_key_value_heads, lc.head_dim
+        x_d = llama.embed_tokens(llm, self.last_token[:, None])[:, 0]
+        x_c = torch.cat([rs["embeds"][off : off + c] for rs, off in live])
+        h = torch.cat([x_d.to(x_c.dtype), x_c])[None]  # (1, B + n c, H)
+        pos = self.lengths.long()
+        pos_all = torch.cat([pos] + [rs["pos"][off : off + c] for rs, off in live])[None]
+        q_idx = [torch.arange(off, off + c, device=self.device)[None] for _, off in live]
+        n_blocks = [(off + c - 1) // self._chunk_block + 1 for _, off in live]
+        rows = torch.arange(B, device=self.device)
+        for li, layer in enumerate(llm.model.layers):
+            attn = layer.self_attn
+            q, k, v = qkv_proj(llama.norm(h, layer.input_layernorm), attn, Hq, Hk, D)
+            q, k = llama.apply_rope(q, k, pos_all, lc)
+            q, k, v = q[0], k[0], v[0]
+            parts = [_slot_attend(q[:B], k[:B], v[:B], rows, pos, self.lengths, self.cache, li, self.attn_impl)]
+            for r, (rs, off) in enumerate(live):
+                lo = B + r * c
+                sk, sv = rs["stag_k"][li], rs["stag_v"][li]
+                sk[off : off + c] = k[lo : lo + c]
+                sv[off : off + c] = v[lo : lo + c]
+                with torch.profiler.record_function("streamed_position_attention"):  # a profile's span
+                    out = streamed_position_attention(q[lo : lo + c][None], sk[None], sv[None], q_idx[r],
+                                                      self._chunk_block, n_blocks[r])
+                parts.append(out.reshape(c, Hq * D).to(parts[0].dtype))
+            h = h + llama.tp_sum(linear(torch.cat(parts)[None], attn.o_proj), tp)
+            h = h + llama.tp_sum(llama.ffn_block(llama.norm(h, layer.post_attention_layernorm), layer, lc)[0], tp)
+        h = llama.norm(h, llm.model.norm)[0]
+        logits = llama.logits(llm, h[:B, None])[:, 0]
+        tok = self._sample(logits, keys, self.lengths, temps, top_ps, all_greedy)
+        self.lengths = torch.where(active, (self.lengths + 1).clamp(max=self.capacity - 1), self.lengths)
+        self.last_token = torch.where(active, tok, self.last_token)
+        return h[B:].reshape(n, c, -1)
+
+    def _insert_staged(self, rs: dict, tok: torch.Tensor) -> None:
+        """Write a completed row's staged K/V whole into its slot (the
+        prompt, then zeros to the capacity; quantized once with
+        ``kv_quant``) and arm the slot."""
+        c, slot = self.cache, rs["slot"]
+        W = min(self.Sp, self.capacity)
+        k, v = rs["stag_k"][:, :W], rs["stag_v"][:, :W]  # (L, W, Hk, D)
+        if self.kv_quant:
+            (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+            for dst, src in ((c.k_q, kq.flatten(2)), (c.k_s, ks), (c.v_q, vq.flatten(2)), (c.v_s, vs)):
+                dst[:, slot, :W] = src
+                dst[:, slot, W:] = 0
+        else:
+            for dst, src in ((c.k, k), (c.v, v)):
+                dst[:, slot, :W] = src.to(dst.dtype)
+                dst[:, slot, W:] = 0
+        self.lengths[slot] = rs["plen"]
+        self.last_token[slot] = tok
+
+    def _run_fused_window(self, k: int, all_greedy: bool, active, temps, top_ps, keys):
+        """``k`` decode steps, each fused with one chunk of every admission
+        row still prefilling (a step with none is a plain decode step), no
+        host round trip between them; each row's host state (``off``,
+        ``rem``) advances by its chunks.  The rows whose prompt completes in
+        the window get their first token, sampled from the hidden state at
+        ``plen - 1``, and their slot (``_insert_staged``).  Returns the (B,
+        k) decode tokens, the completing rows' indices, their first tokens
+        and their first-token logits."""
+        c = self.prefill_chunk
+        act = [r for r, rs in enumerate(self._rows) if rs is not None]
+        h_last, toks = {}, []
+        for _ in range(k):
+            live = [self._rows[r] for r in act if self._rows[r]["rem"] > 0]
+            if not live:
+                toks.append(self._decode_once(active, temps, top_ps, keys, all_greedy))
+                continue
+            h_c = self._fused_once([(rs, rs["off"]) for rs in live], active, temps, top_ps, keys, all_greedy)
+            toks.append(self.last_token)
+            for i, rs in enumerate(live):
+                last = rs["plen"] - 1 - rs["off"]
+                if 0 <= last < c:
+                    h_last[rs["slot"]] = h_c[i, last]
+                rs["off"] += c
+                rs["rem"] -= 1
+        toks = torch.stack(toks, dim=1)  # before the slots are armed: the last step's tokens are last_token
+        done = [r for r in act if self._rows[r]["rem"] == 0]
+        chunk_tok = chunk_logits = None
+        if done:
+            reqs = [self._rows[r]["req"] for r in done]
+            chunk_logits = llama.logits(self.model.llm, torch.stack([h_last[self._rows[r]["slot"]] for r in done])
+                                        [:, None])[:, 0]
+            temps_r, top_ps_r, keys_r = self._sampling_args(reqs)
+            positions = self._upload(np.asarray([q.prompt_length - 1 for q in reqs]), torch.int64)
+            chunk_tok = self._sample(chunk_logits, keys_r, positions, temps_r, top_ps_r, all_greedy)
+            for i, r in enumerate(done):
+                self._insert_staged(self._rows[r], chunk_tok[i])
+        return toks, done, chunk_tok, chunk_logits
+
     # ------------------------------------------------------------------
     # host scheduler
     # ------------------------------------------------------------------
@@ -465,7 +612,48 @@ class ServingEngine:
         req.tokens.append(int(tok[0]))
         self._activate_or_finish(slot, req)
 
+    def _start_row(self, row: int, slot: int, req: Request) -> None:
+        """Begin a fused chunked admission in chunk row ``row`` and reserve
+        ``slot``: encode the images and splice the prompt once, pad the
+        embeddings and positions to ``Sp``, allocate the row's staging K/V
+        (L, Sp, Hk, D) in the activation dtype.  The decoder then takes the
+        prompt a chunk per decode step."""
+        inputs = self._device_inputs(self._concat_inputs([req.inputs]))
+        embeds = vlm.prepare_embeds(self.model, self.cfg, inputs, self.attn_impl)[0]  # (w, H)
+        w = embeds.shape[0]
+        e_row = embeds.new_zeros((self.Sp, embeds.shape[1]))
+        e_row[:w] = embeds
+        pos = torch.zeros(self.Sp, dtype=torch.int64, device=self.device)
+        pos[:w] = inputs.position_ids[0]
+        lc = llama.rank_cfg(self.model.llm, self.cfg.llm)
+        shape = (lc.num_hidden_layers, self.Sp, lc.num_key_value_heads, lc.head_dim)
+        self._reserved[slot] = True
+        self._rows[row] = {
+            "req": req, "slot": slot, "off": 0, "rem": -(-req.prompt_length // self.prefill_chunk),
+            "plen": req.prompt_length, "embeds": e_row, "pos": pos,
+            "stag_k": embeds.new_zeros(shape), "stag_v": embeds.new_zeros(shape),
+        }
+
+    def _admit_fused(self) -> None:
+        """The fused mode's admission: a plain request takes a free chunk
+        row and a free slot, which it reserves; a prefix-cached request
+        keeps the immediate prefill against its prefix."""
+        while self.queue:
+            free = np.flatnonzero(~self.active & ~self._reserved)
+            if not len(free):
+                return
+            if self.queue[0].prefix_id is not None:
+                self._admit_prefix_head(int(free[0]))
+                continue
+            row = next((i for i, rs in enumerate(self._rows) if rs is None), None)
+            if row is None:
+                return
+            self._start_row(row, int(free[0]), self.queue.popleft())
+
     def _admit(self) -> None:
+        if self.prefill_chunk:
+            self._admit_fused()
+            return
         while self.queue and not self.active.all():
             free = np.flatnonzero(~self.active)
             # prefix-cached requests go one at a time (their prefill shape
@@ -500,7 +688,8 @@ class ServingEngine:
                     self.active[slot] = True
                     self.slot_req[slot] = req
                     self._set_slot_sampling(int(slot), req)
-                self._pending.append(("prefill", self._readback(toks), reqs, [int(s) for s in slots]))
+                self._pending.append(("prefill", self._readback(toks),
+                                      [(i, req, int(slot)) for i, (req, slot) in enumerate(zip(reqs, slots))], None))
             else:
                 toks_host = toks.cpu().numpy()
                 for i, req in enumerate(reqs):
@@ -557,8 +746,8 @@ class ServingEngine:
         while len(self._pending) > leave:
             kind, entry, a, b = self._pending.popleft()
             toks_host = self._read(entry)
-            if kind == "prefill":
-                for i, (req, slot) in enumerate(zip(a, b)):
+            if kind in ("prefill", "chunk"):  # admissions' first tokens: (i, req, slot), i into the tokens
+                for i, req, slot in a:
                     req.tokens.append(int(toks_host[i]))
                     if req.tokens[-1] == eos or len(req.tokens) >= req.max_new_tokens:
                         self._finish_and_free(slot, req, finished)
@@ -579,36 +768,75 @@ class ServingEngine:
         launches the next window without waiting for it."""
         if self.async_readback:
             finished = self._process_pending(leave=1)
-            if self.queue and self.active.all():  # admission starved: find the completions
+            if self.queue and (self.active | self._reserved).all():  # admission starved: find the completions
                 finished += self._process_pending(leave=0)
         else:
             finished = []
         self._admit()
         finished += self._admit_finished
         self._admit_finished = []
-        if not self.active.any():
+        rows_active = any(rs is not None for rs in self._rows)
+        if not self.active.any() and not rows_active:
             return finished + self._process_pending(leave=0)
         if self._dev_sched is None:
             self._dev_sched = (
                 self._upload(self.active, torch.bool), self._upload(self.slot_temp, torch.float32),
                 self._upload(self.slot_top_p, torch.float32), self._upload(self.slot_key, torch.int64),
             )
-        # the greedy fast path when no active slot samples: the same tokens
-        all_greedy = not bool(np.any(self.slot_temp[self.active] > 0))
+        # the greedy fast path when no active slot or admission samples: the same tokens
+        all_greedy = not bool(np.any(self.slot_temp[self.active] > 0)) and not any(
+            rs is not None and rs["req"].temperature > 0 for rs in self._rows)
+        # the slots that decode in this window (rows completing in it are activated after it)
         active_launch = self.active.copy()
         req_snapshot = list(self.slot_req)
-        toks = self._decode_window(num_steps, all_greedy, *self._dev_sched)
+        if rows_active:
+            toks, done, chunk_tok, _ = self._run_fused_window(num_steps, all_greedy, *self._dev_sched)
+            finished += self._complete_rows(done, chunk_tok)
+        else:
+            toks = self._decode_window(num_steps, all_greedy, *self._dev_sched)
         if self.async_readback:
             self._pending.append(("decode", self._readback(toks), active_launch, req_snapshot))
             return finished
         self._take_tokens(toks.cpu().numpy(), active_launch, req_snapshot, finished)
         return finished
 
+    def _complete_rows(self, done: List[int], chunk_tok) -> List[Request]:
+        """The chunk rows in ``done`` (their prompt completed in the window,
+        their slot armed on the device) give up their row and staging and
+        activate their slot, or finish at once on eos / ``max_new_tokens ==
+        1`` as an unchunked admission does.  With ``async_readback`` the
+        slots activate now and their first tokens are read one ``step()``
+        later."""
+        finished: List[Request] = []
+        if not done:
+            return finished
+        meta = []
+        for i, r in enumerate(done):
+            slot, req = self._rows[r]["slot"], self._rows[r]["req"]
+            self._rows[r] = None
+            self._reserved[slot] = False
+            meta.append((i, req, slot))
+        if self.async_readback:
+            for _, req, slot in meta:
+                self.active[slot] = True
+                self.slot_req[slot] = req
+                self._set_slot_sampling(slot, req)
+            self._pending.append(("chunk", self._readback(chunk_tok), meta, None))
+            return finished
+        toks_host = chunk_tok.cpu().numpy()
+        for i, req, slot in meta:
+            req.tokens.append(int(toks_host[i]))
+            self._activate_or_finish(slot, req)
+        finished += self._admit_finished
+        self._admit_finished = []
+        return finished
+
     def run_until_drained(self, max_steps: int = 100000, num_steps: int = 1) -> List[Request]:
         out = []
         for _ in range(max_steps):
             out.extend(self.step(num_steps))
-            if not self.queue and not self.active.any() and not self._pending:
+            if (not self.queue and not self.active.any() and not self._pending
+                    and all(rs is None for rs in self._rows)):
                 break
         return out
 

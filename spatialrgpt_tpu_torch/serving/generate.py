@@ -12,16 +12,18 @@ Two KV caches, as the reference's ``kv_quant`` chooses:
 - ``kv_quant=True``: int8, flat token-major per layer (``k_q, v_q`` (B, C,
   Hk*D) int8, ``k_s, v_s`` (B, C, Hk) f32, all layers stacked as one (L,
   ...) tensor each), the layout of the reference's serving engine and of
-  kernel K3.
+  kernel K3; with ``kv_bits=4`` the reference's opt-in int4 cache, the same
+  with two nibbles a byte (``k_q, v_q`` (B, C, Hk*D/2), ``quantize_kv4``),
+  read by K3's packed-int4 form.  The decode tells the two apart as the
+  reference does: a payload row of Hk*D/2 bytes is packed.
 
 Prefill writes the padded prompt into slots [0, S); row b's t-th new
 token writes its K/V at its own position ``prompt_lengths[b] + t - 1``, so
 the live keys of row b are exactly the slots ``<= lengths[b]``, K3's mask.
 That is the key set and the RoPE positions of the reference's two-region
 mask.  The cache is updated in place.  The per-row write and attention
-(``_per_slot_attention``, ``_per_slot_attention_quant``) are also the
-serving engine's decode step (``serving/engine.py``), where each row is a
-slot.
+(``_slot_attend``) are also the serving engine's decode step
+(``serving/engine.py``), where each row is a slot.
 
 ``attn_impl="onepass"`` runs the three kernels (K1 in the tower, K2 in
 prefill, K3 in int8-cache decode) on CUDA tensors; ``attn_impl="xla"``
@@ -52,9 +54,12 @@ import torch
 from spatialrgpt_tpu_torch.config import LlamaConfig, SpatialRGPTConfig
 from spatialrgpt_tpu_torch.models import llama, vlm
 from spatialrgpt_tpu_torch.ops.attention import decode_attention
-from spatialrgpt_tpu_torch.ops.decode_attention import decode_attention_int8_flat, decode_attention_int8_flat_plain
+from spatialrgpt_tpu_torch.ops.decode_attention import (
+    decode_attention_int4_flat, decode_attention_int4_flat_plain, decode_attention_int8_flat,
+    decode_attention_int8_flat_plain,
+)
 from spatialrgpt_tpu_torch.ops.layers import linear, qkv_proj
-from spatialrgpt_tpu_torch.ops.quant import quantize_kv
+from spatialrgpt_tpu_torch.ops.quant import quantize_kv, quantize_kv4
 from spatialrgpt_tpu_torch.parallel.context import SP_IMPLS, gather_sequence, seq_shard, sp_context
 from spatialrgpt_tpu_torch.parallel.mesh import gathered
 
@@ -67,9 +72,9 @@ class GenerateResult(NamedTuple):
 
 
 class QuantKVCache(NamedTuple):
-    """int8 KV cache, flat token-major, all layers stacked."""
+    """int8 (or packed int4) KV cache, flat token-major, all layers stacked."""
 
-    k_q: torch.Tensor  # (L, B, C, Hk*D) int8
+    k_q: torch.Tensor  # (L, B, C, Hk*D) int8, or (L, B, C, Hk*D/2) of packed int4
     k_s: torch.Tensor  # (L, B, C, Hk) f32
     v_q: torch.Tensor
     v_s: torch.Tensor
@@ -103,25 +108,27 @@ def _sample_token(
 
 
 def new_quant_cache(llm: llama.LlamaForCausalLM, cfg: LlamaConfig, batch: int, capacity: int,
-                    device) -> QuantKVCache:
-    """A zeroed int8 cache of ``batch`` rows and ``capacity`` positions for
-    the decoder ``llm`` (whose whole config is ``cfg``): the kv heads of
-    this rank's slice under tensor parallelism."""
+                    device, kv_bits: int = 8) -> QuantKVCache:
+    """A zeroed int8 (``kv_bits=4``: packed int4) cache of ``batch`` rows and
+    ``capacity`` positions for the decoder ``llm`` (whose whole config is
+    ``cfg``): the kv heads of this rank's slice under tensor parallelism."""
     lc = llama.rank_cfg(llm, cfg)
     L, Hk, D = lc.num_hidden_layers, lc.num_key_value_heads, lc.head_dim
+    F = Hk * D * kv_bits // 8
     return QuantKVCache(
-        torch.zeros((L, batch, capacity, Hk * D), dtype=torch.int8, device=device),
+        torch.zeros((L, batch, capacity, F), dtype=torch.int8, device=device),
         torch.zeros((L, batch, capacity, Hk), dtype=torch.float32, device=device),
-        torch.zeros((L, batch, capacity, Hk * D), dtype=torch.int8, device=device),
+        torch.zeros((L, batch, capacity, F), dtype=torch.int8, device=device),
         torch.zeros((L, batch, capacity, Hk), dtype=torch.float32, device=device),
     )
 
 
 def _prefill(model, cfg: SpatialRGPTConfig, inputs: vlm.VLMInputs, prompt_lengths, capacity: int, attn_impl: str,
-             kv_quant: bool):
+             kv_quant: bool, kv_bits: int = 8):
     """Spliced embeddings -> decoder over the padded prompt; returns the
-    first-token logits (B, V) and the cache (int8 with ``kv_quant``, else
-    in the activation dtype) with the prompt in slots [0, S).  A
+    first-token logits (B, V) and the cache (int8, or packed int4 with
+    ``kv_bits=4``, with ``kv_quant``, else in the activation dtype) with the
+    prompt in slots [0, S).  A
     sequence-parallel ``attn_impl`` runs this rank's chunk and gathers the
     hidden states and the K/V of the whole prompt."""
     sp = attn_impl in SP_IMPLS
@@ -132,17 +139,18 @@ def _prefill(model, cfg: SpatialRGPTConfig, inputs: vlm.VLMInputs, prompt_length
         embeds, pos, seg = (seq_shard(t, ctx) for t in (embeds, pos, seg))
     h, kv = llama.forward(
         model.llm, cfg.llm, inputs_embeds=embeds, position_ids=pos,
-        segment_ids=seg, attn_impl=attn_impl, collect_kv=True, kv_quant=kv_quant and not sp,
+        segment_ids=seg, attn_impl=attn_impl, collect_kv=True, kv_quant=kv_quant and not sp, kv_bits=kv_bits,
     )
     if sp:
         h = gather_sequence(h, ctx)
         kv = [(gather_sequence(k, ctx), gather_sequence(v, ctx)) for k, v in kv]
         if kv_quant:
-            kv = [(quantize_kv(k), quantize_kv(v)) for k, v in kv]
+            qfn = quantize_kv4 if kv_bits == 4 else quantize_kv
+            kv = [(qfn(k), qfn(v)) for k, v in kv]
     B, S = inputs.input_ids.shape
     dev = h.device
     if kv_quant:
-        cache = new_quant_cache(model.llm, cfg.llm, B, capacity, dev)
+        cache = new_quant_cache(model.llm, cfg.llm, B, capacity, dev, kv_bits)
         for li, ((kq, ks), (vq, vs)) in enumerate(kv):
             cache.k_q[li, :, :S] = kq.reshape(B, S, -1)
             cache.k_s[li, :, :S] = ks
@@ -158,42 +166,53 @@ def _prefill(model, cfg: SpatialRGPTConfig, inputs: vlm.VLMInputs, prompt_length
     return llama.logits(model.llm, last_h[:, None])[:, 0], cache
 
 
-def _per_slot_attention(x, attn, lc, rows, pos, cache: llama.KVCache, li: int) -> torch.Tensor:
-    """Decode attention of one new token per row, x (B, 1, H) at positions
-    ``pos`` (B,) int64, against layer ``li`` of a cache in the activation
-    dtype: one K/V row written per row b at ``pos[b]`` (an indexed store,
-    not a pass over the cache; ``rows`` is ``arange(B)``), then
-    ``decode_attention`` over the positions ``<= pos[b]``."""
-    Hq, Hk, D = lc.num_attention_heads, lc.num_key_value_heads, lc.head_dim
-    B = x.shape[0]
-    q, k, v = qkv_proj(x, attn, Hq, Hk, D)
-    q, k = llama.apply_rope(q, k, pos[:, None], lc)
-    cache.k[li, rows, pos] = k[:, 0].to(cache.k.dtype)
-    cache.v[li, rows, pos] = v[:, 0].to(cache.v.dtype)
-    out = decode_attention(q, cache.k[li], cache.v[li], pos + 1)
-    return linear(out.reshape(B, 1, Hq * D), attn.o_proj)
+def _slot_attend(q, k, v, rows, pos, lengths32, cache: Union[QuantKVCache, llama.KVCache], li: int,
+                 attn_impl: str) -> torch.Tensor:
+    """Decode attention of one new token per row against layer ``li`` of
+    either cache: q (B, Hq, D), k and v (B, Hk, D), all rotated, at
+    positions ``pos`` (B,) int64 (``lengths32`` the same as int32, in [0,
+    C)).  One K/V row is written per row b at ``pos[b]`` (an indexed store,
+    not a pass over the cache; ``rows`` is ``arange(B)``), then the row
+    attends to the positions ``<= pos[b]``; returns (B, Hq * D).
 
-
-def _per_slot_attention_quant(x, attn, lc, rows, pos, lengths32, cache: QuantKVCache, li: int,
-                              attn_impl: str) -> torch.Tensor:
-    """The same against layer ``li`` of the int8 cache: the new K/V
-    quantized per (row, head), written at ``pos[b]``, then K3 over the
-    positions ``<= lengths32[b]`` (the same positions as int32; in [0, C)):
-    the kernel with ``attn_impl="onepass"`` (its plain version on a CPU
-    tensor), its plain version with ``"xla"``."""
-    Hq, Hk, D = lc.num_attention_heads, lc.num_key_value_heads, lc.head_dim
-    B = x.shape[0]
-    q, k, v = qkv_proj(x, attn, Hq, Hk, D)
-    q, k = llama.apply_rope(q, k, pos[:, None], lc)
-    nk_q, nk_s = quantize_kv(k[:, 0])  # (B, Hk, D), (B, Hk)
-    nv_q, nv_s = quantize_kv(v[:, 0])
-    cache.k_q[li, rows, pos] = nk_q.reshape(B, Hk * D)
+    The activation-dtype cache: ``decode_attention`` (plain PyTorch, the
+    reference's ``_cached_attention``, which XLA runs there too).  The int8
+    cache: K/V quantized per (row, head), then K3, the kernel with
+    ``attn_impl="onepass"`` (its plain version on a CPU tensor), its plain
+    version with ``"xla"``.  A packed-int4 cache (payload rows of Hk*D/2
+    bytes, the reference's test at ``generate.py:349``) takes
+    ``quantize_kv4`` and K3's int4 form."""
+    B, Hq, D = q.shape
+    Hk = k.shape[1]
+    if not isinstance(cache, QuantKVCache):
+        cache.k[li, rows, pos] = k.to(cache.k.dtype)
+        cache.v[li, rows, pos] = v.to(cache.v.dtype)
+        return decode_attention(q[:, None], cache.k[li], cache.v[li], pos + 1).reshape(B, Hq * D)
+    packed4 = cache.k_q.shape[-1] * 2 == Hk * D
+    qfn = quantize_kv4 if packed4 else quantize_kv
+    nk_q, nk_s = qfn(k)  # (B, Hk, D or D/2), (B, Hk)
+    nv_q, nv_s = qfn(v)
+    cache.k_q[li, rows, pos] = nk_q.reshape(B, -1)
     cache.k_s[li, rows, pos] = nk_s
-    cache.v_q[li, rows, pos] = nv_q.reshape(B, Hk * D)
+    cache.v_q[li, rows, pos] = nv_q.reshape(B, -1)
     cache.v_s[li, rows, pos] = nv_s
-    attend = decode_attention_int8_flat if attn_impl == "onepass" else decode_attention_int8_flat_plain
-    out = attend(q[:, 0], cache.k_q[li], cache.k_s[li], cache.v_q[li], cache.v_s[li], lengths32, Hk)
-    return linear(out.reshape(B, 1, Hq * D), attn.o_proj)
+    if packed4:
+        attend = decode_attention_int4_flat if attn_impl == "onepass" else decode_attention_int4_flat_plain
+    else:
+        attend = decode_attention_int8_flat if attn_impl == "onepass" else decode_attention_int8_flat_plain
+    out = attend(q, cache.k_q[li], cache.k_s[li], cache.v_q[li], cache.v_s[li], lengths32, Hk)
+    return out.reshape(B, Hq * D)
+
+
+def _per_slot_attention(x, attn, lc, rows, pos, lengths32, cache: Union[QuantKVCache, llama.KVCache], li: int,
+                        attn_impl: str) -> torch.Tensor:
+    """A layer's decode attention of one new token per row, x (B, 1, H):
+    q/k/v, RoPE at ``pos``, ``_slot_attend``, the output projection."""
+    Hq, Hk, D = lc.num_attention_heads, lc.num_key_value_heads, lc.head_dim
+    q, k, v = qkv_proj(x, attn, Hq, Hk, D)
+    q, k = llama.apply_rope(q, k, pos[:, None], lc)
+    out = _slot_attend(q[:, 0], k[:, 0], v[:, 0], rows, pos, lengths32, cache, li, attn_impl)
+    return linear(out[:, None], attn.o_proj)
 
 
 def _decode_step(model, cfg: SpatialRGPTConfig, x, lengths, cache: Union[QuantKVCache, llama.KVCache],
@@ -208,14 +227,10 @@ def _decode_step(model, cfg: SpatialRGPTConfig, x, lengths, cache: Union[QuantKV
     rows = torch.arange(x.shape[0], device=x.device)
     pos = lengths.long()
     lengths32 = lengths.to(torch.int32)
-    quant = isinstance(cache, QuantKVCache)
     h = x
     for li, layer in enumerate(model.llm.model.layers):
-        hn = llama.norm(h, layer.input_layernorm)
-        if quant:
-            a = _per_slot_attention_quant(hn, layer.self_attn, lc, rows, pos, lengths32, cache, li, attn_impl)
-        else:
-            a = _per_slot_attention(hn, layer.self_attn, lc, rows, pos, cache, li)
+        a = _per_slot_attention(llama.norm(h, layer.input_layernorm), layer.self_attn, lc, rows, pos, lengths32,
+                                cache, li, attn_impl)
         h = h + llama.tp_sum(a, tp)
         h = h + llama.tp_sum(llama.ffn_block(llama.norm(h, layer.post_attention_layernorm), layer, lc)[0], tp)
     return llama.norm(h, model.llm.model.norm)
@@ -237,20 +252,29 @@ def generate(
     generator: Optional[torch.Generator] = None,
     attn_impl: str = "onepass",
     kv_quant: bool = False,  # the int8 KV cache (K3) instead of the activation-dtype cache
+    kv_bits: int = 8,  # with kv_quant: 8, or 4 (packed nibbles, lossy; the reference's opt-in)
 ) -> GenerateResult:
     """Multimodal generate over a right-padded prompt batch.  A row stops
     after emitting eos, a stop id, or the last token of a stop sequence;
     it then emits eos padding.  ``attn_impl`` "ring" / "ulysses" /
-    "hybrid": the sequence-parallel prefill, then the kernels' decode."""
+    "hybrid": the sequence-parallel prefill, then the kernels' decode.
+    ``kv_bits=4`` needs ``kv_quant`` and an even head dim (else
+    ``ValueError``)."""
     if attn_impl not in ("onepass", "xla") + SP_IMPLS:
         raise ValueError(f"unknown attention impl: {attn_impl}")
+    if kv_bits not in (8, 4):
+        raise ValueError(f"kv_bits must be 8 or 4, got {kv_bits}")
+    if kv_bits == 4 and not kv_quant:
+        raise ValueError("kv_bits=4 is the quantized cache's form: pass kv_quant=True")
+    if kv_bits == 4 and cfg.llm.head_dim % 2:
+        raise ValueError(f"kv_bits=4 packs two values a byte along the head dim, which is odd ({cfg.llm.head_dim})")
     with gathered(model):
         return _generate(model, cfg, inputs, prompt_lengths, max_new_tokens, temperature, top_p, eos_token_id,
-                         stop_token_ids, stop_sequences, generator, attn_impl, kv_quant)
+                         stop_token_ids, stop_sequences, generator, attn_impl, kv_quant, kv_bits)
 
 
 def _generate(model, cfg, inputs, prompt_lengths, max_new_tokens, temperature, top_p, eos_token_id, stop_token_ids,
-              stop_sequences, generator, attn_impl, kv_quant) -> GenerateResult:
+              stop_sequences, generator, attn_impl, kv_quant, kv_bits) -> GenerateResult:
     B, S = inputs.input_ids.shape
     dev = inputs.input_ids.device
     eos = cfg.llm.eos_token_id if eos_token_id is None else eos_token_id
@@ -262,7 +286,8 @@ def _generate(model, cfg, inputs, prompt_lengths, max_new_tokens, temperature, t
     def is_stop(tok):
         return (tok[:, None] == stops[None, :]).any(dim=-1)
 
-    first_logits, cache = _prefill(model, cfg, inputs, prompt_lengths, S + max_new_tokens, attn_impl, kv_quant)
+    first_logits, cache = _prefill(model, cfg, inputs, prompt_lengths, S + max_new_tokens, attn_impl, kv_quant,
+                                   kv_bits)
     logits = first_logits
     tok = _sample_token(logits, generator, temperature, top_p)
     tokens = torch.full((B, max_new_tokens), eos, dtype=torch.int64, device=dev)

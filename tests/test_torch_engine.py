@@ -515,8 +515,7 @@ def test_near_greedy_matches_greedy_in_mixed_pool(model):
 def test_unported_arguments_and_k3_shapes_raise(model):
     """A tensor-parallel mesh whose tp does not divide the kv heads raises
     the reference's ``ValueError`` (the mesh itself runs in
-    tests/test_torch_tp.py); the fused chunked prefill raises
-    ``NotImplementedError``; an unknown attention impl ``ValueError``; and
+    tests/test_torch_tp.py); an unknown attention impl ``ValueError``; and
     the shape rule an engine checks at construction on the card refuses a
     capacity whose scores overflow K3's shared memory at llama3-8b's heads."""
 
@@ -528,8 +527,6 @@ def test_unported_arguments_and_k3_shapes_raise(model):
 
     with pytest.raises(ValueError, match="must divide the kv-head count"):
         _engine(model, mesh=TP3())
-    with pytest.raises(NotImplementedError, match="chunked prefill"):
-        _engine(model, prefill_chunk=64)
     with pytest.raises(ValueError, match="attention impl"):
         _engine(model, attn_impl="pallas")
     from spatialrgpt_tpu_torch.ops.decode_attention import check_shape

@@ -283,6 +283,36 @@ def test_decode_kernel_matches_plain(cuda, B, C, Hq, Hk, D):
     _bf16_close(out, K3.decode_attention_int8_flat_plain(q, kq, ks, vq, vs, lengths, Hk))
 
 
+_DECODE_INT4_CASES = [
+    (64, 352, 32, 8, 128),  # generate(kv_bits=4) at the W8A8 serve's 64 rows: 64-byte head rows, 16-byte copies
+    (3, 17, 4, 2, 8),  # D 8: 4-byte head rows, one CTA
+    (2, 300, 6, 2, 24),  # n_rep 3, 12-byte head rows: 4-byte copies
+    (3, 352, 8, 8, 256),  # n_rep 1, D 256
+    (3, 4096, 32, 4, 128),  # n_rep 8, a cluster of 8
+    (2, 4096, 16, 2, 256),  # 512 positions a CTA, more than one slab of 448 packed rows
+]
+
+
+@pytest.mark.parametrize("B,C,Hq,Hk,D", _DECODE_INT4_CASES)
+def test_decode_int4_kernel_matches_plain(cuda, B, C, Hq, Hk, D):
+    """K3's packed-int4 form (two nibbles a byte along D, low first) against
+    its plain version (``unpack_kv4``, then the int8 form's arithmetic),
+    over every nibble value: rows with lengths 0 and C - 1, one launch
+    counted in ``launches_int4`` and none in the int8 form's count."""
+    rng = np.random.default_rng(C + D + 1)
+    q = _rand(rng, B, Hq, D, device=cuda)
+    kq = torch.tensor(rng.integers(-128, 128, (B, C, Hk * D // 2)).astype(np.int8), device=cuda)
+    vq = torch.tensor(rng.integers(-128, 128, (B, C, Hk * D // 2)).astype(np.int8), device=cuda)
+    ks = torch.tensor(rng.uniform(0.02, 0.2, (B, C, Hk)).astype(np.float32), device=cuda)
+    vs = torch.tensor(rng.uniform(0.02, 0.2, (B, C, Hk)).astype(np.float32), device=cuda)
+    lengths = torch.tensor(([0, C - 1] + list(rng.integers(0, C, B)))[:B], dtype=torch.int32, device=cuda)
+    before, before8 = K3.launches_int4, K3.launches
+    out = K3.decode_attention_int4_flat(q, kq, ks, vq, vs, lengths, Hk)
+    torch.cuda.synchronize()
+    assert (K3.launches_int4, K3.launches) == (before + 1, before8)
+    _bf16_close(out, K3.decode_attention_int4_flat_plain(q, kq, ks, vq, vs, lengths, Hk))
+
+
 # the serve cache's shape; scores spread over a few units (k_scale 0.03:
 # std ~2.2), v scales of 2^e (1 + 0.45 * 2^-7), which bf16 rounds down by
 # 0.35%, so the rounding of P * v_scale moves the outputs (most in the row

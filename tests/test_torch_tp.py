@@ -35,6 +35,7 @@ from spatialrgpt_tpu.models import llama as jllama
 from spatialrgpt_tpu.models import vlm as jvlm
 from spatialrgpt_tpu.ops.quant import quantize_llm
 from spatialrgpt_tpu.parallel import mesh as jmesh
+from spatialrgpt_tpu.serving import engine as jengine
 from spatialrgpt_tpu.serving.generate import generate as jgenerate
 from spatialrgpt_tpu_torch.constants import IMAGE_TOKEN_INDEX
 from spatialrgpt_tpu_torch.data.splice import expand_rows
@@ -138,6 +139,8 @@ def _groups(params, llms, root):
                                             kv_quant=True)),
             "tp_engine_bf16_cache": ("tp_engine", dict(params=tiny, cfg=CFG_T, requests=REQUESTS, max_new=MAX_NEW,
                                                        kv_quant=False)),
+            "tp_engine_chunked": ("tp_engine", dict(params=tiny, cfg=CFG_T, requests=REQUESTS, max_new=MAX_NEW,
+                                                    kv_quant=True, prefill_chunk=8)),
             "tp_run_bench": ("tp_run_bench", dict(params=params["bench"], cfg=BENCH_T, root=str(root / "bench"))),
             "pp2": pipe(pp_microbatches=2),
             "pp2_remat": pipe(pp_microbatches=2, remat=True),
@@ -251,6 +254,21 @@ def test_tp_engine_matches_single_process(groups, params, case, kv_quant):
         eng.submit(cases._inputs(arrays), plen, max_new_tokens=MAX_NEW)
     want = sorted((r.request_id, list(r.tokens)) for r in eng.run_until_drained(max_steps=100))
     for got in _case(groups, 2, case):
+        assert got == want
+
+
+def test_tp_chunked_engine_matches_jax(groups, params):
+    """The fused chunked prefill at tp = 2 (chunk 8, two rows, the int8
+    cache; each rank stages its kv head) gives the JAX chunked engine's
+    tokens on one device (which ``tests/test_serving_engine.py`` holds to
+    its tp = 2 engine)."""
+    eng = jengine.ServingEngine(jax.tree.map(jnp.asarray, params["tiny"]), CFG_J, num_slots=2, prompt_bucket=32,
+                                max_new_tokens=MAX_NEW, kv_quant=True, prefill_chunk=8, chunk_rows=2,
+                                dtype=jnp.float32)
+    for arrays, plen in REQUESTS:
+        eng.submit(to_vlm_inputs(*arrays), plen, max_new_tokens=MAX_NEW)
+    want = sorted((r.request_id, [int(t) for t in r.tokens]) for r in eng.run_until_drained(max_steps=100))
+    for got in _case(groups, 2, "tp_engine_chunked"):
         assert got == want
 
 

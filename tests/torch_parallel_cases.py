@@ -213,14 +213,15 @@ def tp_moe_logits(llm_sd, cfg_kw, ids):
         return _np(llama.forward_logits(model, cfg, input_ids=ids, position_ids=pos))
 
 
-def tp_engine(params, cfg, requests, max_new: int, kv_quant: bool):
-    """The ``ServingEngine`` with a tp mesh over the whole group: tokens by
-    request, greedy."""
+def tp_engine(params, cfg, requests, max_new: int, kv_quant: bool, prefill_chunk: int = 0):
+    """The ``ServingEngine`` with a tp mesh over the whole group (with
+    ``prefill_chunk``, the fused chunked prefill: two rows in flight, their
+    staging holding this rank's kv heads): tokens by request, greedy."""
     from spatialrgpt_tpu_torch.serving.engine import ServingEngine
 
     eng = ServingEngine(_model(params, cfg), cfg, num_slots=2, prompt_bucket=32, max_new_tokens=max_new,
-                        attn_impl="xla", kv_quant=kv_quant, dtype=torch.float32,
-                        mesh=mesh_lib.make_mesh(tp=dist.get_world_size()))
+                        attn_impl="xla", kv_quant=kv_quant, dtype=torch.float32, prefill_chunk=prefill_chunk,
+                        chunk_rows=2, mesh=mesh_lib.make_mesh(tp=dist.get_world_size()))
     for arrays, plen in requests:
         eng.submit(_inputs(arrays), plen, max_new_tokens=max_new)
     return sorted((r.request_id, list(r.tokens)) for r in eng.run_until_drained(max_steps=100))
