@@ -8,8 +8,8 @@ Phases, each printed as one JSON line:
 1. device  -- the card, its power limit, TF32 switched off for every
    comparison (float32 matmuls and cuDNN convolutions in full float32).
 2. build   -- nvcc builds every kernel of ``spatialrgpt_tpu_torch/csrc``
-   (one nvcc per source, all at once); ptxas's registers and spill bytes
-   per kernel, from the build's log.
+   (one nvcc per source, all at once); ptxas's registers, spill bytes and
+   static shared memory per kernel, from the build's log.
 3. kernel  -- each kernel against its plain PyTorch version at its main
    path's shapes, in bf16, with the max abs error and its ratio to the
    per-element bound of ``ops/_checks.py::bf16_err_over_bound`` (4 bf16
@@ -22,7 +22,12 @@ Phases, each printed as one JSON line:
    on a 64 x 64 grid, H16 D80, f32 rel-pos bias; also at B1, the synth
    path's one image a call) and K6 at SAM's and
    Depth-Anything's LayerNorm rows, K7-K9 (the quantized projections) at
-   the W8A8 serve's shapes: K7 over the prefill's 20,480 rows, K8 at the
+   the W8A8 serve's shapes: K7 over the prefill's 20,480 rows (at 4096
+   and at down's 14,336), a decode step's 64 rows and the engine's 32
+   slots, and the tower's 93,312 rows (at 1152 and 4304), each row naming
+   the form ``act_quant_form`` picks and timing the two-pass loop form
+   beside it (``loop_ms``; the decode rows also an empty kernel,
+   ``empty_kernel_ms``), K8 at the
    prefill's gate and SigLIP's fc1 over the tower's 93,312 rows (ragged N
    4304 and K 1152; its large form) and at the decode's lm_head and gate
    (its decode form), K9 at the decode's down and k/v projections (its
@@ -30,7 +35,8 @@ Phases, each printed as one JSON line:
    k / v over 16,384 rows with the LoRA side branch's f32 addend, a
    4096-row chunk of its lm_head and an engine admission's down projection
    (1536 rows; each row names the form), K10 over the W8A8 align step's
-   gate / up output gradient (16,384 x 14,336) and K11 at its gate / up
+   gate / up output gradient (16,384 x 14,336), q / wo / down's (x 4096)
+   and Mixtral's router's (x 8), with ``loop_ms``, and K11 at its gate / up
    and down dx (both launches; the transpose alone in ``transpose_ms``)
    (K7, K8, K10 and K11 must equal their plain versions bit for bit).  K1, K2, K5 and K4's three kernels run
    on the TMA + wgmma loops of ``csrc/attention_sm90.cuh`` (K2 and K4's
@@ -277,7 +283,9 @@ Phases, each printed as one JSON line:
    one micro step with a sharded checkpoint, then resumed from it for one
    more.  Launch counts of every run from the config.  The kernel phase
    adds (d): K2, K3, K4 (all three), K7's split form (a fan-in slice
-   quantized by the whole rows' scales) and K8 / K9 at the shapes a rank
+   quantized by the whole rows' scales; at the prefill's down slice and a
+   decode step's wo slice, its passes also timed apart: ``pass1_ms``,
+   ``pass2_ms``) and K8 / K9 at the shapes a rank
    of a degree-4 run hands them (llama3-8b's Hq 8, Hk 2, intermediate
    3584, a quarter of the vocabulary; K4 also at sp 8 and at one row of
    16,384 positions).
@@ -451,7 +459,7 @@ def phase_device(torch):
 
 def ptxas_usage(log: str) -> dict:
     """Per compiled kernel (mangled name) in ptxas's -v output: [registers,
-    spill store bytes, spill load bytes]."""
+    spill store bytes, spill load bytes, static shared memory bytes]."""
     import re
 
     usage, name = {}, None
@@ -459,13 +467,16 @@ def ptxas_usage(log: str) -> dict:
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             name = m.group(1)
-            usage[name] = [None, 0, 0]
+            usage[name] = [None, 0, 0, 0]
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
-            usage[name][1:] = [int(m.group(1)), int(m.group(2))]
+            usage[name][1:3] = [int(m.group(1)), int(m.group(2))]
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             usage[name][0] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m and name:
+            usage[name][3] = int(m.group(1))
     return usage
 
 
@@ -478,7 +489,7 @@ def phase_build():
     emit({
         "phase": "build", "ok": True, "seconds": round(time.perf_counter() - t0, 3),
         "library": os.path.relpath(_build.build_info["path"], ROOT),
-        "ptxas_registers_spill_store_load_bytes": ptxas_usage(open(log_path).read()) if os.path.exists(log_path) else {},
+        "ptxas_registers_spill_store_load_smem_bytes": ptxas_usage(open(log_path).read()) if os.path.exists(log_path) else {},
     })
 
 
@@ -768,6 +779,60 @@ PARALLEL_DEGREE = 4
 PARALLEL_LONG_SEQ = 16384
 
 
+def aq_bound(M: int, K: int, dy: bool = False, passes: str = "both") -> dict:
+    """K7's (``dy``: K10's, with its column scale) bound: bf16 rows read
+    once, int8 rows and an f32 scale a row written once; ``passes`` "max"
+    (the split form's pass 1: the rows read, a max a row written) or
+    "given" (its pass 2: the rows and a max a row read, the int8 rows and
+    the scales written); a few f32 operations an element."""
+    read = 2 * M * K + (4 * K if dy else 0)
+    if passes == "max":
+        return bound(2 * M * K, read + 4 * M, PEAK_F32_FLOPS)
+    return bound((8 if dy else 6) * M * K, read + M * K + 4 * M + (4 * M if passes == "given" else 0), PEAK_F32_FLOPS)
+
+
+def aq_shape(K789, M: int, K: int, dy: bool = False, **more) -> dict:
+    """A K7 / K10 row's shape, with the form the wrapper picks for it and
+    its launch numbers (csrc/act_quant.cu::srgpt_act_quant's)."""
+    form, warps, count, each = K789.act_quant_form(M, K, dy)
+    name = {K789.AQ_NARROW: "narrow", K789.AQ_ROWS: "rows", K789.AQ_LOOP: "loop", K789.AQ_RING: "ring"}[form]
+    return {"M": M, "K": K, "form": name, "launch": {"warps": warps, "count": count, "each": each}, **more}
+
+
+def aq_side_timings(torch, K789, x, col_scale=None, others=None, empty_kernel: bool = False) -> dict:
+    """Figures timed beside a K7 / K10 row, each on buffers made here: the
+    two-pass loop form at the same shape (``loop_ms``: where the wrapper
+    picks another form, the one it is held against); with
+    ``empty_kernel``, an empty kernel (the floor of a launch); for the
+    split form (``others``: the other slices' row maxima, reduced in by a
+    maximum as the all-reduce MAX would) its pass 1 alone, its pass 2 alone
+    (from the maxima: each call writes the scales over them, the same work
+    at every call) and the loop form's pair."""
+    from spatialrgpt_tpu_torch.ops import _build
+
+    M, K = x.shape
+    loop = K789.AQ_LOOP_FORM
+    xq = torch.empty((M, K789._pad16(K) if col_scale is not None else K), dtype=torch.int8, device=x.device)
+    amax = x.float().abs().amax(dim=1)
+    side = {}
+    if empty_kernel:  # on the stream current at the call (a graph captures on its own)
+        side["empty_kernel_ms"] = lambda: _build.check(_build.lib().srgpt_empty_kernel(_build.stream_ptr(x)),
+                                                       "empty_kernel")
+    if others is None:
+        side["loop_ms"] = lambda: K789.act_quant_launch(x, col_scale, xq, amax, form=loop)
+        return side
+
+    def loop_pair():
+        K789.act_quant_launch(x, None, None, amax, K789.AQ_MAX, loop)
+        torch.maximum(amax, others, out=amax)
+        K789.act_quant_launch(x, None, xq, amax, K789.AQ_GIVEN_MAX, loop)
+
+    side["pass1_ms"] = lambda: K789.act_quant_launch(x, None, None, amax, K789.AQ_MAX)
+    side["pass2_ms"] = lambda: K789.act_quant_launch(x, None, xq, amax, K789.AQ_GIVEN_MAX)
+    side["loop_ms"] = loop_pair
+    return side
+
+
 def parallel_kernel_cases(torch, rn, i8, scales, causal_segment_mask):
     """The kernel phase's cases at the shapes a rank of a degree-4 run
     hands the kernels (tensor-parallel prefill and decode, Ulysses' local
@@ -877,13 +942,32 @@ def parallel_kernel_cases(torch, rn, i8, scales, causal_segment_mask):
     def reduce7(amax, others=others7):
         torch.maximum(amax, others, out=amax)
 
+    Ks = I // n
     out.append(((
         "act_quant_int8", "spatialrgpt_tpu_torch/csrc/act_quant.cu", "spatialrgpt_tpu/ops/layers.py:30 (XLA)",
-        {"M": m_pf, "K": I // n, "path": f"parallel: tp={n} prefill down (fan-in slice), split form"},
+        aq_shape(K789, m_pf, Ks, path=f"parallel: tp={n} prefill down (fan-in slice), split form",
+                 pass1_bound_ms=aq_bound(m_pf, Ks, passes="max")["bound_ms"],
+                 pass2_bound_ms=aq_bound(m_pf, Ks, passes="given")["bound_ms"]),
         lambda: K789.act_quant_int8(mine7, reduce7), lambda: K789.act_quant_int8_plain(mine7, reduce7),
-        (20, 2, "events"), bound(6 * m_pf * (I // n), nbytes(mine7) + m_pf * (I // n) + 3 * 4 * m_pf, PEAK_F32_FLOPS),
+        (20, 2, "events"), bound(6 * m_pf * Ks, nbytes(mine7) + m_pf * Ks + 3 * 4 * m_pf, PEAK_F32_FLOPS),
         ("no single call quantizes rows to int8 with a scale per row", None),
-    ), None))
+    ), None, aq_side_timings(torch, K789, mine7, others=others7)))
+    # the same on a rank's fan-in slice of wo in a decode step (SERVE_ROWS rows)
+    x7d = rn(SERVE_ROWS, H)
+    mine7d, others7d = x7d[:, : H // n].contiguous(), x7d[:, H // n :].float().abs().amax(dim=1)
+    del x7d
+    Kd = H // n
+    out.append(((
+        "act_quant_int8", "spatialrgpt_tpu_torch/csrc/act_quant.cu", "spatialrgpt_tpu/ops/layers.py:30 (XLA)",
+        aq_shape(K789, SERVE_ROWS, Kd, path=f"parallel: tp={n} decode wo (fan-in slice), split form",
+                 pass1_bound_ms=aq_bound(SERVE_ROWS, Kd, passes="max")["bound_ms"],
+                 pass2_bound_ms=aq_bound(SERVE_ROWS, Kd, passes="given")["bound_ms"]),
+        lambda: K789.act_quant_int8(mine7d, lambda a: torch.maximum(a, others7d, out=a)),
+        lambda: K789.act_quant_int8_plain(mine7d, lambda a: torch.maximum(a, others7d, out=a)),
+        (200, 20, "graph"), bound(6 * SERVE_ROWS * Kd, nbytes(mine7d) + SERVE_ROWS * Kd + 3 * 4 * SERVE_ROWS,
+                                  PEAK_F32_FLOPS),
+        ("no single call quantizes rows to int8 with a scale per row", None),
+    ), None, aq_side_timings(torch, K789, mine7d, others=others7d, empty_kernel=True)))
     for label, M, N, K in (("prefill q", m_pf, H // n, H), ("prefill k / v", m_pf, kvd // n, H),
                            ("prefill gate / up", m_pf, I // n, H), ("prefill wo (fan-in slice)", m_pf, H, H // n),
                            ("prefill down (fan-in slice)", m_pf, H, I // n),
@@ -1251,15 +1335,25 @@ def phase_kernels(torch):
     def scales(n, k):  # fast_init_quantized's weight scale
         return torch.full((n,), k**-0.5 * 3.0 / 127.0, device=dev)
 
-    x7 = rn(m_pf, Hd)
-    cases.append((
-        "act_quant_int8", "spatialrgpt_tpu_torch/csrc/act_quant.cu", "spatialrgpt_tpu/ops/layers.py:30 (XLA)",
-        {"M": m_pf, "K": Hd}, lambda: K789.act_quant_int8(x7), lambda: K789.act_quant_int8_plain(x7),
-        (50, 5, "graph"), bound(6 * m_pf * Hd, nbytes(x7) + m_pf * Hd + 4 * m_pf, PEAK_F32_FLOPS),
-        ("no single call quantizes rows to int8 with a scale per row", None),
-    ))
     vcfg = lcfg.vision
     m_tower = SERVE_ROWS * 2 * (vcfg.image_size // vcfg.patch_size) ** 2  # RGB + depth images of 729 patches
+    # K7 over the prefill's rows (its q / wo / gate / up input, then down's),
+    # a decode step's rows (the W8A8 serve's, the engine's slots: the
+    # decode's K7 launches), and the tower's (SigLIP at SERVE_ROWS requests)
+    for label, M, K, timing in (("prefill q / wo / gate / up", m_pf, Hd, (50, 5, "graph")),
+                                ("decode q / wo / gate / up, lm_head", SERVE_ROWS, Hd, (200, 20, "graph")),
+                                ("engine slots' decode", ENGINE_SLOTS, Hd, (200, 20, "graph")),
+                                ("prefill down", m_pf, Id, (20, 2, "events")),
+                                ("siglip q / o / fc1", m_tower, vcfg.hidden_size, (20, 2, "events")),
+                                ("siglip fc2", m_tower, vcfg.intermediate_size, (10, 1, "events"))):
+        x7 = rn(M, K)
+        side_timings[len(cases)] = aq_side_timings(torch, K789, x7, empty_kernel=M < 2048)
+        cases.append((
+            "act_quant_int8", "spatialrgpt_tpu_torch/csrc/act_quant.cu", "spatialrgpt_tpu/ops/layers.py:30 (XLA)",
+            aq_shape(K789, M, K, projection=label), lambda x=x7: K789.act_quant_int8(x),
+            lambda x=x7: K789.act_quant_int8_plain(x), timing, aq_bound(M, K),
+            ("no single call quantizes rows to int8 with a scale per row", None),
+        ))
     gemma, mixtral = preset("gemma-7b").llm, preset("mixtral-8x7b").llm
     m_fam = N_ROWS * PAD_BUCKET  # the families path's prefill rows
     for label, M, N, K, (iters, plain_iters, how) in (("prefill gate", m_pf, Id, Hd, (20, 2, "events")),
@@ -1315,28 +1409,22 @@ def phase_kernels(torch):
     # SRGPT_TRAIN_BENCH_QUANT=2) over its 4 x 4096 rows: K10 over the gate /
     # up output gradient (the widest), K11 for gate / up (14,336 -> 4096) and
     # for down (4096 -> 14,336)
-    dy10 = (torch.randn(m_train, Id, generator=g, device=dev) * 1e-3).to(torch.bfloat16)
-    s10 = scales(Id, Hd)
-    cases.append((
-        "act_quant_dy_int8", "spatialrgpt_tpu_torch/csrc/act_quant.cu", "spatialrgpt_tpu/ops/layers.py:70 (XLA)",
-        {"M": m_train, "N": Id}, lambda: K789.act_quant_dy_int8(dy10, s10),
-        lambda: K789.act_quant_dy_int8_plain(dy10, s10), (20, 2, "events"),
-        bound(8 * m_train * Id, nbytes(dy10, s10) + m_train * Id + 4 * m_train, PEAK_F32_FLOPS),
-        ("no single call quantizes rows to int8 with a scale per row", None),
-    ))
-    # K10 at Mixtral's router (N = 8): its output gradient over the same rows
+    # K10 over the gate / up output gradient (N 14,336), then q / wo / down's
+    # (N 4096), and Mixtral's router's (N 8) over the same rows
     mix = preset("mixtral-8x7b").llm
-    dy10r = (torch.randn(m_train, mix.num_experts, generator=g, device=dev) * 1e-3).to(torch.bfloat16)
-    s10r = scales(mix.num_experts, mix.hidden_size)
-    cases.append((
-        "act_quant_dy_int8", "spatialrgpt_tpu_torch/csrc/act_quant.cu", "spatialrgpt_tpu/ops/layers.py:70 (XLA)",
-        {"M": m_train, "N": mix.num_experts, "path": "families_train: mixtral-8x7b's router"},
-        lambda: K789.act_quant_dy_int8(dy10r, s10r), lambda: K789.act_quant_dy_int8_plain(dy10r, s10r),
-        (50, 5, "graph"),
-        bound(8 * m_train * mix.num_experts, nbytes(dy10r, s10r) + m_train * mix.num_experts + 4 * m_train,
-              PEAK_F32_FLOPS),
-        ("no single call quantizes rows to int8 with a scale per row", None),
-    ))
+    for label, N, K, timing in (("gate / up dy", Id, Hd, (20, 2, "events")),
+                                ("q / wo / down dy", Hd, Id, (20, 2, "events")),
+                                ("families_train: mixtral-8x7b's router dy", mix.num_experts, mix.hidden_size,
+                                 (50, 5, "graph"))):
+        dy10 = (torch.randn(m_train, N, generator=g, device=dev) * 1e-3).to(torch.bfloat16)
+        s10 = scales(N, K)
+        side_timings[len(cases)] = aq_side_timings(torch, K789, dy10, s10)
+        cases.append((
+            "act_quant_dy_int8", "spatialrgpt_tpu_torch/csrc/act_quant.cu", "spatialrgpt_tpu/ops/layers.py:70 (XLA)",
+            aq_shape(K789, m_train, N, True, projection=label), lambda d=dy10, s=s10: K789.act_quant_dy_int8(d, s),
+            lambda d=dy10, s=s10: K789.act_quant_dy_int8_plain(d, s), timing, aq_bound(m_train, N, dy=True),
+            ("no single call quantizes rows to int8 with a scale per row", None),
+        ))
     for label, N, K in (("gate / up dx", Id, Hd), ("down dx", Hd, Id),
                         ("families_train: mixtral-8x7b router dx (contracts over its 8 rows)", mix.num_experts,
                          mix.hidden_size)):
@@ -1353,9 +1441,11 @@ def phase_kernels(torch):
             dx_int_mm_library(torch, dyq11, q11),
         ))
 
-    for case, per_sample in parallel_kernel_cases(torch, rn, i8, scales, causal_segment_mask):
+    for case, per_sample, *side in parallel_kernel_cases(torch, rn, i8, scales, causal_segment_mask):
         if per_sample is not None:
             per_sample_case[len(cases)] = per_sample
+        if side:
+            side_timings[len(cases)] = side[0]
         cases.append(case)
 
     rows, shapes = [], []
@@ -1633,6 +1723,19 @@ def quant_phase_counts(cfg, rows: int, bucket: int, decode_rows: int, fused: boo
     prefill = add_counts(tower_counts(cfg, rows, fused), times(L, decoder_layer_counts(cfg, rows * bucket, fused)),
                          lm_head_counts(cfg, rows))  # the head at the last position of every row
     return prefill, step
+
+
+def k7_launch_split(cfg, rows: int, bucket: int, max_new: int) -> dict:
+    """K7's launches in one W8A8 ``generate`` (``quant_expected_counts``)
+    by the rows each quantizes: the decode steps', the prefill's (its
+    decoder layers, and its lm_head at the rows' last positions) and the
+    tower's."""
+    v = cfg.vision
+    prefill, step = quant_phase_counts(cfg, rows, bucket, rows)
+    tower = tower_counts(cfg, rows)["act_quant_int8"]
+    return {f"decode: {rows} rows": (max_new - 1) * step["act_quant_int8"],
+            f"prefill: {rows * bucket} rows (its lm_head: {rows})": prefill["act_quant_int8"] - tower,
+            f"tower: {2 * rows * (v.image_size // v.patch_size) ** 2} rows": tower}
 
 
 def recomputed_layer_counts(cfg, m: int) -> dict:
@@ -2005,6 +2108,7 @@ def phase_serve_w8a8(torch, nvidia_smi: str, profile_dir=None) -> dict:
     init_s = time.perf_counter() - t0
     want = serve_counts(cfg, SERVE_ROWS, PAD_BUCKET, MAX_NEW, quantized=True)
     res, counts, figures, run = serve_run(torch, cfg, model, SERVE_ROWS)
+    k7_by_rows = k7_launch_split(cfg, SERVE_ROWS, PAD_BUCKET, MAX_NEW)
     if profile_dir:
         profile_run(torch, lambda: run(1), profile_dir, "serve_w8a8_ttft")
         profile_run(torch, lambda: run(MAX_NEW), profile_dir, "serve_w8a8_generate")
@@ -2038,6 +2142,7 @@ def phase_serve_w8a8(torch, nvidia_smi: str, profile_dir=None) -> dict:
         "tokens_in_vocab": bool(((res.tokens >= 0) & (res.tokens < vocab)).all()),
         "logits_finite": bool(torch.isfinite(res.first_logits).all() and torch.isfinite(res.last_logits).all()),
         "launch_counts": counts == want,
+        "k7_launch_split_sums_to_the_count": sum(k7_by_rows.values()) == counts["act_quant_int8"],
         "first_logits_bit_equal_to_plain_projections": projections_bit_equal,
         **{f"attention_bf16_{k}": v for k, v in attn_checks.items()},
         "decode_attention_kernel_at_serve_shape": k3_ratio <= 1.0,
@@ -2048,7 +2153,7 @@ def phase_serve_w8a8(torch, nvidia_smi: str, profile_dir=None) -> dict:
           "model": "llama3-8b (32 layers, full width) + siglip-so400m (26 of 27 layers), W8A8 llm and vision "
                    "tower (int8 weights, int8 per-token activations), int8 KV, random from seed 0",
           "rows": SERVE_ROWS, "prompt_bucket": PAD_BUCKET, "max_new_tokens": MAX_NEW,
-          "launches": counts, "launches_expected": want,
+          "launches": counts, "launches_expected": want, "act_quant_int8_launches_by_rows": k7_by_rows,
           "w8a8_vs_plain_projections_same_attention": vs_proj_plain,
           "w8a8_vs_whole_plain_route": vs_all_plain,
           "attention_bf16_init_random_kernel_vs_plain": vs_attn_plain,

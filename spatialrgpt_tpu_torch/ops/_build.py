@@ -46,10 +46,8 @@ _SIGNATURES = {
     "srgpt_flash_bwd_dq": [_P] * 8 + [_I] * 5 + [_LL] * 12 + [_I, _F, _P],
     "srgpt_grid_bias_attention": [_P] * 6 + [_I] * 6 + [_LL] * 12 + [_F, _P],
     "srgpt_layer_norm": [_P] * 4 + [_LL, _I, _F, _I, _P],
-    "srgpt_act_quant": [_P, _P, _P, _LL, _I, _P],
-    "srgpt_act_absmax": [_P, _P, _LL, _I, _P],
-    "srgpt_act_quant_given_max": [_P, _P, _P, _LL, _I, _P],
-    "srgpt_act_quant_dy": [_P] * 4 + [_LL, _I, _LL, _P],
+    "srgpt_act_quant": [_P] * 4 + [_LL, _I, _LL] + [_I] * 5 + [_P],
+    "srgpt_empty_kernel": [_P],
     "srgpt_w8a8_gemm": [_P] * 5 + [_I, _P, _P] + [_I] * 4 + [_P],
     "srgpt_w8_gemm": [_P] * 4 + [_I, _P, _P] + [_I] * 4 + [_P],
     "srgpt_int8_dx_gemm": [_P, _LL] + [_P] * 4 + [_I] * 3 + [_P],

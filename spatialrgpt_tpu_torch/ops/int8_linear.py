@@ -11,7 +11,10 @@ weight at every call.
 - K7 ``act_quant_int8`` (``csrc/act_quant.cu``): per-token int8
   quantization of the activations, ``_w8a8_dot``'s prologue.  Its split
   form (``reduce_max``) quantizes a tensor-parallel fan-in slice by the
-  whole rows' scales: two launches, one count.
+  whole rows' scales: two launches, one count.  K7 and K10 take the form
+  of ``act_quant_form``: each row read once, held in registers (a CTA a
+  row) or in a ring of shared-memory stages filled by TMA; rows of a few
+  vectors several to a warp; the two-pass loop where neither holds a row.
 - K8 ``w8a8_gemm`` (``csrc/int8_gemm.cu``): int8 x int8 -> int32, then
   ``f32(acc) * (ascale * scale)``, the f32 bias and one cast.  At most
   ``DECODE_MAX_M`` rows it runs the decode form (the weight as wgmma's A,
@@ -73,6 +76,32 @@ W8_DECODE_MAX_M = 512
 # the decode form's grid: 128-channel tiles in y and 64-row tiles in z, at
 # most 65,535 of each
 DECODE_MAX_N, DECODE_MAX_ROWS = 65535 * 128, 65535 * 64
+# K7's and K10's forms (csrc/act_quant.cu::AqForm) and passes (AqPass)
+AQ_NARROW, AQ_ROWS, AQ_LOOP, AQ_RING = 0, 1, 2, 3
+AQ_BOTH, AQ_MAX, AQ_GIVEN_MAX = 0, 1, 2
+AQ_LOOP_FORM = (AQ_LOOP, 1, 128, 1)
+# the narrow form takes rows of at most AQ_NARROW_VECS 16-byte vectors; the
+# rows form rows that one CTA of at most AQ_ROW_THREADS threads holds, each
+# thread one of AQ_VPT vector counts; the ring form rows of which two
+# stages fit the H100's 227 KB of shared memory, in row groups of warps
+# that give each thread at most about AQ_RING_VECS vectors (K10's scales
+# double a vector's loads), at most AQ_RING_THREADS threads and
+# AQ_RING_GROUPS groups a CTA
+AQ_NARROW_VECS, AQ_ROW_THREADS, AQ_VPT = 32, 256, (1, 2, 4, 8)
+AQ_RING_VECS = {False: 14, True: 4}
+AQ_RING_THREADS, AQ_RING_GROUPS, AQ_RING_STAGES, AQ_SMEM = 512, 8, 2, 232448
+# K7 over more than AQ_FEW_ROWS rows of more than AQ_K7_ROWS_VECS vectors
+# takes the ring form, every other call the rows form, where both hold a
+# row; K7 over more than AQ_MANY_ROWS rows takes rows-form CTAs of at most
+# AQ_MANY_THREADS threads where 4 vectors a thread or fewer do (more rows
+# in flight on an SM).  scripts/bench_act_quant.py on the H100: the ring
+# 0.3093 ms against the rows form's 0.3166 at the prefill's 20,480 x
+# 14,336, but for K10 0.3352 against 0.2886 at 16,384 x 14,336; at
+# 20,480 x 4096 128 threads of 4 vectors 0.0875 against 256 of 2's 0.0929,
+# at SigLIP's 93,312 x 1152 96 of 2 0.1230 against the ring's 0.1353; at
+# 1024 rows 256 of 2 0.0057 against 128 of 4's 0.0062, at the families'
+# 2560 rows 0.0115 against 0.0116 (0.0113 against 0.0133 in another run)
+AQ_FEW_ROWS, AQ_K7_ROWS_VECS, AQ_MANY_ROWS, AQ_MANY_THREADS = 256, 1024, 4096, 128
 
 
 # ---------------------------------------------------------------------------
@@ -84,6 +113,58 @@ def w8_gemm_form(M: int) -> int:
     """K9's form at M rows: ``FORM_DECODE`` up to ``W8_DECODE_MAX_M``,
     ``FORM_LARGE`` above."""
     return FORM_DECODE if M <= W8_DECODE_MAX_M else FORM_LARGE
+
+
+def _ring_smem(K: int, groups: int, stages: int) -> int:
+    """csrc/act_quant.cu::aq_ring_smem: the stages' rows (each rounded up
+    to 128 bytes) and their mbarriers, and 16 floats a group."""
+    return groups * stages * (-(-2 * K // 128) * 128 + 8) + groups * 16 * 4
+
+
+def act_quant_ring(K: int, dy: bool = False) -> Optional[Tuple[int, int, int, int]]:
+    """The ring form's launch for rows of K values: (AQ_RING, warps a row
+    group, row groups a CTA, stages), or None where two stages of one row
+    do not fit shared memory."""
+    warps = min(16, 1 << (-(-(K // 8) // (32 * AQ_RING_VECS[dy])) - 1).bit_length())
+    groups = min(AQ_RING_GROUPS, AQ_RING_THREADS // (32 * warps))
+    while groups > 1 and _ring_smem(K, groups, AQ_RING_STAGES) > AQ_SMEM:
+        groups //= 2
+    if _ring_smem(K, groups, AQ_RING_STAGES) > AQ_SMEM:
+        return None
+    return AQ_RING, warps, groups, AQ_RING_STAGES
+
+
+def act_quant_rows(K: int, threads: int = AQ_ROW_THREADS) -> Optional[Tuple[int, int, int, int]]:
+    """The rows form's launch for rows of K values: (AQ_ROWS, 1, threads,
+    vectors a thread), the fewest vectors a thread that a CTA of at most
+    ``threads`` threads holds, or None where none does."""
+    vecs = K // 8
+    vpt = next((v for v in AQ_VPT if vecs <= threads * v), None)
+    return None if vpt is None else (AQ_ROWS, 1, -(-vecs // (32 * vpt)) * 32, vpt)
+
+
+def act_quant_form(M: int, K: int, dy: bool = False) -> Tuple[int, int, int, int]:
+    """K7's (``dy``: K10's) launch over M rows of K values: (form, warps,
+    count, each), csrc/act_quant.cu::srgpt_act_quant's.  Rows of at most
+    ``AQ_NARROW_VECS`` 16-byte vectors: the narrow form (each: lanes a
+    row).  K7 over more than ``AQ_FEW_ROWS`` rows of more than
+    ``AQ_K7_ROWS_VECS`` vectors: the ring form (``act_quant_ring``) where
+    it holds the row; every other call the rows form (``act_quant_rows``;
+    K7 over more than ``AQ_MANY_ROWS`` rows in CTAs of at most
+    ``AQ_MANY_THREADS`` where 4 vectors a thread do), then the ring form
+    where one CTA does not hold the row; the loop form where neither
+    does."""
+    vecs = K // 8
+    if vecs <= AQ_NARROW_VECS:
+        return AQ_NARROW, 1, AQ_ROW_THREADS, 1 << (vecs - 1).bit_length()
+    if not dy and M > AQ_FEW_ROWS and vecs > AQ_K7_ROWS_VECS:
+        return act_quant_ring(K) or act_quant_rows(K) or AQ_LOOP_FORM
+    rows = act_quant_rows(K)
+    if not dy and M > AQ_MANY_ROWS:
+        narrow_ctas = act_quant_rows(K, AQ_MANY_THREADS)
+        if narrow_ctas is not None and narrow_ctas[3] <= 4:
+            rows = narrow_ctas
+    return rows or act_quant_ring(K, dy) or AQ_LOOP_FORM
 
 
 def _pad16(n: int) -> int:
@@ -208,6 +289,20 @@ def _bias_kind(name: str, bias: Optional[torch.Tensor], N: int) -> int:
     return 1 if bias.dtype == torch.bfloat16 else 2
 
 
+def act_quant_launch(x: torch.Tensor, col_scale: Optional[torch.Tensor], xq: Optional[torch.Tensor],
+                     ascale: torch.Tensor, pass_: int = AQ_BOTH, form: Optional[Tuple[int, int, int, int]] = None) -> None:
+    """One launch of K7 (``col_scale`` None) or K10 over the checked rows of
+    x into xq (rows ``xq.stride(0)`` bytes apart) and ascale, in the form
+    of ``act_quant_form`` unless ``form`` is given; not counted in
+    ``launches`` (the wrappers count their calls)."""
+    M, K = x.shape
+    form = act_quant_form(M, K, col_scale is not None) if form is None else form
+    ld = K if xq is None else xq.stride(0)
+    err = _build.lib().srgpt_act_quant(x.data_ptr(), _ptr(col_scale), _ptr(xq), ascale.data_ptr(), M, K, ld, pass_,
+                                       *form, _build.stream_ptr(x))
+    _build.check(err, "act_quant_dy_int8" if col_scale is not None else "act_quant_int8")
+
+
 def act_quant_int8(x: torch.Tensor, reduce_max=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """K7: bf16 x (M, K) on the card -> (int8 xq (M, K), f32 ascale (M,)),
     bit-equal to ``act_quant_int8_plain``.  K % 8 == 0.
@@ -231,14 +326,12 @@ def act_quant_int8(x: torch.Tensor, reduce_max=None) -> Tuple[torch.Tensor, torc
     _check_aligned(name, x)
     xq = torch.empty((M, K), dtype=torch.int8, device=x.device)
     ascale = torch.empty((M,), dtype=torch.float32, device=x.device)
-    lib, stream = _build.lib(), _build.stream_ptr(x)
     if reduce_max is None:
-        err = lib.srgpt_act_quant(x.data_ptr(), xq.data_ptr(), ascale.data_ptr(), M, K, stream)
+        act_quant_launch(x, None, xq, ascale)
     else:  # ascale holds the rows' maxima until pass 2 writes the scales over them
-        _build.check(lib.srgpt_act_absmax(x.data_ptr(), ascale.data_ptr(), M, K, stream), name)
+        act_quant_launch(x, None, None, ascale, AQ_MAX)
         reduce_max(ascale)
-        err = lib.srgpt_act_quant_given_max(x.data_ptr(), xq.data_ptr(), ascale.data_ptr(), M, K, stream)
-    _build.check(err, name)
+        act_quant_launch(x, None, xq, ascale, AQ_GIVEN_MAX)
     launches[name] += 1
     return xq, ascale
 
@@ -265,9 +358,7 @@ def act_quant_dy_int8(dy: torch.Tensor, scale: torch.Tensor) -> Tuple[torch.Tens
     _check_aligned(name, dy, scale)
     rows = torch.empty((M, _pad16(N)), dtype=torch.int8, device=dy.device)
     gscale = torch.empty((M,), dtype=torch.float32, device=dy.device)
-    err = _build.lib().srgpt_act_quant_dy(dy.data_ptr(), scale.data_ptr(), rows.data_ptr(), gscale.data_ptr(), M, N,
-                                          rows.shape[1], _build.stream_ptr(dy))
-    _build.check(err, name)
+    act_quant_launch(dy, scale, rows, gscale)
     launches[name] += 1
     return rows[:, :N], gscale
 

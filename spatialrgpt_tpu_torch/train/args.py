@@ -85,6 +85,8 @@ class TrainingArguments:
     # wall-clock budget (reference slurm_utils args)
     total_time_limit: int = -1  # minutes
     pre_terminate_time: int = 10  # minutes
+    # jsonl (metrics.jsonl) | wandb (metrics.jsonl, and wandb where it
+    # imports and inits; else jsonl alone) | none
     report_to: str = "jsonl"
 
 

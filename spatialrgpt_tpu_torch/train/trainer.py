@@ -98,7 +98,7 @@ class TrainerConfig:
     autoresume_poll_steps: int = 50
     total_time_limit_min: Optional[float] = None
     pre_terminate_min: float = 5.0
-    report_to: str = "jsonl"  # jsonl | none
+    report_to: str = "jsonl"  # jsonl | wandb (jsonl too; wandb where it imports and inits) | none
     # torch (torch.save of whole tensors) or orbax (async and sharded:
     # torch.distributed.checkpoint, utils/orbax_io.py)
     ckpt_backend: str = "torch"
@@ -106,8 +106,8 @@ class TrainerConfig:
     def __post_init__(self):
         if self.ckpt_backend not in ("torch", "orbax"):
             raise NotImplementedError(f"ckpt_backend={self.ckpt_backend!r}: the port saves with torch or orbax")
-        if self.report_to not in ("jsonl", "none"):
-            raise NotImplementedError(f"report_to={self.report_to!r}: the port logs to jsonl or nowhere")
+        if self.report_to not in ("jsonl", "wandb", "none"):
+            raise NotImplementedError(f"report_to={self.report_to!r}: the port logs to jsonl, wandb or nowhere")
 
 
 def find_resume_checkpoint(output_dir: str) -> Optional[str]:
@@ -127,17 +127,34 @@ def find_resume_checkpoint(output_dir: str) -> Optional[str]:
 
 
 class MetricsLogger:
+    """Rank 0's metrics: ``metrics.jsonl`` for ``"jsonl"`` and ``"wandb"``;
+    for ``"wandb"`` also ``wandb.log``, where ``import wandb`` and
+    ``wandb.init`` succeed (else jsonl alone, as the reference does)."""
+
     def __init__(self, cfg: TrainerConfig):
         self.f = None
-        if cfg.report_to == "jsonl" and _rank0():
+        self.wandb = None
+        if not _rank0():
+            return
+        if cfg.report_to in ("jsonl", "wandb"):
             os.makedirs(cfg.output_dir, exist_ok=True)
             self.f = open(os.path.join(cfg.output_dir, "metrics.jsonl"), "a")
+        if cfg.report_to == "wandb":
+            try:
+                import wandb
+
+                wandb.init(project=os.environ.get("WANDB_PROJECT", "SpatialRGPT"), resume="allow")
+                self.wandb = wandb
+            except Exception:  # no wandb, or no run: jsonl alone
+                pass
 
     def log(self, step: int, metrics: Dict) -> None:
+        rec = {"step": step, "time": time.time(), **{k: float(v) for k, v in metrics.items()}}
         if self.f:
-            rec = {"step": step, "time": time.time(), **{k: float(v) for k, v in metrics.items()}}
             self.f.write(json.dumps(rec) + "\n")
             self.f.flush()
+        if self.wandb:
+            self.wandb.log(rec, step=step)
 
     def close(self) -> None:
         if self.f:

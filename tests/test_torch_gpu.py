@@ -805,11 +805,34 @@ def _quant_rows(rng, M, K, device):
     return torch.tensor(x).to(device, torch.bfloat16)
 
 
-@pytest.mark.parametrize("M", [1, 37])
-@pytest.mark.parametrize("K", [1152, 4304, 14336])
-def test_act_quant_kernel_bit_equal(cuda, K, M):
-    """K7 equals its plain version bit for bit: ties at .5, a zero row,
-    SigLIP's 1152 and 4304 and Llama's 14,336."""
+# K7's and K10's rows: across the forms' boundaries (the narrow form's 8;
+# K7's ring form past AQ_FEW_ROWS = 256 rows at 14,336, its narrower rows
+# CTAs past AQ_MANY_ROWS = 4096), a decode step's 64, the prefill's 20,480;
+# K from SigLIP's 1152 and 4304, Llama's 4096 and 14,336, a tp = 4 rank's
+# 1024
+_AQ_M = [1, 37, 64, 65, 263, 2048, 20480]
+_AQ_K = [8, 1024, 1152, 4096, 4304, 14336]
+_AQ_FORCED = ["picked", "loop", "ring", "rows"]
+
+
+def _force_aq_form(monkeypatch, form):
+    """``form``: "picked" leaves ``act_quant_form``'s choice; "loop",
+    "ring" and "rows" take that form at every shape it holds (else the
+    loop form)."""
+    forced = {"loop": lambda K, dy: None, "ring": K789.act_quant_ring, "rows": lambda K, dy: K789.act_quant_rows(K)}
+    if form != "picked":
+        monkeypatch.setattr(K789, "act_quant_form",
+                            lambda M, K, dy=False: forced[form](K, dy) or K789.AQ_LOOP_FORM)
+
+
+@pytest.mark.parametrize("form", _AQ_FORCED)
+@pytest.mark.parametrize("M,K", [(M, K) for K in _AQ_K for M in _AQ_M] + [(3, 131080), (263, 131080)])
+def test_act_quant_kernel_bit_equal(cuda, monkeypatch, K, M, form):
+    """K7 equals its plain version bit for bit in the form the wrapper
+    picks and in each form forced: ties at .5, a zero row, huge and tiny
+    rows, at every row count and width of ``_AQ_M`` x ``_AQ_K``, and rows
+    too wide for the ring and rows forms (the loop form every way)."""
+    _force_aq_form(monkeypatch, form)
     x = _quant_rows(np.random.default_rng(K + M), M, K, cuda)
     before = K789.launches["act_quant_int8"]
     xq, s = K789.act_quant_int8(x)
@@ -1053,13 +1076,23 @@ _DX_CASES = [(1, 16, 16), (1, 8, 16), (37, 1040, 4304), (200, 4112, 1024), (129,
              (16384, 14336, 4096), (16384, 4096, 14336), (16384, 8, 4096)]  # the last: Mixtral's router dx
 
 
-@pytest.mark.parametrize("M,N", [(1, 8), (37, 1040), (200, 4104), (16384, 14336), (16384, 8)])
-def test_act_quant_dy_kernel_bit_equal(cuda, M, N):
-    """K10 equals its plain version bit for bit: a zero row, large and tiny
-    rows, ragged N, the align step's largest shape and Mixtral's router (N
-    = 8) over its rows."""
+# K10's (rows, N): ``_AQ_M`` (the align step's 16,384 in place of the
+# prefill's 20,480) x ``_AQ_K`` and 4104, whose rows lie 4112 bytes apart
+# (K11's padded stride), beside the earlier ragged cases
+_AQ_DY = sorted({(M if M != 20480 else 16384, N) for M in _AQ_M for N in _AQ_K + [4104]} | {(37, 1040), (200, 4104)})
+
+
+@pytest.mark.parametrize("form", _AQ_FORCED)
+@pytest.mark.parametrize("M,N", _AQ_DY)
+def test_act_quant_dy_kernel_bit_equal(cuda, monkeypatch, M, N, form):
+    """K10 equals its plain version bit for bit in the form the wrapper
+    picks and in each form forced: a zero row, large and tiny rows, ragged
+    and padded N, the align step's shapes and Mixtral's router (N = 8)
+    over its rows."""
+    _force_aq_form(monkeypatch, form)
     dy, scale = _dy_rows(np.random.default_rng(M + N), M, N, cuda)
     dyq, gs = _launched("act_quant_dy_int8", K789.act_quant_dy_int8, dy, scale)
+    assert dyq.stride(0) == -(-N // 16) * 16
     pq, ps = K789.act_quant_dy_int8_plain(dy, scale)
     assert torch.equal(gs, ps) and torch.equal(dyq, pq)
     if M >= 4:
@@ -1901,17 +1934,21 @@ def test_w8a8_kernel_at_rank_local_shapes(cuda, M, N, K):
     assert torch.equal(K789.w8a8_gemm(xq, ascale, q, scale), K789.w8a8_gemm_plain(xq, ascale, q, scale))
 
 
+@pytest.mark.parametrize("form", _AQ_FORCED)
 @pytest.mark.parametrize("tp", [2, 4])
-@pytest.mark.parametrize("M,K", [(37, 4096), (2560, 4096), (2560, 14336)])
-def test_act_quant_split_form_at_rank_local_shapes(cuda, M, K, tp):
+@pytest.mark.parametrize("M", sorted(set(_AQ_M) | {2560}))
+@pytest.mark.parametrize("K", [4096, 14336])
+def test_act_quant_split_form_at_rank_local_shapes(cuda, monkeypatch, K, M, tp, form):
     """K7's split form on the tensor-parallel fan-in slices of wo (K 4096)
-    and down (K 14,336) at tp 2 and 4: each slice's row maxima (pass 1)
-    are this slice's, and after their maximum over the slices (the
-    all-reduce MAX, here a local maximum) pass 2 gives each slice K7's int8
-    columns and scales of the whole rows, bit for bit, and its plain
-    version the same; one count a call."""
+    and down (K 14,336) at tp 2 and 4, in the form the wrapper picks for
+    the slice and in each form forced: each slice's row maxima (pass 1) are
+    this slice's, and after their maximum over the slices (the all-reduce
+    MAX, here a local maximum) pass 2 gives each slice K7's int8 columns
+    and scales of the whole rows, bit for bit, and its plain version the
+    same; one count a call."""
     x = _quant_rows(np.random.default_rng(K + M + tp), M, K, cuda)
-    whole_q, whole_s = K789.act_quant_int8(x)
+    whole_q, whole_s = K789.act_quant_int8(x)  # the whole rows in the picked form
+    _force_aq_form(monkeypatch, form)
     parts = x.chunk(tp, dim=1)
     row_max = torch.stack([p.float().abs().amax(dim=1) for p in parts]).amax(dim=0)
     for i, part in enumerate(parts):

@@ -122,6 +122,86 @@ def test_act_quant_plain_equals_the_reference():
     assert float(got_s[1]) == np.float32(1e-12) and not got_q[1].any()
 
 
+# K7's and K10's launches at the shapes the paths give them: the W8A8
+# decode and the engine's slots, the prefill, SigLIP at 128 images, a tp = 4
+# rank's fan-in slices, an engine admission of 4 x 384 rows, the families'
+# 2560-row prefill, the W8A8 align step's rows and dy, Mixtral's router dy, the
+# lm_head's dy (too wide for two ring stages), Gemma-7B's down (for one
+# CTA's registers), and a row too wide for both
+_AQ = int8_linear
+_AQ_FORMS = {
+    (64, 4096, False): (_AQ.AQ_ROWS, 1, 256, 2), (32, 4096, False): (_AQ.AQ_ROWS, 1, 256, 2),
+    (20480, 4096, False): (_AQ.AQ_ROWS, 1, 128, 4), (20480, 14336, False): (_AQ.AQ_RING, 4, 4, 2),
+    (93312, 1152, False): (_AQ.AQ_ROWS, 1, 96, 2), (93312, 4304, False): (_AQ.AQ_ROWS, 1, 160, 4),
+    (20480, 3584, False): (_AQ.AQ_ROWS, 1, 128, 4), (64, 1024, False): (_AQ.AQ_ROWS, 1, 128, 1),
+    (1536, 4096, False): (_AQ.AQ_ROWS, 1, 256, 2), (2560, 14336, False): (_AQ.AQ_RING, 4, 4, 2),
+    (2560, 4096, False): (_AQ.AQ_ROWS, 1, 256, 2), (16384, 4096, False): (_AQ.AQ_ROWS, 1, 128, 4),
+    (16384, 14336, True): (_AQ.AQ_ROWS, 1, 224, 8), (16384, 4096, True): (_AQ.AQ_ROWS, 1, 256, 2),
+    (16384, 8, True): (_AQ.AQ_NARROW, 1, 256, 1), (4096, 128264, True): _AQ.AQ_LOOP_FORM,
+    (2560, 24576, False): (_AQ.AQ_RING, 8, 2, 2), (5, 131080, False): _AQ.AQ_LOOP_FORM,
+}
+
+
+@pytest.mark.parametrize("M,K,dy", sorted(_AQ_FORMS))
+def test_act_quant_form_at_the_paths_shapes(M, K, dy):
+    assert int8_linear.act_quant_form(M, K, dy) == _AQ_FORMS[(M, K, dy)]
+
+
+def _aq_vectors(M, K, dy):
+    """The vectors of each row that K7's (``dy``: K10's) launch in
+    ``act_quant_form`` gives its threads, as csrc/act_quant.cu indexes
+    them: (form, its launch numbers, a sorted array of vector indices per
+    row); the ring form on a grid of at most 264 CTAs (its grid is the
+    card's occupancy, capped by the rows)."""
+    form, warps, count, each = int8_linear.act_quant_form(M, K, dy)
+    vecs = K // 8
+    seen = [[] for _ in range(M)]
+    if form == int8_linear.AQ_NARROW:
+        rows_per_cta = count // each
+        t = np.arange(-(-M // rows_per_cta) * count)  # every thread of the grid
+        row = t // count * rows_per_cta + t % count // each
+        lane = t % each
+        live = (row < M) & (lane < vecs)
+        seen = [np.sort(lane[live & (row == r)]) for r in range(M)]
+    elif form == int8_linear.AQ_ROWS:  # a CTA a row, each the same pattern
+        t, i = np.meshgrid(np.arange(count), np.arange(each), indexing="ij")
+        c = t + i * count
+        seen = [np.sort(c[c < vecs])] * M
+    elif form == int8_linear.AQ_RING:  # CTA b's group g: rows b * count + g + k * grid * count
+        grid = min(-(-M // count), 264)
+        threads = 32 * warps
+        one_row = np.sort(np.concatenate([np.arange(gt, vecs, threads) for gt in range(threads)]))
+        taken = np.zeros(M, int)
+        for b in range(grid):
+            for g in range(count):
+                taken[b * count + g :: grid * count] += 1
+        assert (taken == 1).all()
+        assert 32 * warps * count <= int8_linear.AQ_RING_THREADS and count <= 15
+        assert int8_linear._ring_smem(K, count, each) <= int8_linear.AQ_SMEM
+        seen = [one_row] * M
+    else:
+        seen = [np.arange(vecs)] * M
+    return form, warps, count, each, seen
+
+
+@pytest.mark.parametrize("dy", [False, True], ids=["k7", "k10"])
+@pytest.mark.parametrize("M", [1, 2, 37, 64, 65, 263, 2048])
+@pytest.mark.parametrize("K", [8, 16, 64, 256, 264, 1024, 1152, 4304, 14336, 24576, 131072])
+def test_act_quant_form_covers_every_vector_once(M, K, dy):
+    """Every form's threads take every 16-byte vector of every row exactly
+    once (the ring form's row groups every row once), within the kernel's
+    limits: at most 256 threads a CTA in whole warps (the ring form 512, 15
+    row groups and 227 KB of shared memory), 1, 2, 4 or 8 vectors a
+    thread, a narrow row's lanes inside one warp."""
+    form, warps, count, each, seen = _aq_vectors(M, K, dy)
+    assert all(np.array_equal(row, np.arange(K // 8)) for row in seen)
+    if form == int8_linear.AQ_NARROW:
+        assert K // 8 <= each <= 32 and each & (each - 1) == 0 and count % each == 0
+    elif form == int8_linear.AQ_ROWS:
+        assert each in int8_linear.AQ_VPT and count % 32 == 0 and 32 <= count <= int8_linear.AQ_ROW_THREADS
+        assert count * each >= K // 8
+
+
 def _meta(*shape, dtype=torch.bfloat16):
     return torch.empty(*shape, dtype=dtype, device="meta")
 

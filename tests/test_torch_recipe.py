@@ -15,6 +15,7 @@ against optax rtol 1e-5 / atol 1e-7, as ``test_optimizer_matches_optax``."""
 
 import json
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -407,6 +408,7 @@ FLAG_SETS = {
     "accumulate2": ["--gradient_accumulation_steps", "2"],
     "lora8": ["--lora_enable", "true", "--bits", "8", "--lora_r", "4", "--lora_alpha", "8"],
     "dpo": ["--dpo_enable", "true", "--per_device_train_batch_size", "2"],
+    "wandb": ["--report_to", "wandb"],  # with wandb unimportable: metrics.jsonl alone, in both
 }
 
 
@@ -442,6 +444,8 @@ def test_main_matches_jax_main(base, tmp_path, monkeypatch, jax_tokenizer, flags
         monkeypatch.setattr(jlora, "init_lora", record)
         monkeypatch.setattr(tlora, "init_lora", lambda llm, lcfg, generator, dtype: load_adapters_from_jax(
             drawn["adapters"], "cpu", dtype))
+    if flags == "wandb":
+        monkeypatch.setitem(sys.modules, "wandb", None)  # ``import wandb`` raises ImportError
     jout, tout = str(tmp_path / "jax"), str(tmp_path / "port")
     want = jtrain.main(argv + ["--output_dir", jout])
     got = ttrain.main(argv + ["--output_dir", tout], device="cpu", tokenizer=HFFakeTokenizer())
