@@ -51,7 +51,8 @@ Phases, each printed as one JSON line:
    (``plain_ms``) and of one PyTorch call of the same function
    (``library_ms``, with ``library`` naming it and its pinned SDPA
    backend; null for K3 and K7, which no single call computes; for K8
-   ``torch._int_mm``'s int32 product alone, for K11 the same in the
+   ``torch._int_mm``'s int32 product alone (N zero-padded to a multiple
+   of 8 where it is none), for K11 the same in the
    faster of two layouts of the weight (as stored, and a column-major copy
    made beforehand; each layout's time in ``library_each_layout_ms``), for
    K9 ``F.linear`` on a bf16 copy of the weight); for K4 also
@@ -162,7 +163,13 @@ Phases, each printed as one JSON line:
    same flags on ``--attn_impl xla`` (stopped after one step by
    ``--total_time_limit``): the first loss within 1%.  (d) The composite
    that (a) saved, read back by ``load_reference_checkpoint``: logits on
-   one row bit-equal to the trained model's.  (b) ``--lora_enable true
+   one row bit-equal to the trained model's.  (e) The same trained model
+   written by ``save_composite_hf`` (the directory the PyTorch reference
+   loads: float32 tensors and HF configs) and read back through
+   ``SpatialRGPTConfig.load``'s reference-composite branch: its logits on
+   that row bit-equal too, the top-level config holding ``llm_cfg`` and
+   the region tokens; the bytes written, the write and read seconds.
+   (b) ``--lora_enable true
    --bits 8 --lora_r 64 --lora_alpha 16``, 2 steps: K9's launches on its
    large form, the int8 base bit-unchanged, the trained modules moving,
    ``adapter.npz`` and ``non_lora_trainables.npz`` loading back equal.
@@ -170,7 +177,8 @@ Phases, each printed as one JSON line:
    2 steps: the first loss ln 2 within 1e-4 with every reward 0, the
    second finite, the reference copy unchanged.  Per part the median step
    after the first, positions/s and peak GB.  The launches counted are
-   ``main``'s alone (``recipe_main``); (d)'s comparison is not counted.
+   ``main``'s alone (``recipe_main``); (d)'s and (e)'s comparisons are
+   not counted.
    eval -- the evaluation entry points (``spatialrgpt_tpu_torch/eval``) at
    the same widths, bf16 weights from seed 0, a character tokenizer of
    Llama-3's size and synthetic files: 24 SpatialRGPT-Bench entries (48
@@ -736,8 +744,14 @@ def sdpa_yardsticks(torch, q, k, v, do, n: int, L: int, mask) -> dict:
 def int_mm_library(torch, xq, q):
     """K8's yardstick: ``torch._int_mm``'s int32 product alone (no scales,
     bias or bf16 cast), where it takes the shape (M > 16, K and N multiples
-    of 8); q.t() is a view, made here."""
+    of 8); q.t() is a view, made here.  An N that is no multiple of 8 (a
+    tp = 4 rank's slice of the decode head, 32,066) is zero-padded to the
+    next one, made here: the padded columns are products of zero rows."""
     label = "torch._int_mm(xq, q.t()): the int32 product alone, without K8's scales, bias and bf16 cast"
+    n = q.shape[0]
+    if n % 8:
+        q = torch.cat([q, q.new_zeros(8 - n % 8, q.shape[1])])
+        label += f"; q zero-padded from N {n} to {q.shape[0]}"
     qt = q.t()
     try:
         torch._int_mm(xq, qt)
@@ -4010,14 +4024,19 @@ def phase_recipe(torch, nvidia_smi: str) -> dict:
         reference copy), the second finite;
     (d) the composite that (a)'s first run saved, read back by
         ``load_reference_checkpoint``: logits on one row bit-equal to the
-        trained model's."""
+        trained model's;
+    (e) the trained model written by ``save_composite_hf`` and read back
+        by ``SpatialRGPTConfig.load`` (the reference-composite branch) and
+        ``load_reference_checkpoint`` in the trained dtype: the same row's
+        logits bit-equal, the top-level config holding ``llm_cfg`` and the
+        region tokens."""
     import numpy as np
 
     from spatialrgpt_tpu_torch import SpatialRGPTConfig, preset
     from spatialrgpt_tpu_torch.models import vlm
     from spatialrgpt_tpu_torch.ops.int8_linear import FORM_LARGE, w8_gemm_form
     from spatialrgpt_tpu_torch.utils.checkpoint import load_pytree, load_reference_checkpoint
-    from spatialrgpt_tpu_torch.utils.weights import init_random, save_composite
+    from spatialrgpt_tpu_torch.utils.weights import init_random, save_composite, save_composite_hf
 
     cfg = preset("llama3-8b")
     cfg = cfg.replace(llm=dataclasses.replace(cfg.llm, num_hidden_layers=RECIPE_LAYERS))
@@ -4070,8 +4089,34 @@ def phase_recipe(torch, nvidia_smi: str) -> dict:
             same = bool(torch.equal(got, want))
         checks["d_reloaded_logits_bit_equal"] = same and bool(torch.isfinite(want).all())
         report["d_composite"] = {"load_s": load_s, "logits_shape": list(want.shape), "bit_equal": same}
-        del back, trained, run, want, got, one_row
+        del back, got
         shutil.rmtree(final)
+        release(torch)
+
+        # (e) the trained model as the reference's HF composite, read back
+        hf = os.path.join(work, "align_hf")
+        t0 = time.perf_counter()
+        save_composite_hf(hf, trained, loaded)
+        write_s = time.perf_counter() - t0
+        written = sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(hf) for f in files)
+        t0 = time.perf_counter()
+        hf_cfg = SpatialRGPTConfig.load(hf)
+        back = load_reference_checkpoint(hf, hf_cfg, dev, trained.llm.lm_head.weight.dtype)
+        read_s = time.perf_counter() - t0
+        with open(os.path.join(hf, "config.json")) as f:
+            top = json.load(f)
+        with torch.no_grad():
+            got = vlm.forward(back, hf_cfg, one_row, attn_impl="pallas")
+            same = bool(torch.equal(got, want))
+        checks["e_hf_reloaded_logits_bit_equal"] = same and bool(torch.isfinite(got).all())
+        checks["e_hf_config_holds_llm_cfg_and_region_tokens"] = (
+            top.get("llm_cfg", {}).get("vocab_size") == LLAMA3_VOCAB + 2
+            and (hf_cfg.mask_token_id, hf_cfg.depth_token_id) == (LLAMA3_VOCAB, LLAMA3_VOCAB + 1))
+        report["e_hf_composite"] = {"bytes": written, "write_s": write_s, "read_s": read_s, "bit_equal": same}
+        print(f"recipe (e): save_composite_hf wrote {written} bytes in {write_s:.3f} s, read back in {read_s:.3f} s",
+              flush=True)
+        del back, trained, run, want, got, one_row
+        shutil.rmtree(hf)
         release(torch)
 
         result, run, peak = recipe_main(torch, align + ["--output_dir", out_a, "--max_steps",

@@ -6,8 +6,14 @@ The port's copy of the four name maps of ``spatialrgpt_tpu/utils/export.py``
 parameters and returns the HF-named state dict that
 ``utils/weights.py::load_from_jax`` loads.  A dense entry quantized by
 ``quantize_llm`` (``kernel_q``) comes across as the ``QuantLinear``
-buffers of its module (``_dense``).  Writing checkpoints to disk is not
-part of the port.
+buffers of its module (``_dense``).
+
+``hf_config_files`` is the port's copy of the HF config files that the
+reference's ``save_composite_hf`` writes beside those tensors.  The port
+writes checkpoints from its modules in ``utils/weights.py``:
+``save_composite`` (the split tensors and the port's own ``config.json``)
+and ``save_composite_hf`` (the directory the PyTorch reference loads),
+which ``save_composite_hf`` here names.
 """
 
 from __future__ import annotations
@@ -132,3 +138,109 @@ def export_llama(params: Dict) -> Dict[str, np.ndarray]:
     if "lm_head" in params:
         _dense(sd, "lm_head", params["lm_head"])
     return sd
+
+
+def hf_config_files(cfg, vocab_rows: int, root: str) -> Dict[str, dict]:
+    """The JSON files of the reference's ``save_composite_hf`` by their path
+    under ``root``, key for key: each component's HF config (the loaders of
+    llava/model/builder.py:142-159 and llava_arch.py's ``init_vlm`` read
+    them), SigLIP's preprocessor config, and the top-level LlavaConfig.
+    ``vocab_rows``: the embedding table's rows (the region tokens
+    included), the decoder's ``vocab_size``.  As the reference, the decoder
+    is written as a Llama whatever its family, without Gemma's ``head_dim``
+    or Mistral's ``sliding_window``."""
+    v, L = cfg.vision, cfg.llm
+    vision = {
+        "model_type": "siglip_vision_model",
+        "architectures": ["SiglipVisionModel"],
+        "hidden_size": v.hidden_size,
+        "intermediate_size": v.intermediate_size,
+        "num_hidden_layers": v.num_hidden_layers,
+        "num_attention_heads": v.num_attention_heads,
+        "image_size": v.image_size,
+        "patch_size": v.patch_size,
+        "num_channels": 3,
+        "layer_norm_eps": v.layer_norm_eps,
+        "hidden_act": v.hidden_act,
+        "attention_dropout": 0.0,
+        # the attention-pool head is unused (features come from hidden_states)
+        "vision_use_head": False,
+        # the reference records the region token ids into the vision tower's
+        # config (model/builder.py:186-192; read back at llava_arch.py:471,488)
+        "llm_mask_token_id": cfg.mask_token_id,
+        "llm_depth_token_id": cfg.depth_token_id,
+    }
+    preprocessor = {
+        "image_processor_type": "SiglipImageProcessor",
+        "processor_class": "SiglipProcessor",
+        "do_resize": True,
+        "size": {"height": v.image_size, "width": v.image_size},
+        "resample": 3,  # bicubic
+        "do_rescale": True,
+        "rescale_factor": 1.0 / 255.0,
+        "do_normalize": True,
+        "image_mean": [0.5, 0.5, 0.5],
+        "image_std": [0.5, 0.5, 0.5],
+    }
+    llm = {
+        "model_type": "llama",
+        "architectures": ["LlamaForCausalLM"],
+        "vocab_size": int(vocab_rows),
+        "hidden_size": L.hidden_size,
+        "intermediate_size": L.intermediate_size,
+        "num_hidden_layers": L.num_hidden_layers,
+        "num_attention_heads": L.num_attention_heads,
+        "num_key_value_heads": L.num_key_value_heads,
+        "max_position_embeddings": L.max_position_embeddings,
+        "rms_norm_eps": L.rms_norm_eps,
+        "rope_theta": L.rope_theta,
+        "hidden_act": L.hidden_act,
+        "attention_bias": L.attention_bias,
+        "tie_word_embeddings": L.tie_word_embeddings,
+        "bos_token_id": L.bos_token_id,
+        "eos_token_id": L.eos_token_id,
+        "torch_dtype": "float32",
+    }
+    if L.rope_scaling_factor:
+        llm["rope_scaling"] = {"type": "linear", "factor": L.rope_scaling_factor}
+    top = {
+        "model_type": "llava_llama",
+        "architectures": ["LlavaLlamaModel"],
+        # dict-valued sub-configs make the reference's get_model_config
+        # (model/utils.py:25-55) resolve each component to <root>/<name>
+        "llm_cfg": llm,
+        "vision_tower_cfg": {"resolved": "vision_tower"},
+        "mm_projector_cfg": {"resolved": "mm_projector"},
+        "region_extractor_cfg": {"resolved": "region_extractor"},
+        "resume_path": root,
+        "enable_region": cfg.enable_region,
+        "enable_depth": cfg.enable_depth,
+        "hidden_size": L.hidden_size,
+        "mm_hidden_size": v.hidden_size,
+        "image_aspect_ratio": cfg.image_aspect_ratio,
+        "mm_vision_select_layer": v.select_layer,
+        "mm_vision_select_feature": v.select_feature,
+        "mm_use_im_start_end": False,
+        "mm_use_im_patch_token": True,
+        "model_max_length": cfg.model_max_length,
+        "model_dtype": "torch.float32",
+        "s2": False,
+        "transformers_version": "4.36.0",
+    }
+    return {
+        "vision_tower/config.json": vision,
+        "vision_tower/preprocessor_config.json": preprocessor,
+        "llm/config.json": llm,
+        "mm_projector/config.json": {"model_type": "v2l_projector", "mm_projector_type": cfg.projector.projector_type},
+        "region_extractor/config.json": {"model_type": "region_extractor",
+                                         "region_extractor_type": cfg.region.extractor_type},
+        "config.json": top,
+    }
+
+
+def save_composite_hf(root: str, model, cfg, tokenizer=None, state=None) -> None:
+    """The reference's ``save_composite_hf`` for the port's modules:
+    ``utils/weights.py::save_composite_hf``."""
+    from spatialrgpt_tpu_torch.utils.weights import save_composite_hf as save
+
+    save(root, model, cfg, tokenizer, state)

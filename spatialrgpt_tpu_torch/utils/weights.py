@@ -12,7 +12,9 @@ standard deviations of the JAX package's ``init_params``, and
 ``init_random_quantized`` (the twin of ``utils/fast_init.py::
 fast_init_quantized``) makes its projections directly in the int8
 layout.
-``save_composite`` writes a model back in the reference's split layout.
+``save_composite`` writes a model back in the reference's split layout,
+``save_composite_hf`` as the directory the PyTorch reference loads (float32
+tensors and the HF config files).
 ``load_adapters_from_jax`` carries the reference's LoRA adapter tree across.
 The demo's models: ``init_random_sam_hq`` and ``init_random_depth_anything``
 on the device, and ``load_depth_anything_from_jax`` through the HF names
@@ -32,6 +34,7 @@ tree, the model module's ``convert_*`` reads them); ``load_from_jax`` and
 from __future__ import annotations
 
 import functools
+import json
 import os
 from typing import Callable, Optional, Tuple
 
@@ -44,13 +47,14 @@ from spatialrgpt_tpu_torch.utils import export
 from spatialrgpt_tpu_torch.models.clip import CLIPVisionConfig, ClipVisionModel, convert_clip
 from spatialrgpt_tpu_torch.models.depth_anything import DepthAnythingConfig, DepthAnythingModel, LayerScale
 from spatialrgpt_tpu_torch.models.intern_vit import InternVisionConfig, InternVisionModel, convert_intern_vit
+from spatialrgpt_tpu_torch.models.llama import LlamaForCausalLM
 from spatialrgpt_tpu_torch.models.mpt import MPTConfig, MptForCausalLM, convert_mpt
 from spatialrgpt_tpu_torch.models.owl_vit import OwlViTConfig, OwlViTModel
 from spatialrgpt_tpu_torch.models.radio import RadioBackboneConfig, RadioModel, convert_radio_state_dict
 from spatialrgpt_tpu_torch.models.ram import RamConfig, RamModel
 from spatialrgpt_tpu_torch.models.sam import SamConfig, SamHQModel
 from spatialrgpt_tpu_torch.models.vlm import SpatialRGPT
-from spatialrgpt_tpu_torch.ops.layers import QuantLinear
+from spatialrgpt_tpu_torch.ops.layers import QuantLinear, is_quantized
 from spatialrgpt_tpu_torch.synth.calibration import CameraNet, CameraNetConfig
 from spatialrgpt_tpu_torch.train.lora import LoraAdapters, LoraPair
 
@@ -234,6 +238,19 @@ def load_adapters_from_jax(np_adapters, device, dtype=None) -> LoraAdapters:
 SPLIT_DIRS = ("vision_tower", "mm_projector", "region_extractor", "llm")
 
 
+def _split_parts(model: SpatialRGPT, state: Optional[dict]):
+    """(split directory, its HF-named state dict) for each sub-module the
+    model holds; from ``state`` where given."""
+    for name in SPLIT_DIRS:
+        module = getattr(model, name, None)
+        if module is None:
+            continue
+        if state is None:
+            yield name, {k: v.detach() for k, v in module.state_dict().items()}
+        else:
+            yield name, {k[len(name) + 1 :]: v for k, v in state.items() if k.startswith(name + ".")}
+
+
 def save_composite(root: str, model: SpatialRGPT, cfg: SpatialRGPTConfig, state: Optional[dict] = None) -> None:
     """The reference's split composite checkpoint: ``config.json`` at
     ``root`` and one directory per sub-module holding its HF-named state
@@ -242,16 +259,50 @@ def save_composite(root: str, model: SpatialRGPT, cfg: SpatialRGPTConfig, state:
     sharded (``train/trainer.py`` gathers it)."""
     os.makedirs(root, exist_ok=True)
     cfg.save(root)
-    for name in SPLIT_DIRS:
-        module = getattr(model, name, None)
-        if module is None:
-            continue
+    for name, part in _split_parts(model, state):
         os.makedirs(os.path.join(root, name), exist_ok=True)
-        if state is None:
-            part = {k: v.detach().contiguous() for k, v in module.state_dict().items()}
-        else:
-            part = {k[len(name) + 1 :]: v.contiguous() for k, v in state.items() if k.startswith(name + ".")}
-        torch.save(part, os.path.join(root, name, "pytorch_model.bin"))
+        torch.save({k: v.contiguous() for k, v in part.items()}, os.path.join(root, name, "pytorch_model.bin"))
+
+
+def save_composite_hf(root: str, model: SpatialRGPT, cfg: SpatialRGPTConfig, tokenizer=None,
+                      state: Optional[dict] = None) -> None:
+    """The twin of the reference's ``utils/export.py::save_composite_hf``: a
+    composite directory the PyTorch reference loads directly.  The split
+    directories of ``save_composite`` with every tensor in float32 (as the
+    reference writes them; bf16 to f32 is exact), the HF config files of
+    ``export.hf_config_files`` (the top-level LlavaConfig ``config.json``
+    in place of the port's own) and, given ``tokenizer``, its
+    ``save_pretrained`` files in ``llm/``.  ``SpatialRGPTConfig.load`` and
+    ``utils/checkpoint.py::load_reference_checkpoint`` read it back.
+    ``state`` as for ``save_composite``.
+
+    What the reference's export cannot write raises ``ValueError`` before
+    anything is written: a decoder other than a dense Llama-family one
+    (MoE experts, MPT), a quantized projection, a model without a region
+    extractor, a projector other than ``mlp_downsample``."""
+    if not isinstance(model.llm, LlamaForCausalLM):
+        raise ValueError("save_composite_hf writes a Llama-family decoder; this model's is "
+                         f"{type(model.llm).__name__}")
+    if cfg.llm.is_moe:
+        raise ValueError("save_composite_hf cannot write an MoE decoder: the reference's export_llama "
+                         "reads each layer's dense mlp")
+    if is_quantized(model):
+        raise ValueError("save_composite_hf cannot write quantized projections (QuantLinear): the reference's "
+                         "export reads float kernels")
+    if model.region_extractor is None:
+        raise ValueError("save_composite_hf writes a region extractor; this model has none (enable_region=False)")
+    if cfg.projector.projector_type != "mlp_downsample":
+        raise ValueError(f"save_composite_hf writes the mlp_downsample projector, not {cfg.projector.projector_type}")
+    os.makedirs(root, exist_ok=True)
+    for name, part in _split_parts(model, state):
+        os.makedirs(os.path.join(root, name), exist_ok=True)
+        torch.save({k: v.to("cpu", torch.float32 if v.is_floating_point() else v.dtype).contiguous()
+                    for k, v in part.items()}, os.path.join(root, name, "pytorch_model.bin"))
+    for path, d in export.hf_config_files(cfg, model.llm.model.embed_tokens.num_embeddings, root).items():
+        with open(os.path.join(root, path), "w") as f:
+            json.dump(d, f, indent=2)
+    if tokenizer is not None:
+        tokenizer.save_pretrained(os.path.join(root, "llm"))
 
 
 # ---------------------------------------------------------------------------
