@@ -41,16 +41,25 @@ Each wrapper launches its kernel for CUDA tensors and takes its plain
 version only for tensors on the CPU.  ``launches`` counts kernel launches
 per kernel.  Weights are the port's (out, in) layout: q (N, K) int8 and
 its per-output-channel f32 scale (N,).
+
+Under a running ``torch.profiler`` each K8 / K9 launch sits in a host span
+named by its launched shape, ``k8.<form>:<M>x<N>x<K>`` or
+``k9.<form>:<M>x<N>x<K>`` (``<form>`` ``decode`` or ``large``), with
+``+add`` where it reads the f32 addend and ``+bias`` where it reads a bias
+(``gemm_span_name``): one span a ``srgpt::qgemm::`` kernel, in launch
+order, so a trace reader can count each kernel's operations and bytes.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from spatialrgpt_tpu_torch.ops import _build
 from spatialrgpt_tpu_torch.ops._checks import check_dtype, check_on_cuda
+from spatialrgpt_tpu_torch.utils import profiling
 
 # kernel launches since the last reset (plain-path calls do not count)
 launches = {"act_quant_int8": 0, "w8a8_gemm": 0, "w8_gemm": 0, "act_quant_dy_int8": 0, "int8_dx_gemm": 0}
@@ -377,6 +386,15 @@ def _check_gemm(name: str, a: torch.Tensor, q: torch.Tensor, scale: torch.Tensor
     return M, N, K
 
 
+@functools.lru_cache(maxsize=4096)
+def gemm_span_name(kernel: str, form: int, M: int, N: int, K: int, add: bool, bias: bool) -> str:
+    """The profiler's span of one K8 (``kernel`` "k8") or K9 ("k9") launch
+    of ``form`` over (M, N, K), e.g. ``k8.decode:64x14336x4096+bias``;
+    built only under a profiler (``profiling.annotate``), once a shape."""
+    return (f"{kernel}.{'decode' if form == FORM_DECODE else 'large'}:{M}x{N}x{K}" + "+add" * add
+            + "+bias" * bias)
+
+
 def _check_decode(name: str, M: int, N: int) -> None:
     if N > DECODE_MAX_N or M > DECODE_MAX_ROWS:
         raise ValueError(f"{name}: the decode form takes at most {DECODE_MAX_N} columns and {DECODE_MAX_ROWS} rows, "
@@ -409,10 +427,11 @@ def w8a8_gemm(
     check_on_cuda(name, xq, ascale, q, scale, *(t for t in (bias, add) if t is not None))
     _check_aligned(name, xq, q)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=xq.device)
-    err = _build.lib().srgpt_w8a8_gemm(
-        xq.data_ptr(), q.data_ptr(), ascale.data_ptr(), scale.data_ptr(), _ptr(bias), kind, _ptr(add), out.data_ptr(),
-        M, N, K, form, _build.stream_ptr(xq),
-    )
+    with profiling.annotate(gemm_span_name, "k8", form, M, N, K, add is not None, bias is not None):
+        err = _build.lib().srgpt_w8a8_gemm(
+            xq.data_ptr(), q.data_ptr(), ascale.data_ptr(), scale.data_ptr(), _ptr(bias), kind, _ptr(add),
+            out.data_ptr(), M, N, K, form, _build.stream_ptr(xq),
+        )
     _build.check(err, name)
     launches[name] += 1
     return out
@@ -438,10 +457,11 @@ def w8_gemm(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, bias: Optiona
     check_on_cuda(name, x, q, scale, *(t for t in (bias, add) if t is not None))
     _check_aligned(name, x, q)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-    err = _build.lib().srgpt_w8_gemm(
-        x.data_ptr(), q.data_ptr(), scale.data_ptr(), _ptr(bias), kind, _ptr(add), out.data_ptr(), M, N, K, form,
-        _build.stream_ptr(x),
-    )
+    with profiling.annotate(gemm_span_name, "k9", form, M, N, K, add is not None, bias is not None):
+        err = _build.lib().srgpt_w8_gemm(
+            x.data_ptr(), q.data_ptr(), scale.data_ptr(), _ptr(bias), kind, _ptr(add), out.data_ptr(), M, N, K, form,
+            _build.stream_ptr(x),
+        )
     _build.check(err, name)
     launches[name] += 1
     return out

@@ -101,6 +101,19 @@ The engine runs on the device of the model it is given; pixel fields go
 to that device in the dtype of the model's weights, once per admission
 (or at ``submit(prefetch=True)``), and the token and index fields of
 queued requests stay on the host until their admission.
+
+Under a running ``torch.profiler`` each ``step`` opens host spans
+(``utils/profiling.py::annotate``; nothing while no profiler runs):
+
+  - ``engine.admit``: the step's whole admission (batch assembly, uploads,
+    the tower, the prefills, the cache inserts, the first-token reads);
+  - ``engine.prefill[n]`` inside it: one admission prefill of n requests
+    with its cache insert (``[1]`` for a prefix-cached request, and for a
+    fused chunk row's start: its tower and splice);
+  - ``engine.decode``: the decode window (fused or not), the completed
+    chunk rows' activation and, without ``async_readback``, the read of
+    the window's tokens; with ``async_readback`` only the launches and
+    the readback's start.
 """
 
 from __future__ import annotations
@@ -121,6 +134,7 @@ from spatialrgpt_tpu_torch.ops.layers import linear, qkv_proj
 from spatialrgpt_tpu_torch.ops.quant import quantize_kv
 from spatialrgpt_tpu_torch.parallel.mesh import mesh_size, tp_shard_model
 from spatialrgpt_tpu_torch.serving.generate import _decode_step, _slot_attend, new_quant_cache
+from spatialrgpt_tpu_torch.utils.profiling import annotate
 
 
 @dataclass
@@ -145,6 +159,10 @@ _FIELD_DTYPES = {
     "position_ids": torch.int64, "segment_ids": torch.int32, "labels": torch.int64, "mask_slot": torch.int64,
     "is_mask": torch.bool, "depth_slot": torch.int64, "is_depth": torch.bool, "mask_valid": torch.bool,
 }
+
+
+# the profiler's span of one admission prefill of n requests (built only under a profiler)
+PREFILL_SPAN = "engine.prefill[{}]".format
 
 
 def _host(v) -> np.ndarray:
@@ -409,9 +427,8 @@ class ServingEngine:
                 sk, sv = rs["stag_k"][li], rs["stag_v"][li]
                 sk[off : off + c] = k[lo : lo + c]
                 sv[off : off + c] = v[lo : lo + c]
-                with torch.profiler.record_function("streamed_position_attention"):  # a profile's span
-                    out = streamed_position_attention(q[lo : lo + c][None], sk[None], sv[None], q_idx[r],
-                                                      self._chunk_block, n_blocks[r])
+                out = streamed_position_attention(q[lo : lo + c][None], sk[None], sv[None], q_idx[r],
+                                                  self._chunk_block, n_blocks[r])
                 parts.append(out.reshape(c, Hq * D).to(parts[0].dtype))
             h = h + llama.tp_sum(linear(torch.cat(parts)[None], attn.o_proj), tp)
             h = h + llama.tp_sum(llama.ffn_block(llama.norm(h, layer.post_attention_layernorm), layer, lc)[0], tp)
@@ -606,9 +623,10 @@ class ServingEngine:
         req = self.queue.popleft()
         pk, pv, plen = self.prefixes[req.prefix_id]
         inputs = self._device_inputs(self._concat_inputs([req.inputs]))
-        row, tok = self._prefill_with_prefix(pk, pv, plen, inputs, req.prompt_length, *self._sampling_args([req]),
-                                             req.temperature <= 0)
-        self._insert_full(row, slot, plen + req.prompt_length, tok)
+        with annotate(PREFILL_SPAN, 1):
+            row, tok = self._prefill_with_prefix(pk, pv, plen, inputs, req.prompt_length, *self._sampling_args([req]),
+                                                 req.temperature <= 0)
+            self._insert_full(row, slot, plen + req.prompt_length, tok)
         req.tokens.append(int(tok[0]))
         self._activate_or_finish(slot, req)
 
@@ -648,7 +666,8 @@ class ServingEngine:
             row = next((i for i, rs in enumerate(self._rows) if rs is None), None)
             if row is None:
                 return
-            self._start_row(row, int(free[0]), self.queue.popleft())
+            with annotate(PREFILL_SPAN, 1):
+                self._start_row(row, int(free[0]), self.queue.popleft())
 
     def _admit(self) -> None:
         if self.prefill_chunk:
@@ -677,8 +696,9 @@ class ServingEngine:
             batched = self._device_inputs(self._concat_inputs([r.inputs for r in reqs]))
             plens = self._upload(np.asarray([r.prompt_length for r in reqs]), torch.int64)
             all_greedy = all(r.temperature <= 0 for r in reqs)
-            kv, toks, _ = self._prefill_batch(batched, plens, *self._sampling_args(reqs), all_greedy)
-            self._insert_batch(kv, self._upload(slots, torch.int64), plens, toks)
+            with annotate(PREFILL_SPAN, n):
+                kv, toks, _ = self._prefill_batch(batched, plens, *self._sampling_args(reqs), all_greedy)
+                self._insert_batch(kv, self._upload(slots, torch.int64), plens, toks)
             del kv
             if self.async_readback:
                 # optimistic activation: the first token is read one step()
@@ -772,7 +792,8 @@ class ServingEngine:
                 finished += self._process_pending(leave=0)
         else:
             finished = []
-        self._admit()
+        with annotate("engine.admit"):
+            self._admit()
         finished += self._admit_finished
         self._admit_finished = []
         rows_active = any(rs is not None for rs in self._rows)
@@ -789,15 +810,16 @@ class ServingEngine:
         # the slots that decode in this window (rows completing in it are activated after it)
         active_launch = self.active.copy()
         req_snapshot = list(self.slot_req)
-        if rows_active:
-            toks, done, chunk_tok, _ = self._run_fused_window(num_steps, all_greedy, *self._dev_sched)
-            finished += self._complete_rows(done, chunk_tok)
-        else:
-            toks = self._decode_window(num_steps, all_greedy, *self._dev_sched)
-        if self.async_readback:
-            self._pending.append(("decode", self._readback(toks), active_launch, req_snapshot))
-            return finished
-        self._take_tokens(toks.cpu().numpy(), active_launch, req_snapshot, finished)
+        with annotate("engine.decode"):
+            if rows_active:
+                toks, done, chunk_tok, _ = self._run_fused_window(num_steps, all_greedy, *self._dev_sched)
+                finished += self._complete_rows(done, chunk_tok)
+            else:
+                toks = self._decode_window(num_steps, all_greedy, *self._dev_sched)
+            if self.async_readback:
+                self._pending.append(("decode", self._readback(toks), active_launch, req_snapshot))
+            else:
+                self._take_tokens(toks.cpu().numpy(), active_launch, req_snapshot, finished)
         return finished
 
     def _complete_rows(self, done: List[int], chunk_tok) -> List[Request]:

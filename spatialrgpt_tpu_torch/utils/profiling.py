@@ -1,18 +1,23 @@
 """Profiling / tracing helpers (port of ``spatialrgpt_tpu/utils/profiling.py``).
 
 ``torch.profiler`` in the place of ``jax.profiler``: a Chrome trace of the
-enclosed block (viewable in Perfetto), named ranges inside it, simple
-wall-clock scopes, the card's memory report, and rank-aware printing.
+enclosed block (viewable in Perfetto), named ranges inside it, the card's
+memory report, and rank-aware printing.  The JAX package's ``stopwatch``
+has no twin: a host clock without a synchronize times the enqueue of CUDA
+work, not the work.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from typing import Dict, Optional
+from typing import Callable, Dict, Union
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+# what ``annotate`` returns while no profiler runs: one shared no-op context
+NO_SPAN = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -28,20 +33,19 @@ def trace(log_dir: str = "torch-trace"):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-def annotate(name: str):
-    """Named range inside a trace (shows up in the profiler timeline)."""
-    return torch.profiler.record_function(name)
+def annotate(name: Union[str, Callable[..., str]], *args):
+    """A named range of a running ``torch.profiler`` trace
+    (``record_function``): a host span on the profiler's clock, beside the
+    card's kernels, so an idle gap of the card falls under the span that
+    held the host.  ``name`` is the range's name, or a function that builds
+    it from ``args``, called only while a profiler runs.
 
-
-@contextlib.contextmanager
-def stopwatch(name: str, sink: Optional[Dict] = None):
-    t0 = time.time()
-    yield
-    dt = time.time() - t0
-    if sink is not None:
-        sink[name] = sink.get(name, 0.0) + dt
-    else:
-        print(f"[stopwatch] {name}: {dt*1e3:.2f} ms")
+    While none runs (one flag read) it returns ``NO_SPAN``: no name is
+    built and no ``record_function`` opened, so a span costs a call on
+    paths that launch a thousand kernels a step."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return NO_SPAN
+    return torch.profiler.record_function(name(*args) if callable(name) else name)
 
 
 def device_memory_report() -> Dict:

@@ -3,7 +3,8 @@ version in bf16 (K2 and K6 also against planted faults), gradients through K1, K
 ``generate`` through K1-K3, a tiny align step through K1 and K4, a
 narrow demo pipeline (Depth-Anything -> SAM-HQ -> region QA) through K5
 and K6, the quantized projections: K7 and K8 bit-equal to their plain
-versions, K9 within the bf16 bound, and a tiny W8A8 ``generate`` through
+versions, K9 within the bf16 bound, one profiler span of each K8 / K9
+launch paired with its kernel, and a tiny W8A8 ``generate`` through
 K1-K3 and K7-K9, and a tiny serving engine: its waves equal to lockstep
 ``generate`` on both caches, K3 against its plain version under slot
 churn, and a row driven past the cache inside a window; and the eval
@@ -1055,6 +1056,59 @@ def test_quant_wrappers_raise_on_what_they_do_not_take(cuda):
         K789.w8a8_gemm(torch.empty(4 * 64 + 1, dtype=torch.int8, device=cuda)[1:].view(4, 64), s4, q, s32)
     with pytest.raises(ValueError, match="do not fit"):
         K789.w8_gemm(x, q[:, :48].contiguous(), s32)
+
+
+def test_qgemm_spans_pair_with_their_kernels(cuda, tmp_path):
+    """Under ``torch.profiler`` every K8 / K9 launch (both forms, with and
+    without the addend and a bias) writes one ``k8.*`` / ``k9.*`` host span
+    of its launched shape, and the card runs one ``srgpt::qgemm::`` kernel a
+    span, in the span's order and of the form and row tile it names; the
+    benchmark's reader (``benchmark/spans.py``) pairs them and reads a
+    roofline share."""
+    import json
+    import os
+    import sys
+
+    sys.path.append(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "benchmark"))
+    import spans
+    from timeline import SLICE, Timeline
+
+    rng = np.random.default_rng(11)
+    N, K = 1024, 4096
+    calls = []
+    for M in (64, 1024, 8):
+        for bias in (None, torch.bfloat16):
+            add = torch.tensor(rng.standard_normal((M, N)), dtype=torch.float32, device=cuda)
+            xq, ascale, q, scale, b = _w8a8_case(rng, M, N, K, bias, cuda)
+            calls.append((K789.w8a8_gemm, (xq, ascale, q, scale, b, torch.bfloat16, None)))
+            calls.append((K789.w8a8_gemm, (xq, ascale, q, scale, b, torch.bfloat16, add)))
+            x, q, scale, b = _w8_case(rng, M, N, K, bias, cuda)
+            calls.append((K789.w8_gemm, (x, q, scale, b, None)))
+            calls.append((K789.w8_gemm, (x, q, scale, b, add)))
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts):  # the first profiled calls of a process may record no CUDA event
+        calls[0][0](*calls[0][1])
+        torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.record_function(SLICE):
+            for fn, args in calls:
+                fn(*args)
+            torch.cuda.synchronize()
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    tl = Timeline(events)
+    names = [n for _, _, n in spans.spans(tl, spans.GEMM.fullmatch)]
+    kernels = [n for _, _, n in tl.kernels if spans.QGEMM in n]
+    assert len(names) == len(kernels) == len(calls)
+    assert names[:4] == [f"k8.decode:64x{N}x{K}", f"k8.decode:64x{N}x{K}+add", f"k9.decode:64x{N}x{K}",
+                         f"k9.decode:64x{N}x{K}+add"]
+    assert names[15] == f"k9.large:1024x{N}x{K}+add+bias"
+    for name, kernel in zip(names, kernels):
+        assert spans._gemm_kernel(spans.parse_gemm(name)) in kernel, (name, kernel)  # form and row tile
+    assert spans.gemm_pairs([spans.parse_gemm(n) for n in names], kernels) == [(i, i) for i in range(len(calls))]
+    assert spans.int8_gemm_roofline({"timeline": tl}) > 0
 
 
 def _dy_rows(rng, M, N, device):
