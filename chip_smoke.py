@@ -2303,9 +2303,12 @@ def record_engine(eng) -> dict:
     fused step's live rows, each fused window's completing rows, their
     first-token logits by request id, and the fused windows' wall s (the
     engine reads their tokens right after, so a synchronize here costs
-    nothing)."""
+    nothing).  A window that replays the engine's CUDA graph runs no
+    ``_decode_once`` (its capture ran one): ``graph_stats``, the engine's
+    own counts of captures, replayed and eager windows, says how many."""
     log = {"admissions": [], "windows": [], "first_logits": [], "plain_steps": 0, "chunk_admissions": 0,
-           "fused_steps": [], "completions": [], "chunk_first_logits": {}, "fused_window_s": []}
+           "fused_steps": [], "completions": [], "chunk_first_logits": {}, "fused_window_s": [],
+           "graph_stats": eng.graph_stats}
     prefill, window, once = eng._prefill_batch, eng._decode_window, eng._decode_once
     fused_once, fused_window, start_row = eng._fused_once, eng._run_fused_window, eng._start_row
 
@@ -2449,8 +2452,9 @@ def engine_vs_lockstep(torch, cfg) -> dict:
         checks[f"{cache}_one_admission_per_wave"] = log["admissions"] == [N_ROWS, N_ROWS]
         checks[f"{cache}_launch_counts"] = counts == want
         out[cache] = {"rows_equal_to_lockstep": equal_rows, "admissions": log["admissions"],
-                      "windows": log["windows"], "capacity": capacity, "launches": counts,
-                      "launches_expected": want, "first_tokens_request0": toks[0][:8] if toks[0] else None}
+                      "windows": log["windows"], "graph_stats": log["graph_stats"], "capacity": capacity,
+                      "launches": counts, "launches_expected": want,
+                      "first_tokens_request0": toks[0][:8] if toks[0] else None}
     _, plain_log, _, _ = engine_run(True, "xla")
     first = torch.cat(logs[True]["first_logits"])
     rel = rel_l2(first, torch.cat(plain_log["first_logits"]))
@@ -2530,8 +2534,9 @@ def engine_bench(torch, cfg, nvidia_smi: str, profile_dir=None) -> tuple:
                    "max_new_tokens": ENGINE_MAX_NEW, "num_steps": ENGINE_MULTI, "admit_width": ENGINE_ADMIT,
                    "text_tokens": [ENGINE_TEXT_TOKENS[0], ENGINE_TEXT_TOKENS[1] - 1], "capacity": eng.capacity,
                    "greedy": True, "prestaged_inputs": True},
-        "admissions": log["admissions"], "windows": log["windows"], "launches": counts, "launches_expected": want,
-        "cache_gb": cache_gb, "peak_mem_gb": peak_gb, "device_mem_gb": total_gb,
+        "admissions": log["admissions"], "windows": log["windows"], "graph_stats": log["graph_stats"],
+        "launches": counts, "launches_expected": want, "cache_gb": cache_gb, "peak_mem_gb": peak_gb,
+        "device_mem_gb": total_gb,
         "smoke_figures_not_a_benchmark": {
             **run_figures, "n_scheduler_syncs": run_figures["n_scheduler_syncs"] + len(log["admissions"]),
             "init_s": init_s, "card": nvidia_smi,

@@ -438,10 +438,12 @@ def new_cache(model: LlamaForCausalLM, cfg: LlamaConfig, batch: int, capacity: i
 
 def embed_tokens(model: LlamaForCausalLM, input_ids: torch.Tensor) -> torch.Tensor:
     """Embedding rows; Gemma scales them by sqrt(hidden), the scalar rounded
-    to the table's dtype first (the reference's ``embed_tokens``)."""
+    to the table's dtype first (the reference's ``embed_tokens``).  The
+    scalar is filled on the device (no copy from the host), so a CUDA
+    graph can capture the product."""
     x = F.embedding(input_ids, model.model.embed_tokens.weight)
     if model.cfg.scale_embeddings:
-        x = x * torch.tensor(model.cfg.hidden_size**0.5, dtype=x.dtype, device=x.device)
+        x = x * torch.full((), model.cfg.hidden_size**0.5, dtype=x.dtype, device=x.device)
     return x
 
 

@@ -48,12 +48,19 @@ named by its launched shape, ``k8.<form>:<M>x<N>x<K>`` or
 ``+add`` where it reads the f32 addend and ``+bias`` where it reads a bias
 (``gemm_span_name``): one span a ``srgpt::qgemm::`` kernel, in launch
 order, so a trace reader can count each kernel's operations and bytes.
+A CUDA graph's replay launches its K8 / K9 nodes with no call of these
+wrappers: ``record_spans`` collects the span names of the launches made
+while the graph is captured, and the replay's owner opens one span of
+each of them after launching the graph (``open_spans``).  There a span
+marks the replay of the node, not a Python call; ``launches`` counts the
+wrappers' calls, so the captured launches once and the replays never.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Optional, Tuple
+from typing import Iterable, List, Optional, Tuple
 
 import torch
 
@@ -63,6 +70,8 @@ from spatialrgpt_tpu_torch.utils import profiling
 
 # kernel launches since the last reset (plain-path calls do not count)
 launches = {"act_quant_int8": 0, "w8a8_gemm": 0, "w8_gemm": 0, "act_quant_dy_int8": 0, "int8_dx_gemm": 0}
+# the span names of the K8 / K9 launches made inside ``record_spans``, in launch order
+_recorded: Optional[List[str]] = None
 
 # the plain int8 product sums chunks of this many k in f32: each partial sum
 # is an integer of at most 1024 * 127^2 < 2^24, so f32 holds it exactly
@@ -395,6 +404,37 @@ def gemm_span_name(kernel: str, form: int, M: int, N: int, K: int, add: bool, bi
             + "+bias" * bias)
 
 
+@contextlib.contextmanager
+def record_spans():
+    """Yield a list that collects the span name (``gemm_span_name``) of
+    every K8 / K9 launch made inside the block, in launch order, whether or
+    not a profiler runs: the launches of a CUDA graph's capture."""
+    global _recorded
+    outer, _recorded = _recorded, []
+    try:
+        yield _recorded
+    finally:
+        _recorded = outer
+
+
+def open_spans(names: Iterable[str]) -> None:
+    """One profiler span of each name, in order, each closed at once: the
+    spans of the K8 / K9 launches that a CUDA graph's replay has just
+    made (``record_spans``), so a trace reader pairs each with its kernel
+    as it pairs an eager launch's span.  Call only while a profiler runs."""
+    for name in names:
+        with torch.profiler.record_function(name):
+            pass
+
+
+def _span(kernel: str, form: int, M: int, N: int, K: int, add, bias):
+    """The launch's profiler span (``profiling.annotate``), its name first
+    recorded where ``record_spans`` collects."""
+    if _recorded is not None:
+        _recorded.append(gemm_span_name(kernel, form, M, N, K, add is not None, bias is not None))
+    return profiling.annotate(gemm_span_name, kernel, form, M, N, K, add is not None, bias is not None)
+
+
 def _check_decode(name: str, M: int, N: int) -> None:
     if N > DECODE_MAX_N or M > DECODE_MAX_ROWS:
         raise ValueError(f"{name}: the decode form takes at most {DECODE_MAX_N} columns and {DECODE_MAX_ROWS} rows, "
@@ -427,7 +467,7 @@ def w8a8_gemm(
     check_on_cuda(name, xq, ascale, q, scale, *(t for t in (bias, add) if t is not None))
     _check_aligned(name, xq, q)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=xq.device)
-    with profiling.annotate(gemm_span_name, "k8", form, M, N, K, add is not None, bias is not None):
+    with _span("k8", form, M, N, K, add, bias):
         err = _build.lib().srgpt_w8a8_gemm(
             xq.data_ptr(), q.data_ptr(), ascale.data_ptr(), scale.data_ptr(), _ptr(bias), kind, _ptr(add),
             out.data_ptr(), M, N, K, form, _build.stream_ptr(xq),
@@ -457,7 +497,7 @@ def w8_gemm(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, bias: Optiona
     check_on_cuda(name, x, q, scale, *(t for t in (bias, add) if t is not None))
     _check_aligned(name, x, q)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-    with profiling.annotate(gemm_span_name, "k9", form, M, N, K, add is not None, bias is not None):
+    with _span("k9", form, M, N, K, add, bias):
         err = _build.lib().srgpt_w8_gemm(
             x.data_ptr(), q.data_ptr(), scale.data_ptr(), _ptr(bias), kind, _ptr(add), out.data_ptr(), M, N, K, form,
             _build.stream_ptr(x),

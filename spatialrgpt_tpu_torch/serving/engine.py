@@ -102,6 +102,23 @@ to that device in the dtype of the model's weights, once per admission
 (or at ``submit(prefetch=True)``), and the token and index fields of
 queued requests stay on the host until their admission.
 
+The plain decode window (no chunk row in flight) runs as k replays of a
+CUDA graph of one decode step on a CUDA device where the decoder has no
+tensor-parallel group and takes the dense MoE route (the sparse route
+reads its experts' sizes on the host; ``tp_sum`` runs NCCL).  There is
+one graph for greedy windows and one for windows that sample, each
+captured from ``_decode_once`` itself right after the first window of
+its kind, which runs eagerly and so warms cuBLAS and the allocator: the
+same kernels in the same order, the same tokens.  The graph reads and
+writes state at fixed addresses: the cache, ``lengths`` and
+``last_token`` (updated in place by every path), the four per-slot
+sampling buffers (refreshed from pinned host memory by ``copy_``) and
+the step's (B,) token output, which each replay's window copies into its
+own (B, k) tokens.  Admissions write the same buffers in place between
+replays.  The fused window, tensor-parallel serving and the CPU keep the
+eager window.  ``graph_stats`` counts the captures, the replayed windows
+and the eager windows.
+
 Under a running ``torch.profiler`` each ``step`` opens host spans
 (``utils/profiling.py::annotate``; nothing while no profiler runs):
 
@@ -113,7 +130,13 @@ Under a running ``torch.profiler`` each ``step`` opens host spans
   - ``engine.decode``: the decode window (fused or not), the completed
     chunk rows' activation and, without ``async_readback``, the read of
     the window's tokens; with ``async_readback`` only the launches and
-    the readback's start.
+    the readback's start;
+  - ``engine.replay[k]`` inside it: a window of k replays of the step's
+    graph, each launch followed by one span of each K8 / K9 launch the
+    graph replays, in launch order (``ops/int8_linear.py::open_spans``):
+    those launches run no Python of their own;
+  - ``engine.eager[k]`` inside it: a window of k steps run eagerly (the
+    kernels' own spans open inside it as they launch).
 """
 
 from __future__ import annotations
@@ -128,12 +151,13 @@ import torch
 
 from spatialrgpt_tpu_torch.config import SpatialRGPTConfig
 from spatialrgpt_tpu_torch.models import llama, vlm
-from spatialrgpt_tpu_torch.ops import decode_attention
+from spatialrgpt_tpu_torch.ops import decode_attention, int8_linear
 from spatialrgpt_tpu_torch.ops.attention import streamed_position_attention
 from spatialrgpt_tpu_torch.ops.layers import linear, qkv_proj
 from spatialrgpt_tpu_torch.ops.quant import quantize_kv
 from spatialrgpt_tpu_torch.parallel.mesh import mesh_size, tp_shard_model
 from spatialrgpt_tpu_torch.serving.generate import _decode_step, _slot_attend, new_quant_cache
+from spatialrgpt_tpu_torch.utils import profiling
 from spatialrgpt_tpu_torch.utils.profiling import annotate
 
 
@@ -161,8 +185,11 @@ _FIELD_DTYPES = {
 }
 
 
-# the profiler's span of one admission prefill of n requests (built only under a profiler)
+# the profiler's spans (built only under a profiler): one admission prefill
+# of n requests, a decode window of k steps replayed as a graph or run eagerly
 PREFILL_SPAN = "engine.prefill[{}]".format
+REPLAY_SPAN = "engine.replay[{}]".format
+EAGER_SPAN = "engine.eager[{}]".format
 
 
 def _host(v) -> np.ndarray:
@@ -238,7 +265,22 @@ class ServingEngine:
         self.slot_temp = np.zeros((self.B,), np.float32)
         self.slot_top_p = np.ones((self.B,), np.float32)
         self.slot_key = np.zeros((self.B, 2), np.int64)
-        self._dev_sched = None
+        # the same on the device, at fixed addresses (a graph reads them):
+        # occupancy, temperature, top-p, key; refreshed before a window once stale
+        self._sched = (torch.zeros(self.B, dtype=torch.bool, device=self.device),
+                       torch.zeros(self.B, dtype=torch.float32, device=self.device),
+                       torch.ones(self.B, dtype=torch.float32, device=self.device),
+                       torch.zeros((self.B, 2), dtype=torch.int64, device=self.device))
+        self._sched_stale = True
+        # the plain decode window's steps as the replays of a CUDA graph where
+        # nothing in a step needs the host (no NCCL, no sparse MoE route):
+        # all_greedy -> (the step's graph, its (B,) token output, the K8 / K9
+        # span names of its launches)
+        self._graph_window = (self.device.type == "cuda" and model.llm.tp is None
+                              and not (cfg.llm.is_moe and cfg.llm.moe_impl == "sparse"))
+        self._graphs: Dict[bool, tuple] = {}
+        self._graph_pool = self._capture_stream = None
+        self.graph_stats = {"captures": 0, "replays": 0, "eager": 0}
         self.queue: collections.deque = collections.deque()
         self._ids = itertools.count()
         # requests whose prefill token already ended them; returned by the next step()
@@ -379,31 +421,80 @@ class ServingEngine:
         self.lengths[slot] = total_len
         self.last_token[slot] = tok[0]
 
+    def _advance(self, active, tok: torch.Tensor) -> torch.Tensor:
+        """Advance the active slots in place: lengths + 1 (at most C - 1),
+        last token ``tok``.  Returns the (B,) last tokens as a tensor of
+        their own."""
+        self.lengths.copy_(torch.where(active, (self.lengths + 1).clamp(max=self.capacity - 1), self.lengths))
+        last = torch.where(active, tok, self.last_token)
+        self.last_token.copy_(last)
+        return last
+
     def _decode_once(self, active, temps, top_ps, keys, all_greedy: bool) -> torch.Tensor:
         """One decode step of every slot: advances the active slots'
-        lengths (at most to C - 1) and last tokens, and returns the (B,)
-        last tokens."""
+        lengths (at most to C - 1) and last tokens in place, and returns the
+        (B,) last tokens."""
         x = llama.embed_tokens(self.model.llm, self.last_token[:, None])
         h = _decode_step(self.model, self.cfg, x, self.lengths, self.cache, self.attn_impl)
         logits = llama.logits(self.model.llm, h)[:, 0]
-        tok = self._sample(logits, keys, self.lengths, temps, top_ps, all_greedy)
-        self.lengths = torch.where(active, (self.lengths + 1).clamp(max=self.capacity - 1), self.lengths)
-        self.last_token = torch.where(active, tok, self.last_token)
-        return self.last_token
+        return self._advance(active, self._sample(logits, keys, self.lengths, temps, top_ps, all_greedy))
 
     def _decode_window(self, k: int, all_greedy: bool, active, temps, top_ps, keys) -> torch.Tensor:
         """``k`` decode steps with no host round trip between them (multi-step
-        scheduling); returns the (B, k) tokens."""
-        return torch.stack([self._decode_once(active, temps, top_ps, keys, all_greedy) for _ in range(k)], dim=1)
+        scheduling); returns the (B, k) tokens.  The step's graph for
+        ``all_greedy`` replayed k times where the engine holds one; else
+        the eager window, after which the step's graph is captured where
+        the step can run as one."""
+        out = torch.empty((self.B, k), dtype=torch.int64, device=self.device)
+        entry = self._graphs.get(all_greedy)
+        if entry is not None:
+            graph, last, names = entry
+            with annotate(REPLAY_SPAN, k):
+                traced = profiling.enabled()
+                for i in range(k):
+                    graph.replay()
+                    out[:, i] = last
+                    if traced:
+                        int8_linear.open_spans(names)
+            self.graph_stats["replays"] += 1
+            return out
+        with annotate(EAGER_SPAN, k):
+            for i in range(k):
+                out[:, i] = self._decode_once(active, temps, top_ps, keys, all_greedy)
+        self.graph_stats["eager"] += 1
+        if self._graph_window:
+            self._capture(all_greedy, active, temps, top_ps, keys)
+        return out
 
-    def _fused_once(self, live, active, temps, top_ps, keys, all_greedy: bool) -> torch.Tensor:
+    def _capture(self, all_greedy: bool, active, temps, top_ps, keys) -> None:
+        """Capture one decode step (``_decode_once``) as a CUDA graph in the
+        engine's memory pool, with its (B,) token output and the span names
+        of the K8 / K9 launches it makes.  Nothing runs: the engine's state
+        is as before, and the next window of ``all_greedy`` replays the
+        graph.  The capture stream starts behind the current one, and
+        nothing captured reads the host or synchronizes."""
+        if self._graph_pool is None:
+            self._graph_pool, self._capture_stream = torch.cuda.graph_pool_handle(), torch.cuda.Stream(self.device)
+        graph = torch.cuda.CUDAGraph()
+        self._capture_stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self._capture_stream), int8_linear.record_spans() as names:
+            graph.capture_begin(pool=self._graph_pool)
+            try:
+                last = self._decode_once(active, temps, top_ps, keys, all_greedy)
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream(self.device).wait_stream(self._capture_stream)
+        self._graphs[all_greedy] = (graph, last, tuple(names))
+        self.graph_stats["captures"] += 1
+
+    def _fused_once(self, live, active, temps, top_ps, keys, all_greedy: bool) -> tuple:
         """One decode step of every slot fused with one prompt chunk of each
         row in ``live`` ((row state, offset) pairs): the B decode tokens
         and the chunks' tokens as one flat batch of B + n c rows through
         every projection and norm.  Writes the decode side's K/V into the
         cache and each chunk's into its row's staging, advances the
         decode state as ``_decode_once`` does, and returns the chunks'
-        final-normed hidden states (n, c, H)."""
+        final-normed hidden states (n, c, H) and the (B,) last tokens."""
         llm = self.model.llm
         lc, tp = llama.rank_cfg(llm, self.cfg.llm), llm.tp
         B, c, n = self.B, self.prefill_chunk, len(live)
@@ -434,10 +525,8 @@ class ServingEngine:
             h = h + llama.tp_sum(llama.ffn_block(llama.norm(h, layer.post_attention_layernorm), layer, lc)[0], tp)
         h = llama.norm(h, llm.model.norm)[0]
         logits = llama.logits(llm, h[:B, None])[:, 0]
-        tok = self._sample(logits, keys, self.lengths, temps, top_ps, all_greedy)
-        self.lengths = torch.where(active, (self.lengths + 1).clamp(max=self.capacity - 1), self.lengths)
-        self.last_token = torch.where(active, tok, self.last_token)
-        return h[B:].reshape(n, c, -1)
+        last = self._advance(active, self._sample(logits, keys, self.lengths, temps, top_ps, all_greedy))
+        return h[B:].reshape(n, c, -1), last
 
     def _insert_staged(self, rs: dict, tok: torch.Tensor) -> None:
         """Write a completed row's staged K/V whole into its slot (the
@@ -475,15 +564,16 @@ class ServingEngine:
             if not live:
                 toks.append(self._decode_once(active, temps, top_ps, keys, all_greedy))
                 continue
-            h_c = self._fused_once([(rs, rs["off"]) for rs in live], active, temps, top_ps, keys, all_greedy)
-            toks.append(self.last_token)
+            h_c, step_toks = self._fused_once([(rs, rs["off"]) for rs in live], active, temps, top_ps, keys,
+                                              all_greedy)
+            toks.append(step_toks)
             for i, rs in enumerate(live):
                 last = rs["plen"] - 1 - rs["off"]
                 if 0 <= last < c:
                     h_last[rs["slot"]] = h_c[i, last]
                 rs["off"] += c
                 rs["rem"] -= 1
-        toks = torch.stack(toks, dim=1)  # before the slots are armed: the last step's tokens are last_token
+        toks = torch.stack(toks, dim=1)
         done = [r for r in act if self._rows[r]["rem"] == 0]
         chunk_tok = chunk_logits = None
         if done:
@@ -732,7 +822,7 @@ class ServingEngine:
         self.slot_temp[slot] = req.temperature
         self.slot_top_p[slot] = req.top_p
         self.slot_key[slot] = self._key_data(req)
-        self._dev_sched = None
+        self._sched_stale = True
 
     def _finish_and_free(self, slot: int, req: Request, out: List[Request]) -> None:
         req.done = True
@@ -740,7 +830,7 @@ class ServingEngine:
         if self.slot_req[slot] is req:
             self.active[slot] = False
             self.slot_req[slot] = None
-            self._dev_sched = None
+            self._sched_stale = True
 
     def _take_tokens(self, toks_host: np.ndarray, active_snap, req_snap, out: List[Request]) -> None:
         """Append a decode window's tokens (B, k) to the requests that held
@@ -799,11 +889,11 @@ class ServingEngine:
         rows_active = any(rs is not None for rs in self._rows)
         if not self.active.any() and not rows_active:
             return finished + self._process_pending(leave=0)
-        if self._dev_sched is None:
-            self._dev_sched = (
-                self._upload(self.active, torch.bool), self._upload(self.slot_temp, torch.float32),
-                self._upload(self.slot_top_p, torch.float32), self._upload(self.slot_key, torch.int64),
-            )
+        if self._sched_stale:
+            for dst, src in zip(self._sched, (self.active, self.slot_temp, self.slot_top_p, self.slot_key)):
+                src = torch.as_tensor(src).to(dst.dtype)
+                dst.copy_(src.pin_memory() if dst.is_cuda else src, non_blocking=True)
+            self._sched_stale = False
         # the greedy fast path when no active slot or admission samples: the same tokens
         all_greedy = not bool(np.any(self.slot_temp[self.active] > 0)) and not any(
             rs is not None and rs["req"].temperature > 0 for rs in self._rows)
@@ -812,10 +902,12 @@ class ServingEngine:
         req_snapshot = list(self.slot_req)
         with annotate("engine.decode"):
             if rows_active:
-                toks, done, chunk_tok, _ = self._run_fused_window(num_steps, all_greedy, *self._dev_sched)
+                with annotate(EAGER_SPAN, num_steps):
+                    toks, done, chunk_tok, _ = self._run_fused_window(num_steps, all_greedy, *self._sched)
+                self.graph_stats["eager"] += 1
                 finished += self._complete_rows(done, chunk_tok)
             else:
-                toks = self._decode_window(num_steps, all_greedy, *self._dev_sched)
+                toks = self._decode_window(num_steps, all_greedy, *self._sched)
             if self.async_readback:
                 self._pending.append(("decode", self._readback(toks), active_launch, req_snapshot))
             else:

@@ -33,6 +33,11 @@ def trace(log_dir: str = "torch-trace"):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
+def enabled() -> bool:
+    """Whether a ``torch.profiler`` trace is running (one flag read)."""
+    return _autograd_profiler._is_profiler_enabled
+
+
 def annotate(name: Union[str, Callable[..., str]], *args):
     """A named range of a running ``torch.profiler`` trace
     (``record_function``): a host span on the profiler's clock, beside the
@@ -42,8 +47,12 @@ def annotate(name: Union[str, Callable[..., str]], *args):
 
     While none runs (one flag read) it returns ``NO_SPAN``: no name is
     built and no ``record_function`` opened, so a span costs a call on
-    paths that launch a thousand kernels a step."""
-    if not _autograd_profiler._is_profiler_enabled:
+    paths that launch a thousand kernels a step.  It returns ``NO_SPAN``
+    too while the current stream captures a CUDA graph: what is captured
+    runs only when the graph is replayed, so a span there would mark no
+    work."""
+    if not _autograd_profiler._is_profiler_enabled or (
+            torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()):
         return NO_SPAN
     return torch.profiler.record_function(name(*args) if callable(name) else name)
 

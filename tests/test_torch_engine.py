@@ -234,6 +234,28 @@ def test_continuous_batching_matches_lockstep(model, kv_quant):
     assert got == [_lockstep(model, t, plen, 5, kv_quant) for t, _, plen in reqs]
 
 
+@pytest.mark.parametrize("prefill_chunk", [0, 8], ids=["plain", "fused"])
+def test_engine_state_keeps_its_storage(model, prefill_chunk):
+    """The CPU runs every decode window eagerly, plain or fused
+    (``graph_stats``: no capture, no replay, one eager window a decoding
+    ``step``), updates ``lengths``, ``last_token`` and the four per-slot
+    sampling buffers in place (the storage a CUDA graph's replays read and
+    write), and its tokens still equal ``generate``'s."""
+    reqs = [_request(p, seed=i) for i, p in enumerate(PROMPTS)]
+    eng = _engine(model, kv_quant=True, dtype=torch.float32, prefill_chunk=prefill_chunk)
+    state = (eng.lengths, eng.last_token, *eng._sched)
+    ptrs = [t.data_ptr() for t in state]
+    windows = []
+    for name in ("_decode_window", "_run_fused_window"):
+        setattr(eng, name, lambda *a, fn=getattr(eng, name): windows.append(a[0]) or fn(*a))
+    got = _run(eng, [(t, plen) for t, _, plen in reqs], num_steps=2)
+    after = (eng.lengths, eng.last_token, *eng._sched)
+    assert all(a is b for a, b in zip(state, after)) and [t.data_ptr() for t in after] == ptrs
+    assert got == [_lockstep(model, t, plen, 5, kv_quant=True) for t, _, plen in reqs]
+    assert not eng._graph_window and not eng._graphs
+    assert windows == [2] * len(windows) and eng.graph_stats == {"captures": 0, "replays": 0, "eager": len(windows)}
+
+
 def _four_requests():
     prompts = [[1, IMAGE_TOKEN_INDEX, MASK, DEPTH, 7, 9], [1, IMAGE_TOKEN_INDEX, 11, 12, 13],
                [1, IMAGE_TOKEN_INDEX, MASK, 21], [1, IMAGE_TOKEN_INDEX, 31, 32]]

@@ -192,6 +192,24 @@ def test_gemma_knobs_match_the_reference():
         _PAIRS.pop("gemma")
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_scaled_embeddings_fill_their_scalar_on_the_device(dtype):
+    """Gemma's embedding scale is filled on the tensor's device (a CUDA
+    graph can capture it) and is bit-equal to the scalar built on the host
+    and rounded to the table's dtype first, at the families' widths."""
+    from types import SimpleNamespace
+
+    rng = np.random.default_rng(5)
+    ids = torch.tensor(rng.integers(0, 32, (2, 7)))
+    for hidden in (64, 2048, 2304, 3072, 3584, 4096, 8192):
+        table = torch.tensor(rng.standard_normal((32, 8)), dtype=dtype)
+        llm = SimpleNamespace(model=SimpleNamespace(embed_tokens=SimpleNamespace(weight=table)),
+                              cfg=SimpleNamespace(scale_embeddings=True, hidden_size=hidden))
+        want = torch.nn.functional.embedding(ids, table) * torch.tensor(hidden**0.5, dtype=dtype)
+        got = tllama.embed_tokens(llm, ids)
+        assert got.dtype == dtype and torch.equal(got, want), hidden
+
+
 def test_attention_bias_matches_jax():
     """q/k/v with biases (``attention_bias``): the reference's ``linear`` adds
     a ``bias`` entry of its dense dict; the port's ``nn.Linear`` holds it."""

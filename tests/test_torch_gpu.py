@@ -7,7 +7,9 @@ versions, K9 within the bf16 bound, one profiler span of each K8 / K9
 launch paired with its kernel, and a tiny W8A8 ``generate`` through
 K1-K3 and K7-K9, and a tiny serving engine: its waves equal to lockstep
 ``generate`` on both caches, K3 against its plain version under slot
-churn, and a row driven past the cache inside a window; and the eval
+churn, a row driven past the cache inside a window, its decode window
+replayed as a CUDA graph against the eager window, and the replay's K8 / K9
+spans paired with their kernels; and the eval
 runners (SpatialRGPT-Bench, region classification, VQA) on a tiny model;
 and the synth pipeline's models (Swin, RAM, OWL-ViT, CameraNet) in bf16
 against f32 on the CPU, with the SAM segmenter's K5 launches at B1; and
@@ -1470,7 +1472,9 @@ def test_tiny_engine_waves_equal_lockstep(cuda, kv_quant):
     slots), windows of 3 steps: each wave's tokens equal ``generate`` on
     its 2 rows with the same kernels and capacity, bit for bit; K1 and K2
     launch per admission and layer, K3 (int8 cache) per decode step and
-    layer, never with the bf16 cache."""
+    layer of the steps the host runs (the first window's, eager, and the
+    captured step; the other three windows replay it), never with the bf16
+    cache."""
     cfg = _engine_cfg()
     model = init_random(cfg, cuda, torch.bfloat16, seed=0)
     rows, batch, plens = _engine_requests(_ENGINE_PROMPTS[:4])
@@ -1482,8 +1486,9 @@ def test_tiny_engine_waves_equal_lockstep(cuda, kv_quant):
     ids = [eng.submit(r, p, max_new_tokens=max_new) for r, p in zip(rows, plens)]
     done = {r.request_id: r.tokens for r in eng.run_until_drained(num_steps=k)}
     windows = 2 * -(-(max_new - 1) // k)  # two waves
+    assert eng.graph_stats == {"captures": 1, "replays": windows - 1, "eager": 1}
     # per admission 2 tower layers (3, select_layer -2) and 2 decoder layers
-    assert (K1.launches, K2.launches, K3.launches) == (2 * 2, 2 * 2, 2 * windows * k if kv_quant else 0)
+    assert (K1.launches, K2.launches, K3.launches) == (2 * 2, 2 * 2, 2 * (k + 1) if kv_quant else 0)
     for w in (0, 2):
         inputs, wave_plens = batch(w, w + 2)
         want = generate(model, cfg, inputs, torch.as_tensor(wave_plens, device=cuda), max_new_tokens=max_new,
@@ -1543,6 +1548,113 @@ def test_tiny_engine_row_past_the_cache_inside_a_window(cuda):
     assert (C - pa - 1) % 8 and C - pb - 1 >= -(-(C - pa - 1) // 8) * 8  # A runs past C while B decodes
     assert len(a_toks) == C - pa and len(b_toks) == C - pb
     assert run(lambda C: 1)[1] == b_toks
+
+
+def _graph_model(kind: str, cuda):
+    """(config, model): the tiny W8A8 dense-MoE decoder (router and experts
+    quantized: K7-K9 in every decode step) or the tiny bf16 decoder, both
+    with eos at -1."""
+    if kind == "w8a8_moe":
+        cfg = _family_cfg("mixtral")
+        return cfg, init_random_quantized(cfg, cuda, w8a8=True, seed=2)
+    cfg = _engine_cfg()
+    return cfg, init_random(cfg, cuda, torch.bfloat16, seed=0)
+
+
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
+@pytest.mark.parametrize("async_readback", [False, True], ids=["sync", "async"])
+@pytest.mark.parametrize("kind", ["w8a8_moe", "bf16"])
+def test_graphed_engine_equals_eager(cuda, kind, async_readback, sampled):
+    """5 requests of 3-9 tokens through 2 slots (admissions between windows
+    recycle the slots), windows of 3, the int8 cache, every other request
+    sampled where ``sampled``: after every ``step`` the engine whose plain
+    decode window replays a CUDA graph and the same engine with the graph
+    switched off return the same requests with the same tokens and hold
+    equal lengths, last tokens and cache bytes.  ``graph_stats``: one
+    capture of the step for greedy windows and one for sampling windows,
+    each right after the first (eager) window of its kind, every later
+    window of the kind replays; the other engine runs every window
+    eagerly."""
+    cfg, model = _graph_model(kind, cuda)
+    rows, _, plens = _engine_requests(_ENGINE_PROMPTS)
+    engines = []
+    for graphed in (True, False):
+        eng = ServingEngine(model, cfg, num_slots=2, prompt_bucket=16, max_new_tokens=9, kv_quant=True, admit_width=2,
+                            async_readback=async_readback)
+        assert eng._graph_window
+        eng._graph_window = graphed
+        for i, (r, p) in enumerate(zip(rows, plens)):
+            eng.submit(r, p, max_new_tokens=3 + 2 * i % 7, temperature=0.8 if sampled and i % 2 else 0.0, top_p=0.9,
+                       seed=i)
+        engines.append(eng)
+    done = []
+    for _ in range(100):
+        finished = [[(r.request_id, r.tokens) for r in eng.step(3)] for eng in engines]
+        assert finished[0] == finished[1]
+        done += finished[0]
+        for a, b in zip(*([eng.lengths, eng.last_token, *eng.cache] for eng in engines)):
+            assert torch.equal(a, b)
+        if not any(eng.queue or eng.active.any() or eng._pending for eng in engines):
+            break
+    assert sorted(len(t) for _, t in done) == sorted(3 + 2 * i % 7 for i in range(5))
+    graphed, eager = (eng.graph_stats for eng in engines)
+    keys = set(engines[0]._graphs)
+    assert keys <= {True, False} and (False in keys) == sampled
+    windows = eager["eager"]
+    assert eager == {"captures": 0, "replays": 0, "eager": windows}
+    assert graphed == {"captures": len(keys), "replays": windows - len(keys), "eager": len(keys)}
+
+
+def test_graph_replay_opens_one_span_per_qgemm_kernel(cuda, tmp_path):
+    """The tiny W8A8 MoE engine captures its greedy step's graph in one
+    ``step``, with no profiler running; then a profiled ``step`` admits 2
+    requests (eager K8 / K9 launches, each in its span) and replays the
+    graph 3 times (``engine.replay[3]``, each launch followed by one span
+    of each K8 / K9 node, in capture order): the trace holds one ``k8.*`` /
+    ``k9.*`` span for each ``srgpt::qgemm::`` kernel,
+    ``benchmark/spans.py::gemm_pairs`` pairs them all in order, and
+    ``benchmark/graphs.py`` reads every decode window of the slice as
+    replayed."""
+    import json
+    import os
+    import sys
+
+    sys.path.append(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "benchmark"))
+    import graphs
+    import spans
+    from timeline import SLICE, Timeline
+
+    cfg, model = _graph_model("w8a8_moe", cuda)
+    rows, _, plens = _engine_requests(_ENGINE_PROMPTS[:4])
+    eng = ServingEngine(model, cfg, num_slots=4, prompt_bucket=16, max_new_tokens=8, kv_quant=True, admit_width=2)
+    for r, p in zip(rows[:2], plens[:2]):
+        eng.submit(r, p, max_new_tokens=8)
+    eng.step(3)
+    assert eng.graph_stats == {"captures": 1, "replays": 0, "eager": 1}
+    _, _, recorded = eng._graphs[True]
+    assert recorded and all(spans.parse_gemm(n) for n in recorded)
+    for r, p in zip(rows[2:], plens[2:]):
+        eng.submit(r, p, max_new_tokens=8)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts):  # the first profiled calls of a process may record no CUDA event
+        torch.ones(8, device=cuda).sum()
+        torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.record_function(SLICE):
+            eng.step(3)
+            torch.cuda.synchronize()
+    assert eng.graph_stats == {"captures": 1, "replays": 1, "eager": 1}
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        tl = Timeline(json.load(f)["traceEvents"])
+    names = [n for _, _, n in spans.spans(tl, spans.GEMM.fullmatch)]
+    kernels = [n for _, _, n in tl.kernels if spans.QGEMM in n]
+    assert len(names) == len(kernels) > 3 * len(recorded)
+    assert names[-3 * len(recorded):] == 3 * list(recorded)
+    assert spans.gemm_pairs([spans.parse_gemm(n) for n in names], kernels) == [(i, i) for i in range(len(names))]
+    assert spans.int8_gemm_roofline({"timeline": tl}) > 0
+    assert graphs.decode_replay_share({"timeline": tl}) == 100
 
 
 def test_tiny_train_main_pallas_against_xla(cuda, tmp_path, monkeypatch):

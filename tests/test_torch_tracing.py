@@ -2,9 +2,11 @@
 opens a ``record_function`` range only while a profiler runs; the serving
 engine's ``step`` opens ``engine.admit`` around its admission, an
 ``engine.prefill[n]`` inside it per admission prefill of n requests, and
-``engine.decode`` around its decode window; K8 / K9's span names
-(``ops/int8_linear.py::gemm_span_name``) read back through the
-benchmark's parser (``benchmark/spans.py``)."""
+``engine.decode`` around its decode window, with ``engine.eager[k]``
+inside it; K8 / K9's span names (``ops/int8_linear.py::gemm_span_name``)
+read back through the benchmark's parser (``benchmark/spans.py``), and
+recorded for a graph's replay; the replayed share of the decode windows
+(``benchmark/graphs.py``) on synthetic traces."""
 
 import json
 import os
@@ -33,7 +35,10 @@ from spatialrgpt_tpu_torch.utils.weights import init_random
 BENCH = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "benchmark")
 if BENCH not in sys.path:
     sys.path.append(BENCH)
+import graphs  # noqa: E402  (benchmark/graphs.py)
+import harness  # noqa: E402  (benchmark/harness.py)
 import spans  # noqa: E402  (benchmark/spans.py)
+from timeline import Timeline  # noqa: E402  (benchmark/timeline.py)
 
 # a tiny config, eos at -1: every request runs its whole budget
 CFG = SpatialRGPTConfig(
@@ -92,16 +97,19 @@ def _host_spans(path):
 def test_engine_step_writes_its_phase_spans(model, tmp_path):
     """Under ``profiling.trace`` two ``step(2)`` calls write, in order:
     ``engine.admit`` holding ``engine.prefill[2]`` then ``engine.prefill[1]``,
-    ``engine.decode`` after it; then an ``engine.admit`` with no prefill and
-    an ``engine.decode``.  No span overlaps a span of another phase."""
+    ``engine.decode`` after it holding ``engine.eager[2]`` (the CPU runs the
+    window eagerly); then an ``engine.admit`` with no prefill and an
+    ``engine.decode`` holding ``engine.eager[2]``.  No span overlaps a span
+    of another phase."""
     with profiling.trace(str(tmp_path)) as d:
         _two_steps(model)
     host = [s for s in _host_spans(os.path.join(d, "trace.json")) if s[2].startswith("engine.")]
     assert [n for _, _, n in host] == ["engine.admit", "engine.prefill[2]", "engine.prefill[1]", "engine.decode",
-                                       "engine.admit", "engine.decode"]
-    admit, pre2, pre1, decode = host[:4]
-    assert admit[0] <= pre2[0] < pre2[1] <= pre1[0] < pre1[1] <= admit[1] <= decode[0] < decode[1] <= host[4][0]
-    assert host[4][1] <= host[5][0]
+                                       "engine.eager[2]", "engine.admit", "engine.decode", "engine.eager[2]"]
+    admit, pre2, pre1, decode, eager = host[:5]
+    assert admit[0] <= pre2[0] < pre2[1] <= pre1[0] < pre1[1] <= admit[1] <= decode[0] < decode[1] <= host[5][0]
+    assert decode[0] <= eager[0] < eager[1] <= decode[1]
+    assert host[5][1] <= host[6][0] <= host[7][0] < host[7][1] <= host[6][1]
 
 
 def test_no_span_runs_without_a_profiler(model, monkeypatch, tmp_path):
@@ -163,3 +171,75 @@ def test_gemm_bound_counts_the_launched_shape():
     k8 = spans.gemm_bound_s("k8", big, N, K, False, False)
     assert k8 == pytest.approx(2 * big * N * K / spans.flops.PEAK["int8"])
     assert spans.gemm_bound_s("k9", big, N, K, False, False) == pytest.approx(k8 * 1979 / 989)
+
+
+def test_recorded_gemm_spans_open_in_order(tmp_path):
+    """``record_spans`` collects the span name of each K8 / K9 launch made
+    inside it, in launch order, an inner block apart from the outer, with
+    no profiler running; ``open_spans`` then opens one span of each name, in
+    that order, inside the span that holds it (the replay of a graph)."""
+    args = [("k8", int8_linear.FORM_DECODE, 64, 14336, 4096, None, None),
+            ("k9", int8_linear.FORM_DECODE, 64, 4096, 14336, torch.zeros(1), None),
+            ("k8", int8_linear.FORM_LARGE, 3072, 1024, 4096, None, torch.zeros(1))]
+    names = [int8_linear.gemm_span_name(k, f, M, N, K, a is not None, b is not None) for k, f, M, N, K, a, b in args]
+    with int8_linear.record_spans() as outer:
+        assert int8_linear._span(*args[0]) is profiling.NO_SPAN
+        with int8_linear.record_spans() as inner:
+            int8_linear._span(*args[1])
+        int8_linear._span(*args[2])
+    assert (outer, inner, int8_linear._recorded) == ([names[0], names[2]], [names[1]], None)
+    with profiling.trace(str(tmp_path)) as d:
+        with profiling.annotate(engine_mod.REPLAY_SPAN, 3):
+            int8_linear.open_spans(outer + inner)
+    (r0, r1, replay), *opened = _host_spans(os.path.join(d, "trace.json"))
+    assert replay == "engine.replay[3]" and [n for _, _, n in opened] == [names[0], names[2], names[1]]
+    assert all(r0 <= a <= b <= r1 for a, b, _ in opened)
+
+
+MAIN = {"pid": 1, "tid": 1}
+
+
+def _slice(windows):
+    """A 1000 us traced slice from 1000: an ``engine.admit`` (1000-1100) and
+    one kernel, then a window each 100 us from 1100: ``"decode"`` an
+    ``engine.decode`` span alone, another name an ``engine.decode`` span
+    holding a span of that name, ``"orphan"`` an ``engine.replay[8]`` span
+    in no decode span."""
+    def host(name, ts, dur):
+        return {"ph": "X", "cat": "user_annotation", "name": name, "ts": ts, "dur": dur, **MAIN}
+
+    ev = [host("bench.slice", 1000, 1000), host("engine.admit", 1000, 100),
+          {"ph": "X", "cat": "kernel", "name": "k", "ts": 1010, "dur": 10, "pid": 0, "tid": 7}]
+    for i, window in enumerate(windows):
+        t = 1100 + 100 * i
+        if window != "orphan":
+            ev.append(host("engine.decode", t, 90))
+        if window != "decode":
+            ev.append(host("engine.replay[8]" if window == "orphan" else window, t + 5, 60))
+    return {"timeline": Timeline(ev)}
+
+
+@pytest.mark.parametrize("windows,share", [
+    (["engine.replay[8]"] * 3, 100.0),
+    (["engine.eager[8]"] * 3, 0.0),
+    (["engine.eager[8]", "engine.replay[8]", "engine.replay[8]", "engine.eager[8]"], 50.0),
+    (["engine.replay[8]", "decode", "engine.replay[8]", "engine.replay[1]"], 75.0),
+], ids=["replayed", "eager", "mixed", "unmarked_window"])
+def test_decode_replay_share_reads_the_replayed_windows(windows, share):
+    """``benchmark/graphs.py::decode_replay_share`` and the two metric files
+    that take it: the share of the slice's ``engine.decode`` spans that hold
+    an ``engine.replay[k]`` span, in percent."""
+    ctx = _slice(windows)
+    assert graphs.decode_replay_share(ctx) == share
+    for metric in ("decode_replay_share.serve", "decode_replay_share.rate"):
+        assert harness.read_metric(metric, ctx) == share
+
+
+@pytest.mark.parametrize("windows", [[], ["decode", "decode"], ["orphan", "orphan"]],
+                         ids=["no_window", "no_marker", "no_decode_span"])
+def test_decode_replay_share_is_none_without_its_spans(windows):
+    """None where the slice holds no ``engine.decode`` span, or decode spans
+    with neither an ``engine.replay[k]`` nor an ``engine.eager[k]`` span
+    inside (a program that opens neither), and where there is no trace."""
+    assert graphs.decode_replay_share(_slice(windows)) is None
+    assert graphs.decode_replay_share({}) is None
